@@ -2,18 +2,27 @@
 """Drive the PyTorch/CUDA port of PACOH-SVGD once on one NVIDIA GPU.
 
     python3 chip_smoke.py                # all phases, one card
-    python3 chip_smoke.py --profile DIR  # also trace 20 fit steps and one eval
-                                         # with torch.profiler, tables into DIR
+    python3 chip_smoke.py --profile DIR  # also trace fit steps and one eval of
+                                         # each path with torch.profiler, tables into DIR
 
 Phase 0 requires CUDA and prints the card's name and power limit.
 Phase 1 builds the hand-written kernels from ``meta_learning_pacoh_torch/csrc``.
 Phase 2 holds each kernel against its plain PyTorch version on the card, at
-the shapes the ``cauchy_20`` main path gives it, and times both.
-Phase 3 runs that main path through the public entry points:
-``provide_data("cauchy_20")``, ``GPRegressionMetaLearnedSVGD(..., device="cuda")``,
-``meta_fit`` and ``eval_datasets`` on all 200 test tasks, with every launch
-counter at 0 before and above 0 after; then twins of the fit and of the eval
-with the kernels disabled, compared with the kernel path.
+the shapes its main path gives it, and times both: K1-K4 at ``cauchy_20``'s,
+the fused training kernel B2 at ``sin_20``'s (full batch, a sampled batch,
+and a run across a staircase boundary of the lr schedule).
+Phase 3 runs the ``cauchy_20`` main path (the general step) through the
+public entry points: ``provide_data("cauchy_20")``,
+``GPRegressionMetaLearnedSVGD(..., device="cuda")``, ``meta_fit`` and
+``eval_datasets`` on all 200 test tasks, with the counters of K1-K4 at 0
+before and above 0 after; then twins of the fit and of the eval with the
+kernels disabled, compared with the kernel path.
+Phase 4 runs the ``sin_20`` main path of ``bench.py`` (the fused path): a
+10,000-step ``meta_fit`` carried by B2 alone (its counter above 0, those of
+the general step's kernels at 0), the steady rate of a second 10,000-step
+call, ``eval_datasets`` on the 20 test tasks, two chunkings that must give
+the same bits, and seeds 30-32 whose mean test LL and RMSE must lie in the
+band of the JAX package's (BENCH_r05).
 
 Any failure raises and exits non-zero. The line before the last is a JSON
 object with one record per kernel; the last line is
@@ -32,11 +41,13 @@ import time
 SOURCE = "meta_learning_pacoh_torch/csrc/"
 TPU = "meta_learning_pacoh_tpu/ops/pallas/"
 KERNELS = {  # launch-counter name -> (source, TPU kernel it replaces)
-    "svgd_phi": (SOURCE + "svgd_phi.cu", TPU + "svgd_kernel.py:71"),
-    "mll_fwd": (SOURCE + "mll.cu", TPU + "mll_kernel.py:188"),
-    "mll_bwd": (SOURCE + "mll.cu", TPU + "mll_kernel.py:219"),
-    "chol": (SOURCE + "chol.cu", TPU + "blocked_mll_kernel.py:815"),
+    "svgd_phi": (SOURCE + "svgd_phi.cu", TPU + "svgd_kernel.py:73"),
+    "mll_fwd": (SOURCE + "mll.cu", TPU + "mll_kernel.py:192"),
+    "mll_bwd": (SOURCE + "mll.cu", TPU + "mll_kernel.py:223"),
+    "chol": (SOURCE + "chol.cu", TPU + "blocked_mll_kernel.py:820"),
+    "fused_svgd": (SOURCE + "fused_svgd.cu", TPU + "fused_train_kernel.py:789"),
 }
+GENERAL_STEP_KERNELS = ("svgd_phi", "mll_fwd", "mll_bwd", "chol")
 # per-system error, normalised by the system's largest |plain| value
 KERNEL_RTOL = 2e-4
 FIT_STEPS = 500
@@ -46,6 +57,16 @@ TWIN_STEPS = 20
 TWIN_ATOL, TWIN_MEAN_ATOL = 1e-4, 2e-6
 EVAL_TWIN_TASKS = 20
 EVAL_TWIN_TOL = 1e-3  # rtol and atol of LL, RMSE, calib
+# B2 against its plain version from one sin_20 state: particles with the
+# twins' tolerances above; Adam moments max |diff| over max |plain|
+B2_STEPS, B2_STAIR_STEPS, B2_STAIR_TRANSITION = 20, 30, 10
+B2_MOMENT_RTOL = 1e-4
+SIN_STEPS = 10000  # bench.py's fit
+SIN_CHUNK = 2500  # the second chunking
+SIN_SEEDS = (30, 31, 32)
+# BENCH_r05's seed-30-32 means at 10k steps (LL std 0.086, RMSE std 0.009):
+# centre, margin = 3 sigma of the difference of two 3-seed means
+SIN_LL_BAND, SIN_RMSE_BAND = (-0.146, 0.21), (0.309, 0.022)
 
 
 def card_line():
@@ -180,9 +201,92 @@ def phase2(param_dim):
     check("chol", got[keep], want[keep], errs)
     times["chol"] = time_pair(lambda: chol_kernel.cholesky_fused(a),
                               lambda: chol_kernel.cholesky_ref(a), reps=3)
+    phase2_b2(errs, times)
     for name, (k_ms, p_ms) in times.items():
-        print(f"  {name}: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms (median)")
+        unit = "ms a step" if name == "fused_svgd" else "ms"
+        print(f"  {name}: kernel {k_ms:.4f} {unit}, plain {p_ms:.4f} {unit} (median)")
     return errs, times
+
+
+def sin20():
+    import numpy as np
+
+    from meta_learning_pacoh_torch.datasets import SinusoidDataset
+
+    env = SinusoidDataset(random_state=np.random.RandomState(26))
+    train = env.generate_meta_train_data(n_tasks=20, n_samples=5)
+    test = env.generate_meta_test_data(n_tasks=20, n_samples_context=5, n_samples_test=50)
+    return train, test
+
+
+def sin20_model(train, seed=30, **kw):
+    from meta_learning_pacoh_torch import GPRegressionMetaLearnedSVGD
+
+    kw = {"task_batch_size": -1, **kw}
+    return GPRegressionMetaLearnedSVGD(train, num_iter_fit=SIN_STEPS, num_particles=10,
+                                       random_seed=seed, prior_factor=0.01, device="cuda", **kw)
+
+
+def phase2_b2(errs, times):
+    """B2 against its plain version at sin_20's shapes, from one state."""
+    import torch
+
+    from meta_learning_pacoh_torch.ops import launch_sched
+    from meta_learning_pacoh_torch.ops.cuda import fused_svgd_kernel as fk
+
+    train, _ = sin20()
+    cases = (("full batch", {}, B2_STEPS),
+             ("sampled batch of 5", {"task_batch_size": 5}, B2_STEPS),
+             ("staircase lr_decay 0.5", {"lr_decay": 0.5}, B2_STAIR_STEPS))
+    transition = launch_sched.LR_TRANSITION_STEPS
+    for label, kw, n_steps in cases:
+        model = sin20_model(train, **kw)
+        launch_sched.LR_TRANSITION_STEPS = B2_STAIR_TRANSITION
+        try:
+            trainer = fk.FusedSVGDTrainer(
+                model.X, model.Y, model.mask, hidden=(32, 32), lr=1e-3, prior_factor=0.01,
+                weight_prior_std=0.5, bias_prior_std=3.0, lr_decay=kw.get("lr_decay", 1.0),
+                task_batch_size=model.task_batch_size, task_draw=model._task_draw)
+            got = [model.particles.clone(), torch.zeros_like(model.particles),
+                   torch.zeros_like(model.particles)]
+            want = [t.clone() for t in got]
+            trainer.run(*got, n_steps, 0)
+            for s0, sub in trainer.launches(0, n_steps):
+                counts = trainer.count_pages(s0, sub) if trainer.counted else None
+                fk.fused_svgd_train_ref(
+                    *want, model.X, model.Y, model.mask, trainer.w_t, s0,
+                    launch_sched.staircase_lr(1e-3, trainer.lr_decay, s0), 0.01, counts,
+                    hidden=(32, 32), wps=0.5, bps=3.0, n_steps=sub)
+        finally:
+            launch_sched.LR_TRANSITION_STEPS = transition
+        torch.cuda.synchronize()
+        skip = model.hyper_prior.slice_of(("kernel_nn", "b_out"))
+        d_max, d_mean = diff_excluding(got[0].cpu(), want[0].cpu(), skip)
+        rel = [diff_excluding(g.cpu(), w.cpu(), skip)[0] / float(w.abs().max())
+               for g, w in zip(got[1:], want[1:])]
+        print(f"  fused_svgd, {label}, {n_steps} steps: |particle diff| max {d_max:.3e}, "
+              f"mean {d_mean:.3e}; Adam m, v max diff / max |plain| {rel[0]:.3e}, "
+              f"{rel[1]:.3e} (kernel_nn.b_out excluded)")
+        if not (d_max <= TWIN_ATOL and d_mean <= TWIN_MEAN_ATOL
+                and max(rel) <= B2_MOMENT_RTOL):
+            raise AssertionError(f"fused_svgd ({label}): kernel disagrees with its plain version")
+        errs["fused_svgd"] = max(errs.get("fused_svgd", 0.0), d_max)
+
+    # per step: the kernel over launches of 200 steps, the plain version over 5
+    model = sin20_model(train)
+    trainer = fk.FusedSVGDTrainer(model.X, model.Y, model.mask, hidden=(32, 32), lr=1e-3,
+                                  prior_factor=0.01, weight_prior_std=0.5,
+                                  bias_prior_std=3.0)
+    k_state = [model.particles.clone(), torch.zeros_like(model.particles),
+               torch.zeros_like(model.particles)]
+    p_state = [t.clone() for t in k_state]
+    k_ms, p_ms = time_pair(
+        lambda: trainer.run(*k_state, 200, 0),
+        lambda: fk.fused_svgd_train_ref(*p_state, model.X, model.Y, model.mask, trainer.w_t,
+                                        0, 1e-3, 0.01, hidden=(32, 32), wps=0.5, bps=3.0,
+                                        n_steps=5),
+        reps=3)
+    times["fused_svgd"] = (k_ms / 200, p_ms / 5)
 
 
 def diff_excluding(a, b, skip):
@@ -247,14 +351,15 @@ def phase3(profile_dir):
     ll, rmse, calib = model.eval_datasets(test)
     torch.cuda.synchronize()
     eval_s = time.perf_counter() - t0
-    launches = dict(cuda.LAUNCHES)
+    launches = {name: cuda.LAUNCHES[name] for name in GENERAL_STEP_KERNELS}
     print(f"  meta_fit: {FIT_STEPS} steps in {fit_s:.3f} s "
           f"({FIT_STEPS / fit_s:.1f} steps/s, first step included)")
     print(f"  eval_datasets: {len(test)} tasks in {eval_s:.3f} s (first call)")
     print(f"  metrics: LL {ll:.6f}, RMSE {rmse:.6f}, calib {calib:.6f}")
     print(f"  launches in the main path: {launches}")
-    if not all(v > 0 for v in launches.values()):
-        raise AssertionError(f"a kernel of the path was never launched: {launches}")
+    if not all(v > 0 for v in launches.values()) or cuda.LAUNCHES["fused_svgd"] != 0:
+        raise AssertionError(f"the general step's kernels were not all launched, or the "
+                             f"fused one was: {dict(cuda.LAUNCHES)}")
     if not all(math.isfinite(v) for v in (ll, rmse, calib)):
         raise AssertionError("non-finite metrics")
     if model.particles.shape != (10, model.hyper_prior.dim) or not bool(
@@ -309,11 +414,99 @@ def phase3(profile_dir):
                           twin_max=d_max, twin_mean=d_mean, traces=traces)
 
 
+def timed_fit(model, n_iter, log_period):
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model.meta_fit(n_iter=n_iter, log_period=log_period, verbose=False)
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+def phase4(profile_dir):
+    import numpy as np
+    import torch
+
+    from meta_learning_pacoh_torch.ops import cuda
+
+    train, test = sin20()
+    model = sin20_model(train)
+    if not model._fused_path_ok():
+        raise AssertionError("sin_20 does not take the fused path")
+    print(f"  sin_20: {len(train)} tasks x {len(train[0][0])} points, {len(test)} test tasks "
+          f"x ({len(test[0][0])} context + {len(test[0][2])} test points), "
+          f"K={model.num_particles}, P={model.hyper_prior.dim}")
+    cuda.reset_launch_counts()
+    fit_s = timed_fit(model, SIN_STEPS, SIN_STEPS)
+    launches = dict(cuda.LAUNCHES)
+    print(f"  meta_fit: {SIN_STEPS} steps in {fit_s:.3f} s ({SIN_STEPS / fit_s:.1f} steps/s, "
+          f"first call); launches in the fit: {launches}")
+    if launches["fused_svgd"] < 1 or any(launches[k] for k in ("svgd_phi", "mll_fwd",
+                                                                "mll_bwd")):
+        raise AssertionError(f"the fit was not carried by the fused kernel: {launches}")
+    one_chunk = model.particles.clone()
+    t0 = time.perf_counter()
+    ll, rmse, calib = model.eval_datasets(test)
+    torch.cuda.synchronize()
+    eval_s = time.perf_counter() - t0
+    print(f"  eval_datasets: {len(test)} tasks in {eval_s:.3f} s (first call); "
+          f"LL {ll:.6f}, RMSE {rmse:.6f}, calib {calib:.6f}")
+    if not all(math.isfinite(v) for v in (ll, rmse, calib)) or not bool(
+            torch.isfinite(model.particles).all()):
+        raise AssertionError("non-finite particles or metrics")
+
+    steady_s = timed_fit(model, SIN_STEPS, SIN_STEPS)
+    steady = SIN_STEPS / steady_s
+    print(f"  steady state: {SIN_STEPS} steps in {steady_s:.4f} s, {steady:.1f} steps/s")
+    t0 = time.perf_counter()
+    model.eval_datasets(test)
+    torch.cuda.synchronize()
+    eval_warm_s = time.perf_counter() - t0
+    print(f"  eval_datasets again: {eval_warm_s:.4f} s")
+    traces = {}
+    if profile_dir:
+        traces["sin20_fit_1000_steps"] = profile(
+            "sin20_fit", lambda: model.meta_fit(n_iter=1000, log_period=1000, verbose=False),
+            profile_dir)
+        traces["sin20_eval"] = profile("sin20_eval", lambda: model.eval_datasets(test),
+                                       profile_dir)
+        for label, summary in traces.items():
+            print(f"  trace {label}: " + json.dumps(summary))
+
+    chunked = sin20_model(train)
+    chunked.meta_fit(n_iter=SIN_STEPS, log_period=SIN_CHUNK, verbose=False)
+    same = torch.equal(chunked.particles, one_chunk)
+    print(f"  chunkings: log_period {SIN_STEPS} and {SIN_CHUNK} give identical particles: "
+          f"{same}")
+    if not same:
+        raise AssertionError("two chunkings of the fused fit differ")
+
+    seeds = {30: (ll, rmse, calib)}
+    for seed in SIN_SEEDS[1:]:
+        other = sin20_model(train, seed=seed)
+        other.meta_fit(n_iter=SIN_STEPS, log_period=SIN_STEPS, verbose=False)
+        seeds[seed] = other.eval_datasets(test)
+    lls = [seeds[s][0] for s in SIN_SEEDS]
+    rmses = [seeds[s][1] for s in SIN_SEEDS]
+    mean_ll, mean_rmse = float(np.mean(lls)), float(np.mean(rmses))
+    print(f"  seeds {SIN_SEEDS} after {SIN_STEPS} steps: LL {lls}, RMSE {rmses}; mean LL "
+          f"{mean_ll:.4f} (band {SIN_LL_BAND[0]} +- {SIN_LL_BAND[1]}), mean RMSE "
+          f"{mean_rmse:.4f} (band {SIN_RMSE_BAND[0]} +- {SIN_RMSE_BAND[1]})")
+    if not (abs(mean_ll - SIN_LL_BAND[0]) <= SIN_LL_BAND[1]
+            and abs(mean_rmse - SIN_RMSE_BAND[0]) <= SIN_RMSE_BAND[1]):
+        raise AssertionError("sin_20 accuracy outside the JAX package's band")
+    return launches, dict(fit_s=fit_s, steady_s=steady_s, steady_steps_per_s=steady,
+                          eval_s=eval_s, eval_warm_s=eval_warm_s, ll=ll, rmse=rmse,
+                          calib=calib, seed_ll=lls, seed_rmse=rmses, mean_ll=mean_ll,
+                          mean_rmse=mean_rmse, traces=traces)
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--profile", metavar="DIR",
-                        help="trace 20 fit steps and one eval with torch.profiler; "
-                             "write the tables into DIR")
+                        help="trace fit steps and one eval of each main path with "
+                             "torch.profiler; write the tables into DIR")
     args = parser.parse_args()
 
     import torch
@@ -339,9 +532,14 @@ def main():
     print(f"phase 2: kernels against their plain versions (P={param_dim})")
     errs, times = phase2(param_dim)
 
-    print("phase 3: cauchy_20 PACOH-SVGD main path")
+    print("phase 3: cauchy_20 PACOH-SVGD main path (general step)")
     launches, summary = phase3(args.profile)
-    print("slice: " + json.dumps({"card": card, **summary}))
+    print("slice cauchy_20: " + json.dumps({"card": card, **summary}))
+
+    print("phase 4: sin_20 PACOH-SVGD main path (fused kernel)")
+    sin_launches, sin_summary = phase4(args.profile)
+    launches["fused_svgd"] = sin_launches["fused_svgd"]
+    print("slice sin_20: " + json.dumps({"card": card, **sin_summary}))
 
     records = [{"name": name, "route": "cuda", "source": src, "replaces": tpu,
                 "launches": launches[name], "max_abs_err": errs[name],

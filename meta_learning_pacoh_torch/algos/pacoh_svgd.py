@@ -2,15 +2,26 @@
 (counterpart of meta_learning_pacoh_tpu/algos/pacoh_svgd.py).
 
 K particles in GP-prior parameter space. Each step: the score, the gradient
-of log(hyper-prior^prior_factor x product of task MLLs), by autograd through
-the batched MLL (the MLL kernel's backward for 9 <= N <= 48); the Stein
-transport phi (the Stein kernel for the RBF median heuristic); then an Adam
-or SGD step fed -phi, equal to ``optax.adam`` / ``optax.sgd`` with the
-staircase lr schedule (lr * lr_decay ** (step // 1000)).
+of log(hyper-prior^prior_factor x product of task MLLs); the Stein transport
+phi (RBF median heuristic or IMQ); then an Adam or SGD step fed -phi, equal
+to ``optax.adam`` / ``optax.sgd`` with the staircase lr schedule
+(ops/launch_sched.py).
 
-This is the JAX package's general step, one Python loop iteration per
-step. Its single-launch fused training kernels (N <= 8, and the big-N one)
-and the mesh-sharded path are not ported yet.
+Two paths, as in the JAX package:
+
+- the fused path: a configuration in the fused window (``_fused_path_ok``:
+  NN mean + NN kernel of one hidden width, feature_dim 1, tasks of N <= 8
+  points, RBF median transport, Adam, full batch or a sampled batch of
+  uniform task sizes) runs its whole fit through the fused training kernel
+  (ops/cuda/fused_svgd_kernel.py), one launch per chunk and staircase step;
+- the general step, one Python loop iteration per step: the score by
+  autograd through the batched MLL (the MLL kernel's backward for
+  9 <= N <= 48), the Stein kernel, and the update here.
+
+A sampled task batch draws the tasks of step s from a generator seeded with
+(train seed, s), on both paths, so they follow one random trajectory and do
+not depend on how the steps are chunked. The big-N fused kernel and the
+mesh-sharded path are not ported yet.
 """
 
 import time
@@ -18,6 +29,7 @@ import time
 import numpy as np
 import torch
 
+from meta_learning_pacoh_torch import config
 from meta_learning_pacoh_torch.algos.base import RegressionModelMetaLearned
 from meta_learning_pacoh_torch.interop import from_jax_state
 from meta_learning_pacoh_torch.models.gp_base import gp_predict
@@ -25,6 +37,11 @@ from meta_learning_pacoh_torch.models.random_gp import (
     make_hyper_prior,
     meta_log_prob,
     random_gp_config,
+)
+from meta_learning_pacoh_torch.ops import launch_sched
+from meta_learning_pacoh_torch.ops.cuda.fused_svgd_kernel import (
+    FusedSVGDTrainer,
+    fused_svgd_fits,
 )
 from meta_learning_pacoh_torch.ops.distributions import (
     AffineTransformed,
@@ -35,7 +52,6 @@ from meta_learning_pacoh_torch.ops.metrics import mixture_eval_metrics
 from meta_learning_pacoh_torch.ops.svgd import svgd_phi
 from meta_learning_pacoh_torch.utils.input_handling import handle_input_dim
 
-LR_TRANSITION_STEPS = 1000  # StepLR step size of the reference
 ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-8
 
 
@@ -65,6 +81,7 @@ class GPRegressionMetaLearnedSVGD(RegressionModelMetaLearned):
         self.num_particles = num_particles
         self.svgd_kernel, self.bandwidth = kernel, bandwidth
         self._optimizer_name, self._lr, self._lr_decay = optimizer, lr, lr_decay
+        self._weight_prior_std, self._bias_prior_std = weight_prior_std, bias_prior_std
 
         self._check_and_set_dims(meta_train_data)
         self._compute_normalization_stats(meta_train_data)
@@ -87,26 +104,24 @@ class GPRegressionMetaLearnedSVGD(RegressionModelMetaLearned):
         self._nu = torch.zeros_like(self.particles)
         self._adam_count = 0
         self._step_count = 0
+        self._fused = None  # the fused kernel's FusedSVGDTrainer, built at the first fused fit
 
     # ------------------------------------------------------------ train step
-    def _lr_at(self, step):
-        if self._lr_decay < 1.0:
-            return self._lr * self._lr_decay ** (step // LR_TRANSITION_STEPS)
-        return self._lr
+    def _task_draw(self, step):
+        """Task indices (a CPU tensor) of the sampled batch of global step ``step``."""
+        seed = int(np.random.SeedSequence([self._train_seed, step]).generate_state(1)[0])
+        gen = torch.Generator().manual_seed(seed)
+        return torch.randint(0, self.n_tasks, (self.task_batch_size,), generator=gen)
 
     def _task_batch(self):
         if self.task_batch_size == self.n_tasks:
             return self.X, self.Y, self.mask
-        seed = int(np.random.SeedSequence([self._train_seed, self._step_count])
-                   .generate_state(1)[0])
-        gen = torch.Generator().manual_seed(seed)
-        idx = torch.randint(0, self.n_tasks, (self.task_batch_size,), generator=gen)
-        idx = idx.to(self.device)
+        idx = self._task_draw(self._step_count).to(self.device)
         return self.X[idx], self.Y[idx], self.mask[idx]
 
     def _apply_update(self, grad):
         """One optax-equivalent Adam or SGD step on the particles, in place."""
-        lr = self._lr_at(self._step_count)
+        lr = launch_sched.staircase_lr(self._lr, self._lr_decay, self._step_count)
         if self._optimizer_name == "SGD":
             self.particles.sub_(lr * grad)
             return
@@ -128,6 +143,45 @@ class GPRegressionMetaLearnedSVGD(RegressionModelMetaLearned):
             self._apply_update(-phi)
         self._step_count += 1
 
+    # ------------------------------------------------------------ fused path
+    def _fused_path_ok(self):
+        """Whether the fused training kernel carries the fit: the N <= 8 arm
+        of the JAX learner's gate, and a configuration the kernel takes."""
+        cfg = self.cfg
+        hidden = tuple(cfg.mean_nn_layers)
+        sizes = torch.sum(self.mask, dim=-1)
+        t, n, d = self.X.shape
+        return (
+            config.fused_enabled()
+            # full batch, or sampled batches as count pages of uniform task sizes
+            and (self.task_batch_size == self.n_tasks or bool(torch.all(sizes == sizes[0])))
+            and self.svgd_kernel == "RBF" and self.bandwidth is None
+            and self._optimizer_name == "Adam"
+            and cfg.mean_module == "NN" and cfg.covar_module == "NN"
+            and cfg.feature_dim == 1
+            and hidden == tuple(cfg.kernel_nn_layers)
+            and len(set(hidden)) == 1 and len(hidden) >= 1
+            and self.num_particles * hidden[0] <= 1024
+            and n <= 8
+            and fused_svgd_fits(self.num_particles, t, n, d, hidden)
+        )
+
+    def _fused_run_chunk(self, chunk):
+        """``chunk`` steps through the fused kernel, from the live particles and
+        Adam moments (so a fit may resume after general steps), one launch per
+        staircase step; the counts advance launch by launch."""
+        if self._fused is None:
+            self._fused = FusedSVGDTrainer(
+                self.X, self.Y, self.mask, hidden=tuple(self.cfg.mean_nn_layers),
+                lr=self._lr, lr_decay=self._lr_decay, prior_factor=self.prior_factor,
+                weight_prior_std=self._weight_prior_std,
+                bias_prior_std=self._bias_prior_std,
+                task_batch_size=self.task_batch_size, task_draw=self._task_draw)
+        for step0, sub in self._fused.launches(self._step_count, chunk):
+            self._fused.launch(self.particles, self._mu, self._nu, step0, sub)
+            self._step_count += sub
+            self._adam_count += sub
+
     def _sync(self):
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
@@ -138,12 +192,16 @@ class GPRegressionMetaLearnedSVGD(RegressionModelMetaLearned):
             raise ValueError("valid tuples must be (ctx_x, ctx_y, test_x, test_y)")
         n_iter = self.num_iter_fit if n_iter is None else n_iter
         want_metrics = verbose or valid_tuples is not None
+        use_fused = self._fused_path_ok()
         t = time.time()
         done = 0
         while done < n_iter:
             chunk = int(min(log_period, n_iter - done))
-            for _ in range(chunk):
-                self._step()
+            if use_fused:
+                self._fused_run_chunk(chunk)
+            else:
+                for _ in range(chunk):
+                    self._step()
             done += chunk
             if want_metrics:
                 self._sync()
@@ -193,10 +251,11 @@ class GPRegressionMetaLearnedSVGD(RegressionModelMetaLearned):
 
     # ------------------------------------------------------------ checkpoint
     def state_dict(self):
+        # copies: the fit updates the particles and moments in place
         return {
-            "particles": self.particles.detach().cpu().numpy(),
-            "opt_state": {"mu": self._mu.cpu().numpy(), "nu": self._nu.cpu().numpy(),
-                          "count": self._adam_count},
+            "particles": self.particles.detach().cpu().numpy().copy(),
+            "opt_state": {"mu": self._mu.cpu().numpy().copy(),
+                          "nu": self._nu.cpu().numpy().copy(), "count": self._adam_count},
             "step": self._step_count,
         }
 

@@ -8,6 +8,10 @@ factorization, so importing the package pins full-precision products.
 CUDA kernels are on unless ``PACOH_TORCH_DISABLE_KERNELS`` is set, which
 sends every dispatch point to its plain PyTorch version (the twin that
 ``chip_smoke.py`` compares the kernel path with).
+
+``fused_enabled()`` mirrors ``PACOH_TPU_DISABLE_FUSED``: the single-launch
+fused training kernel is on unless ``PACOH_TORCH_DISABLE_FUSED`` is set, or
+the kernels are off altogether; then the learner takes its general step.
 """
 
 import os
@@ -19,6 +23,13 @@ torch.backends.cudnn.allow_tf32 = False
 torch.set_float32_matmul_precision("highest")
 
 
+def _unset(name):
+    return os.environ.get(name, "").lower() in ("", "0", "false", "no")
+
+
 def kernels_enabled():
-    val = os.environ.get("PACOH_TORCH_DISABLE_KERNELS", "")
-    return val.lower() in ("", "0", "false", "no")
+    return _unset("PACOH_TORCH_DISABLE_KERNELS")
+
+
+def fused_enabled():
+    return kernels_enabled() and _unset("PACOH_TORCH_DISABLE_FUSED")

@@ -1,0 +1,502 @@
+// A whole PACOH-SVGD training run in one launch: n_steps iterations of
+// (particle score, Stein transport, Adam) for K particles of a GP prior with
+// an NN mean and an NN kernel (feature_dim 1, L hidden layers of width H),
+// on T tasks of N <= 8 points.
+//
+// Replaces the Pallas TPU kernel meta_learning_pacoh_tpu/ops/pallas/
+// fused_train_kernel.py (fused_svgd_train_packed; body _make_kernel with
+// make_score_section, make_transport_section and the optax-exact Adam).
+// Per step and particle:
+//   forward   both tanh MLPs over the T*N rows; softplus lengthscale, noise
+//   MLL       per task, the entry-wise Kn (noise + 1e-6 on real diagonals,
+//             1.0 on padded ones), trial factorizations at jitter 0 and 1e-4
+//             choosing 0 / 1e-4 / 1e-2 (a factor is good when every diagonal
+//             is finite and > 0), L, alpha, L^-1, K^-1
+//   backward  G = 0.5 w (alpha alpha^T - K^-1) into d(mean), d(feature),
+//             d(lengthscale), d(noise); both MLPs' backward; the hyper-prior
+//             term pf * -(theta - loc) / scale^2
+//   transport RBF kernel at gamma = 1 / (1e-8 + med / log(K+1)), med the
+//             pairwise squared distance at rank K*K/2 (exact selection)
+//   Adam      on g = -phi, bias corrections 1 - exp(t log b) in float32.
+//
+// What bounds it on the card: at sin_20 (K=10, T=20, N=5, H=32, P=2308) a
+// particle's step is about 1.3 MFLOP of MLP products and a few thousand
+// flops of 5x5 linear algebra per task, so neither HBM bytes nor the card's
+// flops bound it. One SM per particle does: its instruction rate, mostly the
+// shared-memory loads of the MLP products (two loads per multiply-add, 10 of
+// the card's SMs busy), then the chain of block barriers, the two grid-wide
+// barriers of the transport, and the serial per-task factorization (one
+// thread a task). About 81 us a step at sin_20 (H100 80GB HBM3, 700 W).
+// The design keeps everything on chip that the step reuses. One block owns
+// one particle: its parameters, score and both nets' activations live in
+// dynamic shared memory (about 72 KB at sin_20), the Adam moments in device
+// memory (touched once a step). The transport is the only coupling: each
+// block publishes its parameters and score to an L2-resident scratch,
+// double-buffered by step parity so that no block overwrites what a slower
+// block still reads, then a grid barrier (cooperative launch), each block's
+// row of squared distances, a second grid barrier, and every block selects
+// the same median and updates its own particle. No float atomics: every sum
+// has one fixed order, so results are bit-identical however a run is split
+// into launches.
+
+#include <cooperative_groups.h>
+#include <cuda_runtime.h>
+#include <math.h>
+
+namespace cg = cooperative_groups;
+
+namespace {
+
+constexpr int kThreads = 256;
+constexpr int kMaxK = 32;
+constexpr int kMaxN = 8;
+constexpr size_t kMaxSmem = 232448;
+// Adam constants as optax forms them in float32 from Python doubles
+constexpr float kB1 = 0.9f, kB2 = 0.999f, kEps = 1e-8f;
+constexpr float kOneMinusB1 = static_cast<float>(1.0 - 0.9);
+constexpr float kOneMinusB2 = static_cast<float>(1.0 - 0.999);
+constexpr float kLogB1 = static_cast<float>(-0.10536051565782628);   // log(0.9)
+constexpr float kLogB2 = static_cast<float>(-0.0010005003335835335); // log(0.999)
+
+struct Params {
+  float* theta;  // [K, P] in/out
+  float* m;      // [K, P] in/out
+  float* v;      // [K, P] in/out
+  const float* x;       // [T, N, D]
+  const float* y;       // [T, N]
+  const float* mask;    // [T, N]
+  const float* w_t;     // [T] pre / n_eff, 0 for empty tasks
+  const float* counts;  // [n_steps, T] task-draw counts, or null
+  const float* prior_loc;    // [P]
+  const float* prior_scale;  // [P]
+  const int* offs;      // leaf offsets, see off_* below
+  float* th_buf;        // [2, K, P] scratch
+  float* s_buf;         // [2, K, P] scratch
+  float* d2;            // [K, K] scratch
+  int k, t, n, d, h, l, p, n_steps;
+  float step0, lr, pf, log_kp1;
+};
+
+// Shared-memory floats of one block; ops/cuda/fused_svgd_kernel.py
+// (smem_bytes) states the same count.
+size_t smem_floats(int k, int t, int n, int d, int h, int l, int p) {
+  const size_t m = static_cast<size_t>(t) * n;
+  return 2 * static_cast<size_t>(p) + 2 * static_cast<size_t>(l) * m * h + m * (d + 4) +
+         2 * static_cast<size_t>(t) + static_cast<size_t>(k) * k + k + 8;
+}
+
+__device__ __forceinline__ float softplus(float x) {
+  return fmaxf(x, 0.f) + log1pf(expf(-fabsf(x)));
+}
+
+__device__ __forceinline__ float sigmoid(float x) { return 1.f / (1.f + expf(-x)); }
+
+template <int N>
+__device__ bool factor(const float (&a)[N][N], float jit, float (&lf)[N][N]) {
+  bool ok = true;
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+#pragma unroll
+    for (int j = 0; j <= i; ++j) {
+      float s = a[i][j] + (i == j ? jit : 0.f);
+#pragma unroll
+      for (int q = 0; q < j; ++q) s -= lf[i][q] * lf[j][q];
+      if (i == j) {
+        lf[i][i] = sqrtf(s);
+        ok = ok && (lf[i][i] > 0.f) && (lf[i][i] < INFINITY);
+      } else {
+        lf[i][j] = s / lf[j][j];
+      }
+    }
+  }
+  return ok;
+}
+
+// One task's masked MLL gradient. mu/ph are the rows' net outputs on entry
+// and receive d(mean)/d(feature) on exit (every read happens first).
+template <int N>
+__device__ void task_grad(float* mu, float* ph, const float* y, const float* msk, float sp_ls,
+                          float sp_nz, float w, float* dls_out, float* dnz_out) {
+  float z[N], mk[N], r[N];
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    z[i] = ph[i] / sp_ls;
+    mk[i] = msk[i];
+    r[i] = (y[i] - mu[i]) * mk[i];
+  }
+  float a[N][N];
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+#pragma unroll
+    for (int j = 0; j <= i; ++j) {
+      const float dz = z[i] - z[j];
+      float val = expf(-0.5f * dz * dz) * mk[i] * mk[j];
+      if (i == j) val += mk[i] > 0.f ? sp_nz + 1e-6f : 1.f;
+      a[i][j] = val;
+    }
+  }
+  float lf[N][N];
+  if (!factor<N>(a, 0.f, lf) && !factor<N>(a, 1e-4f, lf)) factor<N>(a, 1e-2f, lf);
+
+  float zs[N], al[N];
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    float s = r[i];
+#pragma unroll
+    for (int q = 0; q < i; ++q) s -= lf[i][q] * zs[q];
+    zs[i] = s / lf[i][i];
+  }
+#pragma unroll
+  for (int i = N - 1; i >= 0; --i) {
+    float s = zs[i];
+#pragma unroll
+    for (int q = i + 1; q < N; ++q) s -= lf[q][i] * al[q];
+    al[i] = s / lf[i][i];
+  }
+  // W = L^-1 (lower), then K^-1 = W^T W into a (symmetric, full)
+  float wi[N][N];
+#pragma unroll
+  for (int j = 0; j < N; ++j) {
+#pragma unroll
+    for (int i = j; i < N; ++i) {
+      float s = (i == j) ? 1.f : 0.f;
+#pragma unroll
+      for (int q = j; q < i; ++q) s -= lf[i][q] * wi[q][j];
+      wi[i][j] = s / lf[i][i];
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+#pragma unroll
+    for (int j = 0; j <= i; ++j) {
+      float s = 0.f;
+#pragma unroll
+      for (int q = i; q < N; ++q) s += wi[q][i] * wi[q][j];
+      a[i][j] = s;
+      a[j][i] = s;
+    }
+  }
+
+  float dn = 0.f, dl = 0.f;
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    mu[i] = w * al[i] * mk[i];
+    dn += 0.5f * w * (al[i] * al[i] - a[i][i]) * mk[i];
+  }
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    float acc = 0.f;
+#pragma unroll
+    for (int j = 0; j < N; ++j) {
+      const float g = 0.5f * w * (al[i] * al[j] - a[i][j]);
+      const float dz = z[i] - z[j];
+      const float dd2 = -0.5f * (g * mk[i] * mk[j]) * expf(-0.5f * dz * dz);
+      acc += 2.f * dd2 * dz;
+    }
+    const float dz_i = 2.f * acc;
+    ph[i] = dz_i / sp_ls;
+    dl += dz_i * (-z[i]) / sp_ls;
+  }
+  *dls_out = dl;
+  *dnz_out = dn;
+}
+
+__device__ void task_grad_n(int n, float* mu, float* ph, const float* y, const float* msk,
+                            float sp_ls, float sp_nz, float w, float* dl, float* dn) {
+  switch (n) {
+    case 1: task_grad<1>(mu, ph, y, msk, sp_ls, sp_nz, w, dl, dn); break;
+    case 2: task_grad<2>(mu, ph, y, msk, sp_ls, sp_nz, w, dl, dn); break;
+    case 3: task_grad<3>(mu, ph, y, msk, sp_ls, sp_nz, w, dl, dn); break;
+    case 4: task_grad<4>(mu, ph, y, msk, sp_ls, sp_nz, w, dl, dn); break;
+    case 5: task_grad<5>(mu, ph, y, msk, sp_ls, sp_nz, w, dl, dn); break;
+    case 6: task_grad<6>(mu, ph, y, msk, sp_ls, sp_nz, w, dl, dn); break;
+    case 7: task_grad<7>(mu, ph, y, msk, sp_ls, sp_nz, w, dl, dn); break;
+    default: task_grad<8>(mu, ph, y, msk, sp_ls, sp_nz, w, dl, dn); break;
+  }
+}
+
+__global__ void __launch_bounds__(kThreads) fused_svgd_kernel(Params q) {
+  extern __shared__ float smem[];
+  cg::grid_group grid = cg::this_grid();
+  const int K = q.k, T = q.t, N = q.n, D = q.d, H = q.h, L = q.l, P = q.p;
+  const int M = T * N;
+  const int me = blockIdx.x;
+  const int tid = threadIdx.x, nth = blockDim.x;
+  const int lane = tid & 31, warp = tid >> 5, n_warps = nth >> 5;
+
+  float* th = smem;                 // [P] this particle
+  float* sc = th + P;               // [P] its score
+  float* act = sc + P;              // [2 nets][L][M][H] activations, then their gradients
+  float* xs = act + 2 * L * M * H;  // [M][D]
+  float* ys = xs + M * D;           // [M]
+  float* ms = ys + M;               // [M]
+  float* outm = ms + M;             // [M] mean-net output, then d(mean)
+  float* outk = outm + M;           // [M] kernel-net feature, then d(feature)
+  float* pls = outk + M;            // [T] per-task d(lengthscale)
+  float* pnz = pls + T;             // [T] per-task d(noise)
+  float* d2s = pnz + T;             // [K*K]
+  float* kw = d2s + K * K;          // [K] my row of the RBF kernel
+  float* scal = kw + K;             // [8] block-wide scalars
+
+  // leaf offsets: per net (0 mean, 1 kernel) w_l, b_l for each layer, then
+  // w_out, b_out; after both nets lengthscale_raw, noise_raw
+  const int* o = q.offs;
+  const int S = 2 * L + 2;
+  const int off_ls = o[2 * S], off_nz = o[2 * S + 1];
+
+  for (int c = tid; c < P; c += nth) th[c] = q.theta[static_cast<size_t>(me) * P + c];
+  for (int c = tid; c < M * D; c += nth) xs[c] = q.x[c];
+  for (int c = tid; c < M; c += nth) {
+    ys[c] = q.y[c];
+    ms[c] = q.mask[c];
+  }
+  __syncthreads();
+
+  for (int it = 0; it < q.n_steps; ++it) {
+    const int par = it & 1;
+
+    // ---- forward of both nets
+    for (int net = 0; net < 2; ++net) {
+      float* a_net = act + net * L * M * H;
+      const float* w0 = th + o[net * S];
+      const float* b0 = th + o[net * S + 1];
+      for (int e = tid; e < M * H; e += nth) {
+        const int row = e / H, j = e % H;
+        float s = b0[j];
+        for (int c = 0; c < D; ++c) s += xs[row * D + c] * w0[c * H + j];
+        a_net[e] = tanhf(s);
+      }
+      __syncthreads();
+      for (int l = 1; l < L; ++l) {
+        const float* wl = th + o[net * S + 2 * l];
+        const float* bl = th + o[net * S + 2 * l + 1];
+        const float* prev = a_net + (l - 1) * M * H;
+        float* cur = a_net + l * M * H;
+        for (int e = tid; e < M * H; e += nth) {
+          const int row = e / H, j = e % H;
+          float s = 0.f;
+          for (int c = 0; c < H; ++c) s += prev[row * H + c] * wl[c * H + j];
+          cur[e] = tanhf(s + bl[j]);
+        }
+        __syncthreads();
+      }
+      const float* last = a_net + (L - 1) * M * H;
+      const float* wout = th + o[net * S + 2 * L];
+      const float bout = th[o[net * S + 2 * L + 1]];
+      float* out = net == 0 ? outm : outk;
+      for (int row = tid; row < M; row += nth) {
+        float s = 0.f;
+        for (int j = 0; j < H; ++j) s += last[row * H + j] * wout[j];
+        out[row] = s + bout;
+      }
+    }
+    __syncthreads();
+
+    // ---- per-task MLL gradient, one thread a task
+    const float ls_raw = th[off_ls], nz_raw = th[off_nz];
+    const float sp_ls = softplus(ls_raw), sp_nz = softplus(nz_raw);
+    for (int t = tid; t < T; t += nth) {
+      float w = q.w_t[t];
+      if (q.counts != nullptr) {
+        const float c = q.counts[static_cast<size_t>(it) * T + t];
+        w = c > 0.f ? w * c : 0.f;
+      }
+      task_grad_n(N, outm + t * N, outk + t * N, ys + t * N, ms + t * N, sp_ls, sp_nz, w,
+                  pls + t, pnz + t);
+    }
+    __syncthreads();
+
+    // ---- backward of both nets into the score
+    for (int net = 0; net < 2; ++net) {
+      float* a_net = act + net * L * M * H;
+      const float* dout = net == 0 ? outm : outk;
+      float* last = a_net + (L - 1) * M * H;
+      const int off_wout = o[net * S + 2 * L], off_bout = o[net * S + 2 * L + 1];
+      const float* wout = th + off_wout;
+      for (int j = tid; j <= H; j += nth) {
+        float s = 0.f;
+        if (j < H) {
+          for (int row = 0; row < M; ++row) s += last[row * H + j] * dout[row];
+          sc[off_wout + j] = s;
+        } else {
+          for (int row = 0; row < M; ++row) s += dout[row];
+          sc[off_bout] = s;
+        }
+      }
+      __syncthreads();
+      for (int e = tid; e < M * H; e += nth) {
+        const float av = last[e];
+        last[e] = dout[e / H] * wout[e % H] * (1.f - av * av);
+      }
+      __syncthreads();
+      for (int l = L - 1; l >= 1; --l) {
+        const int off_w = o[net * S + 2 * l], off_b = o[net * S + 2 * l + 1];
+        const float* wl = th + off_w;
+        float* prev = a_net + (l - 1) * M * H;
+        const float* cur = a_net + l * M * H;
+        for (int e = tid; e < H * H + H; e += nth) {
+          float s = 0.f;
+          if (e < H * H) {
+            const int ci = e / H, j = e % H;
+            for (int row = 0; row < M; ++row) s += prev[row * H + ci] * cur[row * H + j];
+            sc[off_w + e] = s;
+          } else {
+            const int j = e - H * H;
+            for (int row = 0; row < M; ++row) s += cur[row * H + j];
+            sc[off_b + j] = s;
+          }
+        }
+        __syncthreads();
+        for (int e = tid; e < M * H; e += nth) {
+          const int row = e / H, ci = e % H;
+          float s = 0.f;
+          // rotated start: the threads of a warp read different banks
+          // (j = (c + ci) mod H, kept without an integer division)
+          int j = ci;
+          for (int c = 0; c < H; ++c) {
+            s += cur[row * H + j] * wl[ci * H + j];
+            j = j + 1 == H ? 0 : j + 1;
+          }
+          const float av = prev[e];
+          prev[e] = s * (1.f - av * av);
+        }
+        __syncthreads();
+      }
+      const int off_w0 = o[net * S], off_b0 = o[net * S + 1];
+      for (int e = tid; e < D * H + H; e += nth) {
+        float s = 0.f;
+        if (e < D * H) {
+          const int c = e / H, j = e % H;
+          for (int row = 0; row < M; ++row) s += xs[row * D + c] * a_net[row * H + j];
+          sc[off_w0 + e] = s;
+        } else {
+          const int j = e - D * H;
+          for (int row = 0; row < M; ++row) s += a_net[row * H + j];
+          sc[off_b0 + j] = s;
+        }
+      }
+    }
+    if (tid == 0) {
+      float sl = 0.f, sn = 0.f;
+      for (int t = 0; t < T; ++t) {
+        sl += pls[t];
+        sn += pnz[t];
+      }
+      sc[off_ls] = sl * sigmoid(ls_raw);
+      sc[off_nz] = sn * sigmoid(nz_raw);
+    }
+    __syncthreads();
+
+    // ---- hyper-prior term; publish this particle and its score
+    float* th_pub = q.th_buf + (static_cast<size_t>(par) * K + me) * P;
+    float* s_pub = q.s_buf + (static_cast<size_t>(par) * K + me) * P;
+    for (int c = tid; c < P; c += nth) {
+      const float scale = q.prior_scale[c];
+      const float s = sc[c] + q.pf * (-(th[c] - q.prior_loc[c]) / (scale * scale));
+      sc[c] = s;
+      th_pub[c] = th[c];
+      s_pub[c] = s;
+    }
+    grid.sync();
+
+    // ---- my row of pairwise squared distances, one warp a partner; the
+    // same lanes and reduction in every block keep d2 exactly symmetric
+    const float* th_all = q.th_buf + static_cast<size_t>(par) * K * P;
+    const float* s_all = q.s_buf + static_cast<size_t>(par) * K * P;
+    for (int j = warp; j < K; j += n_warps) {
+      float acc = 0.f;
+      for (int c = lane; c < P; c += 32) {
+        const float dv = th[c] - __ldcg(th_all + static_cast<size_t>(j) * P + c);
+        acc += dv * dv;
+      }
+      for (int off = 16; off > 0; off >>= 1) acc += __shfl_down_sync(0xffffffffu, acc, off);
+      if (lane == 0) q.d2[me * K + j] = acc;
+    }
+    grid.sync();
+
+    // ---- median (rank K*K/2, exact selection), my kernel row, transport, Adam
+    const int kk = K * K;
+    for (int c = tid; c < kk; c += nth) d2s[c] = __ldcg(q.d2 + c);
+    if (tid == 0) scal[0] = nanf("");  // stays NaN only if d2 holds a NaN
+    __syncthreads();
+    const int rank = kk / 2;
+    for (int c = tid; c < kk; c += nth) {
+      const float val = d2s[c];
+      int less = 0, less_eq = 0;
+      for (int u = 0; u < kk; ++u) {
+        less += (d2s[u] < val);
+        less_eq += (d2s[u] <= val);
+      }
+      if (less <= rank && rank < less_eq) scal[0] = val;
+    }
+    __syncthreads();
+    const float bw = scal[0] / (2.f * q.log_kp1);
+    const float gamma = 1.f / (1e-8f + 2.f * bw);
+    if (tid < K) kw[tid] = expf(-gamma * d2s[me * K + tid]);
+    __syncthreads();
+    float row_sum = 0.f;
+    for (int j = 0; j < K; ++j) row_sum += kw[j];
+
+    const float t_f = q.step0 + static_cast<float>(it) + 1.f;
+    const float bc1 = 1.f - expf(t_f * kLogB1);
+    const float bc2 = 1.f - expf(t_f * kLogB2);
+    const float two_gamma = 2.f * gamma;
+    const float kf = static_cast<float>(K);
+    float* m_me = q.m + static_cast<size_t>(me) * P;
+    float* v_me = q.v + static_cast<size_t>(me) * P;
+    for (int c = tid; c < P; c += nth) {
+      float ks = 0.f, kx = 0.f;
+      for (int j = 0; j < K; ++j) {
+        ks += kw[j] * __ldcg(s_all + static_cast<size_t>(j) * P + c);
+        kx += kw[j] * __ldcg(th_all + static_cast<size_t>(j) * P + c);
+      }
+      const float phi = (ks + two_gamma * (th[c] * row_sum - kx)) / kf;
+      const float g = -phi;
+      const float mn = kB1 * m_me[c] + kOneMinusB1 * g;
+      const float vn = kB2 * v_me[c] + kOneMinusB2 * g * g;
+      m_me[c] = mn;
+      v_me[c] = vn;
+      th[c] -= q.lr * ((mn / bc1) / (sqrtf(vn / bc2) + kEps));
+    }
+    __syncthreads();
+  }
+
+  for (int c = tid; c < P; c += nth) q.theta[static_cast<size_t>(me) * P + c] = th[c];
+}
+
+}  // namespace
+
+extern "C" int pacoh_fused_svgd(float* theta, float* m, float* v, const float* x, const float* y,
+                                const float* mask, const float* w_t, const float* counts,
+                                const float* prior_loc, const float* prior_scale, const int* offs,
+                                float* th_buf, float* s_buf, float* d2, int k, int t, int n,
+                                int d, int h, int l, int p, int n_steps, float step0, float lr,
+                                float pf, int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (k < 1 || k > kMaxK || n < 1 || n > kMaxN || t < 1 || d < 1 || h < 1 || l < 1 || p < 1 ||
+      n_steps < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const size_t bytes = smem_floats(k, t, n, d, h, l, p) * sizeof(float);
+  if (bytes > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
+  err = cudaFuncSetAttribute(fused_svgd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(bytes));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  // every block must be resident at once for the grid barrier
+  int per_sm = 0, n_sm = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fused_svgd_kernel, kThreads, bytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (per_sm * n_sm < k) return static_cast<int>(cudaErrorCooperativeLaunchTooLarge);
+
+  Params q{theta, m, v, x, y, mask, w_t, counts, prior_loc, prior_scale, offs, th_buf, s_buf, d2,
+           k, t, n, d, h, l, p, n_steps, step0, lr, pf,
+           static_cast<float>(log(static_cast<double>(k + 1)))};
+  void* args[] = {&q};
+  err = cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(fused_svgd_kernel), dim3(k),
+                                    dim3(kThreads), args, bytes,
+                                    static_cast<cudaStream_t>(stream));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
+}

@@ -125,12 +125,19 @@ def make_hyper_prior(cfg: GPConfig, weight_prior_std=1.0, bias_prior_std=3.0, de
     return HyperPrior(loc=loc.to(device), scale=scale.to(device), layout=layout, cfg=cfg)
 
 
-def meta_log_prob(hyper_prior: HyperPrior, prior_factor, flat_particles, X, Y, mask=None):
+def meta_log_prob(hyper_prior: HyperPrior, prior_factor, flat_particles, X, Y, mask=None,
+                  counts=None):
     """PACOH generalised-Bayes score of K particles on a task batch.
 
     flat_particles [K, P]; X [T, N, D]; Y [T, N]; mask [T, N] or None.
     Returns [K]. The O(N^3) MLL cores of all K*T systems go through one
     ``gp_mll_batch`` call.
+
+    counts [T] (optional): the count-weighted estimator of a sampled task
+    batch. X, Y, mask are the full task set and counts holds each task's
+    multiplicity in the sample (summing to the batch size). It equals
+    gathering the sampled batch: the harmonic mean is taken over the sampled
+    multiset, and a never-drawn task adds exactly 0 even if its MLL is NaN.
     """
     from meta_learning_pacoh_torch.ops.gp import gp_mll_batch
 
@@ -149,6 +156,14 @@ def meta_log_prob(hyper_prior: HyperPrior, prior_factor, flat_particles, X, Y, m
     per_task = lls.reshape(k, t)
 
     sizes = torch.sum(mask, dim=-1)
-    harmonic_mean = 1.0 / torch.mean(1.0 / sizes)
-    pre_factor = harmonic_mean / (harmonic_mean + t)
-    return prior_factor * hyper_prior.log_prob(flat_particles) + pre_factor * per_task.sum(-1)
+    if counts is None:
+        harmonic_mean = 1.0 / torch.mean(1.0 / sizes)
+        pre_factor = harmonic_mean / (harmonic_mean + t)
+        task_sum = per_task.sum(-1)
+    else:
+        batch_n = torch.sum(counts)
+        harmonic_mean = batch_n / torch.sum(counts / sizes)
+        pre_factor = harmonic_mean / (harmonic_mean + batch_n)
+        # a never-drawn task's MLL (maybe NaN) is replaced, not multiplied by 0
+        task_sum = (counts * torch.where(counts > 0, per_task, 0.0)).sum(-1)
+    return prior_factor * hyper_prior.log_prob(flat_particles) + pre_factor * task_sum

@@ -9,7 +9,7 @@ that its main path went through the kernels.
 
 import torch
 
-LAUNCHES = {"svgd_phi": 0, "mll_fwd": 0, "mll_bwd": 0, "chol": 0}
+LAUNCHES = {"svgd_phi": 0, "mll_fwd": 0, "mll_bwd": 0, "chol": 0, "fused_svgd": 0}
 
 
 def reset_launch_counts():

@@ -1,11 +1,13 @@
 """Builds the hand-written CUDA kernels of ``csrc/`` and loads them.
 
-All ``csrc/*.cu`` files are compiled by ``nvcc`` for Hopper (``sm_90a``) into
-one shared library with a plain C interface, loaded with ``ctypes``. The
-build happens at first use, never at import, into ``_build/`` inside the
-package. The library's file name carries a hash of the sources and flags,
-so an edited source never loads a stale build. Every C entry point launches on the stream it is given and
-returns ``cudaGetLastError()``; ``launch`` raises when that is not 0.
+Each ``csrc/*.cu`` file is compiled by its own ``nvcc`` for Hopper
+(``sm_90a``), all started together, and the objects are linked into one
+shared library with a plain C interface, loaded with ``ctypes``. The build
+happens at first use, never at import, into ``_build/`` inside the package.
+The library's file name carries a hash of every file under ``csrc/``
+(sources and headers) and of the flags, so an edited source or header never
+loads a stale build. Every C entry point launches on the stream it is given
+and returns ``cudaGetLastError()``; ``launch`` raises when that is not 0.
 """
 
 import ctypes
@@ -20,8 +22,9 @@ _PKG_DIR = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__fil
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(_PKG_DIR, "_build")
 
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = ARCH_FLAGS + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+_DIGESTED = (".cu", ".cuh", ".h")
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C entry point -> argument types (pointers, ints, floats; the last two are
@@ -31,6 +34,7 @@ SIGNATURES = {
     "pacoh_mll_fwd": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
     "pacoh_mll_bwd": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
     "pacoh_chol": (_P, _P, _I, _I, _I, _P),
+    "pacoh_fused_svgd": (_P,) * 14 + (_I,) * 8 + (_F,) * 3 + (_I, _P),
 }
 
 _lock = threading.Lock()
@@ -46,21 +50,46 @@ def _nvcc():
     raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
 
 
-def _sources():
-    names = sorted(f for f in os.listdir(CSRC_DIR) if f.endswith(".cu"))
+def _csrc_files(suffixes):
+    names = sorted(f for f in os.listdir(CSRC_DIR) if f.endswith(suffixes))
     return [os.path.join(CSRC_DIR, f) for f in names]
+
+
+def _run(procs):
+    """Wait for every (cmd, Popen); raise on the first failure, after all ended."""
+    logs, failed = [], None
+    for cmd, proc in procs:
+        _, err = proc.communicate()
+        logs.append(err)
+        if proc.returncode != 0 and failed is None:
+            failed = f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{err}"
+    if failed:
+        raise RuntimeError(failed)
+    return "".join(logs)
 
 
 def _compile(sources, target):
     os.makedirs(os.path.dirname(target), exist_ok=True)
-    tmp = f"{target}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *sources]
+    tag = f"{target}.{os.getpid()}"
+    objects = [f"{tag}.{os.path.basename(src)}.o" for src in sources]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True, check=False)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
-    os.replace(tmp, target)
-    build_info.update(seconds=time.perf_counter() - t0, log=proc.stderr)
+    nvcc = _nvcc()
+    try:
+        procs = []
+        for src, obj in zip(sources, objects):
+            cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", obj, src]
+            procs.append((cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                                stderr=subprocess.PIPE, text=True)))
+        log = _run(procs)
+        cmd = [nvcc, *ARCH_FLAGS, "-shared", "-o", f"{tag}.tmp", *objects]
+        log += _run([(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                            stderr=subprocess.PIPE, text=True))])
+        os.replace(f"{tag}.tmp", target)
+    finally:
+        for path in objects:
+            if os.path.exists(path):
+                os.remove(path)
+    build_info.update(seconds=time.perf_counter() - t0, log=log)
 
 
 def library():
@@ -69,9 +98,10 @@ def library():
     with _lock:
         if _lib is not None:
             return _lib
-        sources = _sources()
+        sources = _csrc_files(".cu")
         digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-        for path in sources:
+        for path in _csrc_files(_DIGESTED):
+            digest.update(os.path.basename(path).encode())
             with open(path, "rb") as f:
                 digest.update(f.read())
         target = os.path.join(BUILD_DIR, f"libpacoh_kernels_{digest.hexdigest()[:16]}.so")

@@ -7,7 +7,8 @@ PyTorch is installed:
     python -m pytest tests/test_torch_gpu.py -q -o addopts="" -m gpu
 
 Errors are compared per system, relative to that system's largest |plain|
-value, at rtol 1e-4 (float32 sums in another order; 1e-6 measured).
+value, at rtol 1e-4 (float32 sums in another order; 1e-6 measured). The
+fused training kernel is compared after ten steps, as chip_smoke.py does.
 """
 
 import numpy as np
@@ -15,9 +16,10 @@ import pytest
 import torch
 
 from meta_learning_pacoh_torch import GPRegressionMetaLearnedSVGD
-from meta_learning_pacoh_torch.datasets import CauchyDataset
+from meta_learning_pacoh_torch.datasets import CauchyDataset, SinusoidDataset
 from meta_learning_pacoh_torch.ops import cuda
 from meta_learning_pacoh_torch.ops.cuda import chol_kernel, mll_kernel, svgd_kernel
+from meta_learning_pacoh_torch.ops.cuda import fused_svgd_kernel as fk
 
 pytestmark = pytest.mark.gpu
 
@@ -123,9 +125,96 @@ def test_learner_on_card_matches_plain_cpu_learner(dev):
     for model in (on_card, on_cpu):
         model.meta_fit(n_iter=5, verbose=False)
     metrics_card, metrics_cpu = on_card.eval_datasets(test), on_cpu.eval_datasets(test)
-    assert all(v > 0 for v in cuda.LAUNCHES.values()), cuda.LAUNCHES
+    general = ("svgd_phi", "mll_fwd", "mll_bwd", "chol")  # N=12: the general step
+    assert all(cuda.LAUNCHES[k] > 0 for k in general), cuda.LAUNCHES
+    assert cuda.LAUNCHES["fused_svgd"] == 0, cuda.LAUNCHES
     keep = torch.ones(on_cpu.hyper_prior.dim, dtype=torch.bool)
     keep[on_cpu.hyper_prior.slice_of(("kernel_nn", "b_out"))] = False
     diff = (on_card.particles.cpu() - on_cpu.particles)[:, keep].abs().max()
     assert float(diff) <= 1e-4
     np.testing.assert_allclose(metrics_card, metrics_cpu, rtol=1e-3, atol=1e-5)
+
+
+def _fused_case(k, t, n, hidden, seed, ragged, dev):
+    rs = np.random.RandomState(seed)
+    x = rs.uniform(-2.0, 2.0, (t, n, 1)).astype(np.float32)
+    y = (np.sin(2.0 * x[..., 0]) + 0.1 * rs.randn(t, n)).astype(np.float32)
+    mask = np.ones((t, n), np.float32)
+    if ragged:  # padded points as the learner pads them: zero input and target
+        mask[1, n - 2:] = 0.0
+        x[1, n - 2:], y[1, n - 2:] = 0.0, 0.0
+    hp = fk.fused_prior(1, hidden, 0.5, 3.0)
+    theta = hp.loc + hp.scale * torch.from_numpy(rs.randn(k, hp.dim).astype(np.float32))
+    data = [torch.from_numpy(a).to(dev) for a in (x, y, mask)]
+    return data, theta.to(dev), hp, rs
+
+
+FUSED_CASES = {  # name -> (K, T, N, hidden, ragged, task batch or None)
+    "small_ragged": (4, 4, 5, (8, 8), True, None),
+    "sin_20": (10, 20, 5, (32, 32), False, None),
+    "sin_20_counted": (10, 20, 5, (32, 32), False, 5),
+    "n8_k32_kh1024": (32, 6, 8, (32, 32), True, None),
+    "three_layers_n3": (8, 5, 3, (16, 16, 16), False, None),
+}
+
+
+@pytest.mark.parametrize("case", sorted(FUSED_CASES))
+def test_fused_svgd_kernel_matches_plain(dev, case):
+    """Ten steps of the fused kernel against its plain version from one state
+    (step0 3, non-zero Adam moments): particles within 1e-4 (the kernel
+    net's output bias left out), Adam moments within 1e-4 of their largest
+    |plain| value. Two launches of 4 + 6 steps give the bits of one launch."""
+    k, t, n, hidden, ragged, batch = FUSED_CASES[case]
+    (x, y, mask), theta, hp, rs = _fused_case(k, t, n, hidden, sum(map(ord, case)), ragged, dev)
+    mu = torch.from_numpy((0.01 * rs.randn(k, hp.dim)).astype(np.float32)).to(dev)
+    nu = torch.from_numpy((1e-4 * rs.rand(k, hp.dim)).astype(np.float32)).to(dev)
+    counts = None
+    if batch is not None:
+        counts = np.stack([np.bincount(rs.randint(0, t, batch), minlength=t) for _ in range(10)])
+        counts = torch.from_numpy(counts.astype(np.float32)).to(dev)
+    w_t = torch.from_numpy(fk.task_weights(mask.cpu().numpy(), batch)).to(dev)
+    kw = dict(hidden=hidden, wps=0.5, bps=3.0)
+
+    got, want, split = ([a.clone() for a in (theta, mu, nu)] for _ in range(3))
+    cuda.reset_launch_counts()
+    fk.fused_svgd_train(*got, x, y, mask, w_t, 3, 1e-3, 0.01, counts, n_steps=10, **kw)
+    assert cuda.LAUNCHES["fused_svgd"] == 1
+    fk.fused_svgd_train_ref(*want, x, y, mask, w_t, 3, 1e-3, 0.01, counts, n_steps=10, **kw)
+    for s0, sub in ((0, 4), (4, 6)):
+        fk.fused_svgd_train(*split, x, y, mask, w_t, 3 + s0, 1e-3, 0.01,
+                            None if counts is None else counts[s0:s0 + sub].contiguous(),
+                            n_steps=sub, **kw)
+    keep = torch.ones(hp.dim, dtype=torch.bool, device=dev)
+    keep[hp.slice_of(("kernel_nn", "b_out"))] = False
+    assert float((got[0] - want[0])[:, keep].abs().max()) <= 1e-4
+    for g, w in zip(got[1:], want[1:]):
+        assert float((g - w)[:, keep].abs().max()) <= 1e-4 * float(w.abs().max())
+    assert float((got[0] - theta)[:, keep].abs().max()) > 1e-3  # the steps moved it
+    for g, s in zip(got, split):
+        assert torch.equal(g, s)
+
+
+def test_fused_learner_on_card_matches_plain_cpu_learner(dev):
+    """A sin_20-like learner in the fused window: the fit on the card runs
+    through the fused kernel alone and lands within 1e-4 of the same fit on
+    the CPU (plain version); two chunkings give the same bits."""
+    env = SinusoidDataset(random_state=np.random.RandomState(26))
+    train = env.generate_meta_train_data(n_tasks=8, n_samples=5)
+    test = env.generate_meta_test_data(n_tasks=3, n_samples_context=5, n_samples_test=20)
+    kw = dict(num_particles=6, mean_nn_layers=(16, 16), kernel_nn_layers=(16, 16),
+              random_seed=30, lr_decay=0.5)
+    on_card = GPRegressionMetaLearnedSVGD(train, device=dev, **kw)
+    on_cpu = GPRegressionMetaLearnedSVGD(train, **kw)
+    assert on_card._fused_path_ok()
+    cuda.reset_launch_counts()
+    on_card.meta_fit(n_iter=12, log_period=12, verbose=False)
+    assert cuda.LAUNCHES["fused_svgd"] == 1 and sum(cuda.LAUNCHES.values()) == 1, cuda.LAUNCHES
+    on_cpu.meta_fit(n_iter=12, log_period=12, verbose=False)
+    keep = torch.ones(on_cpu.hyper_prior.dim, dtype=torch.bool)
+    keep[on_cpu.hyper_prior.slice_of(("kernel_nn", "b_out"))] = False
+    assert float((on_card.particles.cpu() - on_cpu.particles)[:, keep].abs().max()) <= 1e-4
+    np.testing.assert_allclose(on_card.eval_datasets(test), on_cpu.eval_datasets(test),
+                               rtol=1e-3, atol=1e-5)
+    chunked = GPRegressionMetaLearnedSVGD(train, device=dev, **kw)
+    chunked.meta_fit(n_iter=12, log_period=5, verbose=False)
+    assert torch.equal(chunked.particles, on_card.particles)

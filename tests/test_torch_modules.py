@@ -21,9 +21,8 @@ from meta_learning_pacoh_tpu.ops import gp as jax_gp
 from meta_learning_pacoh_tpu.ops import metrics as jax_metrics
 from meta_learning_pacoh_tpu.ops import svgd as jax_svgd
 from meta_learning_pacoh_torch import GPRegressionMetaLearnedSVGD
-from meta_learning_pacoh_torch.algos import pacoh_svgd
 from meta_learning_pacoh_torch.models import gp_base, random_gp
-from meta_learning_pacoh_torch.ops import distributions, gp, metrics, svgd
+from meta_learning_pacoh_torch.ops import distributions, gp, launch_sched, metrics, svgd
 
 
 def assert_close_per_row(got, want, rtol):
@@ -203,7 +202,7 @@ def test_adam_update_matches_optax_with_staircase(monkeypatch):
     """Seven Adam steps under lr_decay 0.5 with a 3-step staircase: the
     particles match optax.adam(exponential_decay(staircase=True)) to 1e-6,
     1e-4 of the step size (float32 rounding in another order)."""
-    monkeypatch.setattr(pacoh_svgd, "LR_TRANSITION_STEPS", 3)
+    monkeypatch.setattr(launch_sched, "LR_TRANSITION_STEPS", 3)
     rs = np.random.RandomState(0)
     tasks = [(rs.randn(4, 1), rs.randn(4, 1)) for _ in range(2)]
     model = GPRegressionMetaLearnedSVGD(tasks, num_particles=2, lr=1e-2, lr_decay=0.5,
