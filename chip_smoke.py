@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port of PACOH-SVGD once on one NVIDIA GPU.
+"""Drive the PyTorch/CUDA port of PACOH (SVGD and MAP) once on one NVIDIA GPU.
 
     python3 chip_smoke.py                # all phases, one card
     python3 chip_smoke.py --profile DIR  # also trace fit steps and one eval of
@@ -9,8 +9,10 @@ Phase 0 requires CUDA and prints the card's name and power limit.
 Phase 1 builds the hand-written kernels from ``meta_learning_pacoh_torch/csrc``.
 Phase 2 holds each kernel against its plain PyTorch version on the card, at
 the shapes its main path gives it, and times both: K1-K4 at ``cauchy_20``'s,
-the fused training kernel B2 at ``sin_20``'s (full batch, a sampled batch,
-and a run across a staircase boundary of the lr schedule).
+the fused SVGD training kernel B2 at ``sin_20``'s (full batch, a sampled
+batch, and a run across a staircase boundary of the lr schedule), the fused
+MAP training kernel B6 at the reference demo's (the same three runs, and one
+odd shape: 7 ragged tasks, D=3, F=3, nets of other depths and widths).
 Phase 3 runs the ``cauchy_20`` main path (the general step) through the
 public entry points: ``provide_data("cauchy_20")``,
 ``GPRegressionMetaLearnedSVGD(..., device="cuda")``, ``meta_fit`` and
@@ -23,6 +25,14 @@ the general step's kernels at 0), the steady rate of a second 10,000-step
 call, ``eval_datasets`` on the 20 test tasks, two chunkings that must give
 the same bits, and seeds 30-32 whose mean test LL and RMSE must lie in the
 band of the JAX package's (BENCH_r05).
+Phase 5 runs the reference demo's main path (PACOH-MAP, demo.py):
+``GPRegressionMetaLearned(train, weight_decay=0.2, num_iter_fit=12000,
+random_seed=30)`` built without a device (so on the card by default), a
+12,000-step ``meta_fit`` (task batch 5, count-weighted) carried by B6 alone,
+the steady rate of a second call, ``eval_datasets`` cold and warm,
+``confidence_intervals``, two chunkings that must give the same bits, seeds
+30-32 in the band of the JAX package's (tools/map_demo_band.json), and the
+steady rate of a full-batch fit.
 
 Any failure raises and exits non-zero. The line before the last is a JSON
 object with one record per kernel; the last line is
@@ -46,7 +56,11 @@ KERNELS = {  # launch-counter name -> (source, TPU kernel it replaces)
     "mll_bwd": (SOURCE + "mll.cu", TPU + "mll_kernel.py:223"),
     "chol": (SOURCE + "chol.cu", TPU + "blocked_mll_kernel.py:820"),
     "fused_svgd": (SOURCE + "fused_svgd.cu", TPU + "fused_train_kernel.py:789"),
+    "fused_map": (SOURCE + "fused_map.cu", TPU + "fused_map_kernel.py:416"),
 }
+# the card's peaks for the bound (NVIDIA's H100 SXM data sheet): float32 off
+# the tensor cores, and device memory
+PEAK_FLOPS, PEAK_BYTES = 67e12, 3.35e12
 GENERAL_STEP_KERNELS = ("svgd_phi", "mll_fwd", "mll_bwd", "chol")
 # per-system error, normalised by the system's largest |plain| value
 KERNEL_RTOL = 2e-4
@@ -67,6 +81,18 @@ SIN_SEEDS = (30, 31, 32)
 # BENCH_r05's seed-30-32 means at 10k steps (LL std 0.086, RMSE std 0.009):
 # centre, margin = 3 sigma of the difference of two 3-seed means
 SIN_LL_BAND, SIN_RMSE_BAND = (-0.146, 0.21), (0.309, 0.022)
+# B6 against its plain version: parameters with the twins' tolerances above,
+# AdamW moments as B2's, the loss of the last step rtol 1e-5
+B6_STEPS, B6_STAIR_STEPS, B6_LOSS_RTOL = 20, 30, 1e-5
+MAP_STEPS = 12000  # demo.py's fit
+MAP_CHUNK = 3000  # the second chunking
+# the band of seeds 30-32: tools/map_demo_band.json (written by
+# tools/map_demo_band.py), the JAX learner on the CPU (count-weighted), seeds
+# 30-59 at 12,000 steps (LL std 0.0885, RMSE std 0.0303; seeds 30-32 alone
+# show half that spread): centre, margin = 3 sigma of the difference of a
+# 3-seed mean and the 30-seed mean
+MAP_BAND_FILE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tools",
+                             "map_demo_band.json")
 
 
 def card_line():
@@ -137,13 +163,29 @@ def escalating_systems(n, gen, lam_min):
     return ((q * lam) @ q.T).float().cuda()
 
 
+def mlp_flops(rows, d, hidden, out):
+    """Flops of a tanh MLP's forward, weight gradients and input gradients
+    (none into the data) over ``rows`` rows."""
+    sizes = [d, *hidden, out]
+    macs = sum(a * b for a, b in zip(sizes[:-1], sizes[1:]))
+    return 2 * rows * (3 * macs - d * hidden[0])
+
+
+def gp_task_flops(n, f):
+    """About the flops of one task's MLL and its gradient: the kernel matrix,
+    one factorization, the solves, L^-1, K^-1 and the gradient's pair terms."""
+    return n * n * (3 * f + 10) + n ** 3
+
+
 def phase2(param_dim):
     import torch
 
     from meta_learning_pacoh_torch.ops.cuda import chol_kernel, mll_kernel, svgd_kernel
 
     gen = torch.Generator().manual_seed(0)
-    errs, times = {}, {}
+    # work[name] = (flops, bytes) of one timed call (B2, B6: of one step);
+    # library[name] = ms of one PyTorch call computing the same function
+    errs, times, work, library = {}, {}, {}, {}
 
     # K1 at the slice's [K, P]
     x = torch.randn(10, param_dim, generator=gen).cuda()
@@ -152,6 +194,8 @@ def phase2(param_dim):
           svgd_kernel.svgd_phi_ref(x, s)[None], errs)
     times["svgd_phi"] = time_pair(lambda: svgd_kernel.svgd_phi_fused(x, s),
                                   lambda: svgd_kernel.svgd_phi_ref(x, s))
+    # distances, the kernel row sums and two K x K by K x P products
+    work["svgd_phi"] = (7 * 10 * 10 * param_dim, 4 * 3 * 10 * param_dim)
 
     # K2/K3 at the slice's B = K*T = 200 systems of N = 20, with systems whose
     # factorization needs the 1e-4 and the 1e-2 jitter
@@ -185,6 +229,13 @@ def phase2(param_dim):
                                  lambda: mll_kernel.mll_fwd_ref(kn, r))
     times["mll_bwd"] = time_pair(lambda: mll_kernel.mll_bwd(L, z, gq, gl),
                                  lambda: mll_kernel.mll_bwd_ref(L, z, gq, gl))
+    # one factorization a system per jitter level it needed, the solve, quad
+    # and logdet; in: Kn, r; out: quad, logdet, L, z (the backward's in and
+    # out have the same size: L, z, gq, gl; dKn, dr)
+    n_fact = float((level + 1).sum())
+    mll_bytes = 4 * (2 * b * n * n + 2 * b * n + 2 * b)
+    work["mll_fwd"] = (n_fact * n ** 3 / 3 + b * (n * n + 3 * n), mll_bytes)
+    work["mll_bwd"] = (b * (2 * n ** 3 / 3 + 3 * n * n), mll_bytes)
 
     # K4 at the eval's shape: 200 test tasks x 10 particles of N = 200, with
     # one indefinite matrix that must come back NaN as in the plain version
@@ -201,11 +252,15 @@ def phase2(param_dim):
     check("chol", got[keep], want[keep], errs)
     times["chol"] = time_pair(lambda: chol_kernel.cholesky_fused(a),
                               lambda: chol_kernel.cholesky_ref(a), reps=3)
-    phase2_b2(errs, times)
+    work["chol"] = (2000 * 200 ** 3 / 3, 4 * 2 * 2000 * 200 * 200)
+    library["chol"] = statistics.median(median_ms(lambda: torch.linalg.cholesky_ex(a), 3))
+    phase2_b2(errs, times, work)
+    phase2_b6(errs, times, work)
     for name, (k_ms, p_ms) in times.items():
-        unit = "ms a step" if name == "fused_svgd" else "ms"
-        print(f"  {name}: kernel {k_ms:.4f} {unit}, plain {p_ms:.4f} {unit} (median)")
-    return errs, times
+        unit = "ms a step" if name.startswith("fused") else "ms"
+        lib = f", torch.linalg.cholesky_ex {library[name]:.4f} ms" if name in library else ""
+        print(f"  {name}: kernel {k_ms:.4f} {unit}, plain {p_ms:.4f} {unit} (median){lib}")
+    return errs, times, work, library
 
 
 def sin20():
@@ -227,7 +282,7 @@ def sin20_model(train, seed=30, **kw):
                                        random_seed=seed, prior_factor=0.01, device="cuda", **kw)
 
 
-def phase2_b2(errs, times):
+def phase2_b2(errs, times, work):
     """B2 against its plain version at sin_20's shapes, from one state."""
     import torch
 
@@ -287,6 +342,115 @@ def phase2_b2(errs, times):
                                         n_steps=5),
         reps=3)
     times["fused_svgd"] = (k_ms / 200, p_ms / 5)
+    k, p, (t, n, d) = 10, model.hyper_prior.dim, model.X.shape
+    step_flops = (k * (2 * mlp_flops(t * n, d, (32, 32), 1) + t * gp_task_flops(n, 1))
+                  + 7 * k * k * p + 12 * k * p)
+    # a launch of 200 steps reads and writes theta, m, v once, reads the data once
+    work["fused_svgd"] = (step_flops, 4 * (6 * k * p + t * n * (d + 2) + t) / 200)
+
+
+def demo_model(tasks, seed=30, **kw):
+    """The reference demo's learner (demo.py:17-21), on the card by default."""
+    from meta_learning_pacoh_torch import GPRegressionMetaLearned
+
+    return GPRegressionMetaLearned(tasks, weight_decay=0.2, num_iter_fit=MAP_STEPS,
+                                   random_seed=seed, **kw)
+
+
+def map_trainer(model):
+    from meta_learning_pacoh_torch.ops.cuda.fused_map_kernel import FusedMAPTrainer
+
+    return FusedMAPTrainer(model.X, model.Y, model.mask, layout=model.layout,
+                           lr=model.lr_params, weight_decay=model.weight_decay,
+                           lr_decay=model._lr_decay, task_batch_size=model.task_batch_size,
+                           task_draw=model._task_draw)
+
+
+def phase2_b6(errs, times, work):
+    """B6 against its plain version at the demo's shapes and one odd shape,
+    from the learner's initial state."""
+    import numpy as np
+    import torch
+
+    from meta_learning_pacoh_torch.models.random_gp import layout_slice
+    from meta_learning_pacoh_torch.ops import launch_sched
+    from meta_learning_pacoh_torch.ops.cuda import fused_map_kernel as mk
+
+    train, _ = sin20()
+    rs = np.random.RandomState(7)  # 7 tasks of up to 8 points, D=3, padded by the learner
+    odd = [(rs.uniform(-2.0, 2.0, (m, 3)), rs.randn(m)) for m in (8, 5, 8, 3, 7, 8, 1)]
+    odd_kw = dict(task_batch_size=-1, feature_dim=3, mean_nn_layers=(16, 16, 16),
+                  kernel_nn_layers=(32, 32))
+    cases = (("full batch", train, {"task_batch_size": -1}, B6_STEPS),
+             ("sampled batch of 5", train, {}, B6_STEPS),
+             ("staircase lr_decay 0.5", train, {"task_batch_size": -1, "lr_decay": 0.5},
+              B6_STAIR_STEPS),
+             ("7 ragged tasks, D=3, F=3, nets (16,16,16)/(32,32)", odd, odd_kw, B6_STEPS))
+    transition = launch_sched.LR_TRANSITION_STEPS
+    for label, tasks, kw, n_steps in cases:
+        model = demo_model(tasks, **kw)
+        launch_sched.LR_TRANSITION_STEPS = B2_STAIR_TRANSITION
+        try:
+            trainer = map_trainer(model)
+            got = [model.params.clone(), torch.zeros_like(model.params),
+                   torch.zeros_like(model.params)]
+            want = [t.clone() for t in got]
+            got_loss, _ = trainer.run(*got, n_steps, 0)
+            for s0, sub in trainer.launches(0, n_steps):
+                counts = trainer.count_pages(s0, sub) if trainer.counted else None
+                want_loss, _ = mk.fused_map_train_ref(
+                    *want, model.X, model.Y, model.mask, trainer.w_t, s0,
+                    launch_sched.staircase_lr(1e-3, trainer.lr_decay, s0), 0.2, counts,
+                    layout=model.layout, n_steps=sub)
+        finally:
+            launch_sched.LR_TRANSITION_STEPS = transition
+        torch.cuda.synchronize()
+        skip = layout_slice(model.layout, ("kernel_nn", "b_out"))
+        d_max, d_mean = diff_excluding(got[0].cpu(), want[0].cpu(), skip)
+        rel = [diff_excluding(g.cpu(), w.cpu(), skip)[0] / float(w.abs().max())
+               for g, w in zip(got[1:], want[1:])]
+        loss_rel = abs(float(got_loss) - float(want_loss)) / abs(float(want_loss))
+        print(f"  fused_map, {label}, {n_steps} steps: |param diff| max {d_max:.3e}, "
+              f"mean {d_mean:.3e}; AdamW m, v max diff / max |plain| {rel[0]:.3e}, "
+              f"{rel[1]:.3e}; last loss rel diff {loss_rel:.3e} (kernel_nn.b_out excluded)")
+        if not (d_max <= TWIN_ATOL and d_mean <= TWIN_MEAN_ATOL
+                and max(rel) <= B2_MOMENT_RTOL and loss_rel <= B6_LOSS_RTOL):
+            raise AssertionError(f"fused_map ({label}): kernel disagrees with its plain version")
+        errs["fused_map"] = max(errs.get("fused_map", 0.0), d_max)
+
+    # per step at the main path's launch: a sampled batch of 5, 512 steps a
+    # launch from prebuilt count pages; the plain version over 5 steps
+    model = demo_model(train)
+    trainer = map_trainer(model)
+    counts = trainer.count_pages(0, mk.FusedMAPTrainer.MAX_LAUNCH)
+    data = (model.X, model.Y, model.mask, trainer.w_t)
+    k_state = [model.params.clone(), torch.zeros_like(model.params),
+               torch.zeros_like(model.params)]
+    p_state = [t.clone() for t in k_state]
+    k_ms, p_ms = time_pair(
+        lambda: mk.fused_map_train(*k_state, *data, 0, 1e-3, 0.2, counts, layout=model.layout,
+                                   n_steps=counts.shape[0]),
+        lambda: mk.fused_map_train_ref(*p_state, *data, 0, 1e-3, 0.2, counts[:5],
+                                       layout=model.layout, n_steps=5),
+        reps=3)
+    times["fused_map"] = (k_ms / counts.shape[0], p_ms / 5)
+    full_ms = statistics.median(median_ms(
+        lambda: mk.fused_map_train(*k_state, *data, 0, 1e-3, 0.2, layout=model.layout,
+                                   n_steps=200), 3)) / 200
+    print(f"  fused_map, full batch: kernel {full_ms:.4f} ms a step (launches of 200 steps)")
+    # the function needs only the rows of the tasks each step draws (an
+    # undrawn task adds exactly 0): both nets' forward and backward over
+    # them, their MLLs, and AdamW; as a mean over the launch's count pages
+    p, (t, n, d) = model.params.numel(), model.X.shape
+    drawn = (counts > 0).float()
+    rows = float((drawn @ model.mask.sum(dim=1)).mean())
+    step_flops = (mlp_flops(rows, d, (32, 32), 1) + mlp_flops(rows, d, (32, 32), 2)
+                  + float(drawn.sum(dim=1).mean()) * gp_task_flops(n, 2) + 12 * p)
+    print(f"  fused_map, the timed launch: {rows / n:.2f} of {t} tasks drawn a step on average, "
+          f"{step_flops:.0f} flops a step")
+    n_launch = counts.shape[0]  # a launch reads and writes theta, m, v once, reads the data once
+    work["fused_map"] = (step_flops,
+                         4 * (6 * p + t * n * (d + 2) + t + n_launch * t) / n_launch)
 
 
 def diff_excluding(a, b, skip):
@@ -295,7 +459,7 @@ def diff_excluding(a, b, skip):
 
     keep = torch.ones(a.shape[-1], dtype=torch.bool)
     keep[skip] = False
-    d = (a - b).abs()[:, keep]
+    d = (a - b).abs()[..., keep]
     return float(d.max()), float(d.mean())
 
 
@@ -502,12 +666,106 @@ def phase4(profile_dir):
                           mean_rmse=mean_rmse, traces=traces)
 
 
+def phase5(profile_dir):
+    import numpy as np
+    import torch
+
+    from meta_learning_pacoh_torch.ops import cuda
+
+    train, test = sin20()
+    model = demo_model(train)  # no device: the card by default
+    if model.device.type != "cuda" or not model._fused_path_ok():
+        raise AssertionError(f"the demo learner is on {model.device}, or off the fused path")
+    print(f"  demo: {len(train)} tasks x {len(train[0][0])} points, task batch "
+          f"{model.task_batch_size} (count-weighted), P={model.params.numel()}, on {model.device}")
+    cuda.reset_launch_counts()
+    fit_s = timed_fit(model, MAP_STEPS, MAP_STEPS)
+    launches = dict(cuda.LAUNCHES)
+    print(f"  meta_fit: {MAP_STEPS} steps in {fit_s:.3f} s ({MAP_STEPS / fit_s:.1f} steps/s, "
+          f"first call); launches in the fit: {launches}")
+    if launches["fused_map"] < 1 or any(v for k, v in launches.items() if k != "fused_map"):
+        raise AssertionError(f"the fit was not carried by the fused MAP kernel: {launches}")
+    one_chunk = model.params.clone()
+    t0 = time.perf_counter()
+    ll, rmse, calib = model.eval_datasets(test)
+    torch.cuda.synchronize()
+    eval_s = time.perf_counter() - t0
+    print(f"  eval_datasets: {len(test)} tasks in {eval_s:.4f} s (first call); "
+          f"LL {ll:.6f}, RMSE {rmse:.6f}, calib {calib:.6f}")
+    if not all(math.isfinite(v) for v in (ll, rmse, calib)) or not bool(
+            torch.isfinite(model.params).all()):
+        raise AssertionError("non-finite parameters or metrics")
+
+    steady_s = timed_fit(model, MAP_STEPS, MAP_STEPS)
+    steady = MAP_STEPS / steady_s
+    print(f"  steady state: {MAP_STEPS} steps in {steady_s:.4f} s, {steady:.1f} steps/s")
+    t0 = time.perf_counter()
+    model.eval_datasets(test)
+    torch.cuda.synchronize()
+    eval_warm_s = time.perf_counter() - t0
+    print(f"  eval_datasets again: {eval_warm_s:.4f} s")
+    x_plot = np.linspace(-5.0, 5.0, 150)
+    ucb, lcb = model.confidence_intervals(test[0][0], test[0][1], x_plot, confidence=0.9)
+    print(f"  confidence_intervals on test task 0, 150 points: ucb - lcb in "
+          f"[{float(np.min(ucb - lcb)):.4f}, {float(np.max(ucb - lcb)):.4f}]")
+    if not (ucb.shape == lcb.shape == (150,) and np.all(np.isfinite(ucb))
+            and np.all(np.isfinite(lcb)) and np.all(ucb > lcb)):
+        raise AssertionError("confidence intervals are not finite with ucb > lcb")
+    traces = {}
+    if profile_dir:
+        traces["demo_fit_1024_steps"] = profile(
+            "demo_fit", lambda: model.meta_fit(n_iter=1024, log_period=1024, verbose=False),
+            profile_dir)
+        traces["demo_eval"] = profile("demo_eval", lambda: model.eval_datasets(test), profile_dir)
+        for label, summary in traces.items():
+            print(f"  trace {label}: " + json.dumps(summary))
+
+    chunked = demo_model(train)
+    chunked.meta_fit(n_iter=MAP_STEPS, log_period=MAP_CHUNK, verbose=False)
+    same = torch.equal(chunked.params, one_chunk)
+    print(f"  chunkings: log_period {MAP_STEPS} and {MAP_CHUNK} give identical parameters: "
+          f"{same}")
+    if not same:
+        raise AssertionError("two chunkings of the fused fit differ")
+
+    seeds = {30: (ll, rmse, calib)}
+    for seed in SIN_SEEDS[1:]:
+        other = demo_model(train, seed=seed)
+        other.meta_fit(n_iter=MAP_STEPS, log_period=MAP_STEPS, verbose=False)
+        seeds[seed] = other.eval_datasets(test)
+    lls = [seeds[s][0] for s in SIN_SEEDS]
+    rmses = [seeds[s][1] for s in SIN_SEEDS]
+    mean_ll, mean_rmse = float(np.mean(lls)), float(np.mean(rmses))
+    with open(MAP_BAND_FILE) as f:
+        band = json.load(f)["jax_counted"]
+    ll_band, rmse_band = band["ll_band"], band["rmse_band"]
+    print(f"  seeds {SIN_SEEDS} after {MAP_STEPS} steps: LL {lls}, RMSE {rmses}; mean LL "
+          f"{mean_ll:.4f} (band {ll_band[0]:.4f} +- {ll_band[1]:.4f}), mean RMSE "
+          f"{mean_rmse:.4f} (band {rmse_band[0]:.4f} +- {rmse_band[1]:.4f})")
+    if not (abs(mean_ll - ll_band[0]) <= ll_band[1]
+            and abs(mean_rmse - rmse_band[0]) <= rmse_band[1]):
+        raise AssertionError("demo accuracy outside the JAX package's band")
+
+    full = demo_model(train, task_batch_size=-1)
+    full_first_s = timed_fit(full, MAP_STEPS, MAP_STEPS)
+    full_steady_s = timed_fit(full, MAP_STEPS, MAP_STEPS)
+    print(f"  full batch (bench.py map_fullbatch): {MAP_STEPS} steps in {full_first_s:.4f} s "
+          f"first, {full_steady_s:.4f} s steady ({MAP_STEPS / full_steady_s:.1f} steps/s)")
+    return launches, dict(fit_s=fit_s, steady_s=steady_s, steady_steps_per_s=steady,
+                          eval_s=eval_s, eval_warm_s=eval_warm_s, ll=ll, rmse=rmse,
+                          calib=calib, seed_ll=lls, seed_rmse=rmses, mean_ll=mean_ll,
+                          mean_rmse=mean_rmse, full_batch_first_s=full_first_s,
+                          full_batch_steady_s=full_steady_s,
+                          full_batch_steps_per_s=MAP_STEPS / full_steady_s, traces=traces)
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--profile", metavar="DIR",
                         help="trace fit steps and one eval of each main path with "
                              "torch.profiler; write the tables into DIR")
     args = parser.parse_args()
+    t_start = time.perf_counter()
 
     import torch
 
@@ -530,7 +788,7 @@ def main():
 
     param_dim = make_hyper_prior(random_gp_config(2, feature_dim=1)).dim
     print(f"phase 2: kernels against their plain versions (P={param_dim})")
-    errs, times = phase2(param_dim)
+    errs, times, work, library = phase2(param_dim)
 
     print("phase 3: cauchy_20 PACOH-SVGD main path (general step)")
     launches, summary = phase3(args.profile)
@@ -541,10 +799,22 @@ def main():
     launches["fused_svgd"] = sin_launches["fused_svgd"]
     print("slice sin_20: " + json.dumps({"card": card, **sin_summary}))
 
-    records = [{"name": name, "route": "cuda", "source": src, "replaces": tpu,
-                "launches": launches[name], "max_abs_err": errs[name],
-                "ms": times[name][0], "plain_ms": times[name][1]}
-               for name, (src, tpu) in KERNELS.items()]
+    print("phase 5: PACOH-MAP demo main path (fused kernel)")
+    map_launches, map_summary = phase5(args.profile)
+    launches["fused_map"] = map_launches["fused_map"]
+    print("slice map demo: " + json.dumps({"card": card, **map_summary}))
+    print(f"all phases: {time.perf_counter() - t_start:.1f} s")
+
+    records = []
+    for name, (src, tpu) in KERNELS.items():
+        flops, n_bytes = work[name]
+        t_ops, t_bytes = flops / PEAK_FLOPS, n_bytes / PEAK_BYTES
+        records.append({"name": name, "route": "cuda", "source": src, "replaces": tpu,
+                        "launches": launches[name], "max_abs_err": errs[name],
+                        "ms": times[name][0], "plain_ms": times[name][1],
+                        "bound_ms": 1e3 * max(t_ops, t_bytes),
+                        "bound_by": "operations" if t_ops > t_bytes else "bytes",
+                        "library_ms": library.get(name)})
     print(card)
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {

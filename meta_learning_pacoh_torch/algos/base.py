@@ -6,7 +6,8 @@ calibration error is the RMSE between empirical CDF frequencies and 20
 confidence levels in [0.05, 0.95].
 
 Statistics are kept in numpy on the host; data tensors live on the
-learner's ``device``. Seeding is an explicit CPU ``torch.Generator`` seeded
+learner's ``device``, the card unless the caller names another
+(``device="cpu"``). Seeding is an explicit CPU ``torch.Generator`` seeded
 from ``random_seed``, so a seed draws the same numbers on every device.
 """
 
@@ -17,6 +18,22 @@ from meta_learning_pacoh_torch.utils.input_handling import handle_input_dim, sta
 from meta_learning_pacoh_torch.utils.logging import get_logger
 
 
+def resolve_device(device):
+    """The learner's device: ``None`` means the card, and raises without one."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError("no CUDA device: the learners run on the card by default; "
+                               "pass device='cpu' to run on the CPU")
+        device = "cuda"
+    return torch.device(device)
+
+
+def check_choice(name, value, choices):
+    """Raise a ValueError unless a constructor argument is one of ``choices``."""
+    if value not in choices:
+        raise ValueError(f"{name} must be one of {choices}, got {value!r}")
+
+
 class RegressionModelBase:
     """Shared normalisation and evaluation logic."""
 
@@ -25,7 +42,7 @@ class RegressionModelBase:
         self.logger = get_logger()
         self.input_dim = None
         self.output_dim = None
-        self.device = torch.device("cpu" if device is None else device)
+        self.device = resolve_device(device)
         self.random_seed = 0 if random_seed is None else int(random_seed)
         self._generator = torch.Generator().manual_seed(self.random_seed)
         self.fitted = False
@@ -119,3 +136,20 @@ class RegressionModelMetaLearned(RegressionModelBase):
         results = [self.eval_datasets([t]) for t in test_tuples]
         ll, rmse, calib = zip(*results)
         return float(np.mean(ll)), float(np.mean(rmse)), float(np.mean(calib))
+
+    def _vectorize_pred_dist(self, pred_dist):
+        """The per-point predictive whose ``icdf`` gives the confidence bounds."""
+        raise NotImplementedError
+
+    @torch.no_grad()
+    def confidence_intervals(self, context_x, context_y, test_x, confidence=0.9):
+        """(upper, lower) bounds of the central ``confidence`` interval of the
+        per-point predictive at test_x, in original y units."""
+        pred_dist = self._vectorize_pred_dist(
+            self.predict(context_x, context_y, test_x, return_density=True))
+        alpha = (1.0 - confidence) / 2.0
+        n = handle_input_dim(test_x).shape[0]
+        q = torch.full((n,), 1.0 - alpha, dtype=torch.float32, device=self.device)
+        ucb = pred_dist.icdf(q)
+        lcb = pred_dist.icdf(torch.full_like(q, alpha))
+        return ucb.cpu().numpy(), lcb.cpu().numpy()

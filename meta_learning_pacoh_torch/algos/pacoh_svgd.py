@@ -30,7 +30,7 @@ import numpy as np
 import torch
 
 from meta_learning_pacoh_torch import config
-from meta_learning_pacoh_torch.algos.base import RegressionModelMetaLearned
+from meta_learning_pacoh_torch.algos.base import RegressionModelMetaLearned, check_choice
 from meta_learning_pacoh_torch.interop import from_jax_state
 from meta_learning_pacoh_torch.models.gp_base import gp_predict
 from meta_learning_pacoh_torch.models.random_gp import (
@@ -38,7 +38,7 @@ from meta_learning_pacoh_torch.models.random_gp import (
     meta_log_prob,
     random_gp_config,
 )
-from meta_learning_pacoh_torch.ops import launch_sched
+from meta_learning_pacoh_torch.ops import cuda, launch_sched
 from meta_learning_pacoh_torch.ops.cuda.fused_svgd_kernel import (
     FusedSVGDTrainer,
     fused_svgd_fits,
@@ -47,17 +47,11 @@ from meta_learning_pacoh_torch.ops.distributions import (
     AffineTransformed,
     EqualWeightedMixture,
     MultivariateNormal,
+    Normal,
 )
 from meta_learning_pacoh_torch.ops.metrics import mixture_eval_metrics
 from meta_learning_pacoh_torch.ops.svgd import svgd_phi
 from meta_learning_pacoh_torch.utils.input_handling import handle_input_dim
-
-ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-8
-
-
-def _check_choice(name, value, choices):
-    if value not in choices:
-        raise ValueError(f"{name} must be one of {choices}, got {value!r}")
 
 
 class GPRegressionMetaLearnedSVGD(RegressionModelMetaLearned):
@@ -69,12 +63,13 @@ class GPRegressionMetaLearnedSVGD(RegressionModelMetaLearned):
                  kernel="RBF", bandwidth=None, num_particles=10, task_batch_size=-1,
                  normalize_data=True, random_seed=None, device=None):
         """device: where the particles, the data and the computation live
-        ('cpu', 'cuda', a torch.device); None means the CPU."""
+        ('cuda', 'cpu', a torch.device); None means the card, and raises
+        without one."""
         super().__init__(normalize_data, random_seed, device)
-        _check_choice("mean_module", mean_module, ("NN", "constant"))
-        _check_choice("covar_module", covar_module, ("NN", "SE"))
-        _check_choice("optimizer", optimizer, ("Adam", "SGD"))
-        _check_choice("kernel", kernel, ("RBF", "IMQ"))
+        check_choice("mean_module", mean_module, ("NN", "constant"))
+        check_choice("covar_module", covar_module, ("NN", "SE"))
+        check_choice("optimizer", optimizer, ("Adam", "SGD"))
+        check_choice("kernel", kernel, ("RBF", "IMQ"))
 
         self.num_iter_fit = num_iter_fit
         self.prior_factor = prior_factor
@@ -125,12 +120,8 @@ class GPRegressionMetaLearnedSVGD(RegressionModelMetaLearned):
         if self._optimizer_name == "SGD":
             self.particles.sub_(lr * grad)
             return
-        self._mu = (1.0 - ADAM_B1) * grad + ADAM_B1 * self._mu
-        self._nu = (1.0 - ADAM_B2) * grad * grad + ADAM_B2 * self._nu
         self._adam_count += 1
-        mu_hat = self._mu / (1.0 - ADAM_B1 ** self._adam_count)
-        nu_hat = self._nu / (1.0 - ADAM_B2 ** self._adam_count)
-        self.particles.sub_(lr * (mu_hat / (torch.sqrt(nu_hat) + ADAM_EPS)))
+        cuda.adam_step_(self.particles, self._mu, self._nu, grad, self._adam_count, lr)
 
     def _step(self):
         X, Y, M = self._task_batch()
@@ -248,6 +239,11 @@ class GPRegressionMetaLearnedSVGD(RegressionModelMetaLearned):
         if return_density:
             return pred_dist
         return pred_dist.mean.cpu().numpy(), pred_dist.stddev.cpu().numpy()
+
+    def _vectorize_pred_dist(self, pred_dist):
+        """The mixture of per-point Normals of the particles' predictives."""
+        base = pred_dist.base
+        return EqualWeightedMixture(Normal(base.mean, base.stddev))
 
     # ------------------------------------------------------------ checkpoint
     def state_dict(self):

@@ -33,3 +33,4 @@ def kernels_enabled():
 
 def fused_enabled():
     return kernels_enabled() and _unset("PACOH_TORCH_DISABLE_FUSED")
+

@@ -1,10 +1,12 @@
 """State carried across from the JAX package.
 
-``from_jax_state`` turns a JAX learner's ``state_dict()`` (numpy particles,
-the optax optimizer state, the step) into the port's state dict. With the
-identical flat parameter layout (models/random_gp.py) the two packages can
-then continue from the same numbers. The JAX state is read by attribute and
-position only; nothing of JAX or optax is imported.
+``from_jax_state`` turns a JAX SVGD learner's ``state_dict()`` (numpy
+particles, the optax optimizer state, the step) into the port's state dict,
+and ``from_jax_map_state`` a JAX PACOH-MAP learner's (a parameter pytree and
+optax's multi-transform AdamW state). With the identical flat parameter
+layout (models/random_gp.py) the two packages can then continue from the
+same numbers. The JAX state is read by attribute, key and position only;
+nothing of JAX or optax is imported.
 """
 
 import numpy as np
@@ -27,3 +29,43 @@ def from_jax_state(state):
                       "count": int(np.asarray(count))},
         "step": int(state.get("step", 0)),
     }
+
+
+def _flat_leaves(tree, like):
+    """Leaves of ``tree`` in the ``ravel_pytree`` order (dict keys sorted at
+    every level), flattened and concatenated; a leaf that is no array (optax's
+    placeholder for a frozen leaf) counts as zeros shaped like ``like``'s."""
+    parts = []
+    for key in sorted(like):
+        leaf, ref = tree.get(key) if isinstance(tree, dict) else None, like[key]
+        if isinstance(ref, dict):
+            parts.append(_flat_leaves(leaf, ref))
+        else:
+            arr = np.asarray(leaf) if hasattr(leaf, "shape") else np.zeros(np.shape(ref))
+            parts.append(arr.astype(np.float32).reshape(-1))
+    return np.concatenate(parts) if parts else np.zeros(0, np.float32)
+
+
+def params_from_jax(params):
+    """A JAX parameter pytree (numpy or JAX leaves) -> the flat float32 vector."""
+    return _flat_leaves(params, params)
+
+
+def from_jax_map_state(state):
+    """A JAX ``GPRegressionMetaLearned.state_dict()`` -> the port's MAP state:
+    {'params' [P], 'opt_state': {'mu', 'nu', 'count'}, 'step'}.
+
+    The optimizer state is optax's ``MultiTransformState(inner_states={'train':
+    MaskedState(inner_state=(ScaleByAdamState(count, mu, nu), ...)), ...})``;
+    the moments of frozen leaves, and all of them under SGD, are zeros.
+    """
+    params = state["params"]
+    adam = state["opt_state"].inner_states["train"].inner_state[0]
+    flat = params_from_jax(params)
+    if hasattr(adam, "mu"):
+        mu, nu = _flat_leaves(adam.mu, params), _flat_leaves(adam.nu, params)
+        count = int(np.asarray(adam.count))
+    else:
+        mu, nu, count = np.zeros_like(flat), np.zeros_like(flat), 0
+    return {"params": flat, "opt_state": {"mu": mu, "nu": nu, "count": count},
+            "step": int(state.get("step", 0))}

@@ -9,6 +9,8 @@ every result keeps it. The two constraint flavours of the JAX package:
 - RandomGP flavour (``has_outputscale=False, noise_floor=0``), which
   PACOH-SVGD uses.
 
+PACOH-MAP has one parameter set, and carries K=1.
+
 ``gp_noise`` is the observation-noise variance. The custom ``MeanModule`` /
 ``KernelModule`` hooks of the JAX package are not ported yet.
 """
@@ -109,6 +111,31 @@ def gp_gram(cfg: GPConfig, params, x1, x2=None):
     f2 = f1 if x2 is None else gp_features(cfg, params, x2)
     ls, os_, _ = gp_hypers(cfg, params)
     return _rbf(f1, f2, ls, os_)
+
+
+def gp_prior_mll_batch(cfg: GPConfig, params, X, Y, mask=None):
+    """Exact MLL / n of T tasks under each of K parameter sets.
+
+    X [T, N, D], Y [T, N], mask [T, N] or None, shared by the K sets -> [K, T].
+    The O(N^3) cores of all K*T systems go through one ``gp_mll_batch`` call.
+    """
+    k, t, n = params["noise_raw"].shape[0], X.shape[0], Y.shape[-1]
+    if mask is None:
+        mask = torch.ones_like(Y)
+    x = X.expand(k, *X.shape)
+    means = gp_mean(cfg, params, x)  # [K, T, N]
+    grams = gp_gram(cfg, params, x)  # [K, T, N, N]
+    noise = gp_noise(cfg, params)  # [K]
+    lls = gp_ops.gp_mll_batch(
+        means.reshape(-1, n), grams.reshape(-1, n, n), Y.expand(k, t, n).reshape(-1, n),
+        noise[:, None].expand(k, t).reshape(-1), mask.expand(k, t, n).reshape(-1, n))
+    return lls.reshape(k, t)
+
+
+def gp_prior_mll(cfg: GPConfig, params, x, y, mask=None):
+    """Exact MLL / n of one task: x [N, D], y [N], mask [N] or None -> [K]."""
+    return gp_prior_mll_batch(cfg, params, x[None], y[None],
+                              None if mask is None else mask[None])[:, 0]
 
 
 def gp_predict(cfg: GPConfig, params, x_context, y_context, x_test, mask_c=None,

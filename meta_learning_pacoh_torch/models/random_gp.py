@@ -20,17 +20,12 @@ divided by its task size.
 """
 
 import dataclasses
+import functools
 import math
 
 import torch
 
-from meta_learning_pacoh_torch.models.gp_base import (
-    GPConfig,
-    gp_gram,
-    gp_hypers,
-    gp_mean,
-    init_gp_params,
-)
+from meta_learning_pacoh_torch.models.gp_base import GPConfig, gp_prior_mll_batch, init_gp_params
 
 _LOG_2PI = math.log(2.0 * math.pi)
 
@@ -47,8 +42,8 @@ def random_gp_config(input_dim, feature_dim=2, mean_module="NN", covar_module="N
 
 
 def _flat_layout(tree):
-    """[(path, shape, offset, size)] of the leaves of ``tree``, dict keys in
-    sorted order at every level (the order of ``ravel_pytree``)."""
+    """((path, shape, offset, size), ...) of the leaves of ``tree``, dict keys
+    in sorted order at every level (the order of ``ravel_pytree``)."""
     layout, offset = [], 0
 
     def walk(node, path):
@@ -62,7 +57,49 @@ def _flat_layout(tree):
                 offset += leaf.numel()
 
     walk(tree, ())
-    return layout
+    return tuple(layout)
+
+
+@functools.lru_cache(maxsize=None)
+def flat_layout(cfg: GPConfig):
+    """The flat layout of ``cfg``'s parameter dict."""
+    return _flat_layout(init_gp_params(cfg, torch.Generator()))
+
+
+def layout_dim(layout):
+    """P, the length of the flat vector."""
+    return layout[-1][2] + layout[-1][3]
+
+
+def layout_slice(layout, path):
+    """Flat index range of the leaf at ``path``, e.g. ('kernel_nn', 'b_out')."""
+    for p, _, offset, size in layout:
+        if p == tuple(path):
+            return slice(offset, offset + size)
+    raise KeyError(path)
+
+
+def unravel_flat(layout, flat):
+    """flat [..., P] -> nested dict of views, leaves [..., *shape]."""
+    lead = flat.shape[:-1]
+    params = {}
+    for path, shape, offset, size in layout:
+        node = params
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        node[path[-1]] = flat[..., offset:offset + size].reshape(tuple(lead) + tuple(shape))
+    return params
+
+
+def ravel_flat(layout, params):
+    """Nested dict of leaves [..., *shape] -> flat [..., P], the inverse of ``unravel_flat``."""
+    leaves = []
+    for path, shape, _, _ in layout:
+        leaf = params
+        for key in path:
+            leaf = leaf[key]
+        leaves.append(leaf.reshape(leaf.shape[:leaf.dim() - len(shape)] + (-1,)))
+    return torch.cat(leaves, dim=-1)
 
 
 @dataclasses.dataclass
@@ -71,7 +108,7 @@ class HyperPrior:
 
     loc: torch.Tensor  # [P]
     scale: torch.Tensor  # [P]
-    layout: list
+    layout: tuple
     cfg: GPConfig
 
     @property
@@ -79,22 +116,10 @@ class HyperPrior:
         return self.loc.shape[0]
 
     def slice_of(self, path):
-        """Flat index range of the leaf at ``path``, e.g. ('kernel_nn', 'b_out')."""
-        for p, _, offset, size in self.layout:
-            if p == tuple(path):
-                return slice(offset, offset + size)
-        raise KeyError(path)
+        return layout_slice(self.layout, path)
 
     def unravel(self, flat):
-        """flat [..., P] -> nested dict of views, leaves [..., *shape]."""
-        lead = flat.shape[:-1]
-        params = {}
-        for path, shape, offset, size in self.layout:
-            node = params
-            for key in path[:-1]:
-                node = node.setdefault(key, {})
-            node[path[-1]] = flat[..., offset:offset + size].reshape(tuple(lead) + tuple(shape))
-        return params
+        return unravel_flat(self.layout, flat)
 
     def log_prob(self, flat):
         """flat [..., P] -> [...] (sum over the event dim)."""
@@ -109,8 +134,8 @@ class HyperPrior:
 
 def make_hyper_prior(cfg: GPConfig, weight_prior_std=1.0, bias_prior_std=3.0, device=None):
     """The block hyper-prior aligned with the flat parameter layout."""
-    layout = _flat_layout(init_gp_params(cfg, torch.Generator()))
-    total = layout[-1][2] + layout[-1][3]
+    layout = flat_layout(cfg)
+    total = layout_dim(layout)
     loc = torch.zeros(total, dtype=torch.float32)
     scale = torch.ones(total, dtype=torch.float32)
     for path, _, offset, size in layout:
@@ -130,8 +155,7 @@ def meta_log_prob(hyper_prior: HyperPrior, prior_factor, flat_particles, X, Y, m
     """PACOH generalised-Bayes score of K particles on a task batch.
 
     flat_particles [K, P]; X [T, N, D]; Y [T, N]; mask [T, N] or None.
-    Returns [K]. The O(N^3) MLL cores of all K*T systems go through one
-    ``gp_mll_batch`` call.
+    Returns [K]; the task MLLs come from ``gp_prior_mll_batch``.
 
     counts [T] (optional): the count-weighted estimator of a sampled task
     batch. X, Y, mask are the full task set and counts holds each task's
@@ -139,21 +163,11 @@ def meta_log_prob(hyper_prior: HyperPrior, prior_factor, flat_particles, X, Y, m
     gathering the sampled batch: the harmonic mean is taken over the sampled
     multiset, and a never-drawn task adds exactly 0 even if its MLL is NaN.
     """
-    from meta_learning_pacoh_torch.ops.gp import gp_mll_batch
-
     if mask is None:
         mask = torch.ones_like(Y)
-    cfg = hyper_prior.cfg
-    k, t, n = flat_particles.shape[0], X.shape[0], Y.shape[-1]
-    params = hyper_prior.unravel(flat_particles)
-    x = X.expand(k, *X.shape)
-    means = gp_mean(cfg, params, x)  # [K, T, N]
-    grams = gp_gram(cfg, params, x)  # [K, T, N, N]
-    _, _, noise = gp_hypers(cfg, params)  # [K]
-    lls = gp_mll_batch(
-        means.reshape(-1, n), grams.reshape(-1, n, n), Y.expand(k, t, n).reshape(-1, n),
-        noise[:, None].expand(k, t).reshape(-1), mask.expand(k, t, n).reshape(-1, n))
-    per_task = lls.reshape(k, t)
+    t = X.shape[0]
+    per_task = gp_prior_mll_batch(hyper_prior.cfg, hyper_prior.unravel(flat_particles),
+                                  X, Y, mask)  # [K, T]
 
     sizes = torch.sum(mask, dim=-1)
     if counts is None:

@@ -22,7 +22,6 @@ parameters, score and activations.
 
 import dataclasses
 import functools
-import math
 
 import numpy as np
 import torch
@@ -35,12 +34,15 @@ from meta_learning_pacoh_torch.models.random_gp import (
 from meta_learning_pacoh_torch.ops import cuda
 from meta_learning_pacoh_torch.ops.cuda.build import launch
 from meta_learning_pacoh_torch.ops.cuda.svgd_kernel import svgd_phi_ref
-from meta_learning_pacoh_torch.ops.launch_sched import staircase_launches, staircase_lr
+from meta_learning_pacoh_torch.ops.launch_sched import (
+    count_pages,
+    staircase_launches,
+    staircase_lr,
+)
 
 MAX_K = 32  # the transport keeps the K x K distances in shared memory
 MAX_N = 8  # the per-task factorization is unrolled in registers
 SMEM_BYTES = 232448  # shared memory one Hopper block can use
-ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-8
 
 
 @functools.lru_cache(maxsize=None)
@@ -133,13 +135,7 @@ def fused_svgd_train_ref(theta, mu, nu, x, y, mask, w_t, step0, lr, prior_factor
                            counts=None if counts is None else counts[i])
         (score,) = torch.autograd.grad(lp.sum(), p)
         with torch.no_grad():
-            g = -svgd_phi_ref(theta, score)
-            t = torch.tensor(float(step0) + i + 1.0, dtype=torch.float32, device=theta.device)
-            bc1 = 1.0 - torch.exp(t * math.log(ADAM_B1))
-            bc2 = 1.0 - torch.exp(t * math.log(ADAM_B2))
-            mu.mul_(ADAM_B1).add_((1.0 - ADAM_B1) * g)
-            nu.mul_(ADAM_B2).add_((1.0 - ADAM_B2) * g * g)
-            theta.sub_(lr * ((mu / bc1) / (torch.sqrt(nu / bc2) + ADAM_EPS)))
+            cuda.adam_step_(theta, mu, nu, -svgd_phi_ref(theta, score), step0 + i + 1, lr)
     return theta, mu, nu
 
 
@@ -222,10 +218,7 @@ class FusedSVGDTrainer:
 
     def count_pages(self, step0, n_steps):
         """[n_steps, T] draw counts of global steps step0 .. step0 + n_steps - 1."""
-        pages = torch.zeros(n_steps, self.n_tasks, dtype=torch.float32)
-        for i in range(n_steps):
-            pages[i] = torch.bincount(self.task_draw(step0 + i), minlength=self.n_tasks)
-        return pages.to(self.X.device)
+        return count_pages(self.task_draw, self.n_tasks, step0, n_steps).to(self.X.device)
 
     def launches(self, step0, n_steps):
         """(launch_step0, sub_steps) of a run of n_steps from global step step0."""

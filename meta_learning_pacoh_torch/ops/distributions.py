@@ -1,8 +1,9 @@
 """Predictive-distribution containers (counterpart of meta_learning_pacoh_tpu/ops/distributions.py).
 
 Affine un-normalisation of predictive densities and equal-weight mixtures
-over particles, with the mean, stddev, log_prob and cdf that ``predict`` and
-``eval`` need. ``icdf`` (for ``confidence_intervals``) is not ported yet.
+over particles, with the mean, stddev, log_prob, cdf and icdf that
+``predict``, ``eval`` and ``confidence_intervals`` need. A mixture's icdf is
+found by bisection (ops/rootfind.py).
 """
 
 import math
@@ -10,6 +11,7 @@ import math
 import torch
 
 from meta_learning_pacoh_torch.ops.gp import mvn_log_prob
+from meta_learning_pacoh_torch.ops.rootfind import find_root_by_bounding
 
 _LOG_2PI = math.log(2.0 * math.pi)
 
@@ -39,6 +41,9 @@ class Normal:
 
     def cdf(self, value):
         return 0.5 * (1.0 + torch.erf((value - self.loc) / (self.scale * math.sqrt(2.0))))
+
+    def icdf(self, q):
+        return self.loc + self.scale * math.sqrt(2.0) * torch.erfinv(2.0 * q - 1.0)
 
 
 class MultivariateNormal:
@@ -93,6 +98,9 @@ class AffineTransformed:
     def cdf(self, value):
         return self.base.cdf((value - self.loc) / self.scale)
 
+    def icdf(self, q):
+        return self.loc + self.scale * self.base.icdf(q)
+
 
 class EqualWeightedMixture:
     """Uniform mixture over the leading (component) axis of a batched distribution."""
@@ -123,3 +131,8 @@ class EqualWeightedMixture:
 
     def cdf(self, value):
         return torch.mean(self.base.cdf(value), dim=0)
+
+    def icdf(self, q, eps=1e-6):
+        left = torch.full_like(q, -1e8)
+        right = torch.full_like(q, 1e8)
+        return find_root_by_bounding(lambda x: self.cdf(x) - q, left, right, eps=eps)

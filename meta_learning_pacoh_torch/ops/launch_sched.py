@@ -11,7 +11,12 @@ global step alone, so any chunking gives the same trajectory.
 
 The JAX module's ``bump_counts`` is not needed here: the port's optimizer
 state is a plain dict whose one step count the learner advances itself.
+
+A fused kernel's sampled task batch comes as count pages (``count_pages``):
+per step, how often each task was drawn, from the learner's own draws.
 """
+
+import torch
 
 # StepLR step size of the reference. Module-level so tests can shrink it to
 # cross boundaries cheaply; read at call time.
@@ -44,3 +49,12 @@ def staircase_launches(step0, n_steps, max_launch, lr_decay=1.0, transition=None
             sub = min(sub, t - (s % t))
         yield s, sub
         done += sub
+
+
+def count_pages(task_draw, n_tasks, step0, n_steps):
+    """[n_steps, T] float32 draw counts of global steps step0 .. step0 + n_steps - 1,
+    from ``task_draw(step)``, the task indices of one step (a CPU tensor)."""
+    pages = torch.zeros(n_steps, n_tasks, dtype=torch.float32)
+    for i in range(n_steps):
+        pages[i] = torch.bincount(task_draw(step0 + i), minlength=n_tasks)
+    return pages

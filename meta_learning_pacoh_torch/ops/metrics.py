@@ -25,6 +25,24 @@ def calib_error_from_cdf(cdf_vals):
     return torch.sqrt(torch.mean((emp_freq - levels) ** 2, dim=-1))
 
 
+def gp_eval_metrics(mean_n, cov_n, y, y_mean, y_std):
+    """Metrics of one GP predictive.
+
+    mean_n [..., N], cov_n [..., N, N] in normalised space; y [..., N] in
+    original units. Returns (avg_ll, rmse, calib), each [...]; avg_ll is the
+    joint log-density of the un-normalised predictive divided by N.
+    """
+    n = y.shape[-1]
+    y_n = (y - y_mean) / y_std
+    avg_ll = (mvn_log_prob(y_n, mean_n, cov_n) - n * math.log(y_std)) / n
+
+    mean_o = y_mean + y_std * mean_n
+    std_o = y_std * torch.sqrt(torch.diagonal(cov_n, dim1=-2, dim2=-1))
+    rmse = torch.sqrt(torch.mean((mean_o - y) ** 2, dim=-1))
+    calib = calib_error_from_cdf(_normal_cdf(y, mean_o, std_o))
+    return avg_ll, rmse, calib
+
+
 def mixture_eval_metrics(means_n, covs_n, y, y_mean, y_std):
     """Metrics of an equal-weight mixture of K GP predictives.
 

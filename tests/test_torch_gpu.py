@@ -8,17 +8,21 @@ PyTorch is installed:
 
 Errors are compared per system, relative to that system's largest |plain|
 value, at rtol 1e-4 (float32 sums in another order; 1e-6 measured). The
-fused training kernel is compared after ten steps, as chip_smoke.py does.
+fused training kernels are compared after ten to thirty steps, as
+chip_smoke.py does.
 """
 
 import numpy as np
 import pytest
 import torch
 
-from meta_learning_pacoh_torch import GPRegressionMetaLearnedSVGD
+from meta_learning_pacoh_torch import GPRegressionMetaLearned, GPRegressionMetaLearnedSVGD
 from meta_learning_pacoh_torch.datasets import CauchyDataset, SinusoidDataset
-from meta_learning_pacoh_torch.ops import cuda
+from meta_learning_pacoh_torch.models.gp_base import init_gp_params
+from meta_learning_pacoh_torch.models.random_gp import layout_slice, ravel_flat
+from meta_learning_pacoh_torch.ops import cuda, launch_sched
 from meta_learning_pacoh_torch.ops.cuda import chol_kernel, mll_kernel, svgd_kernel
+from meta_learning_pacoh_torch.ops.cuda import fused_map_kernel as mk
 from meta_learning_pacoh_torch.ops.cuda import fused_svgd_kernel as fk
 
 pytestmark = pytest.mark.gpu
@@ -120,7 +124,7 @@ def test_learner_on_card_matches_plain_cpu_learner(dev):
     test = env.generate_meta_test_data(n_tasks=3, n_samples_context=12, n_samples_test=70)
     kw = dict(num_particles=4, mean_nn_layers=(8, 8), kernel_nn_layers=(8, 8), random_seed=30)
     on_card = GPRegressionMetaLearnedSVGD(train, device=dev, **kw)
-    on_cpu = GPRegressionMetaLearnedSVGD(train, **kw)
+    on_cpu = GPRegressionMetaLearnedSVGD(train, device="cpu", **kw)
     cuda.reset_launch_counts()
     for model in (on_card, on_cpu):
         model.meta_fit(n_iter=5, verbose=False)
@@ -204,7 +208,7 @@ def test_fused_learner_on_card_matches_plain_cpu_learner(dev):
     kw = dict(num_particles=6, mean_nn_layers=(16, 16), kernel_nn_layers=(16, 16),
               random_seed=30, lr_decay=0.5)
     on_card = GPRegressionMetaLearnedSVGD(train, device=dev, **kw)
-    on_cpu = GPRegressionMetaLearnedSVGD(train, **kw)
+    on_cpu = GPRegressionMetaLearnedSVGD(train, device="cpu", **kw)
     assert on_card._fused_path_ok()
     cuda.reset_launch_counts()
     on_card.meta_fit(n_iter=12, log_period=12, verbose=False)
@@ -218,3 +222,101 @@ def test_fused_learner_on_card_matches_plain_cpu_learner(dev):
     chunked = GPRegressionMetaLearnedSVGD(train, device=dev, **kw)
     chunked.meta_fit(n_iter=12, log_period=5, verbose=False)
     assert torch.equal(chunked.particles, on_card.particles)
+
+
+# name -> (T, N, D, F, mean_hidden, kernel_hidden, ragged, task batch or None, lr_decay, steps)
+MAP_CASES = {
+    "demo_full_batch": (20, 5, 1, 2, (32, 32), (32, 32), False, None, 1.0, 20),
+    "demo_counted": (20, 5, 1, 2, (32, 32), (32, 32), False, 5, 1.0, 20),
+    "demo_staircase": (20, 5, 1, 2, (32, 32), (32, 32), False, None, 0.5, 30),
+    "odd_shape": (7, 8, 3, 3, (16, 16, 16), (32, 32), True, None, 1.0, 20),
+    "grouped_tasks": (300, 4, 2, 2, (8,), (8, 8), True, 37, 1.0, 10),
+}
+
+
+def map_case(t, n, d, f, mean_hidden, kernel_hidden, ragged, seed, dev):
+    """Numpy-seeded tasks and a torch_linear-initialised state [P] on dev."""
+    rs = np.random.RandomState(seed)
+    x = rs.uniform(-2.0, 2.0, (t, n, d)).astype(np.float32)
+    y = (np.sin(2.0 * x.sum(-1)) + 0.1 * rs.randn(t, n)).astype(np.float32)
+    mask = np.ones((t, n), np.float32)
+    if ragged:  # padded points as the learner pads them: zero input and target
+        mask[1, n - 2:] = 0.0
+        mask[t - 1, 1:] = 0.0
+        x[mask == 0], y[mask == 0] = 0.0, 0.0
+    layout = mk.map_layout(d, f, mean_hidden, kernel_hidden)
+    cfg = mk.config_of(layout)
+    theta = ravel_flat(layout, init_gp_params(cfg, torch.Generator().manual_seed(seed)))
+    mu = torch.from_numpy((0.01 * rs.randn(theta.numel())).astype(np.float32))
+    nu = torch.from_numpy((1e-4 * rs.rand(theta.numel())).astype(np.float32))
+    data = [torch.from_numpy(a).to(dev) for a in (x, y, mask)]
+    return data, [a.to(dev) for a in (theta, mu, nu)], layout
+
+
+@pytest.mark.parametrize("case", sorted(MAP_CASES))
+def test_fused_map_kernel_matches_plain(dev, case, monkeypatch):
+    """The fused MAP kernel against its plain version from one state (step 3,
+    non-zero AdamW moments), over the trainer's launches (a staircase of
+    10-step transitions for lr_decay < 1): parameters max 1e-4 and mean 2e-6
+    (the kernel net's output bias left out: its true gradient is 0), AdamW
+    moments within 1e-4 of their largest |plain| value, loss rtol 1e-5. The
+    same steps split into two launches give the same bits."""
+    t, n, d, f, mh, kh, ragged, batch, decay, n_steps = MAP_CASES[case]
+    monkeypatch.setattr(launch_sched, "LR_TRANSITION_STEPS", 10)
+    (x, y, mask), state, layout = map_case(t, n, d, f, mh, kh, ragged, sum(map(ord, case)), dev)
+
+    def draw(step):
+        return torch.from_numpy(np.random.RandomState(step).randint(0, t, batch))
+
+    trainer = mk.FusedMAPTrainer(x, y, mask, layout=layout, lr=1e-3, weight_decay=0.2,
+                                 lr_decay=decay, task_batch_size=batch, task_draw=draw)
+    got, want, split = ([a.clone() for a in state] for _ in range(3))
+    cuda.reset_launch_counts()
+    got_loss, _ = trainer.run(*got, n_steps, 3)
+    assert cuda.LAUNCHES["fused_map"] == len(list(trainer.launches(3, n_steps)))
+    for s0, sub in trainer.launches(3, n_steps):
+        counts = trainer.count_pages(s0, sub) if trainer.counted else None
+        want_loss, _ = mk.fused_map_train_ref(
+            *want, x, y, mask, trainer.w_t, s0, launch_sched.staircase_lr(1e-3, decay, s0), 0.2,
+            counts, layout=layout, n_steps=sub)
+    trainer.run(*split, 4, 3)
+    trainer.run(*split, n_steps - 4, 7)
+    keep = torch.ones(got[0].numel(), dtype=torch.bool, device=dev)
+    keep[layout_slice(layout, ("kernel_nn", "b_out"))] = False
+    diff = (got[0] - want[0])[keep].abs()
+    assert float(diff.max()) <= 1e-4 and float(diff.mean()) <= 2e-6, (diff.max(), diff.mean())
+    for g, w in zip(got[1:], want[1:]):
+        assert float((g - w)[keep].abs().max()) <= 1e-4 * float(w.abs().max())
+    assert abs(float(got_loss) - float(want_loss)) <= 1e-5 * abs(float(want_loss))
+    assert float((got[0] - state[0])[keep].abs().max()) > 1e-3  # the steps moved it
+    for g, s in zip(got, split):
+        assert torch.equal(g, s)
+
+
+def test_map_learner_on_card_matches_plain_cpu_learner(dev):
+    """The demo's learner at a small width, counted batch of 5: on the card
+    the fit runs through the fused MAP kernel alone and lands within 1e-4
+    of the same fit on the CPU (plain version); eval rtol 1e-3; two
+    chunkings give the same bits; the learner built without a device lives
+    on the card."""
+    env = SinusoidDataset(random_state=np.random.RandomState(26))
+    train = env.generate_meta_train_data(n_tasks=8, n_samples=5)
+    test = env.generate_meta_test_data(n_tasks=3, n_samples_context=5, n_samples_test=20)
+    kw = dict(mean_nn_layers=(16, 16), kernel_nn_layers=(16, 16), weight_decay=0.2,
+              random_seed=30)
+    on_card = GPRegressionMetaLearned(train, **kw)
+    assert on_card.device.type == "cuda" and on_card._fused_path_ok()
+    cuda.reset_launch_counts()
+    on_card.meta_fit(n_iter=12, log_period=12, verbose=False)
+    assert cuda.LAUNCHES["fused_map"] == 1 and sum(cuda.LAUNCHES.values()) == 1, cuda.LAUNCHES
+    on_cpu = GPRegressionMetaLearned(train, device="cpu", **kw)
+    assert on_cpu._fused_path_ok()
+    on_cpu.meta_fit(n_iter=12, log_period=12, verbose=False)
+    keep = torch.ones(on_cpu.params.numel(), dtype=torch.bool)
+    keep[layout_slice(on_cpu.layout, ("kernel_nn", "b_out"))] = False
+    assert float((on_card.params.cpu() - on_cpu.params)[keep].abs().max()) <= 1e-4
+    np.testing.assert_allclose(on_card.eval_datasets(test), on_cpu.eval_datasets(test),
+                               rtol=1e-3, atol=1e-5)
+    chunked = GPRegressionMetaLearned(train, **kw)
+    chunked.meta_fit(n_iter=12, log_period=5, verbose=False)
+    assert torch.equal(chunked.params, on_card.params)

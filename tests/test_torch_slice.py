@@ -50,7 +50,7 @@ def test_slice_matches_jax_learner_from_same_state(pallas_general_step):
     train, test = _cauchy()
     jax_model = JaxSVGD(train, **KW)
     jax_model.meta_fit(n_iter=3, log_period=3, verbose=False)  # a non-zero Adam state
-    port = GPRegressionMetaLearnedSVGD(train, **KW)
+    port = GPRegressionMetaLearnedSVGD(train, device="cpu", **KW)
     port.load_state_dict(jax_model.state_dict())
     np.testing.assert_array_equal(port.X.numpy(), np.asarray(jax_model.X))
     np.testing.assert_array_equal(port.Y.numpy(), np.asarray(jax_model.Y))
@@ -82,13 +82,13 @@ def test_fit_is_deterministic_across_chunkings_and_resumes():
     chunks, and a state_dict round trip mid-fit give identical particles."""
     train, _ = _cauchy(n_tasks=6, n_samples=6)
     kw = dict(KW, task_batch_size=3)
-    one = GPRegressionMetaLearnedSVGD(train, **kw)
+    one = GPRegressionMetaLearnedSVGD(train, device="cpu", **kw)
     one.meta_fit(n_iter=6, log_period=6, verbose=False)
-    chunked = GPRegressionMetaLearnedSVGD(train, **kw)
+    chunked = GPRegressionMetaLearnedSVGD(train, device="cpu", **kw)
     chunked.meta_fit(n_iter=6, log_period=2, verbose=False)
-    resumed = GPRegressionMetaLearnedSVGD(train, **kw)
+    resumed = GPRegressionMetaLearnedSVGD(train, device="cpu", **kw)
     resumed.meta_fit(n_iter=3, verbose=False)
-    fresh = GPRegressionMetaLearnedSVGD(train, **kw)
+    fresh = GPRegressionMetaLearnedSVGD(train, device="cpu", **kw)
     fresh.load_state_dict(resumed.state_dict())
     fresh.meta_fit(n_iter=3, verbose=False)
     assert torch.equal(one.particles, chunked.particles)
