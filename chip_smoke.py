@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port of PACOH (SVGD and MAP) once on one NVIDIA GPU.
+"""Drive the PyTorch/CUDA port of PACOH (SVGD, MAP and VI) once on one NVIDIA GPU.
 
     python3 chip_smoke.py                # all phases, one card
     python3 chip_smoke.py --profile DIR  # also trace fit steps and one eval of
@@ -12,7 +12,9 @@ the shapes its main path gives it, and times both: K1-K4 at ``cauchy_20``'s,
 the fused SVGD training kernel B2 at ``sin_20``'s (full batch, a sampled
 batch, and a run across a staircase boundary of the lr schedule), the fused
 MAP training kernel B6 at the reference demo's (the same three runs, and one
-odd shape: 7 ragged tasks, D=3, F=3, nets of other depths and widths).
+odd shape: 7 ragged tasks, D=3, F=3, nets of other depths and widths), the
+fused VI training kernel B7 at the sin_20 VI fit's (the same three runs, and
+one odd shape: S=3, 7 ragged tasks of up to 7 points, D=2, nets (16,16,16)).
 Phase 3 runs the ``cauchy_20`` main path (the general step) through the
 public entry points: ``provide_data("cauchy_20")``,
 ``GPRegressionMetaLearnedSVGD(..., device="cuda")``, ``meta_fit`` and
@@ -33,6 +35,14 @@ the steady rate of a second call, ``eval_datasets`` cold and warm,
 ``confidence_intervals``, two chunkings that must give the same bits, seeds
 30-32 in the band of the JAX package's (tools/map_demo_band.json), and the
 steady rate of a full-batch fit.
+Phase 6 runs the sin_20 PACOH-VI main path: ``GPRegressionMetaLearnedVI(train,
+random_seed=30)`` with the learner's defaults, built without a device, a
+10,000-step ``meta_fit`` carried by B7 alone (one launch per 512 steps), the
+steady rate of a second call, the host's cost of the noise pages,
+``eval_datasets`` cold and warm, ``confidence_intervals``, two chunkings that
+must give the same bits, the general step's rate over 100 steps
+(``PACOH_TORCH_DISABLE_FUSED=1``), and seeds 30-32 in the band of the JAX
+package's (tools/vi_band.json).
 
 Any failure raises and exits non-zero. The line before the last is a JSON
 object with one record per kernel; the last line is
@@ -57,6 +67,7 @@ KERNELS = {  # launch-counter name -> (source, TPU kernel it replaces)
     "chol": (SOURCE + "chol.cu", TPU + "blocked_mll_kernel.py:820"),
     "fused_svgd": (SOURCE + "fused_svgd.cu", TPU + "fused_train_kernel.py:789"),
     "fused_map": (SOURCE + "fused_map.cu", TPU + "fused_map_kernel.py:416"),
+    "fused_vi": (SOURCE + "fused_vi.cu", TPU + "fused_vi_kernel.py:459"),
 }
 # the card's peaks for the bound (NVIDIA's H100 SXM data sheet): float32 off
 # the tensor cores, and device memory
@@ -93,6 +104,16 @@ MAP_CHUNK = 3000  # the second chunking
 # 3-seed mean and the 30-seed mean
 MAP_BAND_FILE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tools",
                              "map_demo_band.json")
+# B7 against its plain version: as B6 (20 steps, 30 across a staircase)
+B7_STEPS = 20
+VI_STEPS = 10000  # the VI learner's num_iter_fit default
+VI_CHUNK = 2500  # the second chunking
+VI_GENERAL_STEPS = 100
+# the band of seeds 30-32: tools/vi_band.json (written by tools/vi_band.py),
+# the JAX learner on the CPU, seeds 30-59 at 10,000 steps; centre, margin = 3
+# sigma of the difference of a 3-seed mean and the 30-seed mean
+VI_BAND_FILE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tools",
+                            "vi_band.json")
 
 
 def card_line():
@@ -256,6 +277,7 @@ def phase2(param_dim):
     library["chol"] = statistics.median(median_ms(lambda: torch.linalg.cholesky_ex(a), 3))
     phase2_b2(errs, times, work)
     phase2_b6(errs, times, work)
+    phase2_b7(errs, times, work)
     for name, (k_ms, p_ms) in times.items():
         unit = "ms a step" if name.startswith("fused") else "ms"
         lib = f", torch.linalg.cholesky_ex {library[name]:.4f} ms" if name in library else ""
@@ -451,6 +473,116 @@ def phase2_b6(errs, times, work):
     n_launch = counts.shape[0]  # a launch reads and writes theta, m, v once, reads the data once
     work["fused_map"] = (step_flops,
                          4 * (6 * p + t * n * (d + 2) + t + n_launch * t) / n_launch)
+
+
+def vi_model(tasks, seed=30, **kw):
+    """The sin_20 VI fit's learner (the JAX learner's defaults), on the card by default."""
+    from meta_learning_pacoh_torch import GPRegressionMetaLearnedVI
+
+    return GPRegressionMetaLearnedVI(tasks, num_iter_fit=VI_STEPS, random_seed=seed, **kw)
+
+
+def vi_trainer(model):
+    from meta_learning_pacoh_torch.ops.cuda.fused_vi_kernel import FusedVITrainer
+
+    return FusedVITrainer(model.X, model.Y, model.mask, hidden=tuple(model.cfg.mean_nn_layers),
+                          lr=model._lr, prior_factor=model.prior_factor,
+                          weight_prior_std=model._weight_prior_std,
+                          bias_prior_std=model._bias_prior_std,
+                          svi_batch_size=model.svi_batch_size, eps_draw=model._draw_eps,
+                          lr_decay=model._lr_decay, task_batch_size=model.task_batch_size,
+                          task_draw=model._task_draw)
+
+
+def vi_state(model):
+    """Copies of the learner's loc, log_scale and their Adam moments."""
+    return [tree[k].clone() for tree in (model.posterior, model._mu, model._nu)
+            for k in ("loc", "log_scale")]
+
+
+def phase2_b7(errs, times, work):
+    """B7 against its plain version at the sin_20 VI fit's shapes and one odd
+    shape, from the learner's initial state, with the learner's own noise."""
+    import numpy as np
+    import torch
+
+    from meta_learning_pacoh_torch.ops import launch_sched
+    from meta_learning_pacoh_torch.ops.cuda import fused_vi_kernel as vk
+
+    train, _ = sin20()
+    rs = np.random.RandomState(11)  # 7 tasks of up to 7 points, D=2, padded by the learner
+    odd = [(rs.uniform(-2.0, 2.0, (m, 2)), rs.randn(m)) for m in (7, 5, 7, 3, 7, 6, 1)]
+    odd_kw = dict(svi_batch_size=3, mean_nn_layers=(16, 16, 16), kernel_nn_layers=(16, 16, 16))
+    cases = (("full batch", train, {}, B7_STEPS),
+             ("sampled batch of 5", train, {"task_batch_size": 5}, B7_STEPS),
+             ("staircase lr_decay 0.5", train, {"lr_decay": 0.5}, B2_STAIR_STEPS),
+             ("S=3, 7 ragged tasks of up to 7 points, D=2, nets (16,16,16)", odd, odd_kw,
+              B7_STEPS))
+    transition = launch_sched.LR_TRANSITION_STEPS
+    for label, tasks, kw, n_steps in cases:
+        model = vi_model(tasks, **kw)
+        if not model._fused_path_ok():
+            raise AssertionError(f"fused_vi ({label}): the learner is off the fused path")
+        launch_sched.LR_TRANSITION_STEPS = B2_STAIR_TRANSITION
+        try:
+            trainer = vi_trainer(model)
+            got = vi_state(model)
+            want = [t.clone() for t in got]
+            got_loss, _ = trainer.run(*got, n_steps, 0)
+            for s0, sub in trainer.launches(0, n_steps):
+                counts = trainer.count_pages(s0, sub) if trainer.counted else None
+                want_loss, _ = vk.fused_vi_train_ref(
+                    *want, model.X, model.Y, model.mask, trainer.w_t, trainer.eps_pages(s0, sub),
+                    s0, launch_sched.staircase_lr(1e-3, trainer.lr_decay, s0), 0.01, counts,
+                    hidden=trainer.hidden, wps=0.5, bps=3.0, mll_const=trainer.mll_const,
+                    n_steps=sub)
+        finally:
+            launch_sched.LR_TRANSITION_STEPS = transition
+        torch.cuda.synchronize()
+        skip = model.hyper_prior.slice_of(("kernel_nn", "b_out"))
+        diffs = [diff_excluding(g.cpu(), w.cpu(), skip) for g, w in zip(got[:2], want[:2])]
+        d_max, d_mean = max(d[0] for d in diffs), max(d[1] for d in diffs)
+        rel = [diff_excluding(g.cpu(), w.cpu(), skip)[0] / float(w.abs().max())
+               for g, w in zip(got[2:], want[2:])]
+        loss_rel = abs(float(got_loss) - float(want_loss)) / abs(float(want_loss))
+        print(f"  fused_vi, {label}, {n_steps} steps: |loc, log_scale diff| max {d_max:.3e}, "
+              f"mean {d_mean:.3e}; Adam m, v max diff / max |plain| {max(rel):.3e}; last loss "
+              f"rel diff {loss_rel:.3e} (kernel_nn.b_out excluded)")
+        if not (d_max <= TWIN_ATOL and d_mean <= TWIN_MEAN_ATOL
+                and max(rel) <= B2_MOMENT_RTOL and loss_rel <= B6_LOSS_RTOL):
+            raise AssertionError(f"fused_vi ({label}): kernel disagrees with its plain version")
+        errs["fused_vi"] = max(errs.get("fused_vi", 0.0), d_max)
+
+    # per step at the main path's launch: 512 steps from prebuilt noise pages;
+    # the plain version over 5 steps
+    model = vi_model(train)
+    trainer = vi_trainer(model)
+    n_launch = trainer.MAX_LAUNCH
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pages = trainer.eps_pages(0, n_launch)
+    host_s = time.perf_counter() - t0
+    draw_ms = statistics.median(median_ms(lambda: trainer.eps_pages(0, n_launch), 3))
+    print(f"  fused_vi, noise pages of {n_launch} steps: host {1e3 * host_s:.2f} ms to enqueue, "
+          f"device {draw_ms:.2f} ms ({1e3 * draw_ms / n_launch:.2f} us a step)")
+    data = (model.X, model.Y, model.mask, trainer.w_t)
+    kw = dict(hidden=trainer.hidden, wps=0.5, bps=3.0, mll_const=trainer.mll_const)
+    k_state, p_state = vi_state(model), vi_state(model)
+    k_ms, p_ms = time_pair(
+        lambda: vk.fused_vi_train(*k_state, *data, pages, 0, 1e-3, 0.01, n_steps=n_launch, **kw),
+        lambda: vk.fused_vi_train_ref(*p_state, *data, pages[:5], 0, 1e-3, 0.01, n_steps=5, **kw),
+        reps=3)
+    times["fused_vi"] = (k_ms / n_launch, p_ms / 5)
+    # per step: S samples' scores (both nets forward and backward, the task
+    # MLLs, the sample, the hyper-prior term and its quad), the reduction over
+    # the samples, and Adam on loc and log_scale
+    s, p, (t, n, d) = model.svi_batch_size, model.hyper_prior.dim, model.X.shape
+    step_flops = (s * (2 * mlp_flops(t * n, d, (32, 32), 1) + t * gp_task_flops(n, 1) + 10 * p)
+                  + 3 * s * p + 24 * p)
+    # a step reads its noise page; a launch reads and writes the state once and
+    # reads the data once
+    work["fused_vi"] = (step_flops,
+                        4 * (s * p + (12 * p + t * n * (d + 2) + t) / n_launch))
 
 
 def diff_excluding(a, b, skip):
@@ -759,6 +891,110 @@ def phase5(profile_dir):
                           full_batch_steps_per_s=MAP_STEPS / full_steady_s, traces=traces)
 
 
+def phase6(profile_dir):
+    import numpy as np
+    import torch
+
+    from meta_learning_pacoh_torch.ops import cuda
+
+    train, test = sin20()
+    model = vi_model(train)  # no device: the card by default
+    if model.device.type != "cuda" or not model._fused_path_ok():
+        raise AssertionError(f"the VI learner is on {model.device}, or off the fused path")
+    print(f"  sin_20 VI: {len(train)} tasks x {len(train[0][0])} points, S="
+          f"{model.svi_batch_size} samples, P={model.hyper_prior.dim}, on {model.device}")
+    cuda.reset_launch_counts()
+    fit_s = timed_fit(model, VI_STEPS, VI_STEPS)
+    launches = dict(cuda.LAUNCHES)
+    want_launches = len(list(model._fused.launches(0, VI_STEPS)))
+    print(f"  meta_fit: {VI_STEPS} steps in {fit_s:.3f} s ({VI_STEPS / fit_s:.1f} steps/s, "
+          f"first call); launches in the fit: {launches}")
+    if launches["fused_vi"] != want_launches or any(
+            v for k, v in launches.items() if k != "fused_vi"):
+        raise AssertionError(f"the fit was not carried by the fused VI kernel alone, one launch "
+                             f"per {model._fused.MAX_LAUNCH} steps: {launches}")
+    one_chunk = {k: v.clone() for k, v in model.posterior.items()}
+    t0 = time.perf_counter()
+    ll, rmse, calib = model.eval_datasets(test)
+    torch.cuda.synchronize()
+    eval_s = time.perf_counter() - t0
+    print(f"  eval_datasets: {len(test)} tasks in {eval_s:.4f} s (first call); "
+          f"LL {ll:.6f}, RMSE {rmse:.6f}, calib {calib:.6f}")
+    if not all(math.isfinite(v) for v in (ll, rmse, calib)) or not all(
+            bool(torch.isfinite(v).all()) for v in model.posterior.values()):
+        raise AssertionError("non-finite posterior or metrics")
+
+    steady_s = timed_fit(model, VI_STEPS, VI_STEPS)
+    steady = VI_STEPS / steady_s
+    print(f"  steady state: {VI_STEPS} steps in {steady_s:.4f} s, {steady:.1f} steps/s")
+    t0 = time.perf_counter()
+    model.eval_datasets(test)
+    torch.cuda.synchronize()
+    eval_warm_s = time.perf_counter() - t0
+    print(f"  eval_datasets again: {eval_warm_s:.4f} s")
+    x_plot = np.linspace(-5.0, 5.0, 150)
+    ucb, lcb = model.confidence_intervals(test[0][0], test[0][1], x_plot, confidence=0.9)
+    print(f"  confidence_intervals on test task 0, 150 points: ucb - lcb in "
+          f"[{float(np.min(ucb - lcb)):.4f}, {float(np.max(ucb - lcb)):.4f}]")
+    if not (ucb.shape == lcb.shape == (150,) and np.all(np.isfinite(ucb))
+            and np.all(np.isfinite(lcb)) and np.all(ucb > lcb)):
+        raise AssertionError("confidence intervals are not finite with ucb > lcb")
+    traces = {}
+    if profile_dir:
+        traces["vi_fit_1024_steps"] = profile(
+            "vi_fit", lambda: model.meta_fit(n_iter=1024, log_period=1024, verbose=False),
+            profile_dir)
+        traces["vi_eval"] = profile("vi_eval", lambda: model.eval_datasets(test), profile_dir)
+        for label, summary in traces.items():
+            print(f"  trace {label}: " + json.dumps(summary))
+
+    chunked = vi_model(train)
+    chunked.meta_fit(n_iter=VI_STEPS, log_period=VI_CHUNK, verbose=False)
+    same = all(torch.equal(chunked.posterior[k], one_chunk[k]) for k in one_chunk)
+    print(f"  chunkings: log_period {VI_STEPS} and {VI_CHUNK} give identical posteriors: {same}")
+    if not same:
+        raise AssertionError("two chunkings of the fused fit differ")
+
+    os.environ["PACOH_TORCH_DISABLE_FUSED"] = "1"
+    try:
+        general = vi_model(train)
+        if general._fused_path_ok():
+            raise AssertionError("PACOH_TORCH_DISABLE_FUSED=1 left the fused path on")
+        general.meta_fit(n_iter=5, log_period=5, verbose=False)  # warm-up
+        cuda.reset_launch_counts()
+        general_s = timed_fit(general, VI_GENERAL_STEPS, VI_GENERAL_STEPS)
+    finally:
+        os.environ.pop("PACOH_TORCH_DISABLE_FUSED")
+    print(f"  general step (PACOH_TORCH_DISABLE_FUSED=1): {VI_GENERAL_STEPS} steps in "
+          f"{general_s:.3f} s ({VI_GENERAL_STEPS / general_s:.1f} steps/s); kernel launches "
+          f"{dict(cuda.LAUNCHES)}")
+    if cuda.LAUNCHES["fused_vi"]:
+        raise AssertionError("the general step launched the fused kernel")
+
+    seeds = {30: (ll, rmse, calib)}
+    for seed in SIN_SEEDS[1:]:
+        other = vi_model(train, seed=seed)
+        other.meta_fit(n_iter=VI_STEPS, log_period=VI_STEPS, verbose=False)
+        seeds[seed] = other.eval_datasets(test)
+    lls = [seeds[s][0] for s in SIN_SEEDS]
+    rmses = [seeds[s][1] for s in SIN_SEEDS]
+    mean_ll, mean_rmse = float(np.mean(lls)), float(np.mean(rmses))
+    with open(VI_BAND_FILE) as f:
+        band = json.load(f)["jax"]
+    ll_band, rmse_band = band["ll_band"], band["rmse_band"]
+    print(f"  seeds {SIN_SEEDS} after {VI_STEPS} steps: LL {lls}, RMSE {rmses}; mean LL "
+          f"{mean_ll:.4f} (band {ll_band[0]:.4f} +- {ll_band[1]:.4f}), mean RMSE "
+          f"{mean_rmse:.4f} (band {rmse_band[0]:.4f} +- {rmse_band[1]:.4f})")
+    if not (abs(mean_ll - ll_band[0]) <= ll_band[1]
+            and abs(mean_rmse - rmse_band[0]) <= rmse_band[1]):
+        raise AssertionError("sin_20 VI accuracy outside the JAX package's band")
+    return launches, dict(fit_s=fit_s, steady_s=steady_s, steady_steps_per_s=steady,
+                          eval_s=eval_s, eval_warm_s=eval_warm_s, ll=ll, rmse=rmse,
+                          calib=calib, seed_ll=lls, seed_rmse=rmses, mean_ll=mean_ll,
+                          mean_rmse=mean_rmse, general_s=general_s,
+                          general_steps_per_s=VI_GENERAL_STEPS / general_s, traces=traces)
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--profile", metavar="DIR",
@@ -803,6 +1039,11 @@ def main():
     map_launches, map_summary = phase5(args.profile)
     launches["fused_map"] = map_launches["fused_map"]
     print("slice map demo: " + json.dumps({"card": card, **map_summary}))
+
+    print("phase 6: sin_20 PACOH-VI main path (fused kernel)")
+    vi_launches, vi_summary = phase6(args.profile)
+    launches["fused_vi"] = vi_launches["fused_vi"]
+    print("slice sin_20 VI: " + json.dumps({"card": card, **vi_summary}))
     print(f"all phases: {time.perf_counter() - t_start:.1f} s")
 
     records = []

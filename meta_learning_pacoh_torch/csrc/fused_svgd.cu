@@ -7,14 +7,10 @@
 // fused_train_kernel.py (fused_svgd_train_packed; body _make_kernel with
 // make_score_section, make_transport_section and the optax-exact Adam).
 // Per step and particle:
-//   forward   both tanh MLPs over the T*N rows; softplus lengthscale, noise
-//   MLL       per task, the entry-wise Kn (noise + 1e-6 on real diagonals,
-//             1.0 on padded ones), trial factorizations at jitter 0 and 1e-4
-//             choosing 0 / 1e-4 / 1e-2 (a factor is good when every diagonal
-//             is finite and > 0), L, alpha, L^-1, K^-1
-//   backward  G = 0.5 w (alpha alpha^T - K^-1) into d(mean), d(feature),
-//             d(lengthscale), d(noise); both MLPs' backward; the hyper-prior
-//             term pf * -(theta - loc) / scale^2
+//   score     the GP prior's score section (score_section.cuh, shared with
+//             the fused VI kernel): both MLPs forward, the per-task MLL and
+//             its gradient, both MLPs' backward; then the hyper-prior term
+//             pf * -(theta - loc) / scale^2
 //   transport RBF kernel at gamma = 1 / (1e-8 + med / log(K+1)), med the
 //             pairwise squared distance at rank K*K/2 (exact selection)
 //   Adam      on g = -phi, bias corrections 1 - exp(t log b) in float32.
@@ -43,6 +39,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "score_section.cuh"
+
 namespace cg = cooperative_groups;
 
 namespace {
@@ -69,7 +67,7 @@ struct Params {
   const float* counts;  // [n_steps, T] task-draw counts, or null
   const float* prior_loc;    // [P]
   const float* prior_scale;  // [P]
-  const int* offs;      // leaf offsets, see off_* below
+  const int* offs;      // leaf offsets, see the kernel
   float* th_buf;        // [2, K, P] scratch
   float* s_buf;         // [2, K, P] scratch
   float* d2;            // [K, K] scratch
@@ -83,136 +81,6 @@ size_t smem_floats(int k, int t, int n, int d, int h, int l, int p) {
   const size_t m = static_cast<size_t>(t) * n;
   return 2 * static_cast<size_t>(p) + 2 * static_cast<size_t>(l) * m * h + m * (d + 4) +
          2 * static_cast<size_t>(t) + static_cast<size_t>(k) * k + k + 8;
-}
-
-__device__ __forceinline__ float softplus(float x) {
-  return fmaxf(x, 0.f) + log1pf(expf(-fabsf(x)));
-}
-
-__device__ __forceinline__ float sigmoid(float x) { return 1.f / (1.f + expf(-x)); }
-
-template <int N>
-__device__ bool factor(const float (&a)[N][N], float jit, float (&lf)[N][N]) {
-  bool ok = true;
-#pragma unroll
-  for (int i = 0; i < N; ++i) {
-#pragma unroll
-    for (int j = 0; j <= i; ++j) {
-      float s = a[i][j] + (i == j ? jit : 0.f);
-#pragma unroll
-      for (int q = 0; q < j; ++q) s -= lf[i][q] * lf[j][q];
-      if (i == j) {
-        lf[i][i] = sqrtf(s);
-        ok = ok && (lf[i][i] > 0.f) && (lf[i][i] < INFINITY);
-      } else {
-        lf[i][j] = s / lf[j][j];
-      }
-    }
-  }
-  return ok;
-}
-
-// One task's masked MLL gradient. mu/ph are the rows' net outputs on entry
-// and receive d(mean)/d(feature) on exit (every read happens first).
-template <int N>
-__device__ void task_grad(float* mu, float* ph, const float* y, const float* msk, float sp_ls,
-                          float sp_nz, float w, float* dls_out, float* dnz_out) {
-  float z[N], mk[N], r[N];
-#pragma unroll
-  for (int i = 0; i < N; ++i) {
-    z[i] = ph[i] / sp_ls;
-    mk[i] = msk[i];
-    r[i] = (y[i] - mu[i]) * mk[i];
-  }
-  float a[N][N];
-#pragma unroll
-  for (int i = 0; i < N; ++i) {
-#pragma unroll
-    for (int j = 0; j <= i; ++j) {
-      const float dz = z[i] - z[j];
-      float val = expf(-0.5f * dz * dz) * mk[i] * mk[j];
-      if (i == j) val += mk[i] > 0.f ? sp_nz + 1e-6f : 1.f;
-      a[i][j] = val;
-    }
-  }
-  float lf[N][N];
-  if (!factor<N>(a, 0.f, lf) && !factor<N>(a, 1e-4f, lf)) factor<N>(a, 1e-2f, lf);
-
-  float zs[N], al[N];
-#pragma unroll
-  for (int i = 0; i < N; ++i) {
-    float s = r[i];
-#pragma unroll
-    for (int q = 0; q < i; ++q) s -= lf[i][q] * zs[q];
-    zs[i] = s / lf[i][i];
-  }
-#pragma unroll
-  for (int i = N - 1; i >= 0; --i) {
-    float s = zs[i];
-#pragma unroll
-    for (int q = i + 1; q < N; ++q) s -= lf[q][i] * al[q];
-    al[i] = s / lf[i][i];
-  }
-  // W = L^-1 (lower), then K^-1 = W^T W into a (symmetric, full)
-  float wi[N][N];
-#pragma unroll
-  for (int j = 0; j < N; ++j) {
-#pragma unroll
-    for (int i = j; i < N; ++i) {
-      float s = (i == j) ? 1.f : 0.f;
-#pragma unroll
-      for (int q = j; q < i; ++q) s -= lf[i][q] * wi[q][j];
-      wi[i][j] = s / lf[i][i];
-    }
-  }
-#pragma unroll
-  for (int i = 0; i < N; ++i) {
-#pragma unroll
-    for (int j = 0; j <= i; ++j) {
-      float s = 0.f;
-#pragma unroll
-      for (int q = i; q < N; ++q) s += wi[q][i] * wi[q][j];
-      a[i][j] = s;
-      a[j][i] = s;
-    }
-  }
-
-  float dn = 0.f, dl = 0.f;
-#pragma unroll
-  for (int i = 0; i < N; ++i) {
-    mu[i] = w * al[i] * mk[i];
-    dn += 0.5f * w * (al[i] * al[i] - a[i][i]) * mk[i];
-  }
-#pragma unroll
-  for (int i = 0; i < N; ++i) {
-    float acc = 0.f;
-#pragma unroll
-    for (int j = 0; j < N; ++j) {
-      const float g = 0.5f * w * (al[i] * al[j] - a[i][j]);
-      const float dz = z[i] - z[j];
-      const float dd2 = -0.5f * (g * mk[i] * mk[j]) * expf(-0.5f * dz * dz);
-      acc += 2.f * dd2 * dz;
-    }
-    const float dz_i = 2.f * acc;
-    ph[i] = dz_i / sp_ls;
-    dl += dz_i * (-z[i]) / sp_ls;
-  }
-  *dls_out = dl;
-  *dnz_out = dn;
-}
-
-__device__ void task_grad_n(int n, float* mu, float* ph, const float* y, const float* msk,
-                            float sp_ls, float sp_nz, float w, float* dl, float* dn) {
-  switch (n) {
-    case 1: task_grad<1>(mu, ph, y, msk, sp_ls, sp_nz, w, dl, dn); break;
-    case 2: task_grad<2>(mu, ph, y, msk, sp_ls, sp_nz, w, dl, dn); break;
-    case 3: task_grad<3>(mu, ph, y, msk, sp_ls, sp_nz, w, dl, dn); break;
-    case 4: task_grad<4>(mu, ph, y, msk, sp_ls, sp_nz, w, dl, dn); break;
-    case 5: task_grad<5>(mu, ph, y, msk, sp_ls, sp_nz, w, dl, dn); break;
-    case 6: task_grad<6>(mu, ph, y, msk, sp_ls, sp_nz, w, dl, dn); break;
-    case 7: task_grad<7>(mu, ph, y, msk, sp_ls, sp_nz, w, dl, dn); break;
-    default: task_grad<8>(mu, ph, y, msk, sp_ls, sp_nz, w, dl, dn); break;
-  }
 }
 
 __global__ void __launch_bounds__(kThreads) fused_svgd_kernel(Params q) {
@@ -237,12 +105,11 @@ __global__ void __launch_bounds__(kThreads) fused_svgd_kernel(Params q) {
   float* d2s = pnz + T;             // [K*K]
   float* kw = d2s + K * K;          // [K] my row of the RBF kernel
   float* scal = kw + K;             // [8] block-wide scalars
+  const ScoreSmem ws{act, xs, ys, ms, outm, outk, pls, pnz, nullptr};
 
   // leaf offsets: per net (0 mean, 1 kernel) w_l, b_l for each layer, then
   // w_out, b_out; after both nets lengthscale_raw, noise_raw
   const int* o = q.offs;
-  const int S = 2 * L + 2;
-  const int off_ls = o[2 * S], off_nz = o[2 * S + 1];
 
   for (int c = tid; c < P; c += nth) th[c] = q.theta[static_cast<size_t>(me) * P + c];
   for (int c = tid; c < M * D; c += nth) xs[c] = q.x[c];
@@ -255,137 +122,10 @@ __global__ void __launch_bounds__(kThreads) fused_svgd_kernel(Params q) {
   for (int it = 0; it < q.n_steps; ++it) {
     const int par = it & 1;
 
-    // ---- forward of both nets
-    for (int net = 0; net < 2; ++net) {
-      float* a_net = act + net * L * M * H;
-      const float* w0 = th + o[net * S];
-      const float* b0 = th + o[net * S + 1];
-      for (int e = tid; e < M * H; e += nth) {
-        const int row = e / H, j = e % H;
-        float s = b0[j];
-        for (int c = 0; c < D; ++c) s += xs[row * D + c] * w0[c * H + j];
-        a_net[e] = tanhf(s);
-      }
-      __syncthreads();
-      for (int l = 1; l < L; ++l) {
-        const float* wl = th + o[net * S + 2 * l];
-        const float* bl = th + o[net * S + 2 * l + 1];
-        const float* prev = a_net + (l - 1) * M * H;
-        float* cur = a_net + l * M * H;
-        for (int e = tid; e < M * H; e += nth) {
-          const int row = e / H, j = e % H;
-          float s = 0.f;
-          for (int c = 0; c < H; ++c) s += prev[row * H + c] * wl[c * H + j];
-          cur[e] = tanhf(s + bl[j]);
-        }
-        __syncthreads();
-      }
-      const float* last = a_net + (L - 1) * M * H;
-      const float* wout = th + o[net * S + 2 * L];
-      const float bout = th[o[net * S + 2 * L + 1]];
-      float* out = net == 0 ? outm : outk;
-      for (int row = tid; row < M; row += nth) {
-        float s = 0.f;
-        for (int j = 0; j < H; ++j) s += last[row * H + j] * wout[j];
-        out[row] = s + bout;
-      }
-    }
-    __syncthreads();
-
-    // ---- per-task MLL gradient, one thread a task
-    const float ls_raw = th[off_ls], nz_raw = th[off_nz];
-    const float sp_ls = softplus(ls_raw), sp_nz = softplus(nz_raw);
-    for (int t = tid; t < T; t += nth) {
-      float w = q.w_t[t];
-      if (q.counts != nullptr) {
-        const float c = q.counts[static_cast<size_t>(it) * T + t];
-        w = c > 0.f ? w * c : 0.f;
-      }
-      task_grad_n(N, outm + t * N, outk + t * N, ys + t * N, ms + t * N, sp_ls, sp_nz, w,
-                  pls + t, pnz + t);
-    }
-    __syncthreads();
-
-    // ---- backward of both nets into the score
-    for (int net = 0; net < 2; ++net) {
-      float* a_net = act + net * L * M * H;
-      const float* dout = net == 0 ? outm : outk;
-      float* last = a_net + (L - 1) * M * H;
-      const int off_wout = o[net * S + 2 * L], off_bout = o[net * S + 2 * L + 1];
-      const float* wout = th + off_wout;
-      for (int j = tid; j <= H; j += nth) {
-        float s = 0.f;
-        if (j < H) {
-          for (int row = 0; row < M; ++row) s += last[row * H + j] * dout[row];
-          sc[off_wout + j] = s;
-        } else {
-          for (int row = 0; row < M; ++row) s += dout[row];
-          sc[off_bout] = s;
-        }
-      }
-      __syncthreads();
-      for (int e = tid; e < M * H; e += nth) {
-        const float av = last[e];
-        last[e] = dout[e / H] * wout[e % H] * (1.f - av * av);
-      }
-      __syncthreads();
-      for (int l = L - 1; l >= 1; --l) {
-        const int off_w = o[net * S + 2 * l], off_b = o[net * S + 2 * l + 1];
-        const float* wl = th + off_w;
-        float* prev = a_net + (l - 1) * M * H;
-        const float* cur = a_net + l * M * H;
-        for (int e = tid; e < H * H + H; e += nth) {
-          float s = 0.f;
-          if (e < H * H) {
-            const int ci = e / H, j = e % H;
-            for (int row = 0; row < M; ++row) s += prev[row * H + ci] * cur[row * H + j];
-            sc[off_w + e] = s;
-          } else {
-            const int j = e - H * H;
-            for (int row = 0; row < M; ++row) s += cur[row * H + j];
-            sc[off_b + j] = s;
-          }
-        }
-        __syncthreads();
-        for (int e = tid; e < M * H; e += nth) {
-          const int row = e / H, ci = e % H;
-          float s = 0.f;
-          // rotated start: the threads of a warp read different banks
-          // (j = (c + ci) mod H, kept without an integer division)
-          int j = ci;
-          for (int c = 0; c < H; ++c) {
-            s += cur[row * H + j] * wl[ci * H + j];
-            j = j + 1 == H ? 0 : j + 1;
-          }
-          const float av = prev[e];
-          prev[e] = s * (1.f - av * av);
-        }
-        __syncthreads();
-      }
-      const int off_w0 = o[net * S], off_b0 = o[net * S + 1];
-      for (int e = tid; e < D * H + H; e += nth) {
-        float s = 0.f;
-        if (e < D * H) {
-          const int c = e / H, j = e % H;
-          for (int row = 0; row < M; ++row) s += xs[row * D + c] * a_net[row * H + j];
-          sc[off_w0 + e] = s;
-        } else {
-          const int j = e - D * H;
-          for (int row = 0; row < M; ++row) s += a_net[row * H + j];
-          sc[off_b0 + j] = s;
-        }
-      }
-    }
-    if (tid == 0) {
-      float sl = 0.f, sn = 0.f;
-      for (int t = 0; t < T; ++t) {
-        sl += pls[t];
-        sn += pnz[t];
-      }
-      sc[off_ls] = sl * sigmoid(ls_raw);
-      sc[off_nz] = sn * sigmoid(nz_raw);
-    }
-    __syncthreads();
+    // ---- the particle's score (score_section.cuh), without the hyper-prior term
+    score_section<false>(th, sc, o, T, N, D, H, L, q.w_t,
+                         q.counts == nullptr ? nullptr : q.counts + static_cast<size_t>(it) * T,
+                         ws, nullptr);
 
     // ---- hyper-prior term; publish this particle and its score
     float* th_pub = q.th_buf + (static_cast<size_t>(par) * K + me) * P;

@@ -2,11 +2,12 @@
 
 ``from_jax_state`` turns a JAX SVGD learner's ``state_dict()`` (numpy
 particles, the optax optimizer state, the step) into the port's state dict,
-and ``from_jax_map_state`` a JAX PACOH-MAP learner's (a parameter pytree and
-optax's multi-transform AdamW state). With the identical flat parameter
-layout (models/random_gp.py) the two packages can then continue from the
-same numbers. The JAX state is read by attribute, key and position only;
-nothing of JAX or optax is imported.
+``from_jax_map_state`` a JAX PACOH-MAP learner's (a parameter pytree and
+optax's multi-transform AdamW state), and ``from_jax_vi_state`` a JAX
+PACOH-VI learner's (the posterior dict and optax's Adam or SGD state). With
+the identical flat parameter layout (models/random_gp.py) the two packages
+can then continue from the same numbers. The JAX state is read by
+attribute, key and position only; nothing of JAX or optax is imported.
 """
 
 import numpy as np
@@ -68,4 +69,26 @@ def from_jax_map_state(state):
     else:
         mu, nu, count = np.zeros_like(flat), np.zeros_like(flat), 0
     return {"params": flat, "opt_state": {"mu": mu, "nu": nu, "count": count},
+            "step": int(state.get("step", 0))}
+
+
+def from_jax_vi_state(state):
+    """A JAX ``GPRegressionMetaLearnedVI.state_dict()`` -> the port's VI state:
+    {'posterior': {'loc', 'log_scale' | 'tril_raw'}, 'opt_state': {'mu', 'nu',
+    'count'}, 'step'}, the moments with the posterior's keys.
+
+    The optimizer state is optax's ``(ScaleByAdamState(count, mu, nu), ...)``
+    for Adam; SGD's keeps no moments, which become zeros.
+    """
+    post = {k: np.asarray(v, dtype=np.float32) for k, v in state["posterior"].items()}
+    adam = state["opt_state"][0]
+    if hasattr(adam, "mu"):
+        mu = {k: np.asarray(adam.mu[k], dtype=np.float32) for k in post}
+        nu = {k: np.asarray(adam.nu[k], dtype=np.float32) for k in post}
+        count = int(np.asarray(adam.count))
+    else:
+        mu = {k: np.zeros_like(v) for k, v in post.items()}
+        nu = {k: np.zeros_like(v) for k, v in post.items()}
+        count = 0
+    return {"posterior": post, "opt_state": {"mu": mu, "nu": nu, "count": count},
             "step": int(state.get("step", 0))}

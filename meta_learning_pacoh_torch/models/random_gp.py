@@ -17,6 +17,10 @@ Meta score of a task batch:
                           + m~/(m~ + m) * sum_t MLL_t(params)
 with m~ the harmonic-mean task size, m the number of tasks, and each MLL_t
 divided by its task size.
+
+The Gaussian hyper-posterior of PACOH-VI (and MLAP) and its helpers follow:
+sampling takes its standard normals as an argument, so the fused path, the
+general step and the tests can feed one set of noise.
 """
 
 import dataclasses
@@ -181,3 +185,93 @@ def meta_log_prob(hyper_prior: HyperPrior, prior_factor, flat_particles, X, Y, m
         # a never-drawn task's MLL (maybe NaN) is replaced, not multiplied by 0
         task_sum = (counts * torch.where(counts > 0, per_task, 0.0)).sum(-1)
     return prior_factor * hyper_prior.log_prob(flat_particles) + pre_factor * task_sum
+
+
+# --------------------------------------------------------------------------
+# Gaussian hyper-posterior (PACOH-VI, MLAP): a dict {'loc' [P], 'log_scale'
+# [P]} (diagonal) or {'loc' [P], 'tril_raw' [P, P]} (full covariance, the
+# scale_tril's diagonal kept in log space: diagonal = exp(diag(tril_raw))).
+# --------------------------------------------------------------------------
+
+
+def init_posterior(generator, dim, cov_type="diag", init_std=0.1, device=None):
+    """Initial posterior drawn with a CPU ``generator``, moved to ``device``."""
+    loc = init_std * torch.randn(dim, generator=generator)
+    if cov_type == "diag":
+        post = {"loc": loc,
+                "log_scale": math.log(0.1) + init_std * torch.randn(dim, generator=generator)}
+    elif cov_type == "full":
+        diag = 0.05 + 0.05 * torch.rand(dim, generator=generator)
+        post = {"loc": loc, "tril_raw": torch.diag(torch.log(diag))}
+    else:
+        raise ValueError(f"unknown cov_type {cov_type!r}")
+    return {k: v.to(device) for k, v in post.items()}
+
+
+def posterior_scale_tril(post):
+    if "log_scale" in post:
+        return torch.diag(torch.exp(post["log_scale"]))
+    raw = post["tril_raw"]
+    return torch.tril(raw, -1) + torch.diag(torch.exp(torch.diagonal(raw)))
+
+
+def posterior_log_diag(post):
+    if "log_scale" in post:
+        return post["log_scale"]
+    return torch.diagonal(post["tril_raw"])
+
+
+def posterior_stddev(post):
+    if "log_scale" in post:
+        return torch.exp(post["log_scale"])
+    L = posterior_scale_tril(post)
+    return torch.sqrt(torch.sum(L * L, dim=-1))
+
+
+def posterior_rsample(post, eps):
+    """Reparameterised samples [S, P] from standard normals ``eps`` [S, P]."""
+    if "log_scale" in post:
+        return post["loc"] + torch.exp(post["log_scale"]) * eps
+    return post["loc"] + eps @ posterior_scale_tril(post).T
+
+
+def posterior_log_prob(post, value):
+    """value [..., P] -> [...]."""
+    if "log_scale" in post:
+        z = (value - post["loc"]) / torch.exp(post["log_scale"])
+        return torch.sum(-0.5 * (z * z + _LOG_2PI) - post["log_scale"], dim=-1)
+    L = posterior_scale_tril(post)
+    r = value - post["loc"]
+    r2 = r.reshape(-1, r.shape[-1])  # [S, P]
+    z = torch.linalg.solve_triangular(L, r2.T, upper=False).T
+    dim = post["loc"].shape[0]
+    quad = torch.sum(z * z, dim=-1).reshape(r.shape[:-1])
+    return -0.5 * (quad + dim * _LOG_2PI) - torch.sum(posterior_log_diag(post))
+
+
+def posterior_entropy(post):
+    dim = post["loc"].shape[0]
+    return 0.5 * dim * (1.0 + _LOG_2PI) + torch.sum(posterior_log_diag(post))
+
+
+def posterior_kl_to_prior(post, hyper_prior: HyperPrior):
+    """Closed-form KL(posterior || hyper_prior): both Gaussian, the prior factorised."""
+    mu_p, sig_p = hyper_prior.loc, hyper_prior.scale
+    quad = torch.sum(((post["loc"] - mu_p) / sig_p) ** 2)
+    logdet_p = 2.0 * torch.sum(torch.log(sig_p))
+    logdet_q = 2.0 * torch.sum(posterior_log_diag(post))
+    dim = post["loc"].shape[0]
+    if "log_scale" in post:
+        trace = torch.sum((torch.exp(post["log_scale"]) / sig_p) ** 2)
+    else:
+        trace = torch.sum((posterior_scale_tril(post) / sig_p[:, None]) ** 2)
+    return 0.5 * (trace + quad - dim + logdet_p - logdet_q)
+
+
+def neg_elbo(hyper_prior: HyperPrior, prior_factor, post, eps, X, Y, mask=None, counts=None):
+    """PACOH-VI's loss: -(mean_s meta_log_prob(sample_s) + prior_factor * H(q)),
+    the samples ``posterior_rsample(post, eps)``. E_q[log q] is the exact
+    -H(q) of a Gaussian, not a sample estimate (as in the JAX package)."""
+    samples = posterior_rsample(post, eps)
+    lp = meta_log_prob(hyper_prior, prior_factor, samples, X, Y, mask, counts=counts)
+    return -(torch.mean(lp) + prior_factor * posterior_entropy(post))

@@ -36,6 +36,7 @@ SIGNATURES = {
     "pacoh_chol": (_P, _P, _I, _I, _I, _P),
     "pacoh_fused_svgd": (_P,) * 14 + (_I,) * 8 + (_F,) * 3 + (_I, _P),
     "pacoh_fused_map": (_P,) * 12 + (_I,) * 12 + (_F,) * 4 + (_I, _P),
+    "pacoh_fused_vi": (_P,) * 18 + (_I,) * 8 + (_F,) * 6 + (_I, _P),
 }
 
 _lock = threading.Lock()

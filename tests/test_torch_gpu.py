@@ -16,7 +16,11 @@ import numpy as np
 import pytest
 import torch
 
-from meta_learning_pacoh_torch import GPRegressionMetaLearned, GPRegressionMetaLearnedSVGD
+from meta_learning_pacoh_torch import (
+    GPRegressionMetaLearned,
+    GPRegressionMetaLearnedSVGD,
+    GPRegressionMetaLearnedVI,
+)
 from meta_learning_pacoh_torch.datasets import CauchyDataset, SinusoidDataset
 from meta_learning_pacoh_torch.models.gp_base import init_gp_params
 from meta_learning_pacoh_torch.models.random_gp import layout_slice, ravel_flat
@@ -24,6 +28,7 @@ from meta_learning_pacoh_torch.ops import cuda, launch_sched
 from meta_learning_pacoh_torch.ops.cuda import chol_kernel, mll_kernel, svgd_kernel
 from meta_learning_pacoh_torch.ops.cuda import fused_map_kernel as mk
 from meta_learning_pacoh_torch.ops.cuda import fused_svgd_kernel as fk
+from meta_learning_pacoh_torch.ops.cuda import fused_vi_kernel as vk
 
 pytestmark = pytest.mark.gpu
 
@@ -320,3 +325,115 @@ def test_map_learner_on_card_matches_plain_cpu_learner(dev):
     chunked = GPRegressionMetaLearned(train, **kw)
     chunked.meta_fit(n_iter=12, log_period=5, verbose=False)
     assert torch.equal(chunked.params, on_card.params)
+
+
+# name -> (S, T, N, D, hidden, ragged, task batch or None, lr_decay)
+VI_CASES = {
+    "sin_20_full_batch": (10, 20, 5, 1, (32, 32), False, None, 1.0),
+    "sin_20_counted": (10, 20, 5, 1, (32, 32), False, 5, 1.0),
+    "sin_20_staircase": (10, 20, 5, 1, (32, 32), False, None, 0.5),
+    "odd_shape": (3, 7, 7, 2, (16, 16, 16), True, None, 1.0),
+}
+
+
+def _numpy_eps(s, p):
+    """A noise draw of one global step from a numpy seed: fills out [S, P]."""
+    def draw(step, out):
+        page = np.random.RandomState(1000 + step).randn(s, p).astype(np.float32)
+        out.copy_(torch.from_numpy(page))
+    return draw
+
+
+@pytest.mark.parametrize("case", sorted(VI_CASES))
+def test_fused_vi_kernel_matches_plain(dev, case, monkeypatch):
+    """The fused VI kernel against its plain version from one state (step 3,
+    non-zero Adam moments), 20 steps over the trainer's launches (a staircase
+    of 10-step transitions for lr_decay < 1) with one set of noise pages:
+    loc and log_scale max 1e-4 and mean 2e-6 (the kernel net's output bias
+    left out: its true gradient is 0), the Adam moments within 1e-4 of their
+    largest |plain| value, the last loss rtol 1e-5. The same steps split
+    into two launches give the same bits."""
+    s, t, n, d, hidden, ragged, batch, decay = VI_CASES[case]
+    monkeypatch.setattr(launch_sched, "LR_TRANSITION_STEPS", 10)
+    rs = np.random.RandomState(sum(map(ord, case)))
+    x = rs.uniform(-2.0, 2.0, (t, n, d)).astype(np.float32)
+    y = (np.sin(2.0 * x.sum(-1)) + 0.1 * rs.randn(t, n)).astype(np.float32)
+    mask = np.ones((t, n), np.float32)
+    if ragged:  # padded points as the learner pads them: zero input and target
+        mask[1, n - 2:] = 0.0
+        mask[t - 1, 1:] = 0.0
+        x[mask == 0], y[mask == 0] = 0.0, 0.0
+    hp = fk.fused_prior(d, hidden, 0.5, 3.0)
+    p = hp.dim
+    state = [0.1 * rs.randn(p), np.log(0.1) + 0.1 * rs.randn(p), 0.01 * rs.randn(p),
+             0.01 * rs.randn(p), 1e-4 * rs.rand(p), 1e-4 * rs.rand(p)]
+    state = [torch.tensor(a, dtype=torch.float32, device=dev) for a in state]
+    x, y, mask = (torch.from_numpy(a).to(dev) for a in (x, y, mask))
+
+    def draw(step):
+        return torch.from_numpy(np.random.RandomState(step).randint(0, t, batch))
+
+    trainer = vk.FusedVITrainer(x, y, mask, hidden=hidden, lr=1e-3, prior_factor=0.01,
+                                weight_prior_std=0.5, bias_prior_std=3.0, svi_batch_size=s,
+                                eps_draw=_numpy_eps(s, p), lr_decay=decay,
+                                task_batch_size=batch, task_draw=draw)
+    got, want, split = ([a.clone() for a in state] for _ in range(3))
+    cuda.reset_launch_counts()
+    got_loss, _ = trainer.run(*got, 20, 3)
+    assert cuda.LAUNCHES["fused_vi"] == len(list(trainer.launches(3, 20)))
+    for s0, sub in trainer.launches(3, 20):
+        counts = trainer.count_pages(s0, sub) if trainer.counted else None
+        want_loss, _ = vk.fused_vi_train_ref(
+            *want, x, y, mask, trainer.w_t, trainer.eps_pages(s0, sub), s0,
+            launch_sched.staircase_lr(1e-3, decay, s0), 0.01, counts, hidden=hidden, wps=0.5,
+            bps=3.0, mll_const=trainer.mll_const, n_steps=sub)
+    trainer.run(*split, 4, 3)
+    trainer.run(*split, 16, 7)
+    keep = torch.ones(p, dtype=torch.bool, device=dev)
+    keep[hp.slice_of(("kernel_nn", "b_out"))] = False
+    for g, w in zip(got[:2], want[:2]):
+        diff = (g - w)[keep].abs()
+        assert float(diff.max()) <= 1e-4 and float(diff.mean()) <= 2e-6, (diff.max(), diff.mean())
+    for g, w in zip(got[2:], want[2:]):
+        assert float((g - w)[keep].abs().max()) <= 1e-4 * float(w.abs().max())
+    assert abs(float(got_loss) - float(want_loss)) <= 1e-5 * abs(float(want_loss))
+    assert float((got[0] - state[0])[keep].abs().max()) > 1e-3  # the steps moved it
+    for g, sp in zip(got, split):
+        assert torch.equal(g, sp)
+
+
+def test_vi_learner_on_card_matches_plain_cpu_learner(dev):
+    """A sin_20-like VI learner in the fused window, both learners fed one set
+    of noise pages and of eval samples (the card's and the CPU's generators
+    differ): on the card the fit runs through the fused VI kernel alone and
+    lands within 1e-4 of the same fit on the CPU (plain version); eval rtol
+    1e-3; two chunkings give the same bits; the learner built without a
+    device lives on the card."""
+    env = SinusoidDataset(random_state=np.random.RandomState(26))
+    train = env.generate_meta_train_data(n_tasks=8, n_samples=5)
+    test = env.generate_meta_test_data(n_tasks=3, n_samples_context=5, n_samples_test=20)
+    kw = dict(svi_batch_size=6, mean_nn_layers=(16, 16), kernel_nn_layers=(16, 16),
+              random_seed=30)
+    on_card = GPRegressionMetaLearnedVI(train, **kw)
+    on_cpu = GPRegressionMetaLearnedVI(train, device="cpu", **kw)
+    chunked = GPRegressionMetaLearnedVI(train, **kw)
+    p = on_cpu.hyper_prior.dim
+    samples = torch.from_numpy(np.random.RandomState(5).randn(100, p).astype(np.float32))
+    for model in (on_card, on_cpu, chunked):
+        model._draw_eps = _numpy_eps(6, p)
+        model._posterior_eps = lambda k, dev_=model.device: samples[:k].to(dev_)
+    assert on_card.device.type == "cuda" and on_card._fused_path_ok()
+    cuda.reset_launch_counts()
+    on_card.meta_fit(n_iter=12, log_period=12, verbose=False)
+    assert cuda.LAUNCHES["fused_vi"] == 1 and sum(cuda.LAUNCHES.values()) == 1, cuda.LAUNCHES
+    on_cpu.meta_fit(n_iter=12, log_period=12, verbose=False)
+    keep = torch.ones(p, dtype=torch.bool)
+    keep[on_cpu.hyper_prior.slice_of(("kernel_nn", "b_out"))] = False
+    for key in ("loc", "log_scale"):
+        diff = (on_card.posterior[key].cpu() - on_cpu.posterior[key])[keep].abs().max()
+        assert float(diff) <= 1e-4, (key, float(diff))
+    np.testing.assert_allclose(on_card.eval_datasets(test), on_cpu.eval_datasets(test),
+                               rtol=1e-3, atol=1e-5)
+    chunked.meta_fit(n_iter=12, log_period=5, verbose=False)
+    for key in ("loc", "log_scale"):
+        assert torch.equal(chunked.posterior[key], on_card.posterior[key])
