@@ -14,7 +14,14 @@ batch, and a run across a staircase boundary of the lr schedule), the fused
 MAP training kernel B6 at the reference demo's (the same three runs, and one
 odd shape: 7 ragged tasks, D=3, F=3, nets of other depths and widths), the
 fused VI training kernel B7 at the sin_20 VI fit's (the same three runs, and
-one odd shape: S=3, 7 ragged tasks of up to 7 points, D=2, nets (16,16,16)).
+one odd shape: S=3, 7 ragged tasks of up to 7 points, D=2, nets (16,16,16)),
+the blocked MLL kernels B4 (forward and backward) at bench.py's B=200, N=200,
+at the general steps' B=5 (MAP) and B=50 (SVGD), N=200, at N in {49, 231,
+232, 512}, and on one batch whose systems escalate to 1e-4 and 1e-2, and the
+big-N fused MAP
+kernel B9 at the ``map_t5_n200`` shapes (full batch, a sampled batch, across
+a staircase) and one odd shape (ragged tasks of up to 300 points, D=2, F=3,
+nets (16,16,16)).
 Phase 3 runs the ``cauchy_20`` main path (the general step) through the
 public entry points: ``provide_data("cauchy_20")``,
 ``GPRegressionMetaLearnedSVGD(..., device="cuda")``, ``meta_fit`` and
@@ -43,6 +50,16 @@ steady rate of a second call, the host's cost of the noise pages,
 must give the same bits, the general step's rate over 100 steps
 (``PACOH_TORCH_DISABLE_FUSED=1``), and seeds 30-32 in the band of the JAX
 package's (tools/vi_band.json).
+Phase 7 runs bench.py's ``map_t5_n200`` path: ``GPRegressionMetaLearned(train,
+num_iter_fit=500, random_seed=1, task_batch_size=-1)`` on 5 tasks x 200
+points, built without a device: a 500-step ``meta_fit`` carried by B9 alone,
+the steady rate of a second call, ``eval_datasets`` on 20 test tasks of 200
+context and 200 test points cold and warm (their factorizations through K4),
+``confidence_intervals``, two chunkings that must give the same bits, 20
+general steps (``PACOH_TORCH_DISABLE_FUSED=1``, through B4) that must agree
+with B9's 20 from the same state, 500 B9 steps from the JAX learner's initial
+parameters held to the JAX run recorded in tools/map_bign_ref.json, and 20
+general steps of bench.py's ``svgd_t5_n200`` learner (through B4).
 
 Any failure raises and exits non-zero. The line before the last is a JSON
 object with one record per kernel; the last line is
@@ -68,6 +85,9 @@ KERNELS = {  # launch-counter name -> (source, TPU kernel it replaces)
     "fused_svgd": (SOURCE + "fused_svgd.cu", TPU + "fused_train_kernel.py:789"),
     "fused_map": (SOURCE + "fused_map.cu", TPU + "fused_map_kernel.py:416"),
     "fused_vi": (SOURCE + "fused_vi.cu", TPU + "fused_vi_kernel.py:459"),
+    "blocked_fwd": (SOURCE + "blocked_mll.cu", TPU + "blocked_mll_kernel.py:715"),
+    "blocked_bwd": (SOURCE + "blocked_mll.cu", TPU + "blocked_mll_kernel.py:754"),
+    "fused_map_bign": (SOURCE + "fused_map_bign.cu", TPU + "fused_map_bign_kernel.py:391"),
 }
 # the card's peaks for the bound (NVIDIA's H100 SXM data sheet): float32 off
 # the tensor cores, and device memory
@@ -114,6 +134,17 @@ VI_GENERAL_STEPS = 100
 # sigma of the difference of a 3-seed mean and the 30-seed mean
 VI_BAND_FILE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tools",
                             "vi_band.json")
+# B4 against its plain version: (label, systems, N); the escalating batch
+# gets systems whose factorization needs the 1e-4 and the 1e-2 jitter
+B4_CASES = (("bench.py B=200, N=200", 200, 200), ("MAP general step B=5, N=200", 5, 200),
+            ("svgd_t5_n200 general step B=50, N=200", 50, 200), ("N=49", 8, 49),
+            ("N=231", 8, 231), ("N=232", 8, 232), ("N=512", 8, 512))
+B4_ESCALATION = ("escalating systems, B=16, N=200", 16, 200)
+BIGN_STEPS = 500  # bench.py's map_t5_n200 fit
+BIGN_CHUNK = 125  # the second chunking
+BIGN_TWIN_STEPS = 20  # B9 against the general step (B4), from one state
+BIGN_REF_FILE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tools",
+                             "map_bign_ref.json")
 
 
 def card_line():
@@ -278,6 +309,8 @@ def phase2(param_dim):
     phase2_b2(errs, times, work)
     phase2_b6(errs, times, work)
     phase2_b7(errs, times, work)
+    phase2_b4(errs, times, work, library)
+    phase2_b9(errs, times, work)
     for name, (k_ms, p_ms) in times.items():
         unit = "ms a step" if name.startswith("fused") else "ms"
         lib = f", torch.linalg.cholesky_ex {library[name]:.4f} ms" if name in library else ""
@@ -379,15 +412,6 @@ def demo_model(tasks, seed=30, **kw):
                                    random_seed=seed, **kw)
 
 
-def map_trainer(model):
-    from meta_learning_pacoh_torch.ops.cuda.fused_map_kernel import FusedMAPTrainer
-
-    return FusedMAPTrainer(model.X, model.Y, model.mask, layout=model.layout,
-                           lr=model.lr_params, weight_decay=model.weight_decay,
-                           lr_decay=model._lr_decay, task_batch_size=model.task_batch_size,
-                           task_draw=model._task_draw)
-
-
 def phase2_b6(errs, times, work):
     """B6 against its plain version at the demo's shapes and one odd shape,
     from the learner's initial state."""
@@ -413,7 +437,7 @@ def phase2_b6(errs, times, work):
         model = demo_model(tasks, **kw)
         launch_sched.LR_TRANSITION_STEPS = B2_STAIR_TRANSITION
         try:
-            trainer = map_trainer(model)
+            trainer = model._fused_trainer()
             got = [model.params.clone(), torch.zeros_like(model.params),
                    torch.zeros_like(model.params)]
             want = [t.clone() for t in got]
@@ -443,7 +467,7 @@ def phase2_b6(errs, times, work):
     # per step at the main path's launch: a sampled batch of 5, 512 steps a
     # launch from prebuilt count pages; the plain version over 5 steps
     model = demo_model(train)
-    trainer = map_trainer(model)
+    trainer = model._fused_trainer()
     counts = trainer.count_pages(0, mk.FusedMAPTrainer.MAX_LAUNCH)
     data = (model.X, model.Y, model.mask, trainer.w_t)
     k_state = [model.params.clone(), torch.zeros_like(model.params),
@@ -583,6 +607,174 @@ def phase2_b7(errs, times, work):
     # reads the data once
     work["fused_vi"] = (step_flops,
                         4 * (s * p + (12 * p + t * n * (d + 2) + t) / n_launch))
+
+
+def phase2_b4(errs, times, work, library):
+    """B4 against its plain version at its main paths' shapes, at N on both
+    sides of the shared-memory edge, and on a batch of escalating systems."""
+    import torch
+
+    from meta_learning_pacoh_torch.ops.cuda import blocked_mll_kernel as bk
+    from meta_learning_pacoh_torch.ops.cuda import chol_kernel
+
+    gen = torch.Generator().manual_seed(4)
+    timed = {}
+    for label, b, n in B4_CASES + (B4_ESCALATION,):
+        kn = spd(b, n, gen, scale=0.5)
+        if label == B4_ESCALATION[0]:
+            for i in (3, 9):
+                kn[i] = escalating_systems(n, gen, -5e-5)
+            for i in (5, 12):
+                kn[i] = escalating_systems(n, gen, -5e-3)
+            eye = torch.eye(n, device="cuda")
+            ok = [chol_kernel.diag_ok(chol_kernel.cholesky_ref(kn + j * eye))
+                  for j in (0.0, 1e-4, 1e-2)]
+            level = torch.where(ok[0], 0, torch.where(ok[1], 1, 2))
+            if set(level.tolist()) != {0, 1, 2}:
+                raise AssertionError(f"escalation levels hit: {sorted(set(level.tolist()))}")
+        r = torch.randn(b, n, generator=gen).cuda()
+        where = "shared" if bk.blocked_in_shared(n) else "device"
+        print(f"  blocked_fwd/bwd, {label} (the matrix in {where} memory):")
+        for name, g_, w_ in zip(("quad", "logdet", "L", "z"), bk.blocked_mll_fwd(kn, r),
+                                bk.blocked_mll_fwd_ref(kn, r)):
+            check("blocked_fwd", g_.reshape(b, -1), w_.reshape(b, -1), errs)
+            print(f"    ({name})")
+        _, _, L, z = bk.blocked_mll_fwd_ref(kn, r)
+        gq = torch.randn(b, generator=gen).cuda()
+        gl = torch.randn(b, generator=gen).cuda()
+        for name, g_, w_ in zip(("dkn", "dr"), bk.blocked_mll_bwd(L, z, gq, gl),
+                                bk.blocked_mll_bwd_ref(L, z, gq, gl)):
+            check("blocked_bwd", g_, w_, errs)
+            print(f"    ({name})")
+        if n == 200 and label != B4_ESCALATION[0]:  # the main paths' shapes: timed
+            timed[b] = (kn, r, L, z, gq, gl)
+    for b in (5, 50):  # the general steps' batches: one wave of blocks
+        kn, r, L, z, gq, gl = timed[b]
+        fwd = time_pair(lambda: bk.blocked_mll_fwd(kn, r), lambda: bk.blocked_mll_fwd_ref(kn, r))
+        bwd = time_pair(lambda: bk.blocked_mll_bwd(L, z, gq, gl),
+                        lambda: bk.blocked_mll_bwd_ref(L, z, gq, gl))
+        print(f"  blocked_fwd/bwd at B={b}, N=200: kernel {fwd[0]:.4f} / {bwd[0]:.4f} ms, "
+              f"plain {fwd[1]:.4f} / {bwd[1]:.4f} ms (median)")
+    kn, r, L, z, gq, gl = timed[200]
+    b, n = kn.shape[0], kn.shape[-1]
+    times["blocked_fwd"] = time_pair(lambda: bk.blocked_mll_fwd(kn, r),
+                                     lambda: bk.blocked_mll_fwd_ref(kn, r), reps=5)
+    times["blocked_bwd"] = time_pair(lambda: bk.blocked_mll_bwd(L, z, gq, gl),
+                                     lambda: bk.blocked_mll_bwd_ref(L, z, gq, gl), reps=5)
+    library["blocked_fwd"] = statistics.median(median_ms(lambda: torch.linalg.cholesky_ex(kn), 5))
+    # forward: one factorization (no system escalates here), the solve, quad
+    # and logdet; backward: L^-1 (N^3/3) and the symmetric W^T W (N^3/3), the
+    # outer product. In: Kn, r; out: quad, logdet, L, z (the backward's in
+    # and out have the same size: L, z, gq, gl; dKn, dr)
+    io_bytes = 4 * (2 * b * n * n + 2 * b * n + 2 * b)
+    work["blocked_fwd"] = (b * (n ** 3 / 3 + n * n + 3 * n), io_bytes)
+    work["blocked_bwd"] = (b * (2 * n ** 3 / 3 + 3 * n * n), io_bytes)
+
+
+def bign_data():
+    """bench.py's map_t5_n200 data (bench.py:155-156) and 20 test tasks of
+    200 context and 200 test points drawn after it from the same environment."""
+    import numpy as np
+
+    from meta_learning_pacoh_torch.datasets import SinusoidDataset
+
+    env = SinusoidDataset(random_state=np.random.RandomState(5))
+    train = env.generate_meta_train_data(n_tasks=5, n_samples=200)
+    test = env.generate_meta_test_data(n_tasks=20, n_samples_context=200, n_samples_test=200)
+    return train, test
+
+
+def bign_model(tasks, seed=1, **kw):
+    """bench.py's map_t5_n200 learner (bench.py:157-158), on the card by default."""
+    from meta_learning_pacoh_torch import GPRegressionMetaLearned
+
+    kw = {"task_batch_size": -1, **kw}
+    return GPRegressionMetaLearned(tasks, num_iter_fit=BIGN_STEPS, random_seed=seed, **kw)
+
+
+def phase2_b9(errs, times, work):
+    """B9 against its plain version at the map_t5_n200 shapes and one odd
+    shape, from the learner's initial state."""
+    import numpy as np
+    import torch
+
+    from meta_learning_pacoh_torch.models.random_gp import layout_slice
+    from meta_learning_pacoh_torch.ops import launch_sched
+    from meta_learning_pacoh_torch.ops.cuda import fused_map_bign_kernel as bg
+
+    train, _ = bign_data()
+    rs = np.random.RandomState(9)  # ragged tasks of up to 300 points, D=2, padded by the learner
+    odd = [(rs.uniform(-2.0, 2.0, (m, 2)), rs.randn(m)) for m in (300, 250, 300, 120)]
+    odd_kw = dict(feature_dim=3, mean_nn_layers=(16, 16, 16), kernel_nn_layers=(16, 16, 16))
+    cases = (("full batch", train, {}, B6_STEPS),
+             ("sampled batch of 2", train, {"task_batch_size": 2}, B6_STEPS),
+             ("staircase lr_decay 0.5", train, {"lr_decay": 0.5}, B6_STAIR_STEPS),
+             ("ragged tasks of up to 300 points, D=2, F=3, nets (16,16,16)", odd, odd_kw,
+              B6_STEPS))
+    transition = launch_sched.LR_TRANSITION_STEPS
+    for label, tasks, kw, n_steps in cases:
+        model = bign_model(tasks, **kw)
+        if not model._fused_path_ok():
+            raise AssertionError(f"fused_map_bign ({label}): the learner is off the fused path")
+        launch_sched.LR_TRANSITION_STEPS = B2_STAIR_TRANSITION
+        try:
+            trainer = model._fused_trainer()
+            got = [model.params.clone(), torch.zeros_like(model.params),
+                   torch.zeros_like(model.params)]
+            want = [t.clone() for t in got]
+            got_loss, _ = trainer.run(*got, n_steps, 0)
+            for s0, sub in trainer.launches(0, n_steps):
+                counts = trainer.count_pages(s0, sub) if trainer.counted else None
+                want_loss, _ = bg.fused_map_bign_train_ref(
+                    *want, model.X, model.Y, model.mask, trainer.w_t, s0,
+                    launch_sched.staircase_lr(1e-3, trainer.lr_decay, s0), model.weight_decay,
+                    counts, layout=model.layout, n_steps=sub)
+        finally:
+            launch_sched.LR_TRANSITION_STEPS = transition
+        torch.cuda.synchronize()
+        skip = layout_slice(model.layout, ("kernel_nn", "b_out"))
+        d_max, d_mean = diff_excluding(got[0].cpu(), want[0].cpu(), skip)
+        rel = [diff_excluding(g.cpu(), w.cpu(), skip)[0] / float(w.abs().max())
+               for g, w in zip(got[1:], want[1:])]
+        loss_rel = abs(float(got_loss) - float(want_loss)) / abs(float(want_loss))
+        t, n, d = model.X.shape
+        _, _, shared = bg.bign_plan(t, n, d, model.cfg.feature_dim, model.cfg.mean_nn_layers,
+                                    model.cfg.kernel_nn_layers)
+        where = "shared" if shared else "device"
+        print(f"  fused_map_bign, {label} (matrices in {where} memory), {n_steps} steps: "
+              f"|param diff| max {d_max:.3e}, mean {d_mean:.3e}; AdamW m, v max diff / max "
+              f"|plain| {rel[0]:.3e}, {rel[1]:.3e}; last loss rel diff {loss_rel:.3e} "
+              f"(kernel_nn.b_out excluded)")
+        if not (d_max <= TWIN_ATOL and d_mean <= TWIN_MEAN_ATOL
+                and max(rel) <= B2_MOMENT_RTOL and loss_rel <= B6_LOSS_RTOL):
+            raise AssertionError(f"fused_map_bign ({label}): kernel disagrees with its plain "
+                                 f"version")
+        errs["fused_map_bign"] = max(errs.get("fused_map_bign", 0.0), d_max)
+
+    # per step: the kernel over a launch of 100 full-batch steps, the plain version over 3
+    model = bign_model(train)
+    trainer = model._fused_trainer()
+    n_launch = 100
+    k_state = [model.params.clone(), torch.zeros_like(model.params),
+               torch.zeros_like(model.params)]
+    p_state = [t.clone() for t in k_state]
+    data = (model.X, model.Y, model.mask, trainer.w_t)
+    k_ms, p_ms = time_pair(
+        lambda: bg.fused_map_bign_train(*k_state, *data, 0, 1e-3, 0.0, layout=model.layout,
+                                        n_steps=n_launch),
+        lambda: bg.fused_map_bign_train_ref(*p_state, *data, 0, 1e-3, 0.0, layout=model.layout,
+                                            n_steps=3),
+        reps=3)
+    times["fused_map_bign"] = (k_ms / n_launch, p_ms / 3)
+    # a step: both nets over the T*N rows forward and backward; per task the
+    # Gram matrix and its chains (about N^2 (3F + 20)), the factor, L^-1 and
+    # the symmetric K^-1 (N^3/3 each); AdamW. A launch reads and writes
+    # theta, m, v once and reads the data once
+    p, (t, n, d) = model.params.numel(), model.X.shape
+    f = model.cfg.feature_dim
+    step_flops = (mlp_flops(t * n, d, (32, 32), 1) + mlp_flops(t * n, d, (32, 32), f)
+                  + t * (n ** 3 + n * n * (3 * f + 20)) + 12 * p)
+    work["fused_map_bign"] = (step_flops, 4 * (6 * p + t * n * (d + 2) + t) / n_launch)
 
 
 def diff_excluding(a, b, skip):
@@ -995,6 +1187,196 @@ def phase6(profile_dir):
                           general_steps_per_s=VI_GENERAL_STEPS / general_s, traces=traces)
 
 
+def jax_initial_state(ref):
+    """The JAX learner's state at step 0 as tools/map_bign_ref.json keeps it,
+    in the form of the JAX ``state_dict()`` that ``from_jax_map_state`` reads
+    (optax's multi-transform AdamW state, its moments zero)."""
+    from types import SimpleNamespace
+
+    import numpy as np
+
+    def arrays(tree, fill=None):
+        return {k: arrays(v, fill) if isinstance(v, dict) else
+                np.asarray(v, np.float32) * (1.0 if fill is None else fill)
+                for k, v in tree.items()}
+
+    params = arrays(ref["init_params"])
+    adam = SimpleNamespace(mu=arrays(ref["init_params"], 0.0),
+                           nu=arrays(ref["init_params"], 0.0), count=0)
+    opt_state = SimpleNamespace(inner_states={"train": SimpleNamespace(inner_state=(adam,))})
+    return {"params": params, "opt_state": opt_state, "step": 0}
+
+
+def phase7(profile_dir):
+    import numpy as np
+    import torch
+
+    from meta_learning_pacoh_torch import GPRegressionMetaLearnedSVGD
+    from meta_learning_pacoh_torch.interop import from_jax_map_state
+    from meta_learning_pacoh_torch.models.random_gp import layout_slice
+    from meta_learning_pacoh_torch.ops import cuda
+
+    train, test = bign_data()
+    model = bign_model(train)  # no device: the card by default
+    if model.device.type != "cuda" or not model._fused_path_ok():
+        raise AssertionError(f"the map_t5_n200 learner is on {model.device}, or off the fused "
+                             f"path")
+    print(f"  map_t5_n200: {len(train)} tasks x {len(train[0][0])} points, {len(test)} test "
+          f"tasks x ({len(test[0][0])} context + {len(test[0][2])} test points), full batch, "
+          f"P={model.params.numel()}, on {model.device}")
+    cuda.reset_launch_counts()
+    fit_s = timed_fit(model, BIGN_STEPS, BIGN_STEPS)
+    launches = dict(cuda.LAUNCHES)
+    print(f"  meta_fit: {BIGN_STEPS} steps in {fit_s:.3f} s ({BIGN_STEPS / fit_s:.1f} steps/s, "
+          f"first call); launches in the fit: {launches}")
+    if launches["fused_map_bign"] < 1 or any(v for k, v in launches.items()
+                                             if k != "fused_map_bign"):
+        raise AssertionError(f"the fit was not carried by B9 alone: {launches}")
+    one_chunk = model.params.clone()
+    cuda.reset_launch_counts()
+    t0 = time.perf_counter()
+    ll, rmse, calib = model.eval_datasets(test)
+    torch.cuda.synchronize()
+    eval_s = time.perf_counter() - t0
+    print(f"  eval_datasets: {len(test)} tasks in {eval_s:.4f} s (first call); "
+          f"LL {ll:.6f}, RMSE {rmse:.6f}, calib {calib:.6f}; launches {dict(cuda.LAUNCHES)}")
+    if not all(math.isfinite(v) for v in (ll, rmse, calib)) or not bool(
+            torch.isfinite(model.params).all()):
+        raise AssertionError("non-finite parameters or metrics")
+    if cuda.LAUNCHES["chol"] < 1:
+        raise AssertionError("the eval's 200-point context did not go through K4")
+
+    steady_s = timed_fit(model, BIGN_STEPS, BIGN_STEPS)
+    steady = BIGN_STEPS / steady_s
+    print(f"  steady state: {BIGN_STEPS} steps in {steady_s:.4f} s, {steady:.1f} steps/s")
+    t0 = time.perf_counter()
+    model.eval_datasets(test)
+    torch.cuda.synchronize()
+    eval_warm_s = time.perf_counter() - t0
+    print(f"  eval_datasets again: {eval_warm_s:.4f} s")
+    x_plot = np.linspace(-5.0, 5.0, 150)
+    ucb, lcb = model.confidence_intervals(test[0][0], test[0][1], x_plot, confidence=0.9)
+    print(f"  confidence_intervals on test task 0, 150 points: ucb - lcb in "
+          f"[{float(np.min(ucb - lcb)):.4f}, {float(np.max(ucb - lcb)):.4f}]")
+    if not (ucb.shape == lcb.shape == (150,) and np.all(np.isfinite(ucb))
+            and np.all(np.isfinite(lcb)) and np.all(ucb > lcb)):
+        raise AssertionError("confidence intervals are not finite with ucb > lcb")
+    traces = {}
+    if profile_dir:
+        traces["bign_fit_100_steps"] = profile(
+            "bign_fit", lambda: model.meta_fit(n_iter=100, log_period=100, verbose=False),
+            profile_dir)
+        traces["bign_eval"] = profile("bign_eval", lambda: model.eval_datasets(test), profile_dir)
+
+    chunked = bign_model(train)
+    chunked.meta_fit(n_iter=BIGN_STEPS, log_period=BIGN_CHUNK, verbose=False)
+    same = torch.equal(chunked.params, one_chunk)
+    print(f"  chunkings: log_period {BIGN_STEPS} and {BIGN_CHUNK} give identical parameters: "
+          f"{same}")
+    if not same:
+        raise AssertionError("two chunkings of the fused fit differ")
+
+    # B9 and the general step (B4) from one state
+    state = bign_model(train).state_dict()
+    skip = layout_slice(model.layout, ("kernel_nn", "b_out"))
+    twins = {}
+    for label, disabled in (("fused", "0"), ("general", "1")):
+        os.environ["PACOH_TORCH_DISABLE_FUSED"] = disabled
+        try:
+            twin = bign_model(train)
+            twin.load_state_dict(state)
+            if twin._fused_path_ok() != (label == "fused"):
+                raise AssertionError(f"PACOH_TORCH_DISABLE_FUSED={disabled}: wrong path")
+            cuda.reset_launch_counts()
+            twin_s = timed_fit(twin, BIGN_TWIN_STEPS, BIGN_TWIN_STEPS)
+            twin_launches = dict(cuda.LAUNCHES)
+            twins[label] = (twin, twin_s, twin_launches)
+        finally:
+            os.environ.pop("PACOH_TORCH_DISABLE_FUSED")
+    general, general_s, general_launches = twins["general"]
+    fused = twins["fused"][0]
+    print(f"  general step (PACOH_TORCH_DISABLE_FUSED=1): {BIGN_TWIN_STEPS} steps in "
+          f"{general_s:.3f} s ({BIGN_TWIN_STEPS / general_s:.1f} steps/s, first call); "
+          f"launches {general_launches}")
+    if not (general_launches["blocked_fwd"] > 0 and general_launches["blocked_bwd"] > 0
+            and general_launches["fused_map_bign"] == 0):
+        raise AssertionError(f"the general step did not run through B4: {general_launches}")
+    d_max, d_mean = diff_excluding(fused.params.cpu(), general.params.cpu(), skip)
+    rel = [diff_excluding(a.cpu(), b.cpu(), skip)[0] / float(b.abs().max())
+           for a, b in ((fused._mu, general._mu), (fused._nu, general._nu))]
+    print(f"  B9 against the general step, {BIGN_TWIN_STEPS} steps from one state: |param "
+          f"diff| max {d_max:.3e}, mean {d_mean:.3e}; AdamW m, v max diff / max |general| "
+          f"{rel[0]:.3e}, {rel[1]:.3e} (kernel_nn.b_out excluded)")
+    if not (d_max <= TWIN_ATOL and d_mean <= TWIN_MEAN_ATOL and max(rel) <= B2_MOMENT_RTOL):
+        raise AssertionError("B9 and the general step disagree")
+    fused_loss = fused.meta_fit(n_iter=1, log_period=1, verbose=False)
+    os.environ["PACOH_TORCH_DISABLE_FUSED"] = "1"
+    try:
+        general_loss = general.meta_fit(n_iter=1, log_period=1, verbose=False)
+        general_steady_s = timed_fit(general, BIGN_TWIN_STEPS, BIGN_TWIN_STEPS)
+        if profile_dir:
+            traces["bign_general_5_steps"] = profile(
+                "bign_general", lambda: general.meta_fit(n_iter=5, log_period=5, verbose=False),
+                profile_dir)
+    finally:
+        os.environ.pop("PACOH_TORCH_DISABLE_FUSED")
+    loss_rel = abs(fused_loss - general_loss) / abs(general_loss)
+    print(f"  the next step's loss: B9 {fused_loss:.7f}, general {general_loss:.7f} (rel diff "
+          f"{loss_rel:.3e})")
+    if not loss_rel <= B6_LOSS_RTOL:
+        raise AssertionError("B9 and the general step disagree in the loss")
+    print(f"  general step, steady: {BIGN_TWIN_STEPS / general_steady_s:.1f} steps/s")
+
+    # the JAX learner's run (tools/map_bign_ref.json) from its initial parameters
+    with open(BIGN_REF_FILE) as f:
+        ref = json.load(f)
+    from_jax = bign_model(train)
+    from_jax.load_state_dict(from_jax_map_state(jax_initial_state(ref)))
+    every = ref["config"]["log_every"]
+    got = [from_jax.meta_fit(n_iter=every, log_period=every, verbose=False)
+           for _ in range(ref["config"]["steps"] // every)]
+    tol = ref["tolerance"]
+    loss_gap = max(abs(g - w) / abs(w) for g, w in zip(got, ref["losses"]))
+    p_max, p_mean = diff_excluding(from_jax.params.cpu(), torch.tensor(ref["final_params"]),
+                                   skip)
+    print(f"  from the JAX initial parameters, {ref['config']['steps']} B9 steps: losses "
+          f"{[round(v, 6) for v in got]}; max rel gap to the JAX run {loss_gap:.3e} "
+          f"(tolerance {tol['loss_rtol']:.3e}); final |param diff| max {p_max:.3e} "
+          f"({tol['param_atol']:.3e}), mean {p_mean:.3e} ({tol['param_mean_atol']:.3e})")
+    if not (loss_gap <= tol["loss_rtol"] and p_max <= tol["param_atol"]
+            and p_mean <= tol["param_mean_atol"]):
+        raise AssertionError("the B9 fit disagrees with the JAX learner's")
+
+    # bench.py's svgd_t5_n200 (bench.py:166-168): its default path is the general step
+    svgd = GPRegressionMetaLearnedSVGD(train, num_iter_fit=BIGN_STEPS, num_particles=10,
+                                       random_seed=1, prior_factor=0.01, task_batch_size=-1)
+    if svgd._fused_path_ok():
+        raise AssertionError("svgd_t5_n200 took a fused path")
+    cuda.reset_launch_counts()
+    svgd_s = timed_fit(svgd, BIGN_TWIN_STEPS, BIGN_TWIN_STEPS)
+    svgd_launches = dict(cuda.LAUNCHES)
+    svgd_steady_s = timed_fit(svgd, BIGN_TWIN_STEPS, BIGN_TWIN_STEPS)
+    print(f"  svgd_t5_n200 general step: {BIGN_TWIN_STEPS} steps in {svgd_s:.3f} s first, "
+          f"{svgd_steady_s:.3f} s steady ({BIGN_TWIN_STEPS / svgd_steady_s:.1f} steps/s); "
+          f"launches {svgd_launches}")
+    if not (svgd_launches["blocked_fwd"] > 0 and svgd_launches["blocked_bwd"] > 0):
+        raise AssertionError(f"svgd_t5_n200's general step did not run through B4: "
+                             f"{svgd_launches}")
+    if not bool(torch.isfinite(svgd.particles).all()):
+        raise AssertionError("non-finite svgd_t5_n200 particles")
+    for label, summary in traces.items():
+        print(f"  trace {label}: " + json.dumps(summary))
+    launches.update(blocked_fwd=general_launches["blocked_fwd"],
+                    blocked_bwd=general_launches["blocked_bwd"])
+    return launches, dict(fit_s=fit_s, steady_s=steady_s, steady_steps_per_s=steady,
+                          eval_s=eval_s, eval_warm_s=eval_warm_s, ll=ll, rmse=rmse,
+                          calib=calib, twin_max=d_max, twin_mean=d_mean,
+                          general_s=general_s, general_steady_steps_per_s=BIGN_TWIN_STEPS
+                          / general_steady_s, jax_loss_gap=loss_gap, jax_param_max=p_max,
+                          svgd_general_steady_steps_per_s=BIGN_TWIN_STEPS / svgd_steady_s,
+                          svgd_launches=svgd_launches, traces=traces)
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--profile", metavar="DIR",
@@ -1044,6 +1426,12 @@ def main():
     vi_launches, vi_summary = phase6(args.profile)
     launches["fused_vi"] = vi_launches["fused_vi"]
     print("slice sin_20 VI: " + json.dumps({"card": card, **vi_summary}))
+
+    print("phase 7: map_t5_n200 PACOH-MAP main path (big-N fused kernel; general step B4)")
+    bign_launches, bign_summary = phase7(args.profile)
+    for name in ("fused_map_bign", "blocked_fwd", "blocked_bwd"):
+        launches[name] = bign_launches[name]
+    print("slice map_t5_n200: " + json.dumps({"card": card, **bign_summary}))
     print(f"all phases: {time.perf_counter() - t_start:.1f} s")
 
     records = []

@@ -16,20 +16,21 @@ Two paths, as in the JAX package:
 
 - the fused path: a configuration in the fused window (``_fused_path_ok``:
   NN mean + NN kernel, ``learning_mode="both"``, Adam, feature_dim <= 8,
-  tasks of N <= 8 points, and the kernel's shared memory) runs its whole
-  fit through the fused training kernel (ops/cuda/fused_map_kernel.py),
-  one launch per chunk and staircase step (at most 512 steps a launch for a
-  sampled batch);
+  and the kernel's own fit test) runs its whole fit through a fused
+  training kernel, one launch per chunk and staircase step (at most 512
+  steps a launch for a sampled batch): tasks of N <= 8 points through
+  ops/cuda/fused_map_kernel.py (B6), of 9 <= N <= 512 through
+  ops/cuda/fused_map_bign_kernel.py (B9);
 - the general step, one Python loop iteration per step: the loss by
-  ``gp_prior_mll_batch`` (whose MLL takes the MLL kernel for 9 <= N <= 48),
-  its gradient by autograd, and the update here.
+  ``gp_prior_mll_batch`` (whose MLL takes the MLL kernels K2/K3 for
+  9 <= N <= 48 and the blocked ones, B4, for 49 <= N <= 512), its gradient
+  by autograd, and the update here.
 
 A sampled task batch draws the tasks of step s from a generator seeded with
 (train seed, s), on both paths, and weights every task's MLL by its draw
 count (the JAX learner's count-weighted mode, ``PACOH_TPU_MAP_WEIGHTED=1``:
 the same estimator as gathering the drawn tasks), which lets the fused
-kernel carry the fit. The JAX learner's big-N fused kernel (9 <= N <= 512)
-and its mesh path are not ported yet: such a fit takes the general step.
+kernels carry the fit. The JAX learner's mesh path is not ported.
 """
 
 import time
@@ -48,7 +49,15 @@ from meta_learning_pacoh_torch.models.gp_base import (
 )
 from meta_learning_pacoh_torch.models.random_gp import flat_layout, ravel_flat, unravel_flat
 from meta_learning_pacoh_torch.ops import cuda, launch_sched
-from meta_learning_pacoh_torch.ops.cuda.fused_map_kernel import FusedMAPTrainer, fused_map_fits
+from meta_learning_pacoh_torch.ops.cuda.fused_map_bign_kernel import (
+    FusedMAPBigNTrainer,
+    bign_fits,
+)
+from meta_learning_pacoh_torch.ops.cuda.fused_map_kernel import (
+    MAX_N as FUSED_MAX_N,
+    FusedMAPTrainer,
+    fused_map_fits,
+)
 from meta_learning_pacoh_torch.ops.distributions import (
     AffineTransformed,
     MultivariateNormal,
@@ -117,7 +126,7 @@ class GPRegressionMetaLearned(RegressionModelMetaLearned):
         self._nu = torch.zeros_like(self.params)
         self._adam_count = 0
         self._step_count = 0
-        self._fused = None  # the fused kernel's FusedMAPTrainer, built at the first fused fit
+        self._fused = None  # the fused kernel's trainer, built at the first fused fit
 
     # ------------------------------------------------------------ train step
     def _task_draw(self, step):
@@ -160,29 +169,34 @@ class GPRegressionMetaLearned(RegressionModelMetaLearned):
 
     # ------------------------------------------------------------ fused path
     def _fused_path_ok(self):
-        """Whether the fused training kernel carries the fit: the N <= 8 arm
-        of the JAX learner's gate, with the kernel's own fit test in place of
-        the TPU's VMEM test."""
+        """Whether a fused training kernel carries the fit: the JAX learner's
+        gate, its N <= 8 arm (B6) and its 9 <= N <= 512 arm (B9), with each
+        kernel's own fit test in place of the TPU's VMEM tests."""
         cfg = self.cfg
         t, n, d = self.X.shape
+        fits = fused_map_fits if n <= FUSED_MAX_N else bign_fits
         return (
             config.fused_enabled()
             and self.learning_mode == "both"
             and self._optimizer_name == "Adam"
             and cfg.mean_module == "NN" and cfg.covar_module == "NN"
-            and fused_map_fits(t, n, d, cfg.feature_dim, cfg.mean_nn_layers,
-                               cfg.kernel_nn_layers)
+            and fits(t, n, d, cfg.feature_dim, cfg.mean_nn_layers, cfg.kernel_nn_layers)
         )
+
+    def _fused_trainer(self):
+        """A new trainer of the fused kernel for this learner's tasks: B6's
+        for N <= 8, B9's above."""
+        trainer = FusedMAPTrainer if self.X.shape[1] <= FUSED_MAX_N else FusedMAPBigNTrainer
+        return trainer(self.X, self.Y, self.mask, layout=self.layout, lr=self.lr_params,
+                       weight_decay=self.weight_decay, lr_decay=self._lr_decay,
+                       task_batch_size=self.task_batch_size, task_draw=self._task_draw)
 
     def _fused_run_chunk(self, chunk):
         """``chunk`` steps through the fused kernel, from the live parameters
         and AdamW moments (so a fit may resume after general steps).
         Returns (last loss, mean loss) as device scalars."""
         if self._fused is None:
-            self._fused = FusedMAPTrainer(
-                self.X, self.Y, self.mask, layout=self.layout, lr=self.lr_params,
-                weight_decay=self.weight_decay, lr_decay=self._lr_decay,
-                task_batch_size=self.task_batch_size, task_draw=self._task_draw)
+            self._fused = self._fused_trainer()
         losses = self._fused.run(self.params, self._mu, self._nu, chunk, self._step_count)
         self._step_count += chunk
         self._adam_count += chunk

@@ -212,6 +212,7 @@ class FusedMAPTrainer:
     """
 
     MAX_LAUNCH = 512  # steps a launch in the sampled mode (bounds its count pages)
+    train_fn = staticmethod(fused_map_train)  # the kernel a launch runs
 
     def __init__(self, X, Y, mask, *, layout, lr, weight_decay, lr_decay=1.0,
                  task_batch_size=None, task_draw=None):
@@ -236,9 +237,9 @@ class FusedMAPTrainer:
 
     def launch(self, theta, mu, nu, step0, n_steps):
         counts = self.count_pages(step0, n_steps) if self.counted else None
-        return fused_map_train(theta, mu, nu, self.X, self.Y, self.mask, self.w_t, step0,
-                               staircase_lr(self.lr, self.lr_decay, step0), self.weight_decay,
-                               counts, layout=self.layout, n_steps=n_steps)
+        return self.train_fn(theta, mu, nu, self.X, self.Y, self.mask, self.w_t, step0,
+                             staircase_lr(self.lr, self.lr_decay, step0), self.weight_decay,
+                             counts, layout=self.layout, n_steps=n_steps)
 
     def run(self, theta, mu, nu, n_steps, step0):
         """n_steps from global step step0; (last loss, mean loss) as device scalars."""

@@ -22,6 +22,11 @@ from meta_learning_pacoh_torch.ops.chol import (
     unrolled_solve_lower_T,
     unrolled_solve_lower_mat,
 )
+from meta_learning_pacoh_torch.ops.cuda.blocked_mll_kernel import (
+    BLOCKED_MAX_N,
+    BLOCKED_MIN_N,
+    blocked_mll_quad_logdet,
+)
 from meta_learning_pacoh_torch.ops.cuda.chol_kernel import diag_ok
 from meta_learning_pacoh_torch.ops.cuda.mll_kernel import (
     JITTERS as MLL_JITTERS,
@@ -90,18 +95,24 @@ def gp_mll_batch(mean, K, y, noise_var, mask=None, jitter=1e-6):
     """Batched exact GP MLL / n over B systems.
 
     mean, y [B, N]; K [B, N, N]; noise_var [B] or scalar; mask [B, N].
-    Dispatch: N <= 8 unrolled expressions; MLL_KERNEL_MIN_N <= N <=
-    MLL_KERNEL_MAX_N with the kernels on, the MLL kernel (forward and
-    backward in one launch each for the whole batch); otherwise ``gp_mll``.
+    Dispatch, with the kernels on and float32: N <= 8 unrolled expressions;
+    MLL_KERNEL_MIN_N <= N <= MLL_KERNEL_MAX_N the MLL kernels K2/K3,
+    BLOCKED_MIN_N <= N <= BLOCKED_MAX_N the blocked MLL kernels B4 (each a
+    launch per direction for the whole batch); otherwise ``gp_mll``.
     """
     n = y.shape[-1]
     noise_b = torch.as_tensor(noise_var, dtype=y.dtype, device=y.device).expand(y.shape[:-1])
-    if not (config.kernels_enabled() and MLL_KERNEL_MIN_N <= n <= MLL_KERNEL_MAX_N
-            and y.dtype == torch.float32):
+    quad_logdet = None
+    if config.kernels_enabled() and y.dtype == torch.float32:
+        if MLL_KERNEL_MIN_N <= n <= MLL_KERNEL_MAX_N:
+            quad_logdet = mll_quad_logdet
+        elif BLOCKED_MIN_N <= n <= BLOCKED_MAX_N:
+            quad_logdet = blocked_mll_quad_logdet
+    if quad_logdet is None:
         return gp_mll(mean, K, y, noise_b, mask, jitter)
     Kn = add_noise_masked(K, noise_b, mask, jitter)
     r, n_eff = _residual(mean, y, mask)
-    quad, logdet = mll_quad_logdet(Kn.contiguous(), r.contiguous())
+    quad, logdet = quad_logdet(Kn.contiguous(), r.contiguous())
     return _mll(quad, logdet, n_eff)
 
 

@@ -30,8 +30,14 @@ def test_provide_data_is_byte_equal(name):
 
 
 def test_import_leaves_jax_out():
-    code = ("import sys, meta_learning_pacoh_torch, meta_learning_pacoh_torch.interop;"
-            "print(sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')))")
+    """Every module of the port, found by ``pkgutil.walk_packages``, imports
+    neither JAX nor anything of the JAX package."""
+    code = ("import importlib, pkgutil, sys, meta_learning_pacoh_torch as pkg\n"
+            "names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + '.')]\n"
+            "assert len(names) > 20, names\n"
+            "for name in names: importlib.import_module(name)\n"
+            "print(sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'meta_learning_pacoh_tpu')))")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
                          text=True, check=True, timeout=120).stdout
     assert out.strip() == "[]"

@@ -25,7 +25,9 @@ from meta_learning_pacoh_torch.datasets import CauchyDataset, SinusoidDataset
 from meta_learning_pacoh_torch.models.gp_base import init_gp_params
 from meta_learning_pacoh_torch.models.random_gp import layout_slice, ravel_flat
 from meta_learning_pacoh_torch.ops import cuda, launch_sched
+from meta_learning_pacoh_torch.ops.cuda import blocked_mll_kernel as bk
 from meta_learning_pacoh_torch.ops.cuda import chol_kernel, mll_kernel, svgd_kernel
+from meta_learning_pacoh_torch.ops.cuda import fused_map_bign_kernel as bg
 from meta_learning_pacoh_torch.ops.cuda import fused_map_kernel as mk
 from meta_learning_pacoh_torch.ops.cuda import fused_svgd_kernel as fk
 from meta_learning_pacoh_torch.ops.cuda import fused_vi_kernel as vk
@@ -96,6 +98,36 @@ def test_mll_kernels_with_escalation(dev, n):
         assert_close_per_system(got.reshape(12, -1), want.reshape(12, -1))
 
 
+@pytest.mark.parametrize("n", [49, 200, 231, 232, 235, 236, 300, 512])
+def test_blocked_mll_kernels_with_escalation(dev, n):
+    """B4 forward and backward against their plain versions: N up to 235
+    in shared memory, above in device memory; system 2 escalates to 1e-4 and
+    system 4 to 1e-2. Then the autograd Function's values and gradients."""
+    rs = np.random.RandomState(n)
+    kn = _psd(6, n, seed=n)
+    kn[2] = _escalating(n, -5e-5, rs)
+    kn[4] = _escalating(n, -5e-3, rs)
+    kn, r = kn.to(dev), torch.tensor(rs.randn(6, n), dtype=torch.float32, device=dev)
+    assert bk.blocked_in_shared(n) == (n <= 235)
+    cuda.reset_launch_counts()
+    for got, want in zip(bk.blocked_mll_fwd(kn, r), bk.blocked_mll_fwd_ref(kn, r)):
+        assert_close_per_system(got.reshape(6, -1), want.reshape(6, -1))
+    _, _, L, z = bk.blocked_mll_fwd_ref(kn, r)
+    gq = torch.tensor(rs.randn(6), dtype=torch.float32, device=dev)
+    gl = torch.tensor(rs.randn(6), dtype=torch.float32, device=dev)
+    for got, want in zip(bk.blocked_mll_bwd(L, z, gq, gl), bk.blocked_mll_bwd_ref(L, z, gq, gl)):
+        assert_close_per_system(got, want)
+    assert cuda.LAUNCHES["blocked_fwd"] == cuda.LAUNCHES["blocked_bwd"] == 1
+    grads = []
+    for fn in (bk.blocked_mll_quad_logdet, bk.blocked_mll_quad_logdet_ref):
+        kn_g, r_g = kn.clone().requires_grad_(True), r.clone().requires_grad_(True)
+        quad, logdet = fn(kn_g, r_g)
+        torch.sum(gq * quad + gl * logdet).backward()
+        grads.append((quad.detach(), logdet.detach(), kn_g.grad, r_g.grad))
+    for got, want in zip(*grads):
+        assert_close_per_system(got.reshape(6, -1), want.reshape(6, -1))
+
+
 @pytest.mark.parametrize("n", [70, 200, 300, 512])
 def test_cholesky_kernel(dev, n):
     """N=300 and 512 factor in device memory instead of shared memory; the
@@ -118,6 +150,8 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
         chol_kernel.cholesky_fused(torch.randn(2, 80, 80, device=dev).mT)
     with pytest.raises(ValueError):
         mll_kernel.mll_fwd(torch.randn(2, 65, 65, device=dev), torch.randn(2, 65, device=dev))
+    with pytest.raises(ValueError):
+        bk.blocked_mll_fwd(torch.randn(2, 513, 513, device=dev), torch.randn(2, 513, device=dev))
 
 
 def test_learner_on_card_matches_plain_cpu_learner(dev):
@@ -266,22 +300,47 @@ def test_fused_map_kernel_matches_plain(dev, case, monkeypatch):
     (the kernel net's output bias left out: its true gradient is 0), AdamW
     moments within 1e-4 of their largest |plain| value, loss rtol 1e-5. The
     same steps split into two launches give the same bits."""
-    t, n, d, f, mh, kh, ragged, batch, decay, n_steps = MAP_CASES[case]
+    _map_kernel_matches_plain(dev, case, MAP_CASES[case], monkeypatch)
+
+
+# big-N (B9): bench.py's map_t5_n200 shapes, and tasks of up to 300 points
+# (the matrix in device memory), D=2, F=3
+BIGN_CASES = {
+    "t5_n200_full_batch": (5, 200, 1, 2, (32, 32), (32, 32), False, None, 1.0, 20),
+    "t5_n200_counted": (5, 200, 1, 2, (32, 32), (32, 32), False, 2, 1.0, 20),
+    "t5_n200_staircase": (5, 200, 1, 2, (32, 32), (32, 32), False, None, 0.5, 30),
+    "odd_shape_n300": (4, 300, 2, 3, (16, 16, 16), (16, 16, 16), True, None, 1.0, 20),
+    "n12_grouped_tasks": (200, 12, 1, 2, (8, 8), (8, 8), True, 37, 1.0, 10),
+}
+
+
+@pytest.mark.parametrize("case", sorted(BIGN_CASES))
+def test_fused_map_bign_kernel_matches_plain(dev, case, monkeypatch):
+    """B9 against its plain version, with the tolerances of B6's test above."""
+    _map_kernel_matches_plain(dev, case, BIGN_CASES[case], monkeypatch)
+
+
+def _map_kernel_matches_plain(dev, case, spec, monkeypatch):
+    t, n, d, f, mh, kh, ragged, batch, decay, n_steps = spec
+    bign = n > mk.MAX_N
+    trainer_cls, ref, counter = ((bg.FusedMAPBigNTrainer, bg.fused_map_bign_train_ref,
+                                  "fused_map_bign") if bign
+                                 else (mk.FusedMAPTrainer, mk.fused_map_train_ref, "fused_map"))
     monkeypatch.setattr(launch_sched, "LR_TRANSITION_STEPS", 10)
     (x, y, mask), state, layout = map_case(t, n, d, f, mh, kh, ragged, sum(map(ord, case)), dev)
 
     def draw(step):
         return torch.from_numpy(np.random.RandomState(step).randint(0, t, batch))
 
-    trainer = mk.FusedMAPTrainer(x, y, mask, layout=layout, lr=1e-3, weight_decay=0.2,
-                                 lr_decay=decay, task_batch_size=batch, task_draw=draw)
+    trainer = trainer_cls(x, y, mask, layout=layout, lr=1e-3, weight_decay=0.2,
+                          lr_decay=decay, task_batch_size=batch, task_draw=draw)
     got, want, split = ([a.clone() for a in state] for _ in range(3))
     cuda.reset_launch_counts()
     got_loss, _ = trainer.run(*got, n_steps, 3)
-    assert cuda.LAUNCHES["fused_map"] == len(list(trainer.launches(3, n_steps)))
+    assert cuda.LAUNCHES[counter] == len(list(trainer.launches(3, n_steps)))
     for s0, sub in trainer.launches(3, n_steps):
         counts = trainer.count_pages(s0, sub) if trainer.counted else None
-        want_loss, _ = mk.fused_map_train_ref(
+        want_loss, _ = ref(
             *want, x, y, mask, trainer.w_t, s0, launch_sched.staircase_lr(1e-3, decay, s0), 0.2,
             counts, layout=layout, n_steps=sub)
     trainer.run(*split, 4, 3)
@@ -325,6 +384,44 @@ def test_map_learner_on_card_matches_plain_cpu_learner(dev):
     chunked = GPRegressionMetaLearned(train, **kw)
     chunked.meta_fit(n_iter=12, log_period=5, verbose=False)
     assert torch.equal(chunked.params, on_card.params)
+
+
+def test_bign_map_learner_on_card_matches_plain_cpu_learner(dev):
+    """A MAP learner on 4 tasks of 60 points (one ragged) at a small width,
+    built without a device: on the card the fit runs through B9 alone and
+    lands within 1e-4 of the same fit on the CPU (B9's plain version); eval
+    (through K4) rtol 1e-3; two chunkings give the same bits; the general
+    step on the card takes B4."""
+    env = SinusoidDataset(random_state=np.random.RandomState(5))
+    train = env.generate_meta_train_data(n_tasks=4, n_samples=60)
+    train[2] = (train[2][0][:45], train[2][1][:45])
+    test = env.generate_meta_test_data(n_tasks=3, n_samples_context=70, n_samples_test=30)
+    kw = dict(mean_nn_layers=(16, 16), kernel_nn_layers=(16, 16), weight_decay=0.2,
+              task_batch_size=-1, random_seed=30)
+    on_card = GPRegressionMetaLearned(train, **kw)
+    assert on_card.device.type == "cuda" and on_card._fused_path_ok()
+    cuda.reset_launch_counts()
+    on_card.meta_fit(n_iter=12, log_period=12, verbose=False)
+    assert cuda.LAUNCHES["fused_map_bign"] == 1 and sum(cuda.LAUNCHES.values()) == 1, cuda.LAUNCHES
+    on_cpu = GPRegressionMetaLearned(train, device="cpu", **kw)
+    on_cpu.meta_fit(n_iter=12, log_period=12, verbose=False)
+    keep = torch.ones(on_cpu.params.numel(), dtype=torch.bool)
+    keep[layout_slice(on_cpu.layout, ("kernel_nn", "b_out"))] = False
+    assert float((on_card.params.cpu() - on_cpu.params)[keep].abs().max()) <= 1e-4
+    np.testing.assert_allclose(on_card.eval_datasets(test), on_cpu.eval_datasets(test),
+                               rtol=1e-3, atol=1e-5)
+    chunked = GPRegressionMetaLearned(train, **kw)
+    chunked.meta_fit(n_iter=12, log_period=5, verbose=False)
+    assert torch.equal(chunked.params, on_card.params)
+    monkeypatch = pytest.MonkeyPatch()
+    monkeypatch.setenv("PACOH_TORCH_DISABLE_FUSED", "1")
+    try:
+        general = GPRegressionMetaLearned(train, **kw)
+        cuda.reset_launch_counts()
+        general.meta_fit(n_iter=3, log_period=3, verbose=False)
+    finally:
+        monkeypatch.undo()
+    assert cuda.LAUNCHES["blocked_fwd"] == cuda.LAUNCHES["blocked_bwd"] == 3, cuda.LAUNCHES
 
 
 # name -> (S, T, N, D, hidden, ragged, task batch or None, lr_decay)
