@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port of PACOH (SVGD, MAP and VI) once on one NVIDIA GPU.
+"""Drive the PyTorch/CUDA port of PACOH (SVGD, MAP, VI and MLAP) once on one NVIDIA GPU.
 
     python3 chip_smoke.py                # all phases, one card
     python3 chip_smoke.py --profile DIR  # also trace fit steps and one eval of
@@ -21,7 +21,12 @@ at the general steps' B=5 (MAP) and B=50 (SVGD), N=200, at N in {49, 231,
 big-N fused MAP
 kernel B9 at the ``map_t5_n200`` shapes (full batch, a sampled batch, across
 a staircase) and one odd shape (ragged tasks of up to 300 points, D=2, F=3,
-nets (16,16,16)).
+nets (16,16,16)), the small-matrix Cholesky B5 at N in {32, 50, 64} and B in
+{1, 20, 200, 257} and on a batch with an indefinite matrix, and the fused
+MLAP kernel B8 at bench.py's ``mlap`` shapes from a well-conditioned state
+(full batch, a sampled batch, across a staircase, the meta-test mode, one
+odd shape: S=3, 7 ragged tasks, D=2, nets (16,16,16)) and by one gradient at
+the sin_20 learner's own initial state.
 Phase 3 runs the ``cauchy_20`` main path (the general step) through the
 public entry points: ``provide_data("cauchy_20")``,
 ``GPRegressionMetaLearnedSVGD(..., device="cuda")``, ``meta_fit`` and
@@ -60,6 +65,17 @@ general steps (``PACOH_TORCH_DISABLE_FUSED=1``, through B4) that must agree
 with B9's 20 from the same state, 500 B9 steps from the JAX learner's initial
 parameters held to the JAX run recorded in tools/map_bign_ref.json, and 20
 general steps of bench.py's ``svgd_t5_n200`` learner (through B4).
+Phase 8 runs bench.py's ``mlap`` path: ``GPRegressionMetaLearnedPAC(train,
+num_iter_fit=2000, random_seed=1, covar_module="NN", mean_module="NN",
+meta_kl_weight=1e-3)`` on the sin_20 data, built without a device: a
+2,000-step ``meta_fit`` carried by B8 alone, the steady rate of a second
+call, bench.py's meta-test row (3,000 steps on 5 context sets, two warm
+calls, then 5 timed), ``eval_datasets`` cold and warm (its meta-test through
+B8, its 50-point predictive covariances through B5), ``confidence_intervals``
+with ``n_iter_meta_test=300``, two chunkings that must give the same bits, 20
+general steps (``PACOH_TORCH_DISABLE_FUSED=1``) that must agree with B8's from
+one well-conditioned state, and seeds 30-32 in the band of the JAX
+package's (tools/mlap_band.json). Phases 4-6 report their evals' B5 launches.
 
 Any failure raises and exits non-zero. The line before the last is a JSON
 object with one record per kernel; the last line is
@@ -88,6 +104,9 @@ KERNELS = {  # launch-counter name -> (source, TPU kernel it replaces)
     "blocked_fwd": (SOURCE + "blocked_mll.cu", TPU + "blocked_mll_kernel.py:715"),
     "blocked_bwd": (SOURCE + "blocked_mll.cu", TPU + "blocked_mll_kernel.py:754"),
     "fused_map_bign": (SOURCE + "fused_map_bign.cu", TPU + "fused_map_bign_kernel.py:391"),
+    "chol_small": (SOURCE + "chol_small.cu",
+                   TPU + "chol_kernel.py:64 and " + TPU + "chol_kernel.py:115"),
+    "fused_mlap": (SOURCE + "fused_mlap.cu", TPU + "fused_mlap_kernel.py:553"),
 }
 # the card's peaks for the bound (NVIDIA's H100 SXM data sheet): float32 off
 # the tensor cores, and device memory
@@ -145,6 +164,26 @@ BIGN_CHUNK = 125  # the second chunking
 BIGN_TWIN_STEPS = 20  # B9 against the general step (B4), from one state
 BIGN_REF_FILE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tools",
                              "map_bign_ref.json")
+# B5 against its plain version: N x B, the per-system error as K4's
+B5_NS, B5_BS = (32, 50, 64), (1, 20, 200, 257)
+# B8 against its plain version: 30 steps (full batch, a sampled batch, across a
+# staircase; the meta-test) with the twins' tolerances, on a state whose inner
+# gram is well conditioned (conditioned_tasks); at the sin_20 learner's own
+# initial state the gram is singular to float32 before its 1e-6 jitter, so a
+# one-step gradient is compared there, against the plain version's own float32
+# to float64 gap
+B8_STEPS = 30
+B8_GRAD_FACTOR = 10.0  # the kernel's gap to the float32 plain gradient, in units of that gap
+MLAP_STEPS = 2000  # bench.py's mlap fit
+MLAP_CHUNK = 700  # the second chunking
+MLAP_META_TEST = 3000  # the meta-test's steps (bench.py:225-240)
+MLAP_CI_META_TEST = 300
+MLAP_TWIN_STEPS = 20  # B8 against the general step, from one state and one set of draws
+# the band of seeds 30-32: tools/mlap_band.json (written by tools/mlap_band.py),
+# the JAX learner on the CPU, seeds 30-59 at 2,000 steps; centre, margin = 3
+# sigma of the difference of a 3-seed mean and the 30-seed mean
+MLAP_BAND_FILE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tools",
+                              "mlap_band.json")
 
 
 def card_line():
@@ -311,6 +350,8 @@ def phase2(param_dim):
     phase2_b7(errs, times, work)
     phase2_b4(errs, times, work, library)
     phase2_b9(errs, times, work)
+    phase2_b5(errs, times, work, library)
+    phase2_b8(errs, times, work)
     for name, (k_ms, p_ms) in times.items():
         unit = "ms a step" if name.startswith("fused") else "ms"
         lib = f", torch.linalg.cholesky_ex {library[name]:.4f} ms" if name in library else ""
@@ -777,6 +818,280 @@ def phase2_b9(errs, times, work):
     work["fused_map_bign"] = (step_flops, 4 * (6 * p + t * n * (d + 2) + t) / n_launch)
 
 
+def phase2_b5(errs, times, work, library):
+    """B5 against its plain version at N in {32, 50, 64} and B in {1, 20, 200,
+    257}, and on a batch with an indefinite matrix; timed at the MLAP eval's
+    B=20, N=50 (and at B=200, the SVGD and VI evals')."""
+    import torch
+
+    from meta_learning_pacoh_torch.ops.cuda import chol_kernel, chol_small_kernel
+
+    gen = torch.Generator().manual_seed(5)
+    for n in B5_NS:
+        for b in B5_BS:
+            a = spd(b, n, gen)
+            check("chol_small", chol_small_kernel.cholesky_small(a), chol_kernel.cholesky_ref(a),
+                  errs)
+            print(f"    (B={b}, N={n})")
+    a = spd(20, 50, gen)
+    lam = torch.linalg.eigvalsh(a[7])
+    a[7] -= (lam[0] + 0.05 * (lam[1] - lam[0]) + 1e-3) * torch.eye(50, device="cuda")
+    got, want = chol_small_kernel.cholesky_small(a), chol_kernel.cholesky_ref(a)
+    nan_got, nan_want = torch.isnan(got), torch.isnan(want)
+    others = torch.arange(20) != 7
+    if not (torch.equal(nan_got, nan_want) and bool(nan_want[7].all())
+            and not bool(nan_want[others].any())):
+        raise AssertionError("chol_small: NaN pattern differs from the plain version")
+    check("chol_small", got[others.cuda()], want[others.cuda()], errs)
+    print("    (B=20, N=50, matrix 7 indefinite: all NaN, its neighbours factored)")
+    for b in (20, 200):
+        a = spd(b, 50, gen)
+        k_ms, p_ms = time_pair(lambda: chol_small_kernel.cholesky_small(a),
+                               lambda: chol_kernel.cholesky_ref(a))
+        lib_ms = statistics.median(median_ms(lambda: torch.linalg.cholesky_ex(a), 10))
+        print(f"  chol_small at B={b}, N=50: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, "
+              f"torch.linalg.cholesky_ex {lib_ms:.4f} ms (median)")
+        if b == 20:  # the MLAP eval's predictive covariances
+            times["chol_small"], library["chol_small"] = (k_ms, p_ms), lib_ms
+            work["chol_small"] = (b * 50 ** 3 / 3, 4 * 2 * b * 50 * 50)
+
+
+def conditioned_tasks(rs, t, n, d=1, sizes=None):
+    """t tasks of n points (the first sizes[i] of task i), evenly spread along
+    a line through the input space, each shifted a little: with the state of
+    ``conditioned_state`` the inner KL's gram is well conditioned."""
+    import numpy as np
+
+    direction = np.linspace(1.0, 0.5, d)
+    tasks = []
+    for i in range(t):
+        m = n if sizes is None else sizes[i]
+        x = (np.linspace(-3.0, 3.0, n)[:m, None] * direction[None, :]
+             + rs.uniform(-0.2, 0.2, (1, d)))
+        tasks.append((x, np.sin(x.sum(axis=1)) + 0.1 * rs.randn(m)))
+    return tasks
+
+
+def conditioned_params(hyper_prior, mask, raw_noise, rs):
+    """An MLAP state (the JAX learner's nested numpy form) whose kernel net
+    maps the inputs of ``conditioned_tasks`` monotonically to features about
+    two lengthscales apart: small positive weights (their layer sums about
+    1, so no unit saturates), lengthscale 0.25, the posterior's scales at
+    0.1 as a learner's initial ones; mask [T, N] the tasks' padding. There
+    the plain version's float32 and float64 runs of 30 steps stay within
+    1e-5 of each other (CPU)."""
+    import numpy as np
+
+    hp, hidden = hyper_prior, tuple(hyper_prior.cfg.kernel_nn_layers)
+    t, n = mask.shape
+    h = hidden[0]
+    loc = 0.1 * rs.randn(hp.dim)
+    widths = (hp.cfg.input_dim,) + hidden
+    for i in range(len(hidden)):
+        scale = 1.0 if i == 0 else 4.0 / h
+        loc[hp.slice_of(("kernel_nn", f"w_{i}"))] = scale * rs.uniform(
+            0.2, 0.4, widths[i] * widths[i + 1])
+        loc[hp.slice_of(("kernel_nn", f"b_{i}"))] = rs.uniform(-0.1, 0.1, h)
+    loc[hp.slice_of(("kernel_nn", "w_out"))] = rs.uniform(2.0, 4.0, h) / h
+    loc[hp.slice_of(("kernel_nn", "b_out"))] = 0.0
+    loc[hp.slice_of(("lengthscale_raw",))] = -1.25  # lengthscale 0.25
+    f32 = np.float32
+    return {"hyper_post": {"loc": loc.astype(f32),
+                           "log_scale": (np.log(0.1) + 0.1 * rs.randn(hp.dim)).astype(f32)},
+            "raw_noise": np.asarray(raw_noise, f32),
+            "q_means": (0.1 * rs.randn(t, n) * mask).astype(f32),
+            "q_trils": (np.tril(0.1 * rs.randn(t, n, n)) + np.eye(n)).astype(f32)}
+
+
+def conditioned_state(model, rs):
+    """``conditioned_params`` for an MLAP learner, as its ``state_dict()``
+    with zero Adam moments."""
+    import numpy as np
+
+    params = conditioned_params(model.hyper_prior, model.mask.cpu().numpy(),
+                                model.params["raw_noise"].cpu().numpy(), rs)
+    zeros = {k: ({kk: np.zeros_like(vv) for kk, vv in v.items()} if isinstance(v, dict)
+                 else np.zeros_like(v)) for k, v in params.items()}
+    return {"params": params, "opt_state": {"mu": zeros, "nu": zeros, "count": 0}, "step": 0}
+
+
+def mlap_model(tasks, seed=1, **kw):
+    """bench.py's mlap learner (bench.py:147-149), on the card by default."""
+    from meta_learning_pacoh_torch import GPRegressionMetaLearnedPAC
+
+    return GPRegressionMetaLearnedPAC(tasks, num_iter_fit=MLAP_STEPS, random_seed=seed,
+                                      covar_module="NN", mean_module="NN", meta_kl_weight=1e-3,
+                                      **kw)
+
+
+def mlap_state(model):
+    """Copies of an MLAP learner's state and its Adam moments (STATE_KEYS)."""
+    return [{k: tree[k].clone() for k in ("loc", "log_scale", "q_means", "q_trils",
+                                           "raw_noise")}
+            for tree in (model.params, model._mu, model._nu)]
+
+
+def compare_mlap(label, got, want, got_loss, want_loss, skip, meta_test=False):
+    """Assert the twins' tolerances on an MLAP state and its moments; returns
+    the max parameter difference."""
+    import torch
+
+    keys = ("q_means", "q_trils") if meta_test else ("loc", "log_scale", "q_means",
+                                                    "q_trils", "raw_noise")
+    d_max = d_mean = rel = 0.0
+    for k in keys:
+        a, b = got[0][k].cpu().reshape(-1), want[0][k].cpu().reshape(-1)
+        keep = torch.ones(a.numel(), dtype=torch.bool)
+        if k in ("loc", "log_scale"):
+            keep[skip] = False
+        d = (a - b).abs()[keep]
+        d_max, d_mean = max(d_max, float(d.max())), max(d_mean, float(d.mean()))
+        for tree_g, tree_w in zip(got[1:], want[1:]):
+            mg, mw = tree_g[k].cpu().reshape(-1)[keep], tree_w[k].cpu().reshape(-1)[keep]
+            rel = max(rel, float((mg - mw).abs().max()) / max(float(mw.abs().max()), 1e-30))
+    loss_rel = abs(float(got_loss) - float(want_loss)) / abs(float(want_loss))
+    print(f"  fused_mlap, {label}: |state diff| max {d_max:.3e}, mean {d_mean:.3e}; Adam m, v "
+          f"max diff / max |plain| {rel:.3e}; last loss rel diff {loss_rel:.3e} "
+          f"(kernel_nn.b_out excluded)")
+    if not (d_max <= TWIN_ATOL and d_mean <= TWIN_MEAN_ATOL and rel <= B2_MOMENT_RTOL
+            and loss_rel <= B6_LOSS_RTOL):
+        raise AssertionError(f"fused_mlap ({label}): kernel disagrees with its plain version")
+    return d_max
+
+
+def phase2_b8(errs, times, work):
+    """B8 against its plain version at the mlap shapes (sin_20's S=5, T=20,
+    N=5, D=1, nets (32,32)) and one odd shape, from a well-conditioned state:
+    30 steps full batch, with a sampled batch's count pages, across a
+    staircase, and 30 meta-test steps; then one step's gradient at the sin_20
+    learner's own initial state; then the times of a 512-step launch."""
+    import numpy as np
+    import torch
+
+    from meta_learning_pacoh_torch.ops import launch_sched
+    from meta_learning_pacoh_torch.ops.cuda import fused_mlap_kernel as mk
+
+    rs = np.random.RandomState(8)
+    cases = (
+        ("full batch", dict(), None, 1.0, False, (20, 5, 1), None),
+        ("sampled batch of 5", dict(task_batch_size=5), 5, 1.0, False, (20, 5, 1), None),
+        ("staircase lr_decay 0.5", dict(lr_decay=0.5), 20, 0.5, False, (20, 5, 1), None),
+        ("meta-test, 20 tasks", dict(), None, 1.0, True, (20, 5, 1), None),
+        ("S=3, 7 ragged tasks of up to 7 points, D=2, nets (16,16,16)",
+         dict(svi_batch_size=3, mean_nn_layers=(16, 16, 16), kernel_nn_layers=(16, 16, 16)),
+         7, 1.0, False, (7, 7, 2), (7, 5, 7, 3, 7, 6, 2)),
+    )
+    transition = launch_sched.LR_TRANSITION_STEPS
+    for label, kw, batch, decay, meta_test, (t, n, d), sizes in cases:
+        model = mlap_model(conditioned_tasks(rs, t, n, d, sizes), **kw)
+        model.load_state_dict(conditioned_state(model, rs))
+        if not model._fused_path_ok():
+            raise AssertionError(f"fused_mlap ({label}): the learner is off the fused path")
+        hidden = tuple(model.cfg.mean_nn_layers)
+        lr_main, lr_post = (1e-2, 1e-2) if meta_test else (1e-3, 1e-3)
+        eps = torch.randn(B8_STEPS, model.svi_batch_size, model.hyper_prior.dim,
+                          generator=torch.Generator().manual_seed(len(label))).cuda()
+        counts = None
+        if batch is not None:
+            counts = torch.stack([torch.bincount(model._task_draw(i), minlength=t).float()
+                                  for i in range(B8_STEPS)]).cuda()
+        got, want = mlap_state(model), mlap_state(model)
+        kw8 = dict(hidden=hidden, wps=0.5, bps=3.0, task_kl_weight=1.0, meta_kl_weight=1e-3,
+                   delta=0.1, n_tasks=t, meta_test=meta_test)
+        launch_sched.LR_TRANSITION_STEPS = B2_STAIR_TRANSITION
+        try:
+            for s0, sub in launch_sched.staircase_launches(0, B8_STEPS, 512, decay):
+                c = None if counts is None else counts[s0:s0 + sub]
+                lrs = (launch_sched.staircase_lr(lr_main, decay, s0),
+                       launch_sched.staircase_lr(lr_post, decay, s0))
+                got_loss, _, _ = mk.fused_mlap_train(*got, model.X, model.Y, model.mask,
+                                                     eps[s0:s0 + sub], c, s0, *lrs, batch=batch,
+                                                     n_steps=sub, **kw8)
+                want_loss, _, _ = mk.fused_mlap_train_ref(*want, model.X, model.Y, model.mask,
+                                                          eps[s0:s0 + sub], c, s0, *lrs,
+                                                          n_steps=sub, **kw8)
+        finally:
+            launch_sched.LR_TRANSITION_STEPS = transition
+        torch.cuda.synchronize()
+        skip = model.hyper_prior.slice_of(("kernel_nn", "b_out"))
+        d_max = compare_mlap(f"{label}, {B8_STEPS} steps", got, want, got_loss, want_loss, skip,
+                             meta_test)
+        errs["fused_mlap"] = max(errs.get("fused_mlap", 0.0), d_max)
+
+    # one step's gradient at the sin_20 learner's own initial state (lr 0: the
+    # first moments are 0.1 g), against the plain version in float32 and float64
+    train, _ = sin20()
+    model = mlap_model(train)
+    hidden = tuple(model.cfg.mean_nn_layers)
+    eps = torch.empty(1, model.svi_batch_size, model.hyper_prior.dim, device="cuda")
+    model._draw_eps(0, eps[0])
+    counts = torch.bincount(model._task_draw(0), minlength=20).float()[None].cuda()
+    kw8 = dict(hidden=hidden, wps=0.5, bps=3.0, task_kl_weight=1.0, meta_kl_weight=1e-3,
+               delta=0.1, n_tasks=20, n_steps=1)
+    grads = {}
+    for label, dtype in (("kernel", torch.float32), ("plain", torch.float32),
+                         ("plain64", torch.float64)):
+        state = [{k: v.to(dtype) for k, v in tree.items()} for tree in mlap_state(model)]
+        data = [a.to(dtype) for a in (model.X, model.Y, model.mask, eps, counts)]
+        if label == "kernel":
+            mk.fused_mlap_train(*state, *data, 0, 0.0, 0.0, batch=20, **kw8)
+        else:
+            mk.fused_mlap_train_ref(*state, *data, 0, 0.0, 0.0, **kw8)
+        grads[label] = {k: 10.0 * v.double().cpu() for k, v in state[1].items()}
+    skip = model.hyper_prior.slice_of(("kernel_nn", "b_out"))
+    for k in grads["plain"]:
+        g_k, g_p, g_64 = (grads[lbl][k].reshape(-1) for lbl in ("kernel", "plain", "plain64"))
+        if k in ("loc", "log_scale"):
+            keep = torch.ones(g_k.numel(), dtype=torch.bool)
+            keep[skip] = False
+            g_k, g_p, g_64 = g_k[keep], g_p[keep], g_64[keep]
+        scale = float(g_64.abs().max())
+        gap_k, gap_32 = (float((g_k - g_p).abs().max()) / scale,
+                         float((g_p - g_64).abs().max()) / scale)
+        print(f"  fused_mlap, sin_20 initial state, one gradient, {k}: kernel - plain "
+              f"{gap_k:.3e}, plain float32 - float64 {gap_32:.3e} (of the largest entry)")
+        if not gap_k <= max(B8_GRAD_FACTOR * gap_32, 1e-4):
+            raise AssertionError(f"fused_mlap: the sin_20 gradient of {k} disagrees")
+
+    # per step at the main path's launch: 512 steps from the sin_20 learner's
+    # initial state and its own pages; the plain version over 3 steps
+    trainer = mk.FusedMLAPTrainer(
+        model.X, model.Y, model.mask, hidden=hidden, lr=1e-3, posterior_lr_multiplier=1.0,
+        svi_batch_size=model.svi_batch_size, task_batch_size=20, task_kl_weight=1.0,
+        meta_kl_weight=1e-3, delta=0.1, weight_prior_std=0.5, bias_prior_std=3.0,
+        eps_draw=model._draw_eps, task_draw=model._task_draw)
+    n_launch = trainer.MAX_LAUNCH
+    eps, counts = trainer.eps_pages(0, n_launch), trainer.count_pages(0, n_launch)
+    data = (model.X, model.Y, model.mask)
+    kw8 = dict(hidden=hidden, wps=0.5, bps=3.0, task_kl_weight=1.0, meta_kl_weight=1e-3,
+               delta=0.1, n_tasks=20)
+    k_state, p_state = mlap_state(model), mlap_state(model)
+    k_ms, p_ms = time_pair(
+        lambda: mk.fused_mlap_train(*k_state, *data, eps, counts, 0, 1e-3, 1e-3, batch=20,
+                                    n_steps=n_launch, **kw8),
+        lambda: mk.fused_mlap_train_ref(*p_state, *data, eps[:3], counts[:3], 0, 1e-3, 1e-3,
+                                        n_steps=3, **kw8),
+        reps=3)
+    times["fused_mlap"] = (k_ms / n_launch, p_ms / 3)
+    mt_state = mlap_state(model)
+    mt_ms = statistics.median(median_ms(
+        lambda: mk.fused_mlap_train(mt_state[0], *mt_state[1:], *data, eps, None, 0, 0.0, 1e-2,
+                                    meta_test=True, n_steps=n_launch, **kw8), 3)) / n_launch
+    print(f"  fused_mlap, meta-test mode (20 tasks): kernel {mt_ms:.4f} ms a step")
+    # a step: S samples' both nets forward and backward over T*N rows, the
+    # S*T KL systems (the factorization trials, L^-1, K^-1, K^-1 L0 and the
+    # gram's chain, about 4 N^3 + 12 N^2), the reduction over the samples and
+    # the two Adam updates; it reads its noise and count pages, and a launch
+    # reads and writes the state and its moments once and reads the data once
+    s, p, (t, n, d) = model.svi_batch_size, model.hyper_prior.dim, model.X.shape
+    q_size = t * n * (n + 1)
+    step_flops = (s * (2 * mlp_flops(t * n, d, hidden, 1) + t * (4 * n ** 3 + 12 * n * n)
+                       + 8 * p) + 3 * s * p + 24 * p + 20 * q_size)
+    work["fused_mlap"] = (step_flops,
+                          4 * (s * p + t + (6 * (2 * p + q_size + 1) + t * n * (d + 2))
+                               / n_launch))
+
+
 def diff_excluding(a, b, skip):
     """(max, mean) |a - b| over all but the columns in ``skip``."""
     import torch
@@ -934,12 +1249,14 @@ def phase4(profile_dir):
                                                                 "mll_bwd")):
         raise AssertionError(f"the fit was not carried by the fused kernel: {launches}")
     one_chunk = model.particles.clone()
+    cuda.reset_launch_counts()
     t0 = time.perf_counter()
     ll, rmse, calib = model.eval_datasets(test)
     torch.cuda.synchronize()
     eval_s = time.perf_counter() - t0
+    eval_chol_small = cuda.LAUNCHES["chol_small"]
     print(f"  eval_datasets: {len(test)} tasks in {eval_s:.3f} s (first call); "
-          f"LL {ll:.6f}, RMSE {rmse:.6f}, calib {calib:.6f}")
+          f"LL {ll:.6f}, RMSE {rmse:.6f}, calib {calib:.6f}; B5 launches {eval_chol_small}")
     if not all(math.isfinite(v) for v in (ll, rmse, calib)) or not bool(
             torch.isfinite(model.particles).all()):
         raise AssertionError("non-finite particles or metrics")
@@ -985,7 +1302,8 @@ def phase4(profile_dir):
             and abs(mean_rmse - SIN_RMSE_BAND[0]) <= SIN_RMSE_BAND[1]):
         raise AssertionError("sin_20 accuracy outside the JAX package's band")
     return launches, dict(fit_s=fit_s, steady_s=steady_s, steady_steps_per_s=steady,
-                          eval_s=eval_s, eval_warm_s=eval_warm_s, ll=ll, rmse=rmse,
+                          eval_s=eval_s, eval_warm_s=eval_warm_s,
+                          eval_chol_small_launches=eval_chol_small, ll=ll, rmse=rmse,
                           calib=calib, seed_ll=lls, seed_rmse=rmses, mean_ll=mean_ll,
                           mean_rmse=mean_rmse, traces=traces)
 
@@ -1010,12 +1328,14 @@ def phase5(profile_dir):
     if launches["fused_map"] < 1 or any(v for k, v in launches.items() if k != "fused_map"):
         raise AssertionError(f"the fit was not carried by the fused MAP kernel: {launches}")
     one_chunk = model.params.clone()
+    cuda.reset_launch_counts()
     t0 = time.perf_counter()
     ll, rmse, calib = model.eval_datasets(test)
     torch.cuda.synchronize()
     eval_s = time.perf_counter() - t0
+    eval_chol_small = cuda.LAUNCHES["chol_small"]
     print(f"  eval_datasets: {len(test)} tasks in {eval_s:.4f} s (first call); "
-          f"LL {ll:.6f}, RMSE {rmse:.6f}, calib {calib:.6f}")
+          f"LL {ll:.6f}, RMSE {rmse:.6f}, calib {calib:.6f}; B5 launches {eval_chol_small}")
     if not all(math.isfinite(v) for v in (ll, rmse, calib)) or not bool(
             torch.isfinite(model.params).all()):
         raise AssertionError("non-finite parameters or metrics")
@@ -1076,7 +1396,8 @@ def phase5(profile_dir):
     print(f"  full batch (bench.py map_fullbatch): {MAP_STEPS} steps in {full_first_s:.4f} s "
           f"first, {full_steady_s:.4f} s steady ({MAP_STEPS / full_steady_s:.1f} steps/s)")
     return launches, dict(fit_s=fit_s, steady_s=steady_s, steady_steps_per_s=steady,
-                          eval_s=eval_s, eval_warm_s=eval_warm_s, ll=ll, rmse=rmse,
+                          eval_s=eval_s, eval_warm_s=eval_warm_s,
+                          eval_chol_small_launches=eval_chol_small, ll=ll, rmse=rmse,
                           calib=calib, seed_ll=lls, seed_rmse=rmses, mean_ll=mean_ll,
                           mean_rmse=mean_rmse, full_batch_first_s=full_first_s,
                           full_batch_steady_s=full_steady_s,
@@ -1106,12 +1427,14 @@ def phase6(profile_dir):
         raise AssertionError(f"the fit was not carried by the fused VI kernel alone, one launch "
                              f"per {model._fused.MAX_LAUNCH} steps: {launches}")
     one_chunk = {k: v.clone() for k, v in model.posterior.items()}
+    cuda.reset_launch_counts()
     t0 = time.perf_counter()
     ll, rmse, calib = model.eval_datasets(test)
     torch.cuda.synchronize()
     eval_s = time.perf_counter() - t0
+    eval_chol_small = cuda.LAUNCHES["chol_small"]
     print(f"  eval_datasets: {len(test)} tasks in {eval_s:.4f} s (first call); "
-          f"LL {ll:.6f}, RMSE {rmse:.6f}, calib {calib:.6f}")
+          f"LL {ll:.6f}, RMSE {rmse:.6f}, calib {calib:.6f}; B5 launches {eval_chol_small}")
     if not all(math.isfinite(v) for v in (ll, rmse, calib)) or not all(
             bool(torch.isfinite(v).all()) for v in model.posterior.values()):
         raise AssertionError("non-finite posterior or metrics")
@@ -1181,7 +1504,8 @@ def phase6(profile_dir):
             and abs(mean_rmse - rmse_band[0]) <= rmse_band[1]):
         raise AssertionError("sin_20 VI accuracy outside the JAX package's band")
     return launches, dict(fit_s=fit_s, steady_s=steady_s, steady_steps_per_s=steady,
-                          eval_s=eval_s, eval_warm_s=eval_warm_s, ll=ll, rmse=rmse,
+                          eval_s=eval_s, eval_warm_s=eval_warm_s,
+                          eval_chol_small_launches=eval_chol_small, ll=ll, rmse=rmse,
                           calib=calib, seed_ll=lls, seed_rmse=rmses, mean_ll=mean_ll,
                           mean_rmse=mean_rmse, general_s=general_s,
                           general_steps_per_s=VI_GENERAL_STEPS / general_s, traces=traces)
@@ -1377,6 +1701,158 @@ def phase7(profile_dir):
                           svgd_launches=svgd_launches, traces=traces)
 
 
+def phase8(profile_dir):
+    import numpy as np
+    import torch
+
+    from meta_learning_pacoh_torch.ops import cuda
+
+    train, test = sin20()
+    model = mlap_model(train)  # no device: the card by default
+    if model.device.type != "cuda" or not model._fused_path_ok():
+        raise AssertionError(f"the MLAP learner is on {model.device}, or off the fused path")
+    print(f"  sin_20 MLAP: {len(train)} tasks x {len(train[0][0])} points, S="
+          f"{model.svi_batch_size} samples, P={model.hyper_prior.dim}, on {model.device}")
+    cuda.reset_launch_counts()
+    fit_s = timed_fit(model, MLAP_STEPS, MLAP_STEPS)
+    launches = dict(cuda.LAUNCHES)
+    want_launches = len(list(model._fused.launches(0, MLAP_STEPS)))
+    print(f"  meta_fit: {MLAP_STEPS} steps in {fit_s:.3f} s ({MLAP_STEPS / fit_s:.1f} steps/s, "
+          f"first call); launches in the fit: {launches}")
+    if launches["fused_mlap"] != want_launches or any(
+            v for k, v in launches.items() if k != "fused_mlap"):
+        raise AssertionError(f"the fit was not carried by B8 alone, one launch per "
+                             f"{model._fused.MAX_LAUNCH} steps: {launches}")
+    one_chunk = {k: v.clone() for k, v in model.params.items()}
+    if not all(bool(torch.isfinite(v).all()) for v in one_chunk.values()):
+        raise AssertionError("non-finite MLAP state after the fit")
+    steady_s = timed_fit(model, MLAP_STEPS, MLAP_STEPS)
+    steady = MLAP_STEPS / steady_s
+    print(f"  steady state: {MLAP_STEPS} steps in {steady_s:.4f} s, {steady:.1f} steps/s")
+
+    # bench.py's meta-test row: 5 context sets, two warm calls, then 5 timed
+    ctx = [t[:2] for t in test[:5]]
+    for _ in range(2):
+        model._meta_test_inference(ctx, n_iter=MLAP_META_TEST)
+    mt_s = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state = model._meta_test_inference(ctx, n_iter=MLAP_META_TEST)
+        float(state["q_means"].reshape(-1)[0])
+        mt_s.append((time.perf_counter() - t0) / len(ctx))
+    print(f"  meta-test ({MLAP_META_TEST} steps, {len(ctx)} tasks): "
+          f"{statistics.mean(mt_s):.5f} s a task (mean of 5; {[round(v, 5) for v in mt_s]})")
+
+    cuda.reset_launch_counts()
+    t0 = time.perf_counter()
+    ll, rmse, calib = model.eval_datasets(test)
+    torch.cuda.synchronize()
+    eval_s = time.perf_counter() - t0
+    eval_launches = dict(cuda.LAUNCHES)
+    print(f"  eval_datasets: {len(test)} tasks in {eval_s:.4f} s (first call, a {MLAP_META_TEST}"
+          f"-step meta-test); LL {ll:.6f}, RMSE {rmse:.6f}, calib {calib:.6f}; launches "
+          f"{eval_launches}")
+    if not (eval_launches["fused_mlap"] > 0 and eval_launches["chol_small"] > 0):
+        raise AssertionError(f"the eval did not run through B8 and B5: {eval_launches}")
+    if not all(math.isfinite(v) for v in (ll, rmse, calib)):
+        raise AssertionError("non-finite metrics")
+    t0 = time.perf_counter()
+    model.eval_datasets(test)
+    torch.cuda.synchronize()
+    eval_warm_s = time.perf_counter() - t0
+    print(f"  eval_datasets again: {eval_warm_s:.4f} s")
+    x_plot = np.linspace(-5.0, 5.0, 150)
+    ucb, lcb = model.confidence_intervals(test[0][0], test[0][1], x_plot, confidence=0.9,
+                                          n_iter_meta_test=MLAP_CI_META_TEST)
+    print(f"  confidence_intervals on test task 0, 150 points, a {MLAP_CI_META_TEST}-step "
+          f"meta-test: ucb - lcb in [{float(np.min(ucb - lcb)):.4f}, "
+          f"{float(np.max(ucb - lcb)):.4f}]")
+    if not (ucb.shape == lcb.shape == (150,) and np.all(np.isfinite(ucb))
+            and np.all(np.isfinite(lcb)) and np.all(ucb > lcb)):
+        raise AssertionError("confidence intervals are not finite with ucb > lcb")
+    traces = {}
+    if profile_dir:
+        traces["mlap_fit_512_steps"] = profile(
+            "mlap_fit", lambda: model.meta_fit(n_iter=512, log_period=512, verbose=False),
+            profile_dir)
+        traces["mlap_eval"] = profile("mlap_eval", lambda: model.eval_datasets(test), profile_dir)
+        for label, summary in traces.items():
+            print(f"  trace {label}: " + json.dumps(summary))
+
+    chunked = mlap_model(train)
+    chunked.meta_fit(n_iter=MLAP_STEPS, log_period=MLAP_CHUNK, verbose=False)
+    same = all(torch.equal(chunked.params[k], one_chunk[k]) for k in one_chunk)
+    print(f"  chunkings: log_period {MLAP_STEPS} and {MLAP_CHUNK} give identical states: {same}")
+    if not same:
+        raise AssertionError("two chunkings of the fused fit differ")
+
+    # B8 and the general step from one well-conditioned state and one set of
+    # draws (at the sin_20 learner's own state the inner gram is singular to
+    # float32, and any two float32 orders part within a few steps)
+    rs = np.random.RandomState(12)
+    tasks = conditioned_tasks(rs, 20, 5)
+    state = conditioned_state(mlap_model(tasks), rs)
+    twins = {}
+    for label, disabled in (("fused", "0"), ("general", "1")):
+        os.environ["PACOH_TORCH_DISABLE_FUSED"] = disabled
+        try:
+            twin = mlap_model(tasks)
+            twin.load_state_dict(state)
+            if twin._fused_path_ok() != (label == "fused"):
+                raise AssertionError(f"PACOH_TORCH_DISABLE_FUSED={disabled}: wrong path")
+            cuda.reset_launch_counts()
+            twin_s = timed_fit(twin, MLAP_TWIN_STEPS, MLAP_TWIN_STEPS)
+            twins[label] = (twin, twin_s, dict(cuda.LAUNCHES))
+        finally:
+            os.environ.pop("PACOH_TORCH_DISABLE_FUSED")
+    general, general_s, general_launches = twins["general"]
+    fused = twins["fused"][0]
+    print(f"  general step (PACOH_TORCH_DISABLE_FUSED=1): {MLAP_TWIN_STEPS} steps in "
+          f"{general_s:.3f} s ({MLAP_TWIN_STEPS / general_s:.1f} steps/s, first call); launches "
+          f"{general_launches}")
+    if general_launches["fused_mlap"]:
+        raise AssertionError("the general step launched the fused kernel")
+    skip = fused.hyper_prior.slice_of(("kernel_nn", "b_out"))
+    fused_loss = fused.meta_fit(n_iter=1, log_period=1, verbose=False)[0]
+    os.environ["PACOH_TORCH_DISABLE_FUSED"] = "1"
+    try:
+        general_loss = general.meta_fit(n_iter=1, log_period=1, verbose=False)[0]
+        twin_max = compare_mlap(f"B8 against the general step, {MLAP_TWIN_STEPS} steps from one "
+                                f"state and the next step's loss", mlap_state(fused),
+                                mlap_state(general), fused_loss, general_loss, skip)
+        general_steady_s = timed_fit(general, MLAP_TWIN_STEPS, MLAP_TWIN_STEPS)
+    finally:
+        os.environ.pop("PACOH_TORCH_DISABLE_FUSED")
+    print(f"  general step, steady: {MLAP_TWIN_STEPS / general_steady_s:.1f} steps/s")
+
+    seeds = {}
+    for seed in SIN_SEEDS:
+        other = mlap_model(train, seed=seed)
+        other.meta_fit(n_iter=MLAP_STEPS, log_period=MLAP_STEPS, verbose=False)
+        seeds[seed] = other.eval_datasets(test)
+    lls = [seeds[s][0] for s in SIN_SEEDS]
+    rmses = [seeds[s][1] for s in SIN_SEEDS]
+    mean_ll, mean_rmse = float(np.mean(lls)), float(np.mean(rmses))
+    with open(MLAP_BAND_FILE) as f:
+        band = json.load(f)["jax"]
+    ll_band, rmse_band = band["ll_band"], band["rmse_band"]
+    print(f"  seeds {SIN_SEEDS} after {MLAP_STEPS} steps: LL {lls}, RMSE {rmses}; mean LL "
+          f"{mean_ll:.4f} (band {ll_band[0]:.4f} +- {ll_band[1]:.4f}), mean RMSE "
+          f"{mean_rmse:.4f} (band {rmse_band[0]:.4f} +- {rmse_band[1]:.4f})")
+    if not (abs(mean_ll - ll_band[0]) <= ll_band[1]
+            and abs(mean_rmse - rmse_band[0]) <= rmse_band[1]):
+        raise AssertionError("sin_20 MLAP accuracy outside the JAX package's band")
+    launches.update(chol_small=eval_launches["chol_small"])
+    return launches, dict(fit_s=fit_s, steady_s=steady_s, steady_steps_per_s=steady,
+                          meta_test_s_per_task=statistics.mean(mt_s), eval_s=eval_s,
+                          eval_warm_s=eval_warm_s, ll=ll, rmse=rmse, calib=calib,
+                          twin_max=twin_max, general_s=general_s,
+                          general_steady_steps_per_s=MLAP_TWIN_STEPS / general_steady_s,
+                          seed_ll=lls, seed_rmse=rmses, mean_ll=mean_ll, mean_rmse=mean_rmse,
+                          traces=traces)
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--profile", metavar="DIR",
@@ -1432,6 +1908,12 @@ def main():
     for name in ("fused_map_bign", "blocked_fwd", "blocked_bwd"):
         launches[name] = bign_launches[name]
     print("slice map_t5_n200: " + json.dumps({"card": card, **bign_summary}))
+
+    print("phase 8: sin_20 PACOH-MLAP main path (fused kernel; its eval through B5)")
+    mlap_launches, mlap_summary = phase8(args.profile)
+    for name in ("fused_mlap", "chol_small"):
+        launches[name] = mlap_launches[name]
+    print("slice sin_20 MLAP: " + json.dumps({"card": card, **mlap_summary}))
     print(f"all phases: {time.perf_counter() - t_start:.1f} s")
 
     records = []

@@ -14,6 +14,7 @@ from ``random_seed``, so a seed draws the same numbers on every device.
 import numpy as np
 import torch
 
+from meta_learning_pacoh_torch.ops.metrics import calib_error_from_cdf
 from meta_learning_pacoh_torch.utils.input_handling import handle_input_dim, stack_task_tuples
 from meta_learning_pacoh_torch.utils.logging import get_logger
 
@@ -101,9 +102,22 @@ class RegressionModelMetaLearned(RegressionModelBase):
         """(ll [T], rmse [T], calib [T]) of stacked test tasks."""
         raise NotImplementedError
 
-    def eval(self, context_x, context_y, test_x, test_y):
-        """(avg_log_likelihood, rmse, calibration_error) on one test task."""
-        return self.eval_datasets([(context_x, context_y, test_x, test_y)])
+    def eval(self, context_x, context_y, test_x, test_y, **kwargs):
+        """(avg_log_likelihood, rmse, calibration_error) on one test task.
+
+        Keyword arguments go to ``predict`` (the VI learner's ``mode``, MLAP's
+        ``n_iter_meta_test``), and the task is evaluated through the
+        predictive density it returns; without them, through the batched path.
+        """
+        if not kwargs:
+            return self.eval_datasets([(context_x, context_y, test_x, test_y)])
+        test_x, test_y = handle_input_dim(test_x, test_y)
+        y = self._tensor(test_y.flatten())
+        pred_dist = self.predict(context_x, context_y, test_x, return_density=True, **kwargs)
+        avg_ll = float(torch.mean(pred_dist.log_prob(y))) / y.shape[0]
+        rmse = float(torch.sqrt(torch.mean((pred_dist.mean - y) ** 2)))
+        calib = float(calib_error_from_cdf(self._vectorize_pred_dist(pred_dist).cdf(y)))
+        return avg_ll, rmse, calib
 
     def _stack_eval_tuples(self, test_tuples):
         """Uniform-shape test tuples as tensors (ctx_x, ctx_y normalised;
@@ -121,13 +135,19 @@ class RegressionModelMetaLearned(RegressionModelBase):
         TY = np.stack([ty[:, 0] for _, _, _, ty in prepared])
         return tuple(self._tensor(a) for a in (CX, CY, TX, TY))
 
-    def eval_datasets(self, test_tuples):
+    def eval_datasets(self, test_tuples, **kwargs):
         """Mean (ll, rmse, calib) over (ctx_x, ctx_y, test_x, test_y) tuples.
 
-        Tasks of one shape evaluate in one batched call; ragged ones one by one.
+        Tasks of one shape evaluate in one batched call, ragged ones one by
+        one; with keyword arguments (for ``predict``) every task goes through
+        ``eval``, as in the JAX package.
         """
         if not all(len(t) == 4 for t in test_tuples):
             raise ValueError("test tuples must be (ctx_x, ctx_y, test_x, test_y)")
+        if kwargs:
+            results = [self.eval(*t, **kwargs) for t in test_tuples]
+            ll, rmse, calib = zip(*results)
+            return float(np.mean(ll)), float(np.mean(rmse)), float(np.mean(calib))
         stacked = self._stack_eval_tuples(test_tuples)
         if stacked is not None:
             lls, rmses, calibs = self._run_batch_eval(*stacked)
@@ -142,11 +162,12 @@ class RegressionModelMetaLearned(RegressionModelBase):
         raise NotImplementedError
 
     @torch.no_grad()
-    def confidence_intervals(self, context_x, context_y, test_x, confidence=0.9):
+    def confidence_intervals(self, context_x, context_y, test_x, confidence=0.9, **kwargs):
         """(upper, lower) bounds of the central ``confidence`` interval of the
-        per-point predictive at test_x, in original y units."""
+        per-point predictive at test_x, in original y units; keyword
+        arguments go to ``predict``."""
         pred_dist = self._vectorize_pred_dist(
-            self.predict(context_x, context_y, test_x, return_density=True))
+            self.predict(context_x, context_y, test_x, return_density=True, **kwargs))
         alpha = (1.0 - confidence) / 2.0
         n = handle_input_dim(test_x).shape[0]
         q = torch.full((n,), 1.0 - alpha, dtype=torch.float32, device=self.device)

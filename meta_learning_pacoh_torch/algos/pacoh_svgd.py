@@ -15,8 +15,9 @@ Two paths, as in the JAX package:
   uniform task sizes) runs its whole fit through the fused training kernel
   (ops/cuda/fused_svgd_kernel.py), one launch per chunk and staircase step;
 - the general step, one Python loop iteration per step: the score by
-  autograd through the batched MLL (the MLL kernel's backward for
-  9 <= N <= 48), the Stein kernel, and the update here.
+  autograd through the batched MLL (the MLL kernels K2/K3 for
+  9 <= N <= 48, the blocked MLL kernels B4 for 49 <= N <= 512), the Stein
+  kernel K1, and the update here.
 
 A sampled task batch draws the tasks of step s from a generator seeded with
 (train seed, s), on both paths, so they follow one random trajectory and do

@@ -2,7 +2,9 @@
 // (fused_svgd.cu, one block per particle) and the fused VI kernel
 // (fused_vi.cu, one block per posterior sample); the counterpart of
 // make_score_section in meta_learning_pacoh_tpu/ops/pallas/
-// fused_train_kernel.py.
+// fused_train_kernel.py. The fused MLAP kernel (fused_mlap.cu) takes its
+// two MLP passes, nets_forward and nets_backward, and factor<N>, with its
+// own per-task algebra (the inner KL's) between them.
 //
 // One block computes, for one parameter vector th [P] in shared memory with
 // an NN mean and an NN kernel (feature_dim 1, L hidden layers of width H),
@@ -177,27 +179,19 @@ struct ScoreSmem {
   float* pql;   // [T] per-task w_t (quad + logdet), with kValue
 };
 
-// The score section of th [P] into sc [P] (see the top of this file). o: the
-// leaf offsets, per net (0 mean, 1 kernel) w_l, b_l for each layer, then
-// w_out, b_out; after both nets lengthscale_raw, noise_raw. w_t [T] the task
-// weights, counts [T] this step's draw counts or null. With kValue,
-// *wql_out receives sum_t w_t (quad_t + logdet_t) (an undrawn or empty task
-// adds exactly 0). Ends with a block barrier.
-template <bool kValue>
-__device__ __forceinline__ void score_section(const float* th, float* sc, const int* o, int T,
-                                              int N, int D, int H, int L, const float* w_t,
-                                              const float* counts, const ScoreSmem& w,
-                                              float* wql_out) {
+// The forward of both nets of th [P] over the M rows of w.xs: activations
+// into w.act, the mean net's output into w.outm, the kernel net's feature
+// into w.outk. o: the leaf offsets, per net (0 mean, 1 kernel) w_l, b_l for
+// each layer, then w_out, b_out; after both nets lengthscale_raw,
+// noise_raw. Ends with a block barrier.
+__device__ __forceinline__ void nets_forward(const float* th, const int* o, int M, int D, int H,
+                                             int L, const ScoreSmem& w) {
   const int tid = threadIdx.x, nth = blockDim.x;
-  const int M = T * N;
   const int S = 2 * L + 2;
-  const int off_ls = o[2 * S], off_nz = o[2 * S + 1];
   float* act = w.act;
   const float* xs = w.xs;
   float* outm = w.outm;
   float* outk = w.outk;
-
-  // ---- forward of both nets
   for (int net = 0; net < 2; ++net) {
     float* a_net = act + net * L * M * H;
     const float* w0 = th + o[net * S];
@@ -233,24 +227,20 @@ __device__ __forceinline__ void score_section(const float* th, float* sc, const 
     }
   }
   __syncthreads();
+}
 
-  // ---- per-task MLL gradient, one thread a task
-  const float ls_raw = th[off_ls], nz_raw = th[off_nz];
-  const float sp_ls = softplus(ls_raw), sp_nz = softplus(nz_raw);
-  for (int t = tid; t < T; t += nth) {
-    float wt = w_t[t];
-    if (counts != nullptr) {
-      const float c = counts[t];
-      wt = c > 0.f ? wt * c : 0.f;
-    }
-    float ql = 0.f;
-    task_grad_n<kValue>(N, outm + t * N, outk + t * N, w.ys + t * N, w.ms + t * N, sp_ls, sp_nz,
-                        wt, w.pls + t, w.pnz + t, &ql);
-    if (kValue) w.pql[t] = wt > 0.f ? wt * ql : 0.f;
-  }
-  __syncthreads();
-
-  // ---- backward of both nets into the score
+// The backward of both nets of th [P] into sc [P] (every weight and bias of
+// both nets), from d(mean) in w.outm and d(feature) in w.outk; w.act holds
+// the forward's activations and receives their gradients. No trailing
+// barrier.
+__device__ __forceinline__ void nets_backward(const float* th, float* sc, const int* o, int M,
+                                              int D, int H, int L, const ScoreSmem& w) {
+  const int tid = threadIdx.x, nth = blockDim.x;
+  const int S = 2 * L + 2;
+  float* act = w.act;
+  const float* xs = w.xs;
+  const float* outm = w.outm;
+  const float* outk = w.outk;
   for (int net = 0; net < 2; ++net) {
     float* a_net = act + net * L * M * H;
     const float* dout = net == 0 ? outm : outk;
@@ -320,6 +310,45 @@ __device__ __forceinline__ void score_section(const float* th, float* sc, const 
       }
     }
   }
+}
+
+// The score section of th [P] into sc [P] (see the top of this file). o: the
+// leaf offsets (nets_forward). w_t [T] the task weights, counts [T] this
+// step's draw counts or null. With kValue, *wql_out receives sum_t w_t
+// (quad_t + logdet_t) (an undrawn or empty task adds exactly 0). Ends with a
+// block barrier.
+template <bool kValue>
+__device__ __forceinline__ void score_section(const float* th, float* sc, const int* o, int T,
+                                              int N, int D, int H, int L, const float* w_t,
+                                              const float* counts, const ScoreSmem& w,
+                                              float* wql_out) {
+  const int tid = threadIdx.x, nth = blockDim.x;
+  const int M = T * N;
+  const int S = 2 * L + 2;
+  const int off_ls = o[2 * S], off_nz = o[2 * S + 1];
+  float* outm = w.outm;
+  float* outk = w.outk;
+
+  nets_forward(th, o, M, D, H, L, w);
+
+  // ---- per-task MLL gradient, one thread a task
+  const float ls_raw = th[off_ls], nz_raw = th[off_nz];
+  const float sp_ls = softplus(ls_raw), sp_nz = softplus(nz_raw);
+  for (int t = tid; t < T; t += nth) {
+    float wt = w_t[t];
+    if (counts != nullptr) {
+      const float c = counts[t];
+      wt = c > 0.f ? wt * c : 0.f;
+    }
+    float ql = 0.f;
+    task_grad_n<kValue>(N, outm + t * N, outk + t * N, w.ys + t * N, w.ms + t * N, sp_ls, sp_nz,
+                        wt, w.pls + t, w.pnz + t, &ql);
+    if (kValue) w.pql[t] = wt > 0.f ? wt * ql : 0.f;
+  }
+  __syncthreads();
+
+  // ---- backward of both nets into the score
+  nets_backward(th, sc, o, M, D, H, L, w);
   if (tid == 0) {
     float sl = 0.f, sn = 0.f, sq = 0.f;
     for (int t = 0; t < T; ++t) {

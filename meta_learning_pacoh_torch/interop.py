@@ -4,7 +4,9 @@
 particles, the optax optimizer state, the step) into the port's state dict,
 ``from_jax_map_state`` a JAX PACOH-MAP learner's (a parameter pytree and
 optax's multi-transform AdamW state), and ``from_jax_vi_state`` a JAX
-PACOH-VI learner's (the posterior dict and optax's Adam or SGD state). With
+PACOH-VI learner's (the posterior dict and optax's Adam or SGD state), and
+``from_jax_mlap_state`` a JAX PACOH-MLAP learner's (the hyper-posterior,
+noise and per-task posteriors, and optax's two-group Adam or SGD state). With
 the identical flat parameter layout (models/random_gp.py) the two packages
 can then continue from the same numbers. The JAX state is read by
 attribute, key and position only; nothing of JAX or optax is imported.
@@ -91,4 +93,42 @@ def from_jax_vi_state(state):
         nu = {k: np.zeros_like(v) for k, v in post.items()}
         count = 0
     return {"posterior": post, "opt_state": {"mu": mu, "nu": nu, "count": count},
+            "step": int(state.get("step", 0))}
+
+
+def from_jax_mlap_state(state):
+    """A JAX ``GPRegressionMetaLearnedPAC.state_dict()`` -> the port's MLAP state:
+    {'params': {'hyper_post': {'loc', 'log_scale' | 'tril_raw'}, 'raw_noise',
+    'q_means', 'q_trils'}, 'opt_state': {'mu', 'nu', 'count'}, 'step'}, the
+    moments nested as the params.
+
+    The optimizer state is optax's ``MultiTransformState(inner_states={'main':
+    MaskedState(inner_state=(ScaleByAdamState(count, mu, nu), ...)),
+    'posterior': ...})``: 'main' holds the moments of the hyper-posterior and
+    the noise, 'posterior' those of q_means and q_trils. SGD keeps no moments,
+    which become zeros.
+    """
+    params = {"hyper_post": {k: np.asarray(v, dtype=np.float32)
+                             for k, v in state["params"]["hyper_post"].items()},
+              **{k: np.asarray(state["params"][k], dtype=np.float32)
+                 for k in ("raw_noise", "q_means", "q_trils")}}
+    groups = state["opt_state"].inner_states
+    main, post = groups["main"].inner_state[0], groups["posterior"].inner_state[0]
+    if hasattr(main, "mu"):
+        def moments(field):
+            return {"hyper_post": {k: np.asarray(getattr(main, field)["hyper_post"][k],
+                                                 dtype=np.float32)
+                                   for k in params["hyper_post"]},
+                    "raw_noise": np.asarray(getattr(main, field)["raw_noise"], dtype=np.float32),
+                    **{k: np.asarray(getattr(post, field)[k], dtype=np.float32)
+                       for k in ("q_means", "q_trils")}}
+
+        mu, nu, count = moments("mu"), moments("nu"), int(np.asarray(main.count))
+    else:
+        def zeros():
+            return {"hyper_post": {k: np.zeros_like(v) for k, v in params["hyper_post"].items()},
+                    **{k: np.zeros_like(params[k]) for k in ("raw_noise", "q_means", "q_trils")}}
+
+        mu, nu, count = zeros(), zeros(), 0
+    return {"params": params, "opt_state": {"mu": mu, "nu": nu, "count": count},
             "step": int(state.get("step", 0))}

@@ -1,10 +1,14 @@
 """Differentiable Cholesky with kernel dispatch (counterpart of meta_learning_pacoh_tpu/ops/chol.py).
 
 ``cholesky(A)`` is the entry point the GP engine uses. With the kernels on,
-matrices of CHOL_KERNEL_MIN_N <= N <= CHOL_KERNEL_MAX_N go to the batched
-Cholesky kernel (ops/cuda/chol_kernel.py, the counterpart of the TPU's
-``blocked_cholesky``); other sizes go to ``torch.linalg``, as the JAX
-package left them to XLA. A failed factorization is all NaN, never an
+matrices of CHOL_SMALL_MIN_N <= N <= CHOL_SMALL_MAX_N (32-64) go to the
+small-matrix kernel B5 (ops/cuda/chol_small_kernel.py, the counterpart of
+the TPU's ``cholesky_pallas``), those of CHOL_KERNEL_MIN_N <= N <=
+CHOL_KERNEL_MAX_N (65-512) to K4 (ops/cuda/chol_kernel.py, the counterpart of
+the TPU's ``blocked_cholesky``); other sizes go to ``torch.linalg``, as the
+JAX package leaves them to XLA. The JAX package takes its small-matrix kernel
+only for an explicitly batched call; every caller here is batched, so the
+whole 32-64 window goes to B5. A failed factorization is all NaN, never an
 exception, so ``safe_cholesky`` can test its trial factors. The backward is
 Murray's (2016) two triangular solves, as in the JAX package.
 """
@@ -19,15 +23,24 @@ from meta_learning_pacoh_torch.ops.cuda.chol_kernel import (
     cholesky_ref,
     diag_ok,
 )
+from meta_learning_pacoh_torch.ops.cuda.chol_small_kernel import (
+    CHOL_SMALL_MAX_N,
+    CHOL_SMALL_MIN_N,
+    cholesky_small,
+)
 
 
 def _cholesky_impl(a):
     n = a.shape[-1]
-    if (config.kernels_enabled() and CHOL_KERNEL_MIN_N <= n <= CHOL_KERNEL_MAX_N
-            and a.dtype == torch.float32):
-        flat = a.reshape(-1, n, n).contiguous()
-        return cholesky_fused(flat).reshape(a.shape)
-    return cholesky_ref(a)
+    kernel = None
+    if config.kernels_enabled() and a.dtype == torch.float32:
+        if CHOL_SMALL_MIN_N <= n <= CHOL_SMALL_MAX_N:
+            kernel = cholesky_small
+        elif CHOL_KERNEL_MIN_N <= n <= CHOL_KERNEL_MAX_N:
+            kernel = cholesky_fused
+    if kernel is None:
+        return cholesky_ref(a)
+    return kernel(a.reshape(-1, n, n).contiguous()).reshape(a.shape)
 
 
 def _phi(x):

@@ -34,12 +34,14 @@ SIGNATURES = {
     "pacoh_mll_fwd": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
     "pacoh_mll_bwd": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
     "pacoh_chol": (_P, _P, _I, _I, _I, _P),
+    "pacoh_chol_small": (_P, _P, _I, _I, _I, _P),
     "pacoh_blocked_mll_fwd": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
     "pacoh_blocked_mll_bwd": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
     "pacoh_fused_svgd": (_P,) * 14 + (_I,) * 8 + (_F,) * 3 + (_I, _P),
     "pacoh_fused_map": (_P,) * 12 + (_I,) * 12 + (_F,) * 4 + (_I, _P),
     "pacoh_fused_map_bign": (_P,) * 14 + (_I,) * 13 + (_F,) * 4 + (_I, _P),
     "pacoh_fused_vi": (_P,) * 18 + (_I,) * 8 + (_F,) * 6 + (_I, _P),
+    "pacoh_fused_mlap": (_P,) * 27 + (_I,) * 9 + (_F,) * 10 + (_I, _P),
 }
 
 _lock = threading.Lock()

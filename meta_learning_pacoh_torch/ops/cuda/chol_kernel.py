@@ -14,7 +14,7 @@ import torch
 from meta_learning_pacoh_torch.ops import cuda
 from meta_learning_pacoh_torch.ops.cuda.build import launch
 
-CHOL_KERNEL_MIN_N = 65  # below: torch.linalg, as the JAX package left them to XLA
+CHOL_KERNEL_MIN_N = 65  # below: B5 for 32 <= N <= 64 (chol_small_kernel.py), as in the JAX package
 CHOL_KERNEL_MAX_N = 512  # the kernel's limit and the TPU kernel's window
 
 

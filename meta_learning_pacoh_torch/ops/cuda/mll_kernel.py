@@ -20,7 +20,7 @@ from meta_learning_pacoh_torch.ops.cuda.build import launch
 from meta_learning_pacoh_torch.ops.cuda.chol_kernel import cholesky_ref, diag_ok
 
 MLL_KERNEL_MIN_N = 9  # below: the unrolled expressions (ops/chol.py)
-MLL_KERNEL_MAX_N = 48  # above: the plain path, until the blocked MLL kernel is ported
+MLL_KERNEL_MAX_N = 48  # above: the blocked MLL kernels B4 for 49 <= N <= 512 (ops/gp.py)
 MAX_N = 64  # what the kernel takes: two N x N matrices in shared memory
 JITTERS = (0.0, 1e-4, 1e-2)
 

@@ -8,6 +8,18 @@ Shapes broadcast over any leading batch dimensions.
 import torch
 
 
+def softplus(x):
+    """log(1 + exp(x)) in the form jax.nn.softplus evaluates: max(x, 0) + log1p(exp(-|x|))."""
+    return torch.clamp_min(x, 0.0) + torch.log1p(torch.exp(-torch.abs(x)))
+
+
+def inv_softplus(y):
+    """Inverse of softplus, for initialising raw parameters from constrained
+    values: y itself above 20, else log(expm1(y)) with y clipped to [1e-8, 20]."""
+    y = torch.as_tensor(y, dtype=torch.float32)
+    return torch.where(y > 20.0, y, torch.log(torch.expm1(torch.clamp(y, 1e-8, 20.0))))
+
+
 def sq_dists(x1, x2):
     """Pairwise squared distances by the |a|^2 + |b|^2 - 2ab expansion.
 

@@ -16,6 +16,7 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 from meta_learning_pacoh_torch import (
     GPRegressionMetaLearned,
     GPRegressionMetaLearnedSVGD,
@@ -26,7 +27,8 @@ from meta_learning_pacoh_torch.models.gp_base import init_gp_params
 from meta_learning_pacoh_torch.models.random_gp import layout_slice, ravel_flat
 from meta_learning_pacoh_torch.ops import cuda, launch_sched
 from meta_learning_pacoh_torch.ops.cuda import blocked_mll_kernel as bk
-from meta_learning_pacoh_torch.ops.cuda import chol_kernel, mll_kernel, svgd_kernel
+from meta_learning_pacoh_torch.ops.cuda import chol_kernel, chol_small_kernel, mll_kernel, svgd_kernel
+from meta_learning_pacoh_torch.ops.cuda import fused_mlap_kernel as lk
 from meta_learning_pacoh_torch.ops.cuda import fused_map_bign_kernel as bg
 from meta_learning_pacoh_torch.ops.cuda import fused_map_kernel as mk
 from meta_learning_pacoh_torch.ops.cuda import fused_svgd_kernel as fk
@@ -534,3 +536,115 @@ def test_vi_learner_on_card_matches_plain_cpu_learner(dev):
     chunked.meta_fit(n_iter=12, log_period=5, verbose=False)
     for key in ("loc", "log_scale"):
         assert torch.equal(chunked.posterior[key], on_card.posterior[key])
+
+
+@pytest.mark.parametrize("b", [1, 20, 200, 257])
+@pytest.mark.parametrize("n", [32, 50, 64])
+def test_chol_small_kernel(dev, n, b):
+    """B5 against its plain version, one launch for the batch."""
+    a = _psd(b, n, seed=n + b).to(dev)
+    cuda.reset_launch_counts()
+    got = chol_small_kernel.cholesky_small(a)
+    assert cuda.LAUNCHES["chol_small"] == 1
+    assert_close_per_system(got, chol_kernel.cholesky_ref(a))
+    assert float(torch.triu(got, 1).abs().max()) == 0.0
+
+
+def test_chol_small_kernel_fails_one_matrix_to_nan(dev):
+    a = _psd(20, 50, seed=3).to(dev)
+    lam = torch.linalg.eigvalsh(a[7].double())
+    a[7] -= float(lam[0] + 1e-2) * torch.eye(50, device=dev)
+    got, want = chol_small_kernel.cholesky_small(a), chol_kernel.cholesky_ref(a)
+    assert torch.equal(torch.isnan(got), torch.isnan(want)) and bool(torch.isnan(got[7]).all())
+    others = torch.arange(20, device=dev) != 7
+    assert_close_per_system(got[others], want[others])
+
+
+# name -> (learner keywords, task batch, meta-test, (T, N, D), task sizes)
+MLAP_CASES = {
+    "full_batch": (dict(), None, False, (20, 5, 1), None),
+    "sampled": (dict(task_batch_size=5), 5, False, (20, 5, 1), None),
+    "meta_test": (dict(), None, True, (20, 5, 1), None),
+    "odd": (dict(svi_batch_size=3, mean_nn_layers=(16, 16, 16), kernel_nn_layers=(16, 16, 16)),
+            7, False, (7, 7, 2), (7, 5, 7, 3, 7, 6, 2)),
+}
+
+
+@pytest.mark.parametrize("case", sorted(MLAP_CASES))
+def test_fused_mlap_kernel_matches_plain(dev, case):
+    """B8 against its plain version on the card, 20 steps in one launch
+    from chip_smoke.py's well-conditioned state, with the twins' tolerances
+    (chip_smoke.compare_mlap)."""
+    kw, batch, meta_test, (t, n, d), sizes = MLAP_CASES[case]
+    rs = np.random.RandomState(len(case))
+    model = chip_smoke.mlap_model(chip_smoke.conditioned_tasks(rs, t, n, d, sizes), **kw)
+    model.load_state_dict(chip_smoke.conditioned_state(model, rs))
+    eps = torch.from_numpy(rs.randn(20, model.svi_batch_size, model.hyper_prior.dim).astype(
+        np.float32)).to(dev)
+    counts = None
+    if batch is not None:
+        counts = torch.stack([torch.bincount(model._task_draw(i), minlength=t).float()
+                              for i in range(20)]).to(dev)
+    lrs = (1e-2, 1e-2) if meta_test else (1e-3, 1e-3)
+    kw8 = dict(hidden=tuple(model.cfg.mean_nn_layers), wps=0.5, bps=3.0, task_kl_weight=1.0,
+               meta_kl_weight=1e-3, delta=0.1, n_tasks=t, meta_test=meta_test, n_steps=20)
+    got, want = chip_smoke.mlap_state(model), chip_smoke.mlap_state(model)
+    cuda.reset_launch_counts()
+    got_loss, _, _ = lk.fused_mlap_train(*got, model.X, model.Y, model.mask, eps, counts, 0, *lrs,
+                                         batch=batch, **kw8)
+    assert cuda.LAUNCHES["fused_mlap"] == 1 and sum(cuda.LAUNCHES.values()) == 1
+    want_loss, _, _ = lk.fused_mlap_train_ref(*want, model.X, model.Y, model.mask, eps, counts, 0,
+                                              *lrs, **kw8)
+    skip = model.hyper_prior.slice_of(("kernel_nn", "b_out"))
+    chip_smoke.compare_mlap(case, got, want, got_loss, want_loss, skip, meta_test)
+
+
+def test_mlap_learner_on_card_matches_plain_cpu_learner(dev, monkeypatch):
+    """A learner built without a device (the card) and one on the CPU, from
+    one well-conditioned state and fed one set of noise: 12 steps through B8
+    alone land within 1e-4 of the CPU's plain version; the eval's meta-test
+    runs through B8 and its 40-point predictive covariances through B5, LL,
+    RMSE and calibration rtol 1e-3; two chunkings give the same bits."""
+    rs = np.random.RandomState(4)
+    tasks = chip_smoke.conditioned_tasks(rs, 8, 5)
+    test = [(cx, cy, np.linspace(-3.0, 3.0, 40)[:, None], np.sin(np.linspace(-3.0, 3.0, 40)))
+            for cx, cy in chip_smoke.conditioned_tasks(rs, 3, 5)]
+    kw = dict(svi_batch_size=4, mean_nn_layers=(16, 16), kernel_nn_layers=(16, 16))
+    on_card = chip_smoke.mlap_model(tasks, **kw)
+    on_cpu = chip_smoke.mlap_model(tasks, device="cpu", **kw)
+    chunked = chip_smoke.mlap_model(tasks, **kw)
+    state = chip_smoke.conditioned_state(on_cpu, rs)
+    p = on_cpu.hyper_prior.dim
+    draws = np.random.RandomState(6)
+    agg = torch.from_numpy(draws.randn(20, p).astype(np.float32))
+    init = torch.from_numpy(draws.randn(3, 5).astype(np.float32))
+    steps = torch.from_numpy(draws.randn(20, 4, p).astype(np.float32))
+    for model in (on_card, on_cpu, chunked):
+        model.load_state_dict(state)
+        model._draw_eps = _numpy_eps(4, p)
+        dev_ = model.device
+        model._agg_eps = lambda seed, dev_=dev_: agg.to(dev_)
+        model._meta_test_eps = lambda seed, s0, k, dev_=dev_: steps[s0:s0 + k].to(dev_)
+        model._init_task_posteriors = (
+            lambda post, X, mask, seed, m=model, dev_=dev_: m._init_q(
+                post["loc"] + torch.exp(post["log_scale"]) * agg.to(dev_), init.to(dev_), X, mask))
+    assert on_card.device.type == "cuda" and on_card._fused_path_ok()
+    cuda.reset_launch_counts()
+    on_card.meta_fit(n_iter=12, log_period=12, verbose=False)
+    assert cuda.LAUNCHES["fused_mlap"] == 1 and sum(cuda.LAUNCHES.values()) == 1, cuda.LAUNCHES
+    on_cpu.meta_fit(n_iter=12, log_period=12, verbose=False)
+    keep = torch.ones(p, dtype=torch.bool)
+    keep[on_cpu.hyper_prior.slice_of(("kernel_nn", "b_out"))] = False
+    for key in ("loc", "log_scale", "q_means", "q_trils", "raw_noise"):
+        diff = (on_card.params[key].cpu() - on_cpu.params[key]).reshape(-1)
+        if key in ("loc", "log_scale"):
+            diff = diff[keep]
+        assert float(diff.abs().max()) <= 1e-4, (key, float(diff.abs().max()))
+    cuda.reset_launch_counts()
+    got = on_card.eval_datasets(test, n_iter_meta_test=20)
+    assert cuda.LAUNCHES["fused_mlap"] == 1 and cuda.LAUNCHES["chol_small"] > 0, cuda.LAUNCHES
+    np.testing.assert_allclose(got, on_cpu.eval_datasets(test, n_iter_meta_test=20), rtol=1e-3,
+                               atol=1e-5)
+    chunked.meta_fit(n_iter=12, log_period=5, verbose=False)
+    for key in on_card.params:
+        assert torch.equal(chunked.params[key], on_card.params[key])
