@@ -26,13 +26,22 @@ nets (16,16,16)), the small-matrix Cholesky B5 at N in {32, 50, 64} and B in
 MLAP kernel B8 at bench.py's ``mlap`` shapes from a well-conditioned state
 (full batch, a sampled batch, across a staircase, the meta-test mode, one
 odd shape: S=3, 7 ragged tasks, D=2, nets (16,16,16)) and by one gradient at
-the sin_20 learner's own initial state.
-Phase 3 runs the ``cauchy_20`` main path (the general step) through the
-public entry points: ``provide_data("cauchy_20")``,
+the sin_20 learner's own initial state, and the big-N fused SVGD and VI
+kernels B10 and B11 at the ``svgd_t5_n200`` / ``vi_t5_n200`` shapes (full
+batch, a sampled batch, across a staircase), at ``cauchy_20``'s (20 tasks of
+20 points, D=2: two systems a block; also timed) and two odd shapes (3
+ragged tasks of up to 240 points, D=2, nets (16,16,16): the matrices in
+device memory; 26 ragged tasks of up to 20 points: two systems a block).
+Phase 3 runs ``cauchy_20`` through the public entry points:
+``provide_data("cauchy_20", seed=28)``,
 ``GPRegressionMetaLearnedSVGD(..., device="cuda")``, ``meta_fit`` and
-``eval_datasets`` on all 200 test tasks, with the counters of K1-K4 at 0
-before and above 0 after; then twins of the fit and of the eval with the
-kernels disabled, compared with the kernel path.
+``eval_datasets`` on all 200 test tasks, as the learner dispatches it (B10
+alone in the fit, its counter at 0 before and above 0 after); then twins
+of the fit and of the eval from one state, with the kernels disabled and
+with the fused kernel disabled (the general step: K1-K3), compared with
+B10's; then the same learner with the SE covariance of the experiments'
+``--covar_module SE``, whose fit takes the general step by default, with
+the counters of K1-K4 at 0 before its fit and eval and above 0 after.
 Phase 4 runs the ``sin_20`` main path of ``bench.py`` (the fused path): a
 10,000-step ``meta_fit`` carried by B2 alone (its counter above 0, those of
 the general step's kernels at 0), the steady rate of a second 10,000-step
@@ -64,7 +73,8 @@ context and 200 test points cold and warm (their factorizations through K4),
 general steps (``PACOH_TORCH_DISABLE_FUSED=1``, through B4) that must agree
 with B9's 20 from the same state, 500 B9 steps from the JAX learner's initial
 parameters held to the JAX run recorded in tools/map_bign_ref.json, and 20
-general steps of bench.py's ``svgd_t5_n200`` learner (through B4).
+general steps of bench.py's ``svgd_t5_n200`` learner
+(``PACOH_TORCH_DISABLE_FUSED=1``, through B4).
 Phase 8 runs bench.py's ``mlap`` path: ``GPRegressionMetaLearnedPAC(train,
 num_iter_fit=2000, random_seed=1, covar_module="NN", mean_module="NN",
 meta_kl_weight=1e-3)`` on the sin_20 data, built without a device: a
@@ -76,6 +86,23 @@ with ``n_iter_meta_test=300``, two chunkings that must give the same bits, 20
 general steps (``PACOH_TORCH_DISABLE_FUSED=1``) that must agree with B8's from
 one well-conditioned state, and seeds 30-32 in the band of the JAX
 package's (tools/mlap_band.json). Phases 4-6 report their evals' B5 launches.
+Phase 9 runs bench.py's ``svgd_t5_n200`` and ``vi_t5_n200`` paths
+(bench.py:166-176: 5 tasks x 200 points, K = S = 10, ``prior_factor=0.01``,
+VI diag, full batch, seed 1), each learner built without a device: a
+500-step ``meta_fit`` carried by B10 (B11) alone, the steady rate of a
+second call, ``eval_datasets`` on 20 test tasks of 200 context and 200 test
+points cold and warm (K4), two chunkings that must give the same bits, 20
+steps from the initial states of seeds 1-3 through the kernel, through the
+general step (``PACOH_TORCH_DISABLE_FUSED=1``: B4, and K1 for SVGD; VI with
+the same noise) and through the kernel's plain version in float64 (the
+kernel within the twins' tolerances of the float64 run, the general step
+within a fixed limit of its own; the next step's VI loss on both paths),
+the faceoff of the steady rates, seeds 30-32 in the band of the JAX
+learners (tools/bign_band.json), 50 B10 steps from the JAX learner's
+initial particles held to its run (tools/svgd_bign_ref.json), and the
+faceoff of both learners' fused and general rates at the corners of the
+big-N window (N from 9 to 256, 50 to 1000 systems, and ``cauchy_20``),
+each of which must agree with the learners' default dispatch.
 
 Any failure raises and exits non-zero. The line before the last is a JSON
 object with one record per kernel; the last line is
@@ -107,6 +134,8 @@ KERNELS = {  # launch-counter name -> (source, TPU kernel it replaces)
     "chol_small": (SOURCE + "chol_small.cu",
                    TPU + "chol_kernel.py:64 and " + TPU + "chol_kernel.py:115"),
     "fused_mlap": (SOURCE + "fused_mlap.cu", TPU + "fused_mlap_kernel.py:553"),
+    "fused_svgd_bign": (SOURCE + "fused_svgd_bign.cu", TPU + "fused_svgd_bign_kernel.py:452"),
+    "fused_vi_bign": (SOURCE + "fused_vi_bign.cu", TPU + "fused_vi_bign_kernel.py:258"),
 }
 # the card's peaks for the bound (NVIDIA's H100 SXM data sheet): float32 off
 # the tensor cores, and device memory
@@ -164,6 +193,37 @@ BIGN_CHUNK = 125  # the second chunking
 BIGN_TWIN_STEPS = 20  # B9 against the general step (B4), from one state
 BIGN_REF_FILE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tools",
                              "map_bign_ref.json")
+# phase 9: 50 B10 steps from the JAX learner's initial particles against its run
+# (tools/svgd_bign_ref.json, written by tools/svgd_bign_ref.py)
+SVGD_BIGN_REF_FILE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tools",
+                                  "svgd_bign_ref.json")
+# phase 9: the fused kernels and the general steps from the initial states of
+# these seeds, BIGN_TWIN_STEPS steps each, against the kernels' plain versions
+# in float64: the kernels within the twins' tolerances; the general step (a
+# float32 order of its own: B4, autograd) within a fixed limit of its own, the
+# (max, mean, moments) of BIGN_GENERAL_F64: twice the largest reading over
+# seeds 1-8 of tools/torch_bign_policy.py on an H100 80GB HBM3 at 700 W
+# (tools/torch_bign_policy.json: SVGD 2.061e-3, 5.09e-6, 5.02e-3; VI 1.25e-6,
+# 2.53e-7, 2.63e-6), rounded up. At the hyper-prior's particles the float32
+# general step flips gradients near zero that Adam's first steps turn into 2
+# lr: SVGD's seeds 1 and 4 drift 2e-3, its other six under 6e-5
+BIGN_DRIFT_SEEDS = (1, 2, 3)
+BIGN_GENERAL_F64 = {"svgd_t5_n200": (5e-3, 2e-5, 2e-2), "vi_t5_n200": (3e-6, 6e-7, 6e-6)}
+# the band of seeds 30-32 of svgd_t5_n200 and vi_t5_n200: tools/bign_band.json
+# (written by tools/bign_band.py), the JAX learners on the CPU, seeds 30-59 at
+# 500 steps; centre, margin = 3 sigma of the difference of a 3-seed mean and
+# the 30-seed mean
+BIGN_BAND_FILE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tools",
+                              "bign_band.json")
+# the big-N dispatch's faceoff (phase 9) beyond the main path's shape: (label,
+# tasks, points), K = S = 10, full batch; cauchy_20's tasks where tasks is
+# None. The corners of the window: N from 9 to 256, G = 10 T from 50 to 1000
+# (8 systems a block)
+BIGN_FACEOFF = (("N=9, 5 tasks", 5, 9), ("cauchy_20", None, None), ("N=48, 5 tasks", 5, 48),
+                ("N=128, 5 tasks", 5, 128), ("N=256, 5 tasks", 5, 256),
+                ("N=200, 20 tasks", 20, 200), ("N=48, 100 tasks", 100, 48),
+                ("N=256, 100 tasks", 100, 256))
+FACEOFF_SECONDS = 0.3  # the steps timed at each faceoff shape, about
 # B5 against its plain version: N x B, the per-system error as K4's
 B5_NS, B5_BS = (32, 50, 64), (1, 20, 200, 257)
 # B8 against its plain version: 30 steps (full batch, a sampled batch, across a
@@ -352,6 +412,8 @@ def phase2(param_dim):
     phase2_b9(errs, times, work)
     phase2_b5(errs, times, work, library)
     phase2_b8(errs, times, work)
+    phase2_b10(errs, times, work)
+    phase2_b11(errs, times, work)
     for name, (k_ms, p_ms) in times.items():
         unit = "ms a step" if name.startswith("fused") else "ms"
         lib = f", torch.linalg.cholesky_ex {library[name]:.4f} ms" if name in library else ""
@@ -1092,6 +1154,278 @@ def phase2_b8(errs, times, work):
                                / n_launch))
 
 
+def bign_svgd_model(tasks, seed=1, **kw):
+    """bench.py's svgd_t5_n200 learner (bench.py:166-168), on the card by default."""
+    from meta_learning_pacoh_torch import GPRegressionMetaLearnedSVGD
+
+    kw = {"task_batch_size": -1, "num_particles": 10, "prior_factor": 0.01, **kw}
+    return GPRegressionMetaLearnedSVGD(tasks, num_iter_fit=BIGN_STEPS, random_seed=seed, **kw)
+
+
+def bign_vi_model(tasks, seed=1, **kw):
+    """bench.py's vi_t5_n200 learner (bench.py:174-175: the VI learner's defaults,
+    svi_batch_size 10, prior_factor 0.01, diag), on the card by default."""
+    from meta_learning_pacoh_torch import GPRegressionMetaLearnedVI
+
+    kw = {"task_batch_size": -1, **kw}
+    return GPRegressionMetaLearnedVI(tasks, num_iter_fit=BIGN_STEPS, random_seed=seed, **kw)
+
+
+def bign_odd_tasks(seed):
+    """Two odd shapes of the big-N SVGD and VI kernels: 3 ragged tasks of up to
+    240 points, D=2 (the learner pads them to N=240: the matrix in device
+    memory), and 26 ragged tasks of up to 20 points, D=1 (G > 128 systems at
+    K=6: two systems a block)."""
+    import numpy as np
+
+    rs = np.random.RandomState(seed)
+    wide = [(rs.uniform(-2.0, 2.0, (m, 2)), rs.randn(m)) for m in (240, 180, 240)]
+    many = [(rs.uniform(-2.0, 2.0, (m, 1)), rs.randn(m)) for m in [20] * 25 + [12]]
+    return wide, many
+
+
+def cauchy20():
+    """The ``cauchy_20`` meta-train tasks (20 x 20 points, D=2) and its 200
+    test tasks (``provide_data("cauchy_20", seed=28)``)."""
+    from meta_learning_pacoh_torch.datasets import provide_data
+
+    train, _, test = provide_data("cauchy_20", seed=28)
+    return train, test
+
+
+def bign_step_flops(t, n, d, hidden, n_sys):
+    """About the flops of n_sys big-N systems of a step: both nets over the
+    task's rows forward and backward, the Gram matrix and its chains (about
+    N^2 23), the factor, L^-1 and the symmetric K^-1 (N^3/3 each)."""
+    return n_sys * (2 * mlp_flops(n, d, hidden, 1) + n ** 3 + 23 * n * n)
+
+
+def data_of(model):
+    return model.X, model.Y, model.mask
+
+
+def gaps(a, b, n_params, skip):
+    """Two states' (parameters' max |diff|, their mean |diff|, the Adam
+    moments' max |diff| over max |b|), the first n_params tensors of each
+    parameters and the rest moments, the columns in ``skip`` left out."""
+    pairs = [(x.cpu().double(), y.cpu().double()) for x, y in zip(a, b)]
+    d = [diff_excluding(x, y, skip) for x, y in pairs[:n_params]]
+    rel = max(diff_excluding(x, y, skip)[0] / float(y.abs().max()) for x, y in pairs[n_params:])
+    return max(g[0] for g in d), max(g[1] for g in d), rel
+
+
+def check_bign(name, label, got, want, wide, n_params, skip):
+    """B10 or B11 (``got``) against its plain version in float64 (``wide``),
+    the state's first n_params tensors parameters, the rest Adam moments:
+    parameters within the twins' tolerances, moments within B2_MOMENT_RTOL of
+    their largest value. Prints the plain version in float32 (``want``)
+    beside it, and its own distance to the float64 run: at the hyper-prior's
+    particles (saturated tanh units, an ill-conditioned Gram matrix) the
+    float32 plain version flips the sign of gradients below about 1e-5 of the
+    largest, and Adam's first steps turn a flip into a step of 2 lr. Returns
+    the parameters' max difference to the float64 run."""
+    k64, p64, kp = (gaps(a, b, n_params, skip) for a, b in
+                    ((got, wide), (want, wide), (got, want)))
+    print(f"    kernel - plain float64: |param diff| max {k64[0]:.3e}, mean {k64[1]:.3e}, Adam "
+          f"m, v max diff / max |plain| {k64[2]:.3e}; plain float32 - float64: {p64[0]:.3e}, "
+          f"{p64[1]:.3e}, {p64[2]:.3e}; kernel - plain float32: {kp[0]:.3e}, {kp[1]:.3e}, "
+          f"{kp[2]:.3e} (kernel_nn.b_out excluded)")
+    if not (k64[0] <= TWIN_ATOL and k64[1] <= TWIN_MEAN_ATOL and k64[2] <= B2_MOMENT_RTOL):
+        raise AssertionError(f"{name} ({label}): kernel disagrees with its plain version")
+    return k64[0]
+
+
+def phase2_b10(errs, times, work):
+    """B10 against its plain version at the svgd_t5_n200 shapes, at
+    cauchy_20's and at two odd shapes, from the learner's initial state."""
+    import torch
+
+    from meta_learning_pacoh_torch.ops import launch_sched
+    from meta_learning_pacoh_torch.ops.cuda import fused_svgd_bign_kernel as sb
+
+    train, _ = bign_data()
+    cauchy, _ = cauchy20()
+    wide, many = bign_odd_tasks(10)
+    cases = (("full batch", train, {}, B6_STEPS),
+             ("sampled batch of 2", train, {"task_batch_size": 2}, B6_STEPS),
+             ("staircase lr_decay 0.5", train, {"lr_decay": 0.5}, B6_STAIR_STEPS),
+             ("cauchy_20: 20 tasks x 20 points, D=2, phase 3's learner", cauchy, {"seed": 30},
+              B6_STEPS),
+             ("3 ragged tasks of up to 240 points, D=2, K=6, nets (16,16,16)", wide,
+              dict(num_particles=6, mean_nn_layers=(16, 16, 16), kernel_nn_layers=(16, 16, 16)),
+              B6_STEPS),
+             ("26 ragged tasks of up to 20 points, K=6", many, dict(num_particles=6), B6_STEPS))
+    transition = launch_sched.LR_TRANSITION_STEPS
+    for label, tasks, kw, n_steps in cases:
+        model = bign_svgd_model(tasks, **kw)
+        if not model._fused_path_ok():
+            raise AssertionError(f"fused_svgd_bign ({label}): the learner is off the fused path")
+        hidden = tuple(model.cfg.mean_nn_layers)
+        launch_sched.LR_TRANSITION_STEPS = B2_STAIR_TRANSITION
+        try:
+            trainer = sb.FusedSVGDBigNTrainer(
+                model.X, model.Y, model.mask, hidden=hidden, lr=1e-3, prior_factor=0.01,
+                weight_prior_std=0.5, bias_prior_std=3.0, lr_decay=kw.get("lr_decay", 1.0),
+                task_batch_size=model.task_batch_size, task_draw=model._task_draw)
+            got = [model.particles.clone(), torch.zeros_like(model.particles),
+                   torch.zeros_like(model.particles)]
+            want = [t.clone() for t in got]
+            wide = [t.double() for t in got]
+            trainer.run(*got, n_steps, 0)
+            for s0, sub in trainer.launches(0, n_steps):
+                counts = trainer.count_pages(s0, sub) if trainer.counted else None
+                args = (s0, launch_sched.staircase_lr(1e-3, trainer.lr_decay, s0), 0.01, counts)
+                kw = dict(hidden=hidden, wps=0.5, bps=3.0, n_steps=sub)
+                sb.fused_svgd_bign_train_ref(*want, model.X, model.Y, model.mask, trainer.w_t,
+                                             *args, **kw)
+                sb.fused_svgd_bign_train_ref(*wide, *(t.double() for t in data_of(model)),
+                                             trainer.w_t, *args, **kw)
+        finally:
+            launch_sched.LR_TRANSITION_STEPS = transition
+        torch.cuda.synchronize()
+        skip = model.hyper_prior.slice_of(("kernel_nn", "b_out"))
+        t, n, d = model.X.shape
+        blocks, spb, shared = sb.svgd_bign_plan(model.num_particles, t, n, d, hidden)
+        print(f"  fused_svgd_bign, {label} ({blocks} blocks of {spb} systems, matrices in "
+              f"{'shared' if shared else 'device'} memory), {n_steps} steps:")
+        d_max = check_bign("fused_svgd_bign", label, got, want, wide, 1, skip)
+        errs["fused_svgd_bign"] = max(errs.get("fused_svgd_bign", 0.0), d_max)
+
+    # per step: the kernel over a launch of 100 full-batch steps, the plain version
+    # over 3, at the svgd_t5_n200 shapes (the kernels line) and at cauchy_20's
+    n_launch, step_ms = 100, {}
+    for label, model in (("svgd_t5_n200", bign_svgd_model(train)),
+                         ("cauchy_20", bign_svgd_model(cauchy, seed=30))):
+        k_state = [model.particles.clone(), torch.zeros_like(model.particles),
+                   torch.zeros_like(model.particles)]
+        p_state = [t.clone() for t in k_state]
+        trainer = sb.FusedSVGDBigNTrainer(model.X, model.Y, model.mask, hidden=(32, 32),
+                                          lr=1e-3, prior_factor=0.01, weight_prior_std=0.5,
+                                          bias_prior_std=3.0)
+        data = (model.X, model.Y, model.mask, trainer.w_t)
+        kw = dict(hidden=(32, 32), wps=0.5, bps=3.0)
+        k_ms, p_ms = time_pair(
+            lambda: sb.fused_svgd_bign_train(*k_state, *data, 0, 1e-3, 0.01, n_steps=n_launch,
+                                             **kw),
+            lambda: sb.fused_svgd_bign_train_ref(*p_state, *data, 0, 1e-3, 0.01, n_steps=3,
+                                                 **kw),
+            reps=3)
+        step_ms[label] = (k_ms / n_launch, p_ms / 3)
+        print(f"  fused_svgd_bign at the {label} shapes: {k_ms / n_launch:.4f} ms a step "
+              f"(launches of {n_launch}), plain version {p_ms / 3:.4f} ms a step")
+    model = bign_svgd_model(train)
+    times["fused_svgd_bign"] = step_ms["svgd_t5_n200"]
+    # a step: the K T systems, the transport and Adam (as B2's); a launch reads
+    # and writes theta, m, v once and reads the data once
+    k, p, (t, n, d) = 10, model.hyper_prior.dim, model.X.shape
+    step_flops = bign_step_flops(t, n, d, (32, 32), k * t) + 7 * k * k * p + 12 * k * p
+    work["fused_svgd_bign"] = (step_flops, 4 * (6 * k * p + t * n * (d + 2) + t) / n_launch)
+
+
+def bign_vi_trainer(model):
+    from meta_learning_pacoh_torch.ops.cuda.fused_vi_bign_kernel import FusedVIBigNTrainer
+
+    return FusedVIBigNTrainer(model.X, model.Y, model.mask,
+                              hidden=tuple(model.cfg.mean_nn_layers), lr=model._lr,
+                              prior_factor=model.prior_factor,
+                              weight_prior_std=model._weight_prior_std,
+                              bias_prior_std=model._bias_prior_std,
+                              svi_batch_size=model.svi_batch_size, eps_draw=model._draw_eps,
+                              lr_decay=model._lr_decay, task_batch_size=model.task_batch_size,
+                              task_draw=model._task_draw)
+
+
+def phase2_b11(errs, times, work):
+    """B11 against its plain version at the vi_t5_n200 shapes, at cauchy_20's
+    and at two odd shapes, from the learner's initial state, with the
+    learner's own noise."""
+    import torch
+
+    from meta_learning_pacoh_torch.ops import launch_sched
+    from meta_learning_pacoh_torch.ops.cuda import fused_vi_bign_kernel as vb
+
+    train, _ = bign_data()
+    cauchy, _ = cauchy20()
+    wide, many = bign_odd_tasks(11)
+    cases = (("full batch", train, {}, B6_STEPS),
+             ("sampled batch of 2", train, {"task_batch_size": 2}, B6_STEPS),
+             ("staircase lr_decay 0.5", train, {"lr_decay": 0.5}, B6_STAIR_STEPS),
+             ("cauchy_20: 20 tasks x 20 points, D=2", cauchy, {"seed": 30}, B6_STEPS),
+             ("S=3, 3 ragged tasks of up to 240 points, D=2, nets (16,16,16)", wide,
+              dict(svi_batch_size=3, mean_nn_layers=(16, 16, 16),
+                   kernel_nn_layers=(16, 16, 16)), B6_STEPS),
+             ("S=6, 26 ragged tasks of up to 20 points", many, dict(svi_batch_size=6),
+              B6_STEPS))
+    transition = launch_sched.LR_TRANSITION_STEPS
+    for label, tasks, kw, n_steps in cases:
+        model = bign_vi_model(tasks, **kw)
+        if not model._fused_path_ok():
+            raise AssertionError(f"fused_vi_bign ({label}): the learner is off the fused path")
+        launch_sched.LR_TRANSITION_STEPS = B2_STAIR_TRANSITION
+        try:
+            trainer = bign_vi_trainer(model)
+            got = vi_state(model)
+            want = [t.clone() for t in got]
+            wide = [t.double() for t in got]
+            got_loss, _ = trainer.run(*got, n_steps, 0)
+            for s0, sub in trainer.launches(0, n_steps):
+                counts = trainer.count_pages(s0, sub) if trainer.counted else None
+                eps = trainer.eps_pages(s0, sub)
+                args = (s0, launch_sched.staircase_lr(1e-3, trainer.lr_decay, s0), 0.01, counts)
+                kw = dict(hidden=trainer.hidden, wps=0.5, bps=3.0, mll_const=trainer.mll_const,
+                          n_steps=sub)
+                vb.fused_vi_bign_train_ref(*want, model.X, model.Y, model.mask, trainer.w_t,
+                                           eps, *args, **kw)
+                wide_loss, _ = vb.fused_vi_bign_train_ref(
+                    *wide, *(t.double() for t in data_of(model)), trainer.w_t, eps.double(),
+                    *args, **kw)
+        finally:
+            launch_sched.LR_TRANSITION_STEPS = transition
+        torch.cuda.synchronize()
+        skip = model.hyper_prior.slice_of(("kernel_nn", "b_out"))
+        t, n, d = model.X.shape
+        blocks, spb, shared = vb.vi_bign_plan(model.svi_batch_size, t, n, d, trainer.hidden)
+        loss_rel = abs(float(got_loss) - float(wide_loss)) / abs(float(wide_loss))
+        print(f"  fused_vi_bign, {label} ({blocks} blocks of {spb} systems, matrices in "
+              f"{'shared' if shared else 'device'} memory), {n_steps} steps: last loss rel "
+              f"diff to the float64 plain run {loss_rel:.3e}")
+        d_max = check_bign("fused_vi_bign", label, got, want, wide, 2, skip)
+        if not loss_rel <= B6_LOSS_RTOL:
+            raise AssertionError(f"fused_vi_bign ({label}): kernel disagrees with its plain "
+                                 f"version in the loss")
+        errs["fused_vi_bign"] = max(errs.get("fused_vi_bign", 0.0), d_max)
+
+    # per step: the kernel over a launch of 100 steps from prebuilt noise pages,
+    # the plain version over 3, at the vi_t5_n200 shapes (the kernels line) and
+    # at cauchy_20's
+    n_launch, step_ms = 100, {}
+    for label, model in (("vi_t5_n200", bign_vi_model(train)),
+                         ("cauchy_20", bign_vi_model(cauchy, seed=30))):
+        trainer = bign_vi_trainer(model)
+        pages = trainer.eps_pages(0, n_launch)
+        data = (model.X, model.Y, model.mask, trainer.w_t)
+        kw = dict(hidden=trainer.hidden, wps=0.5, bps=3.0, mll_const=trainer.mll_const)
+        k_state, p_state = vi_state(model), vi_state(model)
+        k_ms, p_ms = time_pair(
+            lambda: vb.fused_vi_bign_train(*k_state, *data, pages, 0, 1e-3, 0.01,
+                                           n_steps=n_launch, **kw),
+            lambda: vb.fused_vi_bign_train_ref(*p_state, *data, pages[:3], 0, 1e-3, 0.01,
+                                               n_steps=3, **kw),
+            reps=3)
+        step_ms[label] = (k_ms / n_launch, p_ms / 3)
+        print(f"  fused_vi_bign at the {label} shapes: {k_ms / n_launch:.4f} ms a step "
+              f"(launches of {n_launch}), plain version {p_ms / 3:.4f} ms a step")
+    model = bign_vi_model(train)
+    times["fused_vi_bign"] = step_ms["vi_t5_n200"]
+    # a step: the S T systems, each sample and its prior term, the reduction
+    # over the samples and Adam on loc and log_scale; a step reads its noise
+    # page, a launch reads and writes the state once and reads the data once
+    s, p, (t, n, d) = model.svi_batch_size, model.hyper_prior.dim, model.X.shape
+    step_flops = bign_step_flops(t, n, d, (32, 32), s * t) + 13 * s * p + 24 * p
+    work["fused_vi_bign"] = (step_flops,
+                             4 * (s * p + (12 * p + t * n * (d + 2) + t) / n_launch))
+
+
 def diff_excluding(a, b, skip):
     """(max, mean) |a - b| over all but the columns in ``skip``."""
     import torch
@@ -1129,92 +1463,147 @@ def profile(label, fn, out_dir):
             "top": [(e.key[:60], e.self_device_time_total / 1e3, e.count) for e in top]}
 
 
+def cauchy_model(train, **kw):
+    """Phase 3's cauchy_20 learner: K=10, seed 30, the learner's defaults."""
+    from meta_learning_pacoh_torch import GPRegressionMetaLearnedSVGD
+
+    return GPRegressionMetaLearnedSVGD(train, num_particles=10, random_seed=30, device="cuda",
+                                       **kw)
+
+
 def phase3(profile_dir):
+    """cauchy_20 through the public entry points, twice: as the learner
+    dispatches it (NN/NN: B10 alone in the fit), with twins of that fit and
+    eval (the kernels off; the general step), and with the SE covariance of
+    the experiments' ``--covar_module SE`` (experiments/meta_base_exp.py:28),
+    whose fit takes the general step (K1-K3) by default. Returns the launch
+    counts of K1-K4 in the SE path's fit and eval, and a summary."""
     import numpy as np
     import torch
 
-    from meta_learning_pacoh_torch import GPRegressionMetaLearnedSVGD
-    from meta_learning_pacoh_torch.datasets import provide_data
     from meta_learning_pacoh_torch.ops import cuda
+    from meta_learning_pacoh_torch.ops.cuda.fused_svgd_bign_kernel import FusedSVGDBigNTrainer
 
-    train, _, test = provide_data("cauchy_20", seed=28)
-    model = GPRegressionMetaLearnedSVGD(train, num_particles=10, random_seed=30,
-                                        device="cuda")
+    train, test = cauchy20()
+    model = cauchy_model(train)
     print(f"  cauchy_20: {len(train)} tasks x {len(train[0][0])} points, "
           f"{len(test)} test tasks x {len(test[0][2])} test points, "
           f"K={model.num_particles}, P={model.hyper_prior.dim}")
-
+    if not model._fused_path_ok():
+        raise AssertionError("the cauchy_20 learner is off its default path (B10)")
     torch.cuda.synchronize()
     cuda.reset_launch_counts()
-    t0 = time.perf_counter()
-    model.meta_fit(n_iter=FIT_STEPS, log_period=FIT_STEPS, verbose=False)
-    torch.cuda.synchronize()
-    fit_s = time.perf_counter() - t0
+    fit_s = timed_fit(model, FIT_STEPS, FIT_STEPS)
+    fit_launches = dict(cuda.LAUNCHES)
+    print(f"  meta_fit: {FIT_STEPS} steps in {fit_s:.3f} s ({FIT_STEPS / fit_s:.1f} steps/s, "
+          f"first call); launches in the fit: {fit_launches}")
+    if (fit_launches["fused_svgd_bign"] < 1 or type(model._fused) is not FusedSVGDBigNTrainer
+            or any(v for k, v in fit_launches.items() if k != "fused_svgd_bign")):
+        raise AssertionError(f"the cauchy_20 fit was not carried by B10 alone: {fit_launches}")
+    cuda.reset_launch_counts()
     t0 = time.perf_counter()
     ll, rmse, calib = model.eval_datasets(test)
     torch.cuda.synchronize()
     eval_s = time.perf_counter() - t0
-    launches = {name: cuda.LAUNCHES[name] for name in GENERAL_STEP_KERNELS}
-    print(f"  meta_fit: {FIT_STEPS} steps in {fit_s:.3f} s "
-          f"({FIT_STEPS / fit_s:.1f} steps/s, first step included)")
-    print(f"  eval_datasets: {len(test)} tasks in {eval_s:.3f} s (first call)")
-    print(f"  metrics: LL {ll:.6f}, RMSE {rmse:.6f}, calib {calib:.6f}")
-    print(f"  launches in the main path: {launches}")
-    if not all(v > 0 for v in launches.values()) or cuda.LAUNCHES["fused_svgd"] != 0:
-        raise AssertionError(f"the general step's kernels were not all launched, or the "
-                             f"fused one was: {dict(cuda.LAUNCHES)}")
+    print(f"  eval_datasets: {len(test)} tasks in {eval_s:.3f} s (first call); LL {ll:.6f}, "
+          f"RMSE {rmse:.6f}, calib {calib:.6f}; launches {dict(cuda.LAUNCHES)}")
     if not all(math.isfinite(v) for v in (ll, rmse, calib)):
         raise AssertionError("non-finite metrics")
     if model.particles.shape != (10, model.hyper_prior.dim) or not bool(
             torch.isfinite(model.particles).all()):
         raise AssertionError("particles are not finite of shape [K, P]")
-
-    # steady-state step rate, after the first chunk's warm-up
-    t0 = time.perf_counter()
-    model.meta_fit(n_iter=100, log_period=100, verbose=False)
-    torch.cuda.synchronize()
-    steady = 100 / (time.perf_counter() - t0)
-    print(f"  steady state: {steady:.1f} steps/s")
+    steady = FIT_STEPS / timed_fit(model, FIT_STEPS, FIT_STEPS)
     t0 = time.perf_counter()
     model.eval_datasets(test)
     torch.cuda.synchronize()
     eval_warm_s = time.perf_counter() - t0
-    print(f"  eval_datasets again: {eval_warm_s:.3f} s")
+    print(f"  steady state: {steady:.1f} steps/s; eval_datasets again: {eval_warm_s:.3f} s")
     traces = {}
     if profile_dir:
-        traces["fit_20_steps"] = profile(
-            "fit", lambda: model.meta_fit(n_iter=20, log_period=20, verbose=False), profile_dir)
+        traces["fit_100_steps"] = profile(
+            "fit", lambda: model.meta_fit(n_iter=100, log_period=100, verbose=False),
+            profile_dir)
         traces["eval"] = profile("eval", lambda: model.eval_datasets(test), profile_dir)
-        for label, summary in traces.items():
-            print(f"  trace {label}: " + json.dumps(summary))
 
-    # twins from one state: kernels on, kernels off
+    # twins from one state: the default path (B10), the kernels off (the plain
+    # general step) and the fused kernel off (the general step: K1-K3)
     state = model.state_dict()
     skip = model.hyper_prior.slice_of(("kernel_nn", "b_out"))
     twins = {}
-    for label, disabled in (("kernels", "0"), ("plain", "1")):
-        os.environ["PACOH_TORCH_DISABLE_KERNELS"] = disabled
-        twin = GPRegressionMetaLearnedSVGD(train, num_particles=10, random_seed=30,
-                                           device="cuda")
-        twin.load_state_dict(state)
-        twin.meta_fit(n_iter=TWIN_STEPS, log_period=TWIN_STEPS, verbose=False)
-        twins[label] = (twin.particles.detach().cpu(),
-                        twin.eval_datasets(test[:EVAL_TWIN_TASKS]))
-    os.environ.pop("PACOH_TORCH_DISABLE_KERNELS")
-    d_max, d_mean = diff_excluding(twins["kernels"][0], twins["plain"][0], skip)
-    print(f"  twin fit ({TWIN_STEPS} steps): |particle diff| max {d_max:.3e}, "
-          f"mean {d_mean:.3e} (kernel_nn.b_out excluded; tolerances {TWIN_ATOL}, "
-          f"{TWIN_MEAN_ATOL})")
-    if not (d_max <= TWIN_ATOL and d_mean <= TWIN_MEAN_ATOL):
-        raise AssertionError("kernel and plain twins disagree")
-    m_k, m_p = np.asarray(twins["kernels"][1]), np.asarray(twins["plain"][1])
-    print(f"  twin eval ({EVAL_TWIN_TASKS} tasks): kernels {m_k.tolist()}, "
-          f"plain {m_p.tolist()}")
-    if not np.allclose(m_k, m_p, rtol=EVAL_TWIN_TOL, atol=EVAL_TWIN_TOL):
-        raise AssertionError("kernel and plain eval disagree")
-    return launches, dict(fit_s=fit_s, eval_s=eval_s, eval_warm_s=eval_warm_s,
-                          steady_steps_per_s=steady, ll=ll, rmse=rmse, calib=calib,
-                          twin_max=d_max, twin_mean=d_mean, traces=traces)
+    for label, switch in (("B10", None), ("plain", "PACOH_TORCH_DISABLE_KERNELS"),
+                          ("general", "PACOH_TORCH_DISABLE_FUSED")):
+        if switch:
+            os.environ[switch] = "1"
+        try:
+            twin = cauchy_model(train)
+            twin.load_state_dict(state)
+            cuda.reset_launch_counts()
+            twin.meta_fit(n_iter=TWIN_STEPS, log_period=TWIN_STEPS, verbose=False)
+            launches = dict(cuda.LAUNCHES)
+            twins[label] = (twin.particles.detach().cpu().clone(),
+                            twin.eval_datasets(test[:EVAL_TWIN_TASKS]), launches)
+            if label == "general":
+                general_steady = 100 / timed_fit(twin, 100, 100)
+        finally:
+            if switch:
+                os.environ.pop(switch)
+    general_launches = twins["general"][2]
+    print(f"  general-step twin (PACOH_TORCH_DISABLE_FUSED=1): {TWIN_STEPS} steps, launches "
+          f"{general_launches}; steady state {general_steady:.1f} steps/s (B10's "
+          f"{steady:.1f}, {steady / general_steady:.2f}x)")
+    if not (all(general_launches[k] > 0 for k in ("svgd_phi", "mll_fwd", "mll_bwd"))
+            and general_launches["fused_svgd_bign"] == 0):
+        raise AssertionError(f"the general-step twin did not run through K1-K3: "
+                             f"{general_launches}")
+    for other in ("plain", "general"):
+        d_max, d_mean = diff_excluding(twins["B10"][0], twins[other][0], skip)
+        m_k, m_o = np.asarray(twins["B10"][1]), np.asarray(twins[other][1])
+        print(f"  twin fit ({TWIN_STEPS} steps), B10 - {other}: |particle diff| max "
+              f"{d_max:.3e}, mean {d_mean:.3e} (kernel_nn.b_out excluded; tolerances "
+              f"{TWIN_ATOL}, {TWIN_MEAN_ATOL}); eval ({EVAL_TWIN_TASKS} tasks) B10 "
+              f"{m_k.tolist()}, {other} {m_o.tolist()}")
+        if not (d_max <= TWIN_ATOL and d_mean <= TWIN_MEAN_ATOL):
+            raise AssertionError(f"the B10 and {other} twins disagree")
+        if not np.allclose(m_k, m_o, rtol=EVAL_TWIN_TOL, atol=EVAL_TWIN_TOL):
+            raise AssertionError(f"the B10 and {other} twins' evals disagree")
+
+    # the SE covariance: the general step by default
+    se = cauchy_model(train, covar_module="SE")
+    if se._fused_path_ok():
+        raise AssertionError("the SE-covariance learner took a fused path")
+    torch.cuda.synchronize()
+    cuda.reset_launch_counts()
+    se_fit_s = timed_fit(se, FIT_STEPS, FIT_STEPS)
+    t0 = time.perf_counter()
+    se_ll, se_rmse, se_calib = se.eval_datasets(test)
+    torch.cuda.synchronize()
+    se_eval_s = time.perf_counter() - t0
+    se_launches = {name: cuda.LAUNCHES[name] for name in GENERAL_STEP_KERNELS}
+    print(f"  SE covariance: meta_fit {FIT_STEPS} steps in {se_fit_s:.3f} s "
+          f"({FIT_STEPS / se_fit_s:.1f} steps/s, first call), eval_datasets {se_eval_s:.3f} s; "
+          f"LL {se_ll:.6f}, RMSE {se_rmse:.6f}, calib {se_calib:.6f}; launches in the fit and "
+          f"eval: {dict(cuda.LAUNCHES)}")
+    if not all(v > 0 for v in se_launches.values()) or any(
+            v for k, v in cuda.LAUNCHES.items() if k.startswith("fused")):
+        raise AssertionError(f"the SE path did not run through K1-K4, or took a fused kernel: "
+                             f"{dict(cuda.LAUNCHES)}")
+    if not all(math.isfinite(v) for v in (se_ll, se_rmse, se_calib)) or not bool(
+            torch.isfinite(se.particles).all()):
+        raise AssertionError("the SE path: non-finite particles or metrics")
+    se_steady = 100 / timed_fit(se, 100, 100)
+    print(f"  SE covariance steady state: {se_steady:.1f} steps/s")
+    if profile_dir:
+        traces["se_fit_20_steps"] = profile(
+            "se_fit", lambda: se.meta_fit(n_iter=20, log_period=20, verbose=False), profile_dir)
+        traces["se_eval"] = profile("se_eval", lambda: se.eval_datasets(test), profile_dir)
+    for label, summary in traces.items():
+        print(f"  trace {label}: " + json.dumps(summary))
+    return se_launches, dict(
+        fit_s=fit_s, eval_s=eval_s, eval_warm_s=eval_warm_s, steady_steps_per_s=steady,
+        ll=ll, rmse=rmse, calib=calib, general_steady_steps_per_s=general_steady,
+        general_twin_launches=general_launches, se_fit_s=se_fit_s, se_eval_s=se_eval_s,
+        se_steady_steps_per_s=se_steady, se_ll=se_ll, se_rmse=se_rmse, se_calib=se_calib,
+        traces=traces)
 
 
 def timed_fit(model, n_iter, log_period):
@@ -1671,15 +2060,20 @@ def phase7(profile_dir):
             and p_mean <= tol["param_mean_atol"]):
         raise AssertionError("the B9 fit disagrees with the JAX learner's")
 
-    # bench.py's svgd_t5_n200 (bench.py:166-168): its default path is the general step
-    svgd = GPRegressionMetaLearnedSVGD(train, num_iter_fit=BIGN_STEPS, num_particles=10,
-                                       random_seed=1, prior_factor=0.01, task_batch_size=-1)
-    if svgd._fused_path_ok():
-        raise AssertionError("svgd_t5_n200 took a fused path")
-    cuda.reset_launch_counts()
-    svgd_s = timed_fit(svgd, BIGN_TWIN_STEPS, BIGN_TWIN_STEPS)
-    svgd_launches = dict(cuda.LAUNCHES)
-    svgd_steady_s = timed_fit(svgd, BIGN_TWIN_STEPS, BIGN_TWIN_STEPS)
+    # bench.py's svgd_t5_n200 (bench.py:166-168) through its general step (its
+    # default path is B10, phase 9)
+    os.environ["PACOH_TORCH_DISABLE_FUSED"] = "1"
+    try:
+        svgd = GPRegressionMetaLearnedSVGD(train, num_iter_fit=BIGN_STEPS, num_particles=10,
+                                           random_seed=1, prior_factor=0.01, task_batch_size=-1)
+        if svgd._fused_path_ok():
+            raise AssertionError("PACOH_TORCH_DISABLE_FUSED=1: svgd_t5_n200 took a fused path")
+        cuda.reset_launch_counts()
+        svgd_s = timed_fit(svgd, BIGN_TWIN_STEPS, BIGN_TWIN_STEPS)
+        svgd_launches = dict(cuda.LAUNCHES)
+        svgd_steady_s = timed_fit(svgd, BIGN_TWIN_STEPS, BIGN_TWIN_STEPS)
+    finally:
+        os.environ.pop("PACOH_TORCH_DISABLE_FUSED")
     print(f"  svgd_t5_n200 general step: {BIGN_TWIN_STEPS} steps in {svgd_s:.3f} s first, "
           f"{svgd_steady_s:.3f} s steady ({BIGN_TWIN_STEPS / svgd_steady_s:.1f} steps/s); "
           f"launches {svgd_launches}")
@@ -1853,6 +2247,326 @@ def phase8(profile_dir):
                           traces=traces)
 
 
+def svgd_state(model):
+    """The SVGD learner's particles and Adam moments (the particles first)."""
+    return [model.particles, model._mu, model._nu]
+
+
+def vi_live_state(model):
+    """The VI learner's loc, log_scale and their Adam moments (loc, log_scale first)."""
+    return [tree[k] for tree in (model.posterior, model._mu, model._nu)
+            for k in ("loc", "log_scale")]
+
+
+def svgd_plain64(model, state):
+    """BIGN_TWIN_STEPS steps of B10's plain version in float64 from an SVGD
+    learner's state_dict() at step 0 (zero moments), on its data."""
+    from meta_learning_pacoh_torch.ops.cuda import fused_svgd_bign_kernel as sb
+
+    theta = float64_tensor(state["particles"], model.device)
+    mu, nu = theta.new_zeros(theta.shape), theta.new_zeros(theta.shape)
+    sb.fused_svgd_bign_train_ref(
+        theta, mu, nu, *(t.double() for t in data_of(model)), model._fused.w_t, 0, model._lr,
+        model.prior_factor, hidden=model._fused.hidden, wps=model._weight_prior_std,
+        bps=model._bias_prior_std, n_steps=BIGN_TWIN_STEPS)
+    return [theta, mu, nu]
+
+
+def vi_plain64(model, state):
+    """As ``svgd_plain64``, B11's plain version from a VI learner's state, fed
+    the learner's own noise pages."""
+    from meta_learning_pacoh_torch.ops.cuda import fused_vi_bign_kernel as vb
+
+    loc, lsc = (float64_tensor(state["posterior"][k], model.device) for k in ("loc", "log_scale"))
+    moments = [loc.new_zeros(loc.shape) for _ in range(4)]
+    tr = model._fused
+    vb.fused_vi_bign_train_ref(
+        loc, lsc, *moments, *(t.double() for t in data_of(model)), tr.w_t,
+        tr.eps_pages(0, BIGN_TWIN_STEPS).double(), 0, model._lr, model.prior_factor,
+        hidden=tr.hidden, wps=model._weight_prior_std, bps=model._bias_prior_std,
+        mll_const=tr.mll_const, n_steps=BIGN_TWIN_STEPS)
+    return [loc, lsc, moments[0], moments[1], moments[2], moments[3]]
+
+
+def float64_tensor(array, device):
+    import torch
+
+    return torch.tensor(array, dtype=torch.float64, device=device)
+
+
+def bign_learner_path(label, build, state_of, n_params, counter, trainer_cls, general_kernels,
+                      plain64, train, test, profile_dir):
+    """One big-N learner's main path on the card (phase 9): the fit carried by
+    its fused kernel alone, the eval through K4, two chunkings, 20 steps
+    against the general step and the plain version in float64 from the
+    initial states of BIGN_DRIFT_SEEDS (``bign_twins``), the faceoff of the
+    two steady rates, which must agree with the learner's dispatch, and the
+    mean test LL and RMSE of seeds 30-32 in the JAX learner's band."""
+    import torch
+
+    from meta_learning_pacoh_torch.ops import cuda
+
+    model = build(train)  # no device: the card by default
+    if model.device.type != "cuda" or not model._fused_path_ok():
+        raise AssertionError(f"the {label} learner is on {model.device}, or off the fused path")
+    cuda.reset_launch_counts()
+    fit_s = timed_fit(model, BIGN_STEPS, BIGN_STEPS)
+    launches = dict(cuda.LAUNCHES)
+    print(f"  {label} meta_fit: {BIGN_STEPS} steps in {fit_s:.3f} s "
+          f"({BIGN_STEPS / fit_s:.1f} steps/s, first call); launches in the fit: {launches}")
+    if (launches[counter] < 1 or any(v for k, v in launches.items() if k != counter)
+            or type(model._fused) is not trainer_cls):
+        raise AssertionError(f"the {label} fit was not carried by {counter} alone: {launches}")
+    one_chunk = [t.clone() for t in state_of(model)]
+    cuda.reset_launch_counts()
+    t0 = time.perf_counter()
+    ll, rmse, calib = model.eval_datasets(test)
+    torch.cuda.synchronize()
+    eval_s = time.perf_counter() - t0
+    print(f"  {label} eval_datasets: {len(test)} tasks in {eval_s:.4f} s (first call); LL "
+          f"{ll:.6f}, RMSE {rmse:.6f}, calib {calib:.6f}; launches {dict(cuda.LAUNCHES)}")
+    if not all(math.isfinite(v) for v in (ll, rmse, calib)) or not all(
+            bool(torch.isfinite(t).all()) for t in one_chunk):
+        raise AssertionError(f"{label}: non-finite state or metrics")
+    if cuda.LAUNCHES["chol"] < 1:
+        raise AssertionError(f"{label}: the eval's 200-point context did not go through K4")
+    steady_s = timed_fit(model, BIGN_STEPS, BIGN_STEPS)
+    steady = BIGN_STEPS / steady_s
+    t0 = time.perf_counter()
+    model.eval_datasets(test)
+    torch.cuda.synchronize()
+    eval_warm_s = time.perf_counter() - t0
+    print(f"  {label} steady state: {BIGN_STEPS} steps in {steady_s:.4f} s, {steady:.1f} "
+          f"steps/s; eval_datasets again {eval_warm_s:.4f} s")
+    traces = {}
+    if profile_dir:
+        traces[f"{label}_fit_100_steps"] = profile(
+            f"{label}_fit", lambda: model.meta_fit(n_iter=100, log_period=100, verbose=False),
+            profile_dir)
+
+    chunked = build(train)
+    chunked.meta_fit(n_iter=BIGN_STEPS, log_period=BIGN_CHUNK, verbose=False)
+    same = all(torch.equal(a, b) for a, b in zip(state_of(chunked), one_chunk))
+    print(f"  {label} chunkings: log_period {BIGN_STEPS} and {BIGN_CHUNK} give identical "
+          f"parameters and moments: {same}")
+    if not same:
+        raise AssertionError(f"{label}: two chunkings of the fused fit differ")
+
+    # the fused kernel, the general step and the plain version in float64 from
+    # the initial states of BIGN_DRIFT_SEEDS; the first seed's twins go on
+    limits = BIGN_GENERAL_F64[label]
+    for seed in BIGN_DRIFT_SEEDS:
+        fused, general, general_launches, general_s, f64, g64, fg = bign_twins(
+            build, state_of, n_params, plain64, train, seed)
+        print(f"  {label}, seed {seed}, {BIGN_TWIN_STEPS} steps from the initial state "
+              f"(|param diff| max, mean; Adam m, v max diff / max; kernel_nn.b_out excluded): "
+              f"fused - plain float64 {f64[0]:.3e}, {f64[1]:.3e}, {f64[2]:.3e}; general - plain "
+              f"float64 {g64[0]:.3e}, {g64[1]:.3e}, {g64[2]:.3e}; fused - general {fg[0]:.3e}, "
+              f"{fg[1]:.3e}, {fg[2]:.3e}")
+        if not (f64[0] <= TWIN_ATOL and f64[1] <= TWIN_MEAN_ATOL and f64[2] <= B2_MOMENT_RTOL):
+            raise AssertionError(f"{label}, seed {seed}: the fused kernel disagrees with its "
+                                 f"plain version in float64")
+        if not all(g <= lim for g, lim in zip(g64, limits)):
+            raise AssertionError(f"{label}, seed {seed}: the general step drifted farther than "
+                                 f"{limits} from the float64 run")
+        if seed == BIGN_DRIFT_SEEDS[0]:
+            twin_gaps = dict(twin_max=fg[0], twin_mean=fg[1], fused_f64_max=f64[0],
+                             general_f64_max=g64[0])
+            first = fused, general, general_launches, general_s
+    fused, general, general_launches, general_s = first
+    print(f"  {label} general step (PACOH_TORCH_DISABLE_FUSED=1): {BIGN_TWIN_STEPS} steps in "
+          f"{general_s:.3f} s (first call); launches {general_launches}")
+    if not (all(general_launches[k] > 0 for k in general_kernels)
+            and general_launches[counter] == 0):
+        raise AssertionError(f"{label}: the general step did not run through "
+                             f"{general_kernels}: {general_launches}")
+    fused_loss = fused.meta_fit(n_iter=1, log_period=1, verbose=False)
+    os.environ["PACOH_TORCH_DISABLE_FUSED"] = "1"
+    try:
+        general_loss = general.meta_fit(n_iter=1, log_period=1, verbose=False)
+        general_steady = BIGN_TWIN_STEPS / timed_fit(general, BIGN_TWIN_STEPS, BIGN_TWIN_STEPS)
+        if profile_dir:
+            traces[f"{label}_general_5_steps"] = profile(
+                f"{label}_general",
+                lambda: general.meta_fit(n_iter=5, log_period=5, verbose=False), profile_dir)
+    finally:
+        os.environ.pop("PACOH_TORCH_DISABLE_FUSED")
+    if fused_loss is not None:  # VI: the next step's loss on both paths
+        loss_rel = abs(fused_loss - general_loss) / abs(general_loss)
+        print(f"  {label}: the next step's loss: fused {fused_loss:.7f}, general "
+              f"{general_loss:.7f} (rel diff {loss_rel:.3e})")
+        if not loss_rel <= B6_LOSS_RTOL:
+            raise AssertionError(f"{label}: the fused kernel and the general step disagree "
+                                 f"in the loss")
+    print(f"  {label} faceoff: fused {steady:.1f} steps/s, general step {general_steady:.1f} "
+          f"steps/s ({steady / general_steady:.2f}x); the learner's dispatch: fused")
+    if not steady > general_steady:
+        raise AssertionError(f"{label}: the learner's big-N dispatch (fused) disagrees with the "
+                             f"faceoff")
+    for name, summary in traces.items():
+        print(f"  trace {name}: " + json.dumps(summary))
+
+    # seeds 30-32 of the default path against the JAX learner's band
+    with open(BIGN_BAND_FILE) as f:
+        band = json.load(f)[label]["jax"]
+    lls, rmses = [], []
+    for seed in SIN_SEEDS:
+        fit = build(train, seed=seed)
+        fit.meta_fit(n_iter=BIGN_STEPS, log_period=BIGN_STEPS, verbose=False)
+        seed_ll, seed_rmse, _ = fit.eval_datasets(test)
+        lls.append(seed_ll)
+        rmses.append(seed_rmse)
+    mean_ll, mean_rmse = statistics.fmean(lls), statistics.fmean(rmses)
+    (ll_c, ll_m), (rmse_c, rmse_m) = band["ll_band"], band["rmse_band"]
+    print(f"  {label} seeds {SIN_SEEDS}: LL {lls}, RMSE {rmses}; mean LL {mean_ll:.4f} (JAX band "
+          f"{ll_c:.4f} +- {ll_m:.4f}), mean RMSE {mean_rmse:.4f} ({rmse_c:.4f} +- {rmse_m:.4f})")
+    if not (abs(mean_ll - ll_c) <= ll_m and abs(mean_rmse - rmse_c) <= rmse_m):
+        raise AssertionError(f"{label}: seeds {SIN_SEEDS} lie outside the JAX learner's band")
+    return launches[counter], dict(fit_s=fit_s, steady_s=steady_s, steady_steps_per_s=steady,
+                                   eval_s=eval_s, eval_warm_s=eval_warm_s, ll=ll, rmse=rmse,
+                                   calib=calib, **twin_gaps,
+                                   general_steady_steps_per_s=general_steady,
+                                   speedup=steady / general_steady, seed_ll=lls,
+                                   seed_rmse=rmses, mean_ll=mean_ll, mean_rmse=mean_rmse,
+                                   traces=traces)
+
+
+def bign_twins(build, state_of, n_params, plain64, train, seed):
+    """BIGN_TWIN_STEPS steps of a big-N learner from its initial state at
+    ``seed``: through its fused kernel, through its general step
+    (``PACOH_TORCH_DISABLE_FUSED=1``; VI with the same noise) and through the
+    kernel's plain version in float64. Returns the fused and the general
+    learner, the general step's launches and first-call seconds, and the
+    gaps (``gaps``) fused - float64, general - float64, fused - general."""
+    from meta_learning_pacoh_torch.ops import cuda
+
+    state = build(train, seed=seed).state_dict()
+    twins = {}
+    for path, disabled in (("fused", "0"), ("general", "1")):
+        os.environ["PACOH_TORCH_DISABLE_FUSED"] = disabled
+        try:
+            twin = build(train, seed=seed)
+            twin.load_state_dict(state)
+            if twin._fused_path_ok() != (path == "fused"):
+                raise AssertionError(f"PACOH_TORCH_DISABLE_FUSED={disabled}: wrong path")
+            cuda.reset_launch_counts()
+            twin_s = timed_fit(twin, BIGN_TWIN_STEPS, BIGN_TWIN_STEPS)
+            twins[path] = (twin, twin_s, dict(cuda.LAUNCHES))
+        finally:
+            os.environ.pop("PACOH_TORCH_DISABLE_FUSED")
+    fused, general = twins["fused"][0], twins["general"][0]
+    skip = fused.hyper_prior.slice_of(("kernel_nn", "b_out"))
+    wide = plain64(fused, state)
+    return (fused, general, twins["general"][2], twins["general"][1],
+            gaps(state_of(fused), wide, n_params, skip),
+            gaps(state_of(general), wide, n_params, skip),
+            gaps(state_of(fused), state_of(general), n_params, skip))
+
+
+def faceoff_tasks(n_tasks, n_points):
+    """A faceoff shape's tasks: cauchy_20's (``n_tasks`` None), else bench.py's
+    sinusoid environment (RandomState(5)) at that many tasks and points."""
+    import numpy as np
+
+    from meta_learning_pacoh_torch.datasets import SinusoidDataset
+
+    if n_tasks is None:
+        return cauchy20()[0]
+    env = SinusoidDataset(random_state=np.random.RandomState(5))
+    return env.generate_meta_train_data(n_tasks=n_tasks, n_samples=n_points)
+
+
+def steady_rate(model, cap):
+    """Steps/s of a learner's fit after a warm call: about FACEOFF_SECONDS of
+    steps (5 to ``cap``), sized by a 5-step call."""
+    timed_fit(model, 2, 2)
+    per_step = timed_fit(model, 5, 5) / 5
+    n = max(5, min(cap, int(FACEOFF_SECONDS / per_step)))
+    return n / timed_fit(model, n, n)
+
+
+def bign_faceoff(label, build):
+    """The big-N dispatch's faceoff at the BIGN_FACEOFF shapes: the learner's
+    steady rate on its fused kernel (``PACOH_TORCH_FORCE_BIGN_FUSED=1``)
+    against its general step's (``PACOH_TORCH_DISABLE_FUSED=1``), beside the
+    learner's default dispatch (``bign_wins``). Returns one row a shape."""
+    rows = []
+    for name, n_tasks, n_points in BIGN_FACEOFF:
+        tasks = faceoff_tasks(n_tasks, n_points)
+        default = build(tasks)._fused_path_ok()
+        rates = {}
+        for path, switch in (("fused", "PACOH_TORCH_FORCE_BIGN_FUSED"),
+                             ("general", "PACOH_TORCH_DISABLE_FUSED")):
+            os.environ[switch] = "1"
+            try:
+                model = build(tasks)
+                if model._fused_path_ok() != (path == "fused"):
+                    raise AssertionError(f"{label} faceoff, {name}: {switch}=1 took the wrong "
+                                         f"path")
+                rates[path] = steady_rate(model, 2000 if path == "fused" else 200)
+            finally:
+                os.environ.pop(switch)
+        t, n, _ = model.X.shape
+        g = 10 * t
+        ratio = rates["fused"] / rates["general"]
+        print(f"  {label} faceoff, {name} (N={n}, G={g}): fused {rates['fused']:.1f} steps/s, "
+              f"general step {rates['general']:.1f} ({ratio:.2f}x); the learner's dispatch: "
+              f"{'fused' if default else 'general step'}", flush=True)
+        rows.append(dict(shape=name, n=n, g=g, fused=rates["fused"], general=rates["general"],
+                         speedup=ratio, default_fused=default))
+    return rows
+
+
+def phase9(profile_dir):
+    import torch
+
+    from meta_learning_pacoh_torch.ops.cuda import fused_svgd_bign_kernel as sb
+    from meta_learning_pacoh_torch.ops.cuda import fused_vi_bign_kernel as vb
+
+    train, test = bign_data()
+    print(f"  {len(train)} tasks x {len(train[0][0])} points, {len(test)} test tasks x "
+          f"({len(test[0][0])} context + {len(test[0][2])} test points), full batch, seed 1")
+    launches, summaries = {}, {}
+    launches["fused_svgd_bign"], summaries["svgd_t5_n200"] = bign_learner_path(
+        "svgd_t5_n200", bign_svgd_model, svgd_state, 1, "fused_svgd_bign",
+        sb.FusedSVGDBigNTrainer, ("blocked_fwd", "blocked_bwd", "svgd_phi"), svgd_plain64, train,
+        test, profile_dir)
+    launches["fused_vi_bign"], summaries["vi_t5_n200"] = bign_learner_path(
+        "vi_t5_n200", bign_vi_model, vi_live_state, 2, "fused_vi_bign", vb.FusedVIBigNTrainer,
+        ("blocked_fwd", "blocked_bwd"), vi_plain64, train, test, profile_dir)
+
+    # the JAX learner's svgd_t5_n200 run (tools/svgd_bign_ref.json) from its initial particles
+    with open(SVGD_BIGN_REF_FILE) as f:
+        ref = json.load(f)
+    from_jax = bign_svgd_model(train)
+    init = ref["init_particles"]
+    zeros = [[0.0] * len(init[0])] * len(init)
+    from_jax.load_state_dict({"particles": init, "opt_state": {"mu": zeros, "nu": zeros,
+                                                               "count": 0}, "step": 0})
+    steps = ref["config"]["steps"]
+    from_jax.meta_fit(n_iter=steps, log_period=steps, verbose=False)
+    skip = from_jax.hyper_prior.slice_of(("kernel_nn", "b_out"))
+    tol = ref["tolerance"]
+    p_max, p_mean = diff_excluding(from_jax.particles.cpu(),
+                                   torch.tensor(ref["final_particles"]), skip)
+    print(f"  svgd_t5_n200 from the JAX initial particles, {steps} B10 steps: final |particle "
+          f"diff| to the JAX run max {p_max:.3e} (tolerance {tol['particle_atol']:.3e}), mean "
+          f"{p_mean:.3e} ({tol['particle_mean_atol']:.3e})")
+    if not (p_max <= tol["particle_atol"] and p_mean <= tol["particle_mean_atol"]):
+        raise AssertionError("the B10 fit disagrees with the JAX learner's")
+    summaries["svgd_t5_n200"].update(jax_particle_max=p_max, jax_particle_mean=p_mean)
+
+    # the dispatch policy beyond the main path's shape
+    for label, build in (("svgd_t5_n200", bign_svgd_model), ("vi_t5_n200", bign_vi_model)):
+        rows = bign_faceoff(label.split("_")[0].upper(), build)
+        summaries[label]["faceoff"] = rows
+        for row in rows:
+            if row["default_fused"] != (row["speedup"] > 1.0):
+                raise AssertionError(f"{label} faceoff, {row['shape']}: the learner's big-N "
+                                     f"dispatch disagrees with the faceoff")
+    return launches, summaries
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--profile", metavar="DIR",
@@ -1884,7 +2598,8 @@ def main():
     print(f"phase 2: kernels against their plain versions (P={param_dim})")
     errs, times, work, library = phase2(param_dim)
 
-    print("phase 3: cauchy_20 PACOH-SVGD main path (general step)")
+    print("phase 3: cauchy_20 PACOH-SVGD main paths (NN/NN: B10; SE covariance: the general "
+          "step, K1-K4)")
     launches, summary = phase3(args.profile)
     print("slice cauchy_20: " + json.dumps({"card": card, **summary}))
 
@@ -1914,6 +2629,12 @@ def main():
     for name in ("fused_mlap", "chol_small"):
         launches[name] = mlap_launches[name]
     print("slice sin_20 MLAP: " + json.dumps({"card": card, **mlap_summary}))
+
+    print("phase 9: svgd_t5_n200 and vi_t5_n200 main paths (big-N fused kernels B10, B11)")
+    bign_fused_launches, bign_fused_summaries = phase9(args.profile)
+    launches.update(bign_fused_launches)
+    for name, summary in bign_fused_summaries.items():
+        print(f"slice {name}: " + json.dumps({"card": card, **summary}))
     print(f"all phases: {time.perf_counter() - t_start:.1f} s")
 
     records = []

@@ -10,10 +10,13 @@ to ``optax.adam`` / ``optax.sgd`` with the staircase lr schedule
 Two paths, as in the JAX package:
 
 - the fused path: a configuration in the fused window (``_fused_path_ok``:
-  NN mean + NN kernel of one hidden width, feature_dim 1, tasks of N <= 8
-  points, RBF median transport, Adam, full batch or a sampled batch of
-  uniform task sizes) runs its whole fit through the fused training kernel
-  (ops/cuda/fused_svgd_kernel.py), one launch per chunk and staircase step;
+  NN mean + NN kernel of one hidden width, feature_dim 1, RBF median
+  transport, Adam, full batch or a sampled batch of uniform task sizes)
+  runs its whole fit through a fused training kernel, one launch per chunk
+  and staircase step: tasks of N <= 8 points through
+  ops/cuda/fused_svgd_kernel.py (B2), of 9 <= N <= 256 through
+  ops/cuda/fused_svgd_bign_kernel.py (B10, by default where the H100's
+  faceoff measured it to win, unlike the TPU's policy: ``bign_wins``);
 - the general step, one Python loop iteration per step: the score by
   autograd through the batched MLL (the MLL kernels K2/K3 for
   9 <= N <= 48, the blocked MLL kernels B4 for 49 <= N <= 512), the Stein
@@ -21,8 +24,8 @@ Two paths, as in the JAX package:
 
 A sampled task batch draws the tasks of step s from a generator seeded with
 (train seed, s), on both paths, so they follow one random trajectory and do
-not depend on how the steps are chunked. The big-N fused kernel and the
-mesh-sharded path are not ported yet.
+not depend on how the steps are chunked. The mesh-sharded path is not
+ported yet.
 """
 
 import time
@@ -40,6 +43,11 @@ from meta_learning_pacoh_torch.models.random_gp import (
     random_gp_config,
 )
 from meta_learning_pacoh_torch.ops import cuda, launch_sched
+from meta_learning_pacoh_torch.ops.cuda.fused_svgd_bign_kernel import (
+    FusedSVGDBigNTrainer,
+    bign_wins,
+    svgd_bign_fits,
+)
 from meta_learning_pacoh_torch.ops.cuda.fused_svgd_kernel import (
     FusedSVGDTrainer,
     fused_svgd_fits,
@@ -137,8 +145,11 @@ class GPRegressionMetaLearnedSVGD(RegressionModelMetaLearned):
 
     # ------------------------------------------------------------ fused path
     def _fused_path_ok(self):
-        """Whether the fused training kernel carries the fit: the N <= 8 arm
-        of the JAX learner's gate, and a configuration the kernel takes."""
+        """Whether a fused training kernel carries the fit: the JAX learner's
+        gate (pacoh_svgd.py:237-251), with its N <= 8 arm (B2) and its
+        9 <= N <= 256 arm (B10, where the H100's faceoff measured it to win:
+        ``bign_wins``, the counterpart of the JAX learner's
+        ``svgd_bign_wins``), and a configuration the kernel takes."""
         cfg = self.cfg
         hidden = tuple(cfg.mean_nn_layers)
         sizes = torch.sum(self.mask, dim=-1)
@@ -154,8 +165,9 @@ class GPRegressionMetaLearnedSVGD(RegressionModelMetaLearned):
             and hidden == tuple(cfg.kernel_nn_layers)
             and len(set(hidden)) == 1 and len(hidden) >= 1
             and self.num_particles * hidden[0] <= 1024
-            and n <= 8
-            and fused_svgd_fits(self.num_particles, t, n, d, hidden)
+            and (fused_svgd_fits(self.num_particles, t, n, d, hidden) if n <= 8
+                 else (svgd_bign_fits(self.num_particles, t, n, d, hidden)
+                       and bign_wins(self.num_particles * t)))
         )
 
     def _fused_run_chunk(self, chunk):
@@ -163,7 +175,8 @@ class GPRegressionMetaLearnedSVGD(RegressionModelMetaLearned):
         Adam moments (so a fit may resume after general steps), one launch per
         staircase step; the counts advance launch by launch."""
         if self._fused is None:
-            self._fused = FusedSVGDTrainer(
+            trainer_cls = FusedSVGDTrainer if self.X.shape[1] <= 8 else FusedSVGDBigNTrainer
+            self._fused = trainer_cls(
                 self.X, self.Y, self.mask, hidden=tuple(self.cfg.mean_nn_layers),
                 lr=self._lr, lr_decay=self._lr_decay, prior_factor=self.prior_factor,
                 weight_prior_std=self._weight_prior_std,

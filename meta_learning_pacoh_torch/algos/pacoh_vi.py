@@ -15,9 +15,12 @@ Two paths, as in the JAX package:
 
 - the fused path: a configuration in the fused window (``_fused_path_ok``:
   diagonal posterior, NN mean + NN kernel of one hidden width, feature_dim
-  1, tasks of N <= 8 points, Adam, full batch or a sampled batch of uniform
-  task sizes) runs its whole fit through the fused training kernel
-  (ops/cuda/fused_vi_kernel.py), one launch per 512 steps and staircase step;
+  1, Adam, full batch or a sampled batch of uniform task sizes) runs its
+  whole fit through a fused training kernel, one launch per 512 steps and
+  staircase step: tasks of N <= 8 points through ops/cuda/fused_vi_kernel.py
+  (B7), of 9 <= N <= 256 through ops/cuda/fused_vi_bign_kernel.py (B11, by
+  default where the H100's faceoff measured it to win, unlike the TPU's
+  policy: ``fused_svgd_bign_kernel.bign_wins``);
 - the general step, one Python loop iteration per step: the negative ELBO
   by ``neg_elbo``, its gradient by autograd, and the update here.
 
@@ -27,8 +30,7 @@ task batch draws its tasks from a CPU generator seeded the same way,
 weighting each task's MLL by its draw count (the JAX learner's
 count-weighted mode, ``PACOH_TPU_VI_WEIGHTED=1``). Both paths take the same
 draws, so they follow one random trajectory and do not depend on how the
-steps are chunked. The JAX learner's big-N fused kernel and its mesh path are
-not ported yet: such a fit takes the general step.
+steps are chunked. The JAX learner's mesh path is not ported yet.
 """
 
 import time
@@ -48,6 +50,8 @@ from meta_learning_pacoh_torch.models.random_gp import (
     random_gp_config,
 )
 from meta_learning_pacoh_torch.ops import cuda, launch_sched
+from meta_learning_pacoh_torch.ops.cuda.fused_svgd_bign_kernel import bign_wins
+from meta_learning_pacoh_torch.ops.cuda.fused_vi_bign_kernel import FusedVIBigNTrainer, vi_bign_fits
 from meta_learning_pacoh_torch.ops.cuda.fused_vi_kernel import FusedVITrainer, fused_vi_fits
 from meta_learning_pacoh_torch.ops.distributions import (
     AffineTransformed,
@@ -147,9 +151,11 @@ class GPRegressionMetaLearnedVI(RegressionModelMetaLearned):
 
     # ------------------------------------------------------------ fused path
     def _fused_path_ok(self):
-        """Whether the fused training kernel carries the fit: the N <= 8 arm
-        of the JAX learner's gate (pacoh_vi.py:214-239), and a configuration
-        the kernel takes."""
+        """Whether a fused training kernel carries the fit: the JAX learner's
+        gate (pacoh_vi.py:214-250), with its N <= 8 arm (B7) and its
+        9 <= N <= 256 arm (B11, where the H100's faceoff measured it to win:
+        ``bign_wins``, the counterpart of the JAX learner's
+        ``svgd_bign_wins``), and a configuration the kernel takes."""
         cfg = self.cfg
         hidden = tuple(cfg.mean_nn_layers)
         sizes = torch.sum(self.mask, dim=-1)
@@ -165,8 +171,9 @@ class GPRegressionMetaLearnedVI(RegressionModelMetaLearned):
             and hidden == tuple(cfg.kernel_nn_layers)
             and len(set(hidden)) == 1 and len(hidden) >= 1
             and self.svi_batch_size * hidden[0] <= 1024
-            and n <= 8
-            and fused_vi_fits(self.svi_batch_size, t, n, d, hidden)
+            and (fused_vi_fits(self.svi_batch_size, t, n, d, hidden) if n <= 8
+                 else (vi_bign_fits(self.svi_batch_size, t, n, d, hidden)
+                       and bign_wins(self.svi_batch_size * t)))
         )
 
     def _fused_run_chunk(self, chunk):
@@ -174,7 +181,8 @@ class GPRegressionMetaLearnedVI(RegressionModelMetaLearned):
         and Adam moments (so a fit may resume after general steps). Returns
         (last loss, mean loss) as device scalars."""
         if self._fused is None:
-            self._fused = FusedVITrainer(
+            trainer_cls = FusedVITrainer if self.X.shape[1] <= 8 else FusedVIBigNTrainer
+            self._fused = trainer_cls(
                 self.X, self.Y, self.mask, hidden=tuple(self.cfg.mean_nn_layers), lr=self._lr,
                 lr_decay=self._lr_decay, prior_factor=self.prior_factor,
                 weight_prior_std=self._weight_prior_std, bias_prior_std=self._bias_prior_std,

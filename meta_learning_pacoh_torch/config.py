@@ -12,6 +12,11 @@ sends every dispatch point to its plain PyTorch version (the twin that
 ``fused_enabled()`` mirrors ``PACOH_TPU_DISABLE_FUSED``: the single-launch
 fused training kernel is on unless ``PACOH_TORCH_DISABLE_FUSED`` is set, or
 the kernels are off altogether; then the learner takes its general step.
+
+``force_bign_fused()`` mirrors ``PACOH_TPU_FORCE_BIGN_FUSED``: set, the
+SVGD and VI learners take their big-N fused kernels wherever the kernels
+fit, also beyond the shapes where the card's faceoff measured them to win
+(``ops/cuda/fused_svgd_bign_kernel.bign_wins``).
 """
 
 import os
@@ -34,3 +39,6 @@ def kernels_enabled():
 def fused_enabled():
     return kernels_enabled() and _unset("PACOH_TORCH_DISABLE_FUSED")
 
+
+def force_bign_fused():
+    return not _unset("PACOH_TORCH_FORCE_BIGN_FUSED")

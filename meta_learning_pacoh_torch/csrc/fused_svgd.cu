@@ -13,7 +13,9 @@
 //             pf * -(theta - loc) / scale^2
 //   transport RBF kernel at gamma = 1 / (1e-8 + med / log(K+1)), med the
 //             pairwise squared distance at rank K*K/2 (exact selection)
-//   Adam      on g = -phi, bias corrections 1 - exp(t log b) in float32.
+//   Adam      on g = -phi, bias corrections 1 - exp(t log b) in float32
+// (the median, transport and Adam: fused_update.cuh, shared with the big-N
+// kernel fused_svgd_bign.cu).
 //
 // What bounds it on the card: at sin_20 (K=10, T=20, N=5, H=32, P=2308) a
 // particle's step is about 1.3 MFLOP of MLP products and a few thousand
@@ -55,6 +57,8 @@ constexpr float kOneMinusB1 = static_cast<float>(1.0 - 0.9);
 constexpr float kOneMinusB2 = static_cast<float>(1.0 - 0.999);
 constexpr float kLogB1 = static_cast<float>(-0.10536051565782628);   // log(0.9)
 constexpr float kLogB2 = static_cast<float>(-0.0010005003335835335); // log(0.999)
+
+#include "fused_update.cuh"
 
 struct Params {
   float* theta;  // [K, P] in/out
@@ -157,21 +161,7 @@ __global__ void __launch_bounds__(kThreads) fused_svgd_kernel(Params q) {
     // ---- median (rank K*K/2, exact selection), my kernel row, transport, Adam
     const int kk = K * K;
     for (int c = tid; c < kk; c += nth) d2s[c] = __ldcg(q.d2 + c);
-    if (tid == 0) scal[0] = nanf("");  // stays NaN only if d2 holds a NaN
-    __syncthreads();
-    const int rank = kk / 2;
-    for (int c = tid; c < kk; c += nth) {
-      const float val = d2s[c];
-      int less = 0, less_eq = 0;
-      for (int u = 0; u < kk; ++u) {
-        less += (d2s[u] < val);
-        less_eq += (d2s[u] <= val);
-      }
-      if (less <= rank && rank < less_eq) scal[0] = val;
-    }
-    __syncthreads();
-    const float bw = scal[0] / (2.f * q.log_kp1);
-    const float gamma = 1.f / (1e-8f + 2.f * bw);
+    const float gamma = rbf_gamma(median_upper(d2s, kk, scal), q.log_kp1);
     if (tid < K) kw[tid] = expf(-gamma * d2s[me * K + tid]);
     __syncthreads();
     float row_sum = 0.f;
@@ -181,22 +171,14 @@ __global__ void __launch_bounds__(kThreads) fused_svgd_kernel(Params q) {
     const float bc1 = 1.f - expf(t_f * kLogB1);
     const float bc2 = 1.f - expf(t_f * kLogB2);
     const float two_gamma = 2.f * gamma;
-    const float kf = static_cast<float>(K);
     float* m_me = q.m + static_cast<size_t>(me) * P;
     float* v_me = q.v + static_cast<size_t>(me) * P;
     for (int c = tid; c < P; c += nth) {
-      float ks = 0.f, kx = 0.f;
-      for (int j = 0; j < K; ++j) {
-        ks += kw[j] * __ldcg(s_all + static_cast<size_t>(j) * P + c);
-        kx += kw[j] * __ldcg(th_all + static_cast<size_t>(j) * P + c);
-      }
-      const float phi = (ks + two_gamma * (th[c] * row_sum - kx)) / kf;
-      const float g = -phi;
-      const float mn = kB1 * m_me[c] + kOneMinusB1 * g;
-      const float vn = kB2 * v_me[c] + kOneMinusB2 * g * g;
-      m_me[c] = mn;
-      v_me[c] = vn;
-      th[c] -= q.lr * ((mn / bc1) / (sqrtf(vn / bc2) + kEps));
+      th[c] = transport_adam(
+          kw, K, row_sum, two_gamma, th[c],
+          [&](int j) { return __ldcg(s_all + static_cast<size_t>(j) * P + c); },
+          [&](int j) { return __ldcg(th_all + static_cast<size_t>(j) * P + c); }, m_me[c],
+          v_me[c], q.lr, bc1, bc2);
     }
     __syncthreads();
   }

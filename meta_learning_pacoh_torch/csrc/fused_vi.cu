@@ -93,27 +93,7 @@ size_t smem_floats(int t, int n, int d, int h, int l, int p) {
          3 * static_cast<size_t>(t) + 32 + 8;
 }
 
-// The block's sum of one value a thread, in one fixed order (the same in
-// every block); every thread receives it. red: [32] shared floats.
-__device__ float block_sum(float v, float* red) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, n_warps = blockDim.x >> 5;
-  for (int off = 16; off > 0; off >>= 1) v += __shfl_down_sync(0xffffffffu, v, off);
-  if (lane == 0) red[warp] = v;
-  __syncthreads();
-  float s = 0.f;
-  for (int w = 0; w < n_warps; ++w) s += red[w];
-  __syncthreads();
-  return s;
-}
-
-__device__ __forceinline__ void adam(float g, float& theta, float& m, float& v, float lr, float bc1,
-                                     float bc2) {
-  const float mn = kB1 * m + kOneMinusB1 * g;
-  const float vn = kB2 * v + kOneMinusB2 * g * g;
-  m = mn;
-  v = vn;
-  theta -= lr * ((mn / bc1) / (sqrtf(vn / bc2) + kEps));
-}
+#include "fused_update.cuh"
 
 __global__ void __launch_bounds__(kThreads) fused_vi_kernel(Params q) {
   extern __shared__ float smem[];

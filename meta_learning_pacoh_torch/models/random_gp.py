@@ -155,11 +155,13 @@ def make_hyper_prior(cfg: GPConfig, weight_prior_std=1.0, bias_prior_std=3.0, de
 
 
 def meta_log_prob(hyper_prior: HyperPrior, prior_factor, flat_particles, X, Y, mask=None,
-                  counts=None):
+                  counts=None, task_mll=gp_prior_mll_batch):
     """PACOH generalised-Bayes score of K particles on a task batch.
 
     flat_particles [K, P]; X [T, N, D]; Y [T, N]; mask [T, N] or None.
-    Returns [K]; the task MLLs come from ``gp_prior_mll_batch``.
+    Returns [K]; the task MLLs [K, T] come from ``task_mll``, a function of
+    the arguments of ``gp_prior_mll_batch`` (the big-N fused kernels' plain
+    versions pass their own jitter rule).
 
     counts [T] (optional): the count-weighted estimator of a sampled task
     batch. X, Y, mask are the full task set and counts holds each task's
@@ -170,8 +172,8 @@ def meta_log_prob(hyper_prior: HyperPrior, prior_factor, flat_particles, X, Y, m
     if mask is None:
         mask = torch.ones_like(Y)
     t = X.shape[0]
-    per_task = gp_prior_mll_batch(hyper_prior.cfg, hyper_prior.unravel(flat_particles),
-                                  X, Y, mask)  # [K, T]
+    per_task = task_mll(hyper_prior.cfg, hyper_prior.unravel(flat_particles),
+                        X, Y, mask)  # [K, T]
 
     sizes = torch.sum(mask, dim=-1)
     if counts is None:
@@ -268,10 +270,12 @@ def posterior_kl_to_prior(post, hyper_prior: HyperPrior):
     return 0.5 * (trace + quad - dim + logdet_p - logdet_q)
 
 
-def neg_elbo(hyper_prior: HyperPrior, prior_factor, post, eps, X, Y, mask=None, counts=None):
+def neg_elbo(hyper_prior: HyperPrior, prior_factor, post, eps, X, Y, mask=None, counts=None,
+             task_mll=gp_prior_mll_batch):
     """PACOH-VI's loss: -(mean_s meta_log_prob(sample_s) + prior_factor * H(q)),
     the samples ``posterior_rsample(post, eps)``. E_q[log q] is the exact
     -H(q) of a Gaussian, not a sample estimate (as in the JAX package)."""
     samples = posterior_rsample(post, eps)
-    lp = meta_log_prob(hyper_prior, prior_factor, samples, X, Y, mask, counts=counts)
+    lp = meta_log_prob(hyper_prior, prior_factor, samples, X, Y, mask, counts=counts,
+                       task_mll=task_mll)
     return -(torch.mean(lp) + prior_factor * posterior_entropy(post))

@@ -17,7 +17,8 @@ ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-8
 
 LAUNCHES = {"svgd_phi": 0, "mll_fwd": 0, "mll_bwd": 0, "chol": 0, "chol_small": 0,
             "blocked_fwd": 0, "blocked_bwd": 0, "fused_svgd": 0, "fused_map": 0,
-            "fused_vi": 0, "fused_map_bign": 0, "fused_mlap": 0}
+            "fused_vi": 0, "fused_map_bign": 0, "fused_mlap": 0, "fused_svgd_bign": 0,
+            "fused_vi_bign": 0}
 
 
 def reset_launch_counts():

@@ -42,6 +42,8 @@ SIGNATURES = {
     "pacoh_fused_map_bign": (_P,) * 14 + (_I,) * 13 + (_F,) * 4 + (_I, _P),
     "pacoh_fused_vi": (_P,) * 18 + (_I,) * 8 + (_F,) * 6 + (_I, _P),
     "pacoh_fused_mlap": (_P,) * 27 + (_I,) * 9 + (_F,) * 10 + (_I, _P),
+    "pacoh_fused_svgd_bign": (_P,) * 17 + (_I,) * 11 + (_F,) * 3 + (_I, _P),
+    "pacoh_fused_vi_bign": (_P,) * 21 + (_I,) * 11 + (_F,) * 6 + (_I, _P),
 }
 
 _lock = threading.Lock()

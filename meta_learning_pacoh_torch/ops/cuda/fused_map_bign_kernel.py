@@ -92,29 +92,36 @@ def bign_fits(t, n, d, f, mean_hidden, kernel_hidden):
     return bign_plan(t, n, d, f, mean_hidden, kernel_hidden) is not None
 
 
-def bign_task_mll(layout, theta, x, y, mask):
-    """Per-task MLL / n_t [T] at flat parameters theta [P] under the kernel's
-    rule: the jitter (0, 1e-4, 1e-2) chosen per task, as a constant, and put
-    on the real rows' diagonal only."""
-    cfg = config_of(layout)
-    params = unravel_flat(layout, theta[None])
-    mean = gp_mean(cfg, params, x[None])[0]
-    K = gp_gram(cfg, params, x[None])[0]
-    noise = gp_noise(cfg, params)[0]
-    Kn = add_noise_masked(K, noise.expand(y.shape[:-1]), mask, 1e-6)
+def real_rows_mll(mean, K, y, noise, mask):
+    """MLL / n of systems mean, y, mask [..., N], K [..., N, N], noise [...]
+    under the big-N fused kernels' rule (B9, B10, B11): the jitter (0, 1e-4,
+    1e-2) chosen per system, as a constant, and put on the real rows'
+    diagonal only."""
+    Kn = add_noise_masked(K, noise, mask, 1e-6)
     eye_real = torch.diag_embed(mask)
     jit = torch.full(y.shape[:-1], JITTERS[-1], dtype=y.dtype, device=y.device)
     for j in reversed(JITTERS[:-1]):
         ok = diag_ok(cholesky_ref(Kn.detach() + j * eye_real))
         jit = torch.where(ok, torch.full_like(jit, j), jit)
-    L, info = torch.linalg.cholesky_ex(Kn + jit[:, None, None] * eye_real)
-    L = torch.where((info > 0)[:, None, None], torch.nan, L)
+    L, info = torch.linalg.cholesky_ex(Kn + jit[..., None, None] * eye_real)
+    L = torch.where((info > 0)[..., None, None], torch.nan, L)
     r = (y - mean) * mask
     z = torch.linalg.solve_triangular(L, r[..., None], upper=False)[..., 0]
     quad = torch.sum(z * z, dim=-1)
     logdet = 2.0 * torch.sum(torch.log(torch.diagonal(L, dim1=-2, dim2=-1)), dim=-1)
     n_eff = torch.sum(mask, dim=-1)
     return -0.5 * (quad + logdet + n_eff * _LOG_2PI) / n_eff
+
+
+def bign_task_mll(layout, theta, x, y, mask):
+    """Per-task MLL / n_t [T] at flat parameters theta [P] under the kernel's
+    rule (``real_rows_mll``)."""
+    cfg = config_of(layout)
+    params = unravel_flat(layout, theta[None])
+    mean = gp_mean(cfg, params, x[None])[0]
+    K = gp_gram(cfg, params, x[None])[0]
+    noise = gp_noise(cfg, params)[0]
+    return real_rows_mll(mean, K, y, noise.expand(y.shape[:-1]), mask)
 
 
 def fused_map_bign_train_ref(theta, mu, nu, x, y, mask, w_t, step0, lr, weight_decay,

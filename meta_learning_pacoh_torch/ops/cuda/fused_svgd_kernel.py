@@ -26,6 +26,7 @@ import functools
 import numpy as np
 import torch
 
+from meta_learning_pacoh_torch.models.gp_base import gp_prior_mll_batch
 from meta_learning_pacoh_torch.models.random_gp import (
     make_hyper_prior,
     meta_log_prob,
@@ -115,12 +116,13 @@ def task_weights(mask, task_batch_size=None):
 
 
 def fused_svgd_train_ref(theta, mu, nu, x, y, mask, w_t, step0, lr, prior_factor, counts=None,
-                         *, hidden, wps, bps, n_steps):
+                         *, hidden, wps, bps, n_steps, task_mll=gp_prior_mll_batch):
     """Plain PyTorch version of ``fused_svgd_train``, updating in place.
 
     Each step: the score by autograd of ``meta_log_prob`` (count-weighted
-    with ``counts[i]`` when given), ``svgd_phi_ref``, and the optax Adam
-    update of fused_train_kernel.py:688-707. ``w_t`` must be the weights that
+    with ``counts[i]`` when given, its task MLLs from ``task_mll``),
+    ``svgd_phi_ref``, and the optax Adam update of
+    fused_train_kernel.py:688-707. ``w_t`` must be the weights that
     ``meta_log_prob`` applies, ``task_weights(mask, batch)``.
     """
     hidden = tuple(int(h) for h in hidden)
@@ -132,7 +134,7 @@ def fused_svgd_train_ref(theta, mu, nu, x, y, mask, w_t, step0, lr, prior_factor
     for i in range(n_steps):
         p = theta.detach().requires_grad_(True)
         lp = meta_log_prob(hp, prior_factor, p, x, y, mask,
-                           counts=None if counts is None else counts[i])
+                           counts=None if counts is None else counts[i], task_mll=task_mll)
         (score,) = torch.autograd.grad(lp.sum(), p)
         with torch.no_grad():
             cuda.adam_step_(theta, mu, nu, -svgd_phi_ref(theta, score), step0 + i + 1, lr)
@@ -200,6 +202,7 @@ class FusedSVGDTrainer:
     """
 
     MAX_LAUNCH = 512  # steps a launch in the sampled mode (bounds its count pages)
+    train_fn = staticmethod(fused_svgd_train)  # the kernel a launch runs
 
     def __init__(self, X, Y, mask, *, hidden, lr, prior_factor, weight_prior_std,
                  bias_prior_std, lr_decay=1.0, task_batch_size=None, task_draw=None):
@@ -227,10 +230,9 @@ class FusedSVGDTrainer:
 
     def launch(self, theta, mu, nu, step0, n_steps):
         counts = self.count_pages(step0, n_steps) if self.counted else None
-        fused_svgd_train(theta, mu, nu, self.X, self.Y, self.mask, self.w_t, step0,
-                         staircase_lr(self.lr, self.lr_decay, step0), self.prior_factor,
-                         counts, hidden=self.hidden, wps=self.wps, bps=self.bps,
-                         n_steps=n_steps)
+        self.train_fn(theta, mu, nu, self.X, self.Y, self.mask, self.w_t, step0,
+                      staircase_lr(self.lr, self.lr_decay, step0), self.prior_factor, counts,
+                      hidden=self.hidden, wps=self.wps, bps=self.bps, n_steps=n_steps)
 
     def run(self, theta, mu, nu, n_steps, step0):
         for s, sub in self.launches(step0, n_steps):

@@ -26,6 +26,7 @@ import math
 import numpy as np
 import torch
 
+from meta_learning_pacoh_torch.models.gp_base import gp_prior_mll_batch
 from meta_learning_pacoh_torch.models.random_gp import neg_elbo
 from meta_learning_pacoh_torch.ops import cuda
 from meta_learning_pacoh_torch.ops.cuda.build import launch
@@ -103,11 +104,13 @@ def _check_weights(w_t, mll_const, mask, counts):
 
 
 def fused_vi_train_ref(loc, lsc, m_loc, m_lsc, v_loc, v_lsc, x, y, mask, w_t, eps, step0, lr,
-                       prior_factor, counts=None, *, hidden, wps, bps, mll_const, n_steps):
+                       prior_factor, counts=None, *, hidden, wps, bps, mll_const, n_steps,
+                       task_mll=gp_prior_mll_batch):
     """Plain PyTorch version of ``fused_vi_train``, updating in place.
 
     Each step: the negative ELBO of the samples loc + exp(lsc) * eps[i]
-    (``neg_elbo``, count-weighted with ``counts[i]`` when given), its
+    (``neg_elbo``, count-weighted with ``counts[i]`` when given, its task
+    MLLs from ``task_mll``), its
     gradients by autograd, and the optax Adam update of
     fused_vi_kernel.py:320-332 on loc and lsc with one step count. ``w_t`` and
     ``mll_const`` must be ``task_weights`` and ``mll_constant`` of the mask
@@ -121,7 +124,7 @@ def fused_vi_train_ref(loc, lsc, m_loc, m_lsc, v_loc, v_lsc, x, y, mask, w_t, ep
         post = {"loc": loc.detach().requires_grad_(True),
                 "log_scale": lsc.detach().requires_grad_(True)}
         loss = neg_elbo(hp, prior_factor, post, eps[i], x, y, mask,
-                        counts=None if counts is None else counts[i])
+                        counts=None if counts is None else counts[i], task_mll=task_mll)
         g_loc, g_lsc = torch.autograd.grad(loss, (post["loc"], post["log_scale"]))
         with torch.no_grad():
             cuda.adam_step_(loc, m_loc, v_loc, g_loc, step0 + i + 1, lr)
@@ -199,6 +202,7 @@ class FusedVITrainer:
     """
 
     MAX_LAUNCH = 512  # steps a launch (bounds its noise pages: 47 MB at sin_20)
+    train_fn = staticmethod(fused_vi_train)  # the kernel a launch runs
 
     def __init__(self, X, Y, mask, *, hidden, lr, prior_factor, weight_prior_std,
                  bias_prior_std, svi_batch_size, eps_draw, lr_decay=1.0, task_batch_size=None,
@@ -238,11 +242,11 @@ class FusedVITrainer:
 
     def launch(self, loc, lsc, m_loc, m_lsc, v_loc, v_lsc, step0, n_steps):
         counts = self.count_pages(step0, n_steps) if self.counted else None
-        return fused_vi_train(loc, lsc, m_loc, m_lsc, v_loc, v_lsc, self.X, self.Y, self.mask,
-                              self.w_t, self.eps_pages(step0, n_steps), step0,
-                              staircase_lr(self.lr, self.lr_decay, step0), self.prior_factor,
-                              counts, hidden=self.hidden, wps=self.wps, bps=self.bps,
-                              mll_const=self.mll_const, n_steps=n_steps)
+        return self.train_fn(loc, lsc, m_loc, m_lsc, v_loc, v_lsc, self.X, self.Y, self.mask,
+                             self.w_t, self.eps_pages(step0, n_steps), step0,
+                             staircase_lr(self.lr, self.lr_decay, step0), self.prior_factor,
+                             counts, hidden=self.hidden, wps=self.wps, bps=self.bps,
+                             mll_const=self.mll_const, n_steps=n_steps)
 
     def run(self, loc, lsc, m_loc, m_lsc, v_loc, v_lsc, n_steps, step0):
         """n_steps from global step step0; (last loss, mean loss) as device

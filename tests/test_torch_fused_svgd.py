@@ -188,14 +188,17 @@ GATE_CASES = {
 
 
 @pytest.mark.parametrize("case", sorted(GATE_CASES))
-def test_learner_gate_matches_jax(jax_fused, case):
+def test_learner_gate_matches_jax(jax_fused, monkeypatch, case):
     """The port takes the fused path exactly where the JAX learner does
-    (Pallas forced, big-N fused off, counted batches on as on the TPU)."""
+    (Pallas forced, counted batches on as on the TPU, the JAX learner's
+    big-N fused path forced on: the port's H100 policy)."""
+    monkeypatch.setenv("PACOH_TPU_FORCE_BIGN_FUSED", "1")
     kw = dict(KW, **GATE_CASES[case])
     tasks = _sin_tasks(n_samples=kw.pop("n_samples", N), ragged=kw.pop("ragged", False))
     want = JaxSVGD(tasks, **kw)._fused_path_ok()
     assert GPRegressionMetaLearnedSVGD(tasks, device="cpu", **kw)._fused_path_ok() == want
-    assert want == (case in ("sin_like", "lr_decay", "ragged_full_batch", "counted_uniform"))
+    assert want == (case in ("sin_like", "lr_decay", "ragged_full_batch", "counted_uniform",
+                             "n12"))
 
 
 def test_gate_follows_the_switches(monkeypatch):

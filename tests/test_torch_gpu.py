@@ -29,6 +29,8 @@ from meta_learning_pacoh_torch.ops import cuda, launch_sched
 from meta_learning_pacoh_torch.ops.cuda import blocked_mll_kernel as bk
 from meta_learning_pacoh_torch.ops.cuda import chol_kernel, chol_small_kernel, mll_kernel, svgd_kernel
 from meta_learning_pacoh_torch.ops.cuda import fused_mlap_kernel as lk
+from meta_learning_pacoh_torch.ops.cuda import fused_svgd_bign_kernel as sb
+from meta_learning_pacoh_torch.ops.cuda import fused_vi_bign_kernel as vb
 from meta_learning_pacoh_torch.ops.cuda import fused_map_bign_kernel as bg
 from meta_learning_pacoh_torch.ops.cuda import fused_map_kernel as mk
 from meta_learning_pacoh_torch.ops.cuda import fused_svgd_kernel as fk
@@ -156,10 +158,12 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
         bk.blocked_mll_fwd(torch.randn(2, 513, 513, device=dev), torch.randn(2, 513, device=dev))
 
 
-def test_learner_on_card_matches_plain_cpu_learner(dev):
-    """Five steps and an eval on the card (K1-K4) against the same learner on
-    the CPU (plain versions): particles within 1e-4 (the kernel net's output
+def test_learner_on_card_matches_plain_cpu_learner(dev, monkeypatch):
+    """Five general steps (PACOH_TORCH_DISABLE_FUSED=1: N=12 lies in B10's
+    window) and an eval on the card (K1-K4) against the same learner on the
+    CPU (plain versions): particles within 1e-4 (the kernel net's output
     bias left out), metrics rtol 1e-3."""
+    monkeypatch.setenv("PACOH_TORCH_DISABLE_FUSED", "1")
     env = CauchyDataset(random_state=np.random.RandomState(5))
     train = env.generate_meta_train_data(n_tasks=4, n_samples=12)
     test = env.generate_meta_test_data(n_tasks=3, n_samples_context=12, n_samples_test=70)
@@ -648,3 +652,150 @@ def test_mlap_learner_on_card_matches_plain_cpu_learner(dev, monkeypatch):
     chunked.meta_fit(n_iter=12, log_period=5, verbose=False)
     for key in on_card.params:
         assert torch.equal(chunked.params[key], on_card.params[key])
+
+
+# name -> (K or S, T, N, hidden, ragged, task batch or None, lr_decay)
+BIGN_FUSED_CASES = {
+    "small_ragged": (4, 3, 12, (8, 8), True, None, 1.0),
+    "t5_n200": (10, 5, 200, (32, 32), False, None, 1.0),
+    "t5_n200_counted": (10, 5, 200, (32, 32), False, 2, 1.0),
+    "t5_n200_staircase": (10, 5, 200, (32, 32), False, None, 0.5),
+    "n240_device_matrix": (4, 2, 240, (16, 16, 16), True, None, 1.0),
+    "grouped_systems": (6, 26, 20, (16, 16), True, None, 1.0),
+}
+
+
+def _bign_trainer_run(trainer, ref, got, want, split, n_steps, counter, **kw):
+    """The trainer's launches from step 3 against the plain version ``ref`` over
+    the same launches, in float32 (``want``) and in float64; the same steps
+    again as 4 + the rest from ``split``. Returns the last losses (kernel,
+    plain) and the float64 run's state."""
+    wide = [a.double() for a in want]
+    cuda.reset_launch_counts()
+    got_loss = trainer.run(*got, n_steps, 3)
+    assert cuda.LAUNCHES[counter] == len(list(trainer.launches(3, n_steps)))
+    want_loss = None
+    for s0, sub in trainer.launches(3, n_steps):
+        counts = trainer.count_pages(s0, sub) if trainer.counted else None
+        extra = [trainer.eps_pages(s0, sub)] if hasattr(trainer, "eps_pages") else []
+        args = (trainer.X, trainer.Y, trainer.mask, trainer.w_t, *extra, s0,
+                launch_sched.staircase_lr(1e-3, trainer.lr_decay, s0), 0.01, counts)
+        kwargs = dict(hidden=trainer.hidden, wps=0.5, bps=3.0, n_steps=sub, **kw)
+        want_loss = ref(*want, *args, **kwargs)
+        # w_t stays float32 (the plain version checks it); the rest promotes
+        ref(*wide, *[a.double() if torch.is_tensor(a) and a is not trainer.w_t else a
+                     for a in args], **kwargs)
+    trainer.run(*split, 4, 3)
+    trainer.run(*split, n_steps - 4, 7)
+    return got_loss, want_loss, wide
+
+
+@pytest.mark.parametrize("case", sorted(BIGN_FUSED_CASES))
+def test_fused_svgd_bign_kernel_matches_plain(dev, case, monkeypatch):
+    """B10 against its plain version from one state (step 3, non-zero Adam
+    moments), 20 steps over the trainer's launches (a staircase of 10-step
+    transitions for lr_decay < 1): particles max 1e-4 and mean 2e-6 (the
+    kernel net's output bias left out), the Adam moments within 1e-4 of their
+    largest |value| in the plain version's float64 run (not its float32 run:
+    clustered inputs and a small noise leave the Gram matrix ill-conditioned,
+    and small_ragged's float32 plain m lies 3.2e-4 from its float64 run).
+    The same steps split into two launches give the same bits."""
+    k, t, n, hidden, ragged, batch, decay = BIGN_FUSED_CASES[case]
+    monkeypatch.setattr(launch_sched, "LR_TRANSITION_STEPS", 10)
+    (x, y, mask), theta, hp, rs = _fused_case(k, t, n, hidden, sum(map(ord, case)), ragged, dev)
+    mu = torch.from_numpy((0.01 * rs.randn(k, hp.dim)).astype(np.float32)).to(dev)
+    nu = torch.from_numpy((1e-4 * rs.rand(k, hp.dim)).astype(np.float32)).to(dev)
+
+    def draw(step):
+        return torch.from_numpy(np.random.RandomState(step).randint(0, t, batch))
+
+    trainer = sb.FusedSVGDBigNTrainer(x, y, mask, hidden=hidden, lr=1e-3, prior_factor=0.01,
+                                      weight_prior_std=0.5, bias_prior_std=3.0, lr_decay=decay,
+                                      task_batch_size=batch, task_draw=draw)
+    got, want, split = ([a.clone() for a in (theta, mu, nu)] for _ in range(3))
+    _, _, wide = _bign_trainer_run(trainer, sb.fused_svgd_bign_train_ref, got, want, split, 20,
+                                   "fused_svgd_bign")
+    keep = torch.ones(hp.dim, dtype=torch.bool, device=dev)
+    keep[hp.slice_of(("kernel_nn", "b_out"))] = False
+    diff = (got[0] - want[0])[:, keep].abs()
+    assert float(diff.max()) <= 1e-4 and float(diff.mean()) <= 2e-6, (diff.max(), diff.mean())
+    for g, w in zip(got[1:], wide[1:]):
+        err = float((g.double() - w)[:, keep].abs().max()) / float(w.abs().max())
+        assert err <= 1e-4, err
+    assert float((got[0] - theta)[:, keep].abs().max()) > 1e-3  # the steps moved it
+    for g, sp in zip(got, split):
+        assert torch.equal(g, sp)
+
+
+@pytest.mark.parametrize("case", sorted(BIGN_FUSED_CASES))
+def test_fused_vi_bign_kernel_matches_plain(dev, case, monkeypatch):
+    """B11 against its plain version from one state (step 3, non-zero Adam
+    moments), 20 steps over the trainer's launches with one set of noise
+    pages: loc and log_scale max 1e-4 and mean 2e-6, the Adam moments within
+    1e-4 of their largest |value| in the plain version's float64 run (as
+    B10's test), the last loss rtol 1e-5. The same steps split into two
+    launches give the same bits."""
+    s, t, n, hidden, ragged, batch, decay = BIGN_FUSED_CASES[case]
+    monkeypatch.setattr(launch_sched, "LR_TRANSITION_STEPS", 10)
+    (x, y, mask), _, hp, rs = _fused_case(1, t, n, hidden, sum(map(ord, case)), ragged, dev)
+    p = hp.dim
+    state = [0.1 * rs.randn(p), np.log(0.1) + 0.1 * rs.randn(p), 0.01 * rs.randn(p),
+             0.01 * rs.randn(p), 1e-4 * rs.rand(p), 1e-4 * rs.rand(p)]
+    state = [torch.tensor(a, dtype=torch.float32, device=dev) for a in state]
+
+    def draw(step):
+        return torch.from_numpy(np.random.RandomState(step).randint(0, t, batch))
+
+    trainer = vb.FusedVIBigNTrainer(x, y, mask, hidden=hidden, lr=1e-3, prior_factor=0.01,
+                                    weight_prior_std=0.5, bias_prior_std=3.0, svi_batch_size=s,
+                                    eps_draw=_numpy_eps(s, p), lr_decay=decay,
+                                    task_batch_size=batch, task_draw=draw)
+    got, want, split = ([a.clone() for a in state] for _ in range(3))
+    (got_loss, _), (want_loss, _), wide = _bign_trainer_run(
+        trainer, vb.fused_vi_bign_train_ref, got, want, split, 20, "fused_vi_bign",
+        mll_const=trainer.mll_const)
+    keep = torch.ones(p, dtype=torch.bool, device=dev)
+    keep[hp.slice_of(("kernel_nn", "b_out"))] = False
+    for g, w in zip(got[:2], want[:2]):
+        diff = (g - w)[keep].abs()
+        assert float(diff.max()) <= 1e-4 and float(diff.mean()) <= 2e-6, (diff.max(), diff.mean())
+    for g, w in zip(got[2:], wide[2:]):
+        err = float((g.double() - w)[keep].abs().max()) / float(w.abs().max())
+        assert err <= 1e-4, err
+    assert abs(float(got_loss) - float(want_loss)) <= 1e-5 * abs(float(want_loss))
+    assert float((got[0] - state[0])[keep].abs().max()) > 1e-3  # the steps moved it
+    for g, sp in zip(got, split):
+        assert torch.equal(g, sp)
+
+
+def test_bign_learners_on_card_match_plain_cpu_learners(dev):
+    """An SVGD and a VI learner of 6 tasks x 12 points, built without a device
+    (the card), against the same learners on the CPU (VI fed one set of noise
+    pages): 12 steps through B10 (B11) alone land within 1e-4 of the CPU's
+    plain version; two chunkings give the same bits."""
+    env = SinusoidDataset(random_state=np.random.RandomState(26))
+    train = env.generate_meta_train_data(n_tasks=6, n_samples=12)
+    kw = dict(mean_nn_layers=(16, 16), kernel_nn_layers=(16, 16), random_seed=30)
+    for cls, extra, counter, state_of in (
+            (GPRegressionMetaLearnedSVGD, dict(num_particles=6), "fused_svgd_bign",
+             lambda m: [m.particles]),
+            (GPRegressionMetaLearnedVI, dict(svi_batch_size=6), "fused_vi_bign",
+             lambda m: [m.posterior["loc"], m.posterior["log_scale"]])):
+        on_card, chunked = cls(train, **kw, **extra), cls(train, **kw, **extra)
+        on_cpu = cls(train, device="cpu", **kw, **extra)
+        p = on_cpu.hyper_prior.dim
+        if cls is GPRegressionMetaLearnedVI:
+            for model in (on_card, on_cpu, chunked):
+                model._draw_eps = _numpy_eps(6, p)
+        assert on_card.device.type == "cuda" and on_card._fused_path_ok()
+        cuda.reset_launch_counts()
+        on_card.meta_fit(n_iter=12, log_period=12, verbose=False)
+        assert cuda.LAUNCHES[counter] == 1 and sum(cuda.LAUNCHES.values()) == 1, cuda.LAUNCHES
+        on_cpu.meta_fit(n_iter=12, log_period=12, verbose=False)
+        keep = torch.ones(p, dtype=torch.bool)
+        keep[on_cpu.hyper_prior.slice_of(("kernel_nn", "b_out"))] = False
+        for a, b in zip(state_of(on_card), state_of(on_cpu)):
+            assert float((a.cpu() - b)[..., keep].abs().max()) <= 1e-4
+        chunked.meta_fit(n_iter=12, log_period=5, verbose=False)
+        for a, b in zip(state_of(chunked), state_of(on_card)):
+            assert torch.equal(a, b)

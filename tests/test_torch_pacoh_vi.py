@@ -275,14 +275,17 @@ GATE_CASES = {
 @pytest.mark.parametrize("case", sorted(GATE_CASES))
 def test_learner_gate_matches_jax(monkeypatch, case):
     """The port takes the fused path exactly where the JAX learner does
-    (Pallas forced, big-N fused off, counted batches on as on the TPU)."""
+    (Pallas forced, counted batches on as on the TPU, the JAX learner's
+    big-N fused path forced on: the port's H100 policy)."""
     monkeypatch.setenv("PACOH_TPU_FORCE_PALLAS", "1")
     monkeypatch.setenv("PACOH_TPU_VI_WEIGHTED", "1")
+    monkeypatch.setenv("PACOH_TPU_FORCE_BIGN_FUSED", "1")
     kw = dict(KW, **GATE_CASES[case])
     train, _ = _sin(n_samples=kw.pop("n_samples", 5), ragged=kw.pop("ragged", False))
     want = JaxVI(train, **kw)._fused_path_ok()
     assert GPRegressionMetaLearnedVI(train, device="cpu", **kw)._fused_path_ok() == want
-    assert want == (case in ("sin_like", "lr_decay", "ragged_full_batch", "counted_uniform"))
+    assert want == (case in ("sin_like", "lr_decay", "ragged_full_batch", "counted_uniform",
+                             "n9"))
 
 
 def test_gate_follows_the_switches(monkeypatch):
