@@ -8,7 +8,10 @@
 Phase 0 requires CUDA and prints the card's name and power limit.
 Phase 1 builds the hand-written kernels from ``meta_learning_pacoh_torch/csrc``.
 Phase 2 holds each kernel against its plain PyTorch version on the card, at
-the shapes its main path gives it, and times both: K1-K4 at ``cauchy_20``'s,
+the shapes its main path gives it, and times both: K1-K3 at ``cauchy_20``'s,
+K4 at the evals' B=2000 and B=200 (N=200, beside ``torch.linalg.cholesky_ex``),
+at its tiles' and shared-memory edges N in {65, 96, 97, 129, 308, 309, 512},
+with its resident blocks per SM,
 the fused SVGD training kernel B2 at ``sin_20``'s (full batch, a sampled
 batch, and a run across a staircase boundary of the lr schedule), the fused
 MAP training kernel B6 at the reference demo's (the same three runs, and one
@@ -16,8 +19,11 @@ odd shape: 7 ragged tasks, D=3, F=3, nets of other depths and widths), the
 fused VI training kernel B7 at the sin_20 VI fit's (the same three runs, and
 one odd shape: S=3, 7 ragged tasks of up to 7 points, D=2, nets (16,16,16)),
 the blocked MLL kernels B4 (forward and backward) at bench.py's B=200, N=200,
-at the general steps' B=5 (MAP) and B=50 (SVGD), N=200, at N in {49, 231,
-232, 512}, and on one batch whose systems escalate to 1e-4 and 1e-2, and the
+at the general steps' B=5 (MAP) and B=50 (SVGD), N=200 (the forward beside
+``cholesky_ex``), at N in {49, 231, 232, 512}, and on one batch whose systems
+escalate to 1e-4 and 1e-2 (the backward also fed the forward kernel's L and
+z), the forward also at its tiles' and both kernels' shared-memory edges (N
+in {65, 96, 97, 129, 235, 236, 307, 308}), with its resident blocks per SM, and the
 big-N fused MAP
 kernel B9 at the ``map_t5_n200`` shapes (full batch, a sampled batch, across
 a staircase) and one odd shape (ragged tasks of up to 300 points, D=2, F=3,
@@ -39,7 +45,8 @@ Phase 3 runs ``cauchy_20`` through the public entry points:
 alone in the fit, its counter at 0 before and above 0 after); then twins
 of the fit and of the eval from one state, with the kernels disabled and
 with the fused kernel disabled (the general step: K1-K3), compared with
-B10's; then the same learner with the SE covariance of the experiments'
+B10's; from the state 200 steps later, B10 against its plain version in
+float64 (the general step's distance printed beside it); then the same learner with the SE covariance of the experiments'
 ``--covar_module SE``, whose fit takes the general step by default, with
 the counters of K1-K4 at 0 before its fit and eval and above 0 after.
 Phase 4 runs the ``sin_20`` main path of ``bench.py`` (the fused path): a
@@ -187,6 +194,13 @@ VI_BAND_FILE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tools",
 B4_CASES = (("bench.py B=200, N=200", 200, 200), ("MAP general step B=5, N=200", 5, 200),
             ("svgd_t5_n200 general step B=50, N=200", 50, 200), ("N=49", 8, 49),
             ("N=231", 8, 231), ("N=232", 8, 232), ("N=512", 8, 512))
+# the B4 forward beside its plain version at the 32-column tiles' edges, on
+# both sides of its shared-memory edge (N=307) and of the backward's (N=235);
+# B in {1, 5} as the tests
+B4_EDGES = ((1, 65), (5, 96), (5, 97), (1, 129), (5, 235), (5, 236), (1, 307), (5, 308))
+# K4 beside its plain version at the 32-column tiles' edges and on both sides
+# of its shared-memory edge (N=308)
+K4_EDGES = (65, 96, 97, 129, 308, 309, 512)
 B4_ESCALATION = ("escalating systems, B=16, N=200", 16, 200)
 BIGN_STEPS = 500  # bench.py's map_t5_n200 fit
 BIGN_CHUNK = 125  # the second chunking
@@ -401,10 +415,30 @@ def phase2(param_dim):
         raise AssertionError("chol: NaN pattern differs from the plain version")
     keep = torch.arange(2000, device="cuda") != 5
     check("chol", got[keep], want[keep], errs)
+    # the tiles' and the shared-memory edges, each batch with one indefinite matrix
+    for n in K4_EDGES:
+        e = spd(8, n, gen)
+        e[3] -= 10.0 * torch.eye(n, device="cuda")
+        got, want = chol_kernel.cholesky_fused(e), chol_kernel.cholesky_ref(e)
+        if not (torch.equal(torch.isnan(got), torch.isnan(want)) and bool(torch.isnan(got[3]).all())):
+            raise AssertionError(f"chol: NaN pattern differs from the plain version at N={n}")
+        where = "shared" if chol_kernel.chol_in_shared(n) else "device"
+        print(f"  chol at N={n} (the matrix in {where} memory):")
+        check("chol", got[torch.arange(8) != 3], want[torch.arange(8) != 3], errs)
+    print(f"  chol: {chol_kernel.chol_blocks_per_sm(200)} resident blocks per SM at N=200")
+    # the evals' batches: cauchy_20 and vi_t5_n200 (B=2000), svgd_t5_n200 and
+    # map_t5_n200 (B=200)
+    a200 = a[:200].clone()
+    k_ms, p_ms = time_pair(lambda: chol_kernel.cholesky_fused(a200),
+                           lambda: chol_kernel.cholesky_ref(a200), reps=10)
+    lib_ms = statistics.median(median_ms(lambda: torch.linalg.cholesky_ex(a200), 10))
+    print(f"  chol at B=200, N=200: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, "
+          f"torch.linalg.cholesky_ex {lib_ms:.4f} ms (median)")
     times["chol"] = time_pair(lambda: chol_kernel.cholesky_fused(a),
-                              lambda: chol_kernel.cholesky_ref(a), reps=3)
-    work["chol"] = (2000 * 200 ** 3 / 3, 4 * 2 * 2000 * 200 * 200)
-    library["chol"] = statistics.median(median_ms(lambda: torch.linalg.cholesky_ex(a), 3))
+                              lambda: chol_kernel.cholesky_ref(a), reps=5)
+    # in: the lower triangle of each matrix (all the kernel reads); out: the square
+    work["chol"] = (2000 * 200 ** 3 / 3, 4 * 2000 * (200 * 201 // 2 + 200 * 200))
+    library["chol"] = statistics.median(median_ms(lambda: torch.linalg.cholesky_ex(a), 5))
     phase2_b2(errs, times, work)
     phase2_b6(errs, times, work)
     phase2_b7(errs, times, work)
@@ -749,15 +783,31 @@ def phase2_b4(errs, times, work, library):
                                 bk.blocked_mll_bwd_ref(L, z, gq, gl)):
             check("blocked_bwd", g_, w_, errs)
             print(f"    ({name})")
+        check_bwd_on_kernel_fwd(bk, kn, r, gq, gl, errs)
         if n == 200 and label != B4_ESCALATION[0]:  # the main paths' shapes: timed
             timed[b] = (kn, r, L, z, gq, gl)
+    edge_gen = torch.Generator().manual_seed(44)
+    for b, n in B4_EDGES:
+        kn = spd(b, n, edge_gen, scale=0.5)
+        r = torch.randn(b, n, generator=edge_gen).cuda()
+        where = "shared" if bk.blocked_in_shared(n) else "device"
+        print(f"  blocked_fwd, B={b}, N={n} (the system in {where} memory):")
+        for name, g_, w_ in zip(("quad", "logdet", "L", "z"), bk.blocked_mll_fwd(kn, r),
+                                bk.blocked_mll_fwd_ref(kn, r)):
+            check("blocked_fwd", g_.reshape(b, -1), w_.reshape(b, -1), errs)
+            print(f"    ({name})")
+        check_bwd_on_kernel_fwd(bk, kn, r, torch.randn(b, generator=edge_gen).cuda(),
+                                torch.randn(b, generator=edge_gen).cuda(), errs)
+    print(f"  blocked_fwd: {bk.blocked_fwd_blocks_per_sm(200)} resident blocks per SM at N=200")
     for b in (5, 50):  # the general steps' batches: one wave of blocks
         kn, r, L, z, gq, gl = timed[b]
         fwd = time_pair(lambda: bk.blocked_mll_fwd(kn, r), lambda: bk.blocked_mll_fwd_ref(kn, r))
         bwd = time_pair(lambda: bk.blocked_mll_bwd(L, z, gq, gl),
                         lambda: bk.blocked_mll_bwd_ref(L, z, gq, gl))
+        lib_ms = statistics.median(median_ms(lambda: torch.linalg.cholesky_ex(kn), 10))
         print(f"  blocked_fwd/bwd at B={b}, N=200: kernel {fwd[0]:.4f} / {bwd[0]:.4f} ms, "
-              f"plain {fwd[1]:.4f} / {bwd[1]:.4f} ms (median)")
+              f"plain {fwd[1]:.4f} / {bwd[1]:.4f} ms (median); torch.linalg.cholesky_ex "
+              f"{lib_ms:.4f} ms")
     kn, r, L, z, gq, gl = timed[200]
     b, n = kn.shape[0], kn.shape[-1]
     times["blocked_fwd"] = time_pair(lambda: bk.blocked_mll_fwd(kn, r),
@@ -766,12 +816,25 @@ def phase2_b4(errs, times, work, library):
                                      lambda: bk.blocked_mll_bwd_ref(L, z, gq, gl), reps=5)
     library["blocked_fwd"] = statistics.median(median_ms(lambda: torch.linalg.cholesky_ex(kn), 5))
     # forward: one factorization (no system escalates here), the solve, quad
-    # and logdet; backward: L^-1 (N^3/3) and the symmetric W^T W (N^3/3), the
-    # outer product. In: Kn, r; out: quad, logdet, L, z (the backward's in
-    # and out have the same size: L, z, gq, gl; dKn, dr)
-    io_bytes = 4 * (2 * b * n * n + 2 * b * n + 2 * b)
-    work["blocked_fwd"] = (b * (n ** 3 / 3 + n * n + 3 * n), io_bytes)
-    work["blocked_bwd"] = (b * (2 * n ** 3 / 3 + 3 * n * n), io_bytes)
+    # and logdet; in: the lower triangle of Kn (all it reads), r; out: L (the
+    # square), z, quad, logdet. Backward: L^-1 (N^3/3) and the symmetric
+    # W^T W (N^3/3), the outer product; in: the lower triangle of L, z, gq,
+    # gl; out: dKn, dr
+    tri = n * (n + 1) // 2
+    work["blocked_fwd"] = (b * (n ** 3 / 3 + n * n + 3 * n), 4 * b * (tri + n + n * n + n + 2))
+    work["blocked_bwd"] = (b * (2 * n ** 3 / 3 + 3 * n * n), 4 * b * (tri + n + 2 + n * n + n))
+
+
+def check_bwd_on_kernel_fwd(bk, kn, r, gq, gl, errs):
+    """B4's backward, fed the kernel forward's L and z, against its plain
+    version on the same L and z (recorded apart from the backward's own row)."""
+    import torch
+
+    _, _, L, z = bk.blocked_mll_fwd(kn, r)
+    keep = ~torch.isnan(z).any(dim=1)
+    for g_, w_ in zip(bk.blocked_mll_bwd(L[keep], z[keep], gq[keep], gl[keep]),
+                      bk.blocked_mll_bwd_ref(L[keep], z[keep], gq[keep], gl[keep])):
+        check("blocked_bwd on the forward kernel's L, z", g_, w_, errs)
 
 
 def bign_data():
@@ -1471,6 +1534,47 @@ def cauchy_model(train, **kw):
                                        **kw)
 
 
+def cauchy_later_twins(train, later, skip):
+    """TWIN_STEPS steps of cauchy_20 from a later state (200 steps after the
+    twins' start) through B10, through the general step and through B10's
+    plain version in float64 and in float32. B10's particles are held to the
+    float64 run within the twins' tolerances (the measure of phase 3's twin
+    check); the moments' gaps, the general step's and the float32 plain
+    version's are printed. Returns the gaps (``gaps``) B10 - float64,
+    general - float64, plain float32 - float64, B10 - general."""
+
+    def state_of(m):
+        return [m.particles, m._mu, m._nu]
+
+    twins = {}
+    for label, disabled in (("B10", "0"), ("general", "1")):
+        os.environ["PACOH_TORCH_DISABLE_FUSED"] = disabled
+        try:
+            twin = cauchy_model(train)
+            twin.load_state_dict(later)
+            if twin._fused_path_ok() != (label == "B10"):
+                raise AssertionError(f"PACOH_TORCH_DISABLE_FUSED={disabled}: wrong path")
+            twin.meta_fit(n_iter=TWIN_STEPS, log_period=TWIN_STEPS, verbose=False)
+            twins[label] = twin
+        finally:
+            os.environ.pop("PACOH_TORCH_DISABLE_FUSED")
+    wide = svgd_plain64(twins["B10"], later, TWIN_STEPS)
+    narrow = svgd_plain64(twins["B10"], later, TWIN_STEPS, dtype="float32")
+    k64, g64, kg = (gaps(state_of(a), b, 1, skip) for a, b in (
+        (twins["B10"], wide), (twins["general"], wide),
+        (twins["B10"], state_of(twins["general"]))))
+    p64 = gaps(narrow, wide, 1, skip)
+    print(f"  twins from the state 200 steps later ({TWIN_STEPS} steps; |particle diff| max, "
+          f"mean; Adam m, v max diff / max; kernel_nn.b_out excluded): B10 - plain float64 "
+          f"{k64[0]:.3e}, {k64[1]:.3e}, {k64[2]:.3e}; general - plain float64 {g64[0]:.3e}, "
+          f"{g64[1]:.3e}, {g64[2]:.3e}; plain float32 - float64 {p64[0]:.3e}, {p64[1]:.3e}, "
+          f"{p64[2]:.3e}; B10 - general {kg[0]:.3e}, {kg[1]:.3e}, {kg[2]:.3e}")
+    if not (k64[0] <= TWIN_ATOL and k64[1] <= TWIN_MEAN_ATOL):
+        raise AssertionError("cauchy_20: B10's particles disagree with its plain version in "
+                             "float64 from the later state")
+    return {"b10_f64": k64, "general_f64": g64, "plain32_f64": p64, "b10_general": kg}
+
+
 def phase3(profile_dir):
     """cauchy_20 through the public entry points, twice: as the learner
     dispatches it (NN/NN: B10 alone in the fit), with twins of that fit and
@@ -1518,16 +1622,21 @@ def phase3(profile_dir):
     torch.cuda.synchronize()
     eval_warm_s = time.perf_counter() - t0
     print(f"  steady state: {steady:.1f} steps/s; eval_datasets again: {eval_warm_s:.3f} s")
+    # twins from one state, taken before any traced steps so that --profile
+    # does not move it: the default path (B10), the kernels off (the plain
+    # general step) and the fused kernel off (the general step: K1-K3)
+    state = model.state_dict()
     traces = {}
     if profile_dir:
         traces["fit_100_steps"] = profile(
             "fit", lambda: model.meta_fit(n_iter=100, log_period=100, verbose=False),
             profile_dir)
         traces["eval"] = profile("eval", lambda: model.eval_datasets(test), profile_dir)
+    else:  # the same steps untraced (profile() runs its fit twice): one later state
+        for _ in range(2):
+            model.meta_fit(n_iter=100, log_period=100, verbose=False)
+    later = model.state_dict()
 
-    # twins from one state: the default path (B10), the kernels off (the plain
-    # general step) and the fused kernel off (the general step: K1-K3)
-    state = model.state_dict()
     skip = model.hyper_prior.slice_of(("kernel_nn", "b_out"))
     twins = {}
     for label, switch in (("B10", None), ("plain", "PACOH_TORCH_DISABLE_KERNELS"),
@@ -1566,6 +1675,7 @@ def phase3(profile_dir):
             raise AssertionError(f"the B10 and {other} twins disagree")
         if not np.allclose(m_k, m_o, rtol=EVAL_TWIN_TOL, atol=EVAL_TWIN_TOL):
             raise AssertionError(f"the B10 and {other} twins' evals disagree")
+    later_gaps = cauchy_later_twins(train, later, skip)
 
     # the SE covariance: the general step by default
     se = cauchy_model(train, covar_module="SE")
@@ -1603,7 +1713,7 @@ def phase3(profile_dir):
         ll=ll, rmse=rmse, calib=calib, general_steady_steps_per_s=general_steady,
         general_twin_launches=general_launches, se_fit_s=se_fit_s, se_eval_s=se_eval_s,
         se_steady_steps_per_s=se_steady, se_ll=se_ll, se_rmse=se_rmse, se_calib=se_calib,
-        traces=traces)
+        later_twin_gaps=later_gaps, traces=traces)
 
 
 def timed_fit(model, n_iter, log_period):
@@ -2258,17 +2368,27 @@ def vi_live_state(model):
             for k in ("loc", "log_scale")]
 
 
-def svgd_plain64(model, state):
-    """BIGN_TWIN_STEPS steps of B10's plain version in float64 from an SVGD
-    learner's state_dict() at step 0 (zero moments), on its data."""
+def svgd_plain64(model, state, n_steps=BIGN_TWIN_STEPS, dtype="float64"):
+    """n_steps of B10's plain version in float64 (or ``dtype``) from an SVGD
+    learner's state_dict() (its particles, Adam moments and step), on its
+    data, with the learner's launches and learning rates (full batch)."""
+    import torch
+
+    from meta_learning_pacoh_torch.ops import launch_sched
     from meta_learning_pacoh_torch.ops.cuda import fused_svgd_bign_kernel as sb
 
-    theta = float64_tensor(state["particles"], model.device)
-    mu, nu = theta.new_zeros(theta.shape), theta.new_zeros(theta.shape)
-    sb.fused_svgd_bign_train_ref(
-        theta, mu, nu, *(t.double() for t in data_of(model)), model._fused.w_t, 0, model._lr,
-        model.prior_factor, hidden=model._fused.hidden, wps=model._weight_prior_std,
-        bps=model._bias_prior_std, n_steps=BIGN_TWIN_STEPS)
+    dt = getattr(torch, dtype)
+    theta, mu, nu = (torch.tensor(a, dtype=dt, device=model.device) for a in (
+        state["particles"], state["opt_state"]["mu"], state["opt_state"]["nu"]))
+    tr = model._fused
+    if tr.counted:
+        raise ValueError("svgd_plain64: a full-batch learner only")
+    for s0, sub in tr.launches(int(state["step"]), n_steps):
+        sb.fused_svgd_bign_train_ref(
+            theta, mu, nu, *(t.to(dt) for t in data_of(model)), tr.w_t, s0,
+            launch_sched.staircase_lr(tr.lr, tr.lr_decay, s0), model.prior_factor,
+            hidden=tr.hidden, wps=model._weight_prior_std, bps=model._bias_prior_std,
+            n_steps=sub)
     return [theta, mu, nu]
 
 

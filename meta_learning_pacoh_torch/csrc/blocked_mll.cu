@@ -17,28 +17,44 @@
 // What bounds it on the card: at bench.py's B=200, N=200 a system is 160 KB
 // and about N^3/3 flops forward (the factor) and N^3/2 backward (the
 // inverse, N^3/6, and K^-1, N^3/3), 1-1.3 GFLOP in all against 64 MB each
-// way: the card's bound is about 20 us. This kernel is far from it: one
-// block per system walks the columns in order with two barriers each, so it
-// is bound by that chain, and 200 blocks fill the 132 SMs in two waves.
-// The matrix lives in shared memory when it fits (N <= 235 with the odd
-// leading dimension); above, the block works in place in its output buffer
-// in device memory (1 MB at N=512, in L2). The backward inverts L in place
-// and forms each row of dKn from W without a second N x N matrix: row a
-// needs W's rows k >= a only, so in device memory it overwrites W's row a
-// as soon as every thread has read it.
+// way: the card's bound is about 20 us (bytes). Both are far from it: one
+// block per system walks a factorization's chain of dependent steps.
+//
+// The forward factors with the tiled design of csrc/tiled_chol.cuh: panels
+// of 32 columns at three barriers each, trailing updates from register
+// micro-tiles, the lower triangle packed in shared memory so that two
+// blocks share an SM up to N=207 (bench.py's 200 systems run in one wave of
+// 264 slots), loaded by cp.async, and r carried as the border row N, so
+// that z = L^-1 r comes out of the factorization with no serial forward
+// substitution. Each escalation level reloads the pristine system; the
+// jitter goes on the whole diagonal as each diagonal tile is factored. Up
+// to N=307 the triangle is in shared memory; above, the block works in
+// place in its output L in device memory (L2-resident) and in z.
+//
+// The backward keeps the column-at-a-time algebra of csrc/blocked_factor.cuh
+// (one block of 512 threads per system, bound by that chain): the matrix
+// lives in shared memory when it fits (N <= 235 with the odd leading
+// dimension); above, the block works in place in its output buffer in
+// device memory (1 MB at N=512, in L2). It inverts L in place and forms each
+// row of dKn from W without a second N x N matrix: row a needs W's rows
+// k >= a only, so in device memory it overwrites W's row a as soon as every
+// thread has read it.
 
 #include <cuda_runtime.h>
 #include <math.h>
 
 namespace {
 
-constexpr int kThreads = 512;
+constexpr int kThreads = 512;      // the backward
+constexpr int kFwdThreads = 256;   // the forward, two blocks an SM
 constexpr int kMaxN = 512;
 
 #include "blocked_factor.cuh"
+#include "tiled_chol.cuh"
 
-// Shared-memory floats of a block, and whether its matrix is in shared
-// memory; ops/cuda/blocked_mll_kernel.py (blocked_in_shared) states the same.
+// Shared-memory floats of a backward block, and whether its matrix is in
+// shared memory; ops/cuda/blocked_mll_kernel.py (blocked_bwd_in_shared)
+// states the same.
 size_t vector_floats(int n) { return static_cast<size_t>(kPanel + 3) * n + 1; }
 
 int in_shared(int n, int optin) {
@@ -46,45 +62,43 @@ int in_shared(int n, int optin) {
   return bytes <= static_cast<size_t>(optin);
 }
 
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kFwdThreads, 2)
 blocked_fwd_kernel(const float* __restrict__ kn, const float* __restrict__ r,
                    float* __restrict__ quad, float* __restrict__ logdet,
-                   float* __restrict__ l_out, float* __restrict__ z_out, int n, int shared) {
-  extern __shared__ float smem[];
-  float* pcol = smem;             // kPanel * n
-  float* z = pcol + kPanel * n;   // n
-  float* red = z + 3 * n;         // 1
+                   float* __restrict__ l_out, float* __restrict__ z_out, int n, int packed) {
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
   const int sys = blockIdx.x, tid = threadIdx.x;
   const size_t base = static_cast<size_t>(sys) * n * n;
-  const float* a = kn + base;
   float* dst = l_out + base;
-  float* m = shared ? red + 1 : dst;
-  const int ld = shared ? shared_ld(n) : n;
-
-  const int level = factor_escalated(m, n, ld, pcol, [&](float* w, float jit) {
-    for (int idx = tid; idx < n * n; idx += blockDim.x) {
-      const int i = idx / n, k = idx % n;
-      if (k <= i) w[i * ld + k] = a[idx] + ((i == k) ? jit : 0.f);
+  float* z = z_out + static_cast<size_t>(sys) * n;
+  const float* rs = r + static_cast<size_t>(sys) * n;
+  // the system with r as its border row N
+  const TiledMatrix m{packed ? smem + tiled_scratch_floats(n, n + 1) : dst, z, n, n + 1,
+                      packed != 0};
+  bool ok = false;
+  for (int level = 0; level < 3 && !ok; ++level) {
+    tiled_load(m, kn + base, rs);
+    ok = tiled_factor(m, level == 0 ? 0.f : (level == 1 ? 1e-4f : 1e-2f), smem);
+  }
+  const float* zr = m.row(n);
+  if (tid < 32) {  // quad = |z|^2, logdet = 2 sum log diag L, in one fixed order
+    float q = 0.f, s = 0.f;
+    for (int i = tid; ok && i < n; i += 32) {
+      q += zr[i] * zr[i];
+      s += logf(m.row(i)[i]);
     }
-  });
-  if (level < 0) {
-    const float nan = nanf("");
-    for (int idx = tid; idx < n * n; idx += blockDim.x) dst[idx] = nan;
-    for (int i = tid; i < n; i += blockDim.x) z_out[static_cast<size_t>(sys) * n + i] = nan;
-    if (tid == 0) quad[sys] = logdet[sys] = nan;
-    return;
+    q = warp_sum(q);
+    s = warp_sum(s);
+    if (tid == 0) {
+      quad[sys] = ok ? q : nanf("");
+      logdet[sys] = ok ? 2.f * s : nanf("");
+    }
   }
-  const float q = forward_subst(m, n, ld, r + static_cast<size_t>(sys) * n, z, red);
-  const float ld_val = logdet_lower(m, n, ld, red);
-  if (tid == 0) {
-    quad[sys] = q;
-    logdet[sys] = ld_val;
-  }
-  for (int idx = tid; idx < n * n; idx += blockDim.x) {
-    const int i = idx / n, k = idx % n;
-    dst[idx] = (k <= i) ? m[i * ld + k] : 0.f;
-  }
-  for (int i = tid; i < n; i += blockDim.x) z_out[static_cast<size_t>(sys) * n + i] = z[i];
+  __syncthreads();
+  tiled_store(m, dst, ok);
+  if (packed || !ok)
+    for (int i = tid; i < n; i += blockDim.x) z[i] = ok ? zr[i] : nanf("");
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -92,7 +106,7 @@ blocked_bwd_kernel(const float* __restrict__ l_in, const float* __restrict__ z_i
                    const float* __restrict__ gq, const float* __restrict__ gl,
                    float* __restrict__ dkn, float* __restrict__ dr, int n, int shared) {
   extern __shared__ float smem[];
-  float* col = smem;              // n (kPanel * n reserved, as the forward)
+  float* col = smem;              // n (kPanel * n reserved)
   float* z = col + kPanel * n;    // n
   float* alpha = z + n;           // n
   float* red = alpha + 2 * n;     // 1
@@ -143,14 +157,20 @@ extern "C" int pacoh_blocked_mll_fwd(const float* kn, const float* r, float* qua
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (b < 1 || n < 1 || n > kMaxN) return static_cast<int>(cudaErrorInvalidValue);
-  int shared = 0;
+  int packed = 0;
   size_t dyn = 0;
-  const int e = launch_setup(reinterpret_cast<const void*>(blocked_fwd_kernel), n, device,
-                             &shared, &dyn);
+  const int e = tiled_setup(blocked_fwd_kernel, n, n + 1, device, &packed, &dyn);
   if (e != 0) return e;
-  blocked_fwd_kernel<<<b, kThreads, dyn, static_cast<cudaStream_t>(stream)>>>(
-      kn, r, quad, logdet, l_out, z_out, n, shared);
+  blocked_fwd_kernel<<<b, kFwdThreads, dyn, static_cast<cudaStream_t>(stream)>>>(
+      kn, r, quad, logdet, l_out, z_out, n, packed);
   return static_cast<int>(cudaGetLastError());
+}
+
+// Resident forward blocks per SM at this N, into *blocks.
+extern "C" int pacoh_blocked_mll_fwd_blocks_per_sm(int n, int* blocks, int device, void* stream) {
+  (void)stream;
+  if (n < 1 || n > kMaxN) return static_cast<int>(cudaErrorInvalidValue);
+  return tiled_blocks_per_sm(blocked_fwd_kernel, kFwdThreads, n, n + 1, device, blocks);
 }
 
 extern "C" int pacoh_blocked_mll_bwd(const float* l, const float* z, const float* gq,

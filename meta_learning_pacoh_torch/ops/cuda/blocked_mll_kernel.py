@@ -11,15 +11,24 @@ with the jitter (0, 1e-4, 1e-2) escalated per system on the whole diagonal
 (the first level whose factorization succeeds; the level is a constant to
 the gradient), and the closed-form backward dKn = gl W^T W - gq alpha
 alpha^T, dr = 2 gq alpha (W = L^{-1}, alpha = W^T z). The contract is the
-one of the K2/K3 kernels (ops/cuda/mll_kernel.py), at larger N: on the card
-each system is one block, its matrix in shared memory up to
-``SHARED_MAX_N`` and in device memory above (see the source).
+one of the K2/K3 kernels (ops/cuda/mll_kernel.py), at larger N. On the card
+each system is one block. The forward factors with the tiled design of
+csrc/tiled_chol.cuh, r carried as the factor's border row (so z comes out of
+the factorization), its packed triangle in shared memory up to
+``SHARED_MAX_N`` and in device memory above; the backward keeps the
+column-at-a-time algebra of csrc/blocked_factor.cuh, its matrix in shared
+memory up to ``BWD_SHARED_MAX_N`` (see the source).
 """
 
 import torch
 
 from meta_learning_pacoh_torch.ops import cuda
 from meta_learning_pacoh_torch.ops.cuda.build import launch
+from meta_learning_pacoh_torch.ops.cuda.chol_kernel import (
+    SMEM_BYTES,
+    blocks_per_sm,
+    tiled_shared_bytes,
+)
 from meta_learning_pacoh_torch.ops.cuda.mll_kernel import (
     _QuadLogdet,
     mll_bwd_ref,
@@ -28,18 +37,29 @@ from meta_learning_pacoh_torch.ops.cuda.mll_kernel import (
 
 BLOCKED_MIN_N = 49  # below: the K2/K3 kernels
 BLOCKED_MAX_N = 512  # the kernel's limit and the TPU kernel's window
-SMEM_BYTES = 232448  # shared memory one Hopper block can use
-PANEL = 8  # csrc/blocked_factor.cuh kPanel
+PANEL = 8  # csrc/blocked_factor.cuh kPanel (the backward, B9-B11)
 
 
 def blocked_in_shared(n):
-    """Whether the kernel holds an N x N system in shared memory (as
+    """Whether the forward holds an N x N system and its border row in
+    shared memory (as csrc/blocked_mll.cu decides)."""
+    return tiled_shared_bytes(n, n + 1) <= SMEM_BYTES
+
+
+def blocked_bwd_in_shared(n):
+    """Whether the backward holds an N x N system in shared memory (as
     csrc/blocked_mll.cu decides): the matrix with an odd leading dimension
     and (PANEL + 3) N + 1 floats of vectors."""
     return 4 * (n * (n | 1) + (PANEL + 3) * n + 1) <= SMEM_BYTES
 
 
 SHARED_MAX_N = max(n for n in range(1, BLOCKED_MAX_N + 1) if blocked_in_shared(n))
+BWD_SHARED_MAX_N = max(n for n in range(1, BLOCKED_MAX_N + 1) if blocked_bwd_in_shared(n))
+
+
+def blocked_fwd_blocks_per_sm(n, device="cuda"):
+    """Resident forward blocks per SM at this N."""
+    return blocks_per_sm("pacoh_blocked_mll_fwd_blocks_per_sm", n, device)
 
 
 # The plain versions: those of K2/K3, whose contract this kernel keeps at any N

@@ -34,8 +34,10 @@ SIGNATURES = {
     "pacoh_mll_fwd": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
     "pacoh_mll_bwd": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
     "pacoh_chol": (_P, _P, _I, _I, _I, _P),
+    "pacoh_chol_blocks_per_sm": (_I, _P, _I, _P),
     "pacoh_chol_small": (_P, _P, _I, _I, _I, _P),
     "pacoh_blocked_mll_fwd": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
+    "pacoh_blocked_mll_fwd_blocks_per_sm": (_I, _P, _I, _P),
     "pacoh_blocked_mll_bwd": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
     "pacoh_fused_svgd": (_P,) * 14 + (_I,) * 8 + (_F,) * 3 + (_I, _P),
     "pacoh_fused_map": (_P,) * 12 + (_I,) * 12 + (_F,) * 4 + (_I, _P),

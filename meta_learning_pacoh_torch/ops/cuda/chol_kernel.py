@@ -5,8 +5,10 @@ blocked_mll_kernel.py (``blocked_cholesky``, the Pallas kernel
 ``_chol_only_kernel``). Only the lower triangle of the input is read. There
 is no jitter: a matrix whose factorization fails comes back all NaN, and
 ``ops.chol.safe_cholesky`` escalates around the call. On the card a matrix is
-one block, held in shared memory up to N=232 and factored in panels of 8
-columns (see the source).
+one block of 256 threads, factored in panels of 32 columns
+(csrc/tiled_chol.cuh) with its lower triangle packed by rows in shared
+memory up to ``CHOL_SHARED_MAX_N`` (two blocks an SM up to N=208), in place
+in the output in device memory above.
 """
 
 import torch
@@ -16,6 +18,30 @@ from meta_learning_pacoh_torch.ops.cuda.build import launch
 
 CHOL_KERNEL_MIN_N = 65  # below: B5 for 32 <= N <= 64 (chol_small_kernel.py), as in the JAX package
 CHOL_KERNEL_MAX_N = 512  # the kernel's limit and the TPU kernel's window
+SMEM_BYTES = 232448  # shared memory one Hopper block can use
+TILE = 32  # csrc/tiled_chol.cuh kTile: the columns of a panel
+
+
+def tiled_shared_bytes(n, n_rows):
+    """Shared-memory bytes of a block of csrc/tiled_chol.cuh holding the
+    packed triangle of an N x N system with n_rows rows (N + 1 with a border
+    row): L11^T, a flag, the panel of TILE columns over the rows below the
+    first tile, and the rows, row i padded to a multiple of 4 floats."""
+    def round4(x):
+        return (x + 3) & ~3
+
+    panel_ld = round4(max(n_rows - min(n, TILE), 1))
+    packed = sum(round4(i + 1) for i in range(n_rows))
+    return 4 * (TILE * TILE + 4 + TILE * panel_ld + packed)
+
+
+def chol_in_shared(n):
+    """Whether the kernel holds an N x N matrix in shared memory (as
+    csrc/chol.cu decides)."""
+    return tiled_shared_bytes(n, n) <= SMEM_BYTES
+
+
+CHOL_SHARED_MAX_N = max(n for n in range(1, CHOL_KERNEL_MAX_N + 1) if chol_in_shared(n))
 
 
 def diag_ok(L):
@@ -43,3 +69,18 @@ def cholesky_fused(a):
     launch("pacoh_chol", a, a.data_ptr(), out.data_ptr(), b, n)
     cuda.LAUNCHES["chol"] += 1
     return out
+
+
+def blocks_per_sm(entry, n, device):
+    """Resident blocks per SM of a tiled kernel at this N, by
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor (entry: the C function)."""
+    import ctypes
+
+    blocks = ctypes.c_int(0)
+    launch(entry, torch.empty(0, device=device), n, ctypes.addressof(blocks))
+    return blocks.value
+
+
+def chol_blocks_per_sm(n, device="cuda"):
+    """Resident K4 blocks per SM at this N."""
+    return blocks_per_sm("pacoh_chol_blocks_per_sm", n, device)

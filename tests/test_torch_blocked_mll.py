@@ -23,6 +23,7 @@ from meta_learning_pacoh_tpu.ops.pallas.blocked_mll_kernel import (
 )
 from meta_learning_pacoh_torch.ops import gp as gp_ops
 from meta_learning_pacoh_torch.ops.cuda import blocked_mll_kernel as bk
+from meta_learning_pacoh_torch.ops.cuda import chol_kernel
 
 
 def _psd(b, n, seed, scale=0.5):
@@ -174,14 +175,73 @@ def test_gp_mll_batch_blocked_matches_jax_with_ragged_masks(monkeypatch):
 
 
 def test_shared_memory_edge_and_wrapper_checks():
-    """The kernel holds N <= 235 in shared memory (the edge the card tests
-    cross); the CPU wrapper is the plain version; shapes out of the window
-    are refused on the card's path before any launch."""
-    assert bk.SHARED_MAX_N == 235
-    assert bk.blocked_in_shared(235) and not bk.blocked_in_shared(236)
+    """The forward holds its packed system in shared memory up to N=307 and
+    the backward its square up to N=235 (the edges the card tests cross); the
+    CPU wrapper is the plain version; shapes out of the window are refused on
+    the card's path before any launch."""
+    assert bk.SHARED_MAX_N == 307
+    assert bk.blocked_in_shared(307) and not bk.blocked_in_shared(308)
+    assert bk.BWD_SHARED_MAX_N == 235
+    assert bk.blocked_bwd_in_shared(235) and not bk.blocked_bwd_in_shared(236)
     kn = torch.from_numpy(_psd(2, 50, seed=1))
     r = torch.ones(2, 50)
     for got, want in zip(bk.blocked_mll_fwd(kn, r), bk.blocked_mll_fwd_ref(kn, r)):
         assert torch.equal(got, want)
     with pytest.raises(ValueError):
         bk._check("blocked_mll", 2, 513, ())
+
+
+# a block's opt-in limit, and an SM's shared memory less 1 KB a resident block
+OPTIN_BYTES, SM_BYTES, BLOCK_RESERVED = 232448, 233472, 1024
+
+
+@pytest.mark.parametrize("name,rows_of,max_n,two_up_to", [
+    ("chol", lambda n: n, 308, 208),
+    ("blocked_fwd", lambda n: n + 1, 307, 207),
+])
+def test_tiled_footprint_fits_where_claimed(name, rows_of, max_n, two_up_to):
+    """The tiled kernels' shared-memory budget (csrc/tiled_chol.cuh, mirrored
+    by ``chol_kernel.tiled_shared_bytes``) fits a block's opt-in limit at every
+    N the wrappers hold in shared memory, and two blocks an SM up to N=208
+    (K4) / 207 (the B4 forward), bench.py's N=200 among them."""
+    in_shared = chol_kernel.chol_in_shared if name == "chol" else bk.blocked_in_shared
+    claimed = [n for n in range(1, 513) if in_shared(n)]
+    assert claimed == list(range(1, max_n + 1))
+    for n in claimed:
+        assert chol_kernel.tiled_shared_bytes(n, rows_of(n)) <= OPTIN_BYTES
+    two = [n for n in range(1, 513)
+           if 2 * (chol_kernel.tiled_shared_bytes(n, rows_of(n)) + BLOCK_RESERVED) <= SM_BYTES]
+    assert two == list(range(1, two_up_to + 1))
+
+
+def test_tiled_packed_rows_are_aligned_and_dense():
+    """Row i of the packed triangle starts at the closed form of
+    csrc/tiled_chol.cuh's packed_off, on a 16-byte boundary, right after row
+    i - 1's round4(i) floats, and the trailing update's tiles (numbered row
+    by row, the border's last tile row beyond the last column tile skipped)
+    cover the trailing lower triangle once."""
+    def packed_off(i):
+        q, rem = i >> 2, i & 3
+        return 8 * q * (q + 1) + 4 * rem * (q + 1)
+
+    off = 0
+    for i in range(514):
+        assert packed_off(i) == off and off % 4 == 0
+        off += (i + 4) & ~3
+    assert chol_kernel.tiled_shared_bytes(200, 200) == 4 * (32 * 32 + 4 + 32 * 168 + packed_off(200))
+    for m_rows, m_cols in ((168, 168), (169, 168), (170, 169), (9, 8), (5, 4)):
+        tr, tc = (m_rows + 3) // 4, (m_cols + 3) // 4
+        seen = set()
+        for t in range(tr * (tr + 1) // 2):
+            row = int((np.sqrt(np.float32(8 * t + 1)) - 1) * 0.5)
+            while row * (row + 1) // 2 > t:
+                row -= 1
+            while (row + 1) * (row + 2) // 2 <= t:
+                row += 1
+            col = t - row * (row + 1) // 2
+            if col >= tc:
+                continue
+            seen |= {(4 * row + u, 4 * col + v) for u in range(4) for v in range(4)
+                     if 4 * row + u < m_rows and 4 * col + v < m_cols
+                     and 4 * col + v <= 4 * row + u}
+        assert seen == {(r, c) for r in range(m_rows) for c in range(min(r + 1, m_cols))}

@@ -102,17 +102,19 @@ def test_mll_kernels_with_escalation(dev, n):
         assert_close_per_system(got.reshape(12, -1), want.reshape(12, -1))
 
 
-@pytest.mark.parametrize("n", [49, 200, 231, 232, 235, 236, 300, 512])
+@pytest.mark.parametrize("n", [49, 200, 231, 232, 235, 236, 300, 307, 308, 512])
 def test_blocked_mll_kernels_with_escalation(dev, n):
-    """B4 forward and backward against their plain versions: N up to 235
-    in shared memory, above in device memory; system 2 escalates to 1e-4 and
-    system 4 to 1e-2. Then the autograd Function's values and gradients."""
+    """B4 forward and backward against their plain versions: the forward's
+    system in shared memory up to N=307, the backward's up to 235, above in
+    device memory; system 2 escalates to 1e-4 and system 4 to 1e-2. Then the
+    autograd Function's values and gradients."""
     rs = np.random.RandomState(n)
     kn = _psd(6, n, seed=n)
     kn[2] = _escalating(n, -5e-5, rs)
     kn[4] = _escalating(n, -5e-3, rs)
     kn, r = kn.to(dev), torch.tensor(rs.randn(6, n), dtype=torch.float32, device=dev)
-    assert bk.blocked_in_shared(n) == (n <= 235)
+    assert bk.blocked_in_shared(n) == (n <= 307)
+    assert bk.blocked_bwd_in_shared(n) == (n <= 235)
     cuda.reset_launch_counts()
     for got, want in zip(bk.blocked_mll_fwd(kn, r), bk.blocked_mll_fwd_ref(kn, r)):
         assert_close_per_system(got.reshape(6, -1), want.reshape(6, -1))
@@ -132,16 +134,89 @@ def test_blocked_mll_kernels_with_escalation(dev, n):
         assert_close_per_system(got.reshape(6, -1), want.reshape(6, -1))
 
 
-@pytest.mark.parametrize("n", [70, 200, 300, 512])
+@pytest.mark.parametrize("n", [70, 200, 300, 308, 309, 512])
 def test_cholesky_kernel(dev, n):
-    """N=300 and 512 factor in device memory instead of shared memory; the
+    """N=309 and 512 factor in device memory instead of shared memory; the
     indefinite matrix 1 comes back all NaN in both."""
+    assert chol_kernel.chol_in_shared(n) == (n <= 308)
     a = _psd(4, n, seed=n).to(dev)
     a[1] -= 10.0 * torch.eye(n, device=dev)
     got, want = chol_kernel.cholesky_fused(a), chol_kernel.cholesky_ref(a)
     assert torch.equal(torch.isnan(got), torch.isnan(want)) and bool(torch.isnan(got[1]).all())
     keep = [0, 2, 3]
     assert_close_per_system(got[keep], want[keep])
+
+
+# the tiled kernels' edges: 32-column tiles, and the shared-memory edges of
+# the forward (N=307) and of K4 (N=308)
+TILED_NS = [65, 95, 96, 97, 127, 128, 129, 200, 306, 307, 308, 309, 512]
+
+
+@pytest.mark.parametrize("b", [1, 5, 200])
+@pytest.mark.parametrize("n", TILED_NS)
+def test_tiled_kernels_at_tile_and_footprint_edges(dev, n, b):
+    """K4 and the B4 forward against their plain versions on either side of
+    a tile's edge and of the packed triangle's shared-memory edge."""
+    rs = np.random.RandomState(1000 * b + n)
+    kn = _psd(b, n, seed=n + b).to(dev)
+    r = torch.tensor(rs.randn(b, n), dtype=torch.float32, device=dev)
+    assert_close_per_system(chol_kernel.cholesky_fused(kn), chol_kernel.cholesky_ref(kn))
+    for got, want in zip(bk.blocked_mll_fwd(kn, r), bk.blocked_mll_fwd_ref(kn, r)):
+        assert_close_per_system(got.reshape(b, -1), want.reshape(b, -1))
+
+
+def _failing_at(n, p, pivot, rs):
+    """An SPD matrix but for pivot p, which is `pivot` exactly: row and
+    column p of its factor are zero off the diagonal, so the pivot is the
+    diagonal entry plus the jitter (no cancellation, whose rounding 1 / pivot
+    would amplify in quad) and the later pivots stay healthy."""
+    L = np.eye(n) + 0.3 * np.tril(rs.randn(n, n), -1) / np.sqrt(n)
+    L[p + 1:, p] = 0.0
+    L[p, :p] = 0.0
+    a = L @ L.T
+    a[p, p] += pivot - 1.0
+    return torch.tensor(a, dtype=torch.float32)
+
+
+@pytest.mark.parametrize("n", [97, 200])
+def test_tiled_escalation_at_tile_columns(dev, n):
+    """Systems whose factorization fails at the first, a middle and the last
+    column of the second tile: the B4 forward picks the plain version's
+    jitter level for each (1e-4 or 1e-2), a system failing every level is
+    NaN, and K4 (no jitter) returns all NaN for exactly the failing ones."""
+    rs = np.random.RandomState(n)
+    cases = [(p, piv) for piv in (-5e-5, -5e-3) for p in (32, 47, 63)] + [(n - 1, -1.0)]
+    kn = torch.stack([_psd(1, n, seed=n)[0]] + [_failing_at(n, p, piv, rs) for p, piv in cases])
+    kn = kn.to(dev)
+    b = kn.shape[0]
+    r = torch.tensor(rs.randn(b, n), dtype=torch.float32, device=dev)
+    eye = torch.eye(n, device=dev)
+    ok = [chol_kernel.diag_ok(chol_kernel.cholesky_ref(kn + j * eye)) for j in (0.0, 1e-4, 1e-2)]
+    level = torch.where(ok[0], 0, torch.where(ok[1], 1, torch.where(ok[2], 2, 3)))
+    assert level.tolist() == [0, 1, 1, 1, 2, 2, 2, 3]
+    quad, logdet, L, z = bk.blocked_mll_fwd(kn, r)
+    want = bk.blocked_mll_fwd_ref(kn, r)
+    for got, w in zip((quad, logdet, L, z), want):
+        assert torch.equal(torch.isnan(got), torch.isnan(w))
+        keep = level < 3
+        assert_close_per_system(got[keep].reshape(int(keep.sum()), -1),
+                                w[keep].reshape(int(keep.sum()), -1))
+    # the jitter the kernel used: the mean of diag(L L^T - Kn)
+    fit = (L @ L.mT - kn).diagonal(dim1=-2, dim2=-1).mean(-1)
+    got_level = torch.argmin((fit[:, None] - torch.tensor([0.0, 1e-4, 1e-2], device=dev)).abs(), 1)
+    assert got_level[:7].tolist() == level[:7].tolist()
+    assert bool(torch.isnan(L[7]).all()) and bool(torch.isnan(z[7]).all())
+    got = chol_kernel.cholesky_fused(kn)
+    assert torch.equal(torch.isnan(got), torch.isnan(chol_kernel.cholesky_ref(kn)))
+    assert [bool(torch.isnan(g).all()) for g in got] == [False] + [True] * 7
+    assert not bool(torch.isnan(got[0]).any())
+
+
+def test_tiled_kernels_two_blocks_per_sm(dev):
+    """At N=200 two blocks of each tiled kernel are resident on an SM
+    (cudaOccupancyMaxActiveBlocksPerMultiprocessor)."""
+    assert chol_kernel.chol_blocks_per_sm(200) >= 2
+    assert bk.blocked_fwd_blocks_per_sm(200) >= 2
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
