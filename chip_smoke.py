@@ -13,11 +13,14 @@ K4 at the evals' B=2000 and B=200 (N=200, beside ``torch.linalg.cholesky_ex``),
 at its tiles' and shared-memory edges N in {65, 96, 97, 129, 308, 309, 512},
 with its resident blocks per SM,
 the fused SVGD training kernel B2 at ``sin_20``'s (full batch, a sampled
-batch, and a run across a staircase boundary of the lr schedule), the fused
+batch, and a run across a staircase boundary of the lr schedule; its
+cluster plan, the clusters the card holds at once, ptxas' registers and
+spills, and its time a step at K=10 and K=32), the fused
 MAP training kernel B6 at the reference demo's (the same three runs, and one
 odd shape: 7 ragged tasks, D=3, F=3, nets of other depths and widths), the
 fused VI training kernel B7 at the sin_20 VI fit's (the same three runs, and
-one odd shape: S=3, 7 ragged tasks of up to 7 points, D=2, nets (16,16,16)),
+one odd shape: S=3, 7 ragged tasks of up to 7 points, D=2, nets (16,16,16);
+its cluster plans and times a step at S=10, S=32 and the odd shape),
 the blocked MLL kernels B4 (forward and backward) at bench.py's B=200, N=200,
 at the general steps' B=5 (MAP) and B=50 (SVGD), N=200 (the forward beside
 ``cholesky_ex``), at N in {49, 231, 232, 512}, and on one batch whose systems
@@ -51,7 +54,8 @@ float64 (the general step's distance printed beside it); then the same learner w
 the counters of K1-K4 at 0 before its fit and eval and above 0 after.
 Phase 4 runs the ``sin_20`` main path of ``bench.py`` (the fused path): a
 10,000-step ``meta_fit`` carried by B2 alone (its counter above 0, those of
-the general step's kernels at 0), the steady rate of a second 10,000-step
+the general step's kernels at 0; B2 in clusters of more than one CTA, more
+than 10 CTAs in all), the steady rate of a second 10,000-step
 call, ``eval_datasets`` on the 20 test tasks, two chunkings that must give
 the same bits, and seeds 30-32 whose mean test LL and RMSE must lie in the
 band of the JAX package's (BENCH_r05).
@@ -120,6 +124,7 @@ import argparse
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -467,15 +472,68 @@ def sin20():
 
 
 def sin20_model(train, seed=30, **kw):
+    """bench.py's sin_20 SVGD learner, on the card by default."""
     from meta_learning_pacoh_torch import GPRegressionMetaLearnedSVGD
 
     kw = {"task_batch_size": -1, **kw}
     return GPRegressionMetaLearnedSVGD(train, num_iter_fit=SIN_STEPS, num_particles=10,
-                                       random_seed=seed, prior_factor=0.01, device="cuda", **kw)
+                                       random_seed=seed, prior_factor=0.01, **kw)
+
+
+def ptxas_usage(entry):
+    """(registers, (spill stores, spill loads) in bytes) of the kernel whose
+    name holds ``entry``, from nvcc's -Xptxas -v log of this run's build;
+    None when the library was built by an earlier run."""
+    from meta_learning_pacoh_torch.ops.cuda import build
+
+    lines = build.build_info.get("log", "").splitlines()
+    for i, line in enumerate(lines):
+        if "Compiling entry function" in line and entry in line:
+            spills = None
+            for nxt in lines[i + 1:i + 5]:
+                found = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", nxt)
+                if found and spills is None:
+                    spills = (int(found.group(1)), int(found.group(2)))
+                found = re.search(r"Used (\d+) registers", nxt)
+                if found:
+                    return int(found.group(1)), spills
+    return None
+
+
+def cluster_report(kernel, count, t, n, d, hidden):
+    """Print the cluster plan of B2 (``fused_svgd``, K = count) or B7
+    (``fused_vi``, S = count) at these shapes: its cluster size C, its
+    CTAs, the clusters of C the card holds at once
+    (cudaOccupancyMaxActiveClusters) and CTAs an SM so, ptxas' registers and
+    spills. Raises if the card cannot hold every cluster. Returns the plan."""
+    import torch
+
+    from meta_learning_pacoh_torch.ops.cuda import fused_svgd_kernel as fk
+    from meta_learning_pacoh_torch.ops.cuda import fused_vi_kernel as vk
+
+    if kernel == "fused_svgd":
+        plan = fk.cluster_plan(count, t, n, d, hidden)
+        resident = fk.resident_clusters(count, t, n, d, hidden, plan)
+    else:
+        plan = vk.cluster_plan(count, t, n, d, hidden)
+        resident = vk.resident_clusters(t, n, d, hidden, plan)
+    c, sms = plan[0], torch.cuda.get_device_properties(0).multi_processor_count
+    usage = ptxas_usage(f"{kernel}_kernelILi{n}E")  # the kernel instance of N
+    ptxas = ("not in this run's build log" if usage is None else
+             f"{usage[0]} registers a thread, spill stores/loads {usage[1]} bytes")
+    print(f"  {kernel} at {'K' if kernel == 'fused_svgd' else 'S'}={count}, T={t}, N={n}, D={d}, "
+          f"hidden {hidden}: plan {plan}, clusters of {c} CTAs, {count * c} CTAs on {sms} SMs; "
+          f"the card holds {resident} such clusters at once ({resident * c / sms:.2f} CTAs an "
+          f"SM); ptxas: {ptxas}")
+    if resident < count:
+        raise AssertionError(f"{kernel}: the card holds {resident} clusters of {c}, not {count}")
+    return plan
 
 
 def phase2_b2(errs, times, work):
-    """B2 against its plain version at sin_20's shapes, from one state."""
+    """B2 against its plain version at sin_20's shapes, from one state; its
+    cluster plans and time a step at K=10 and K=32."""
+    import numpy as np
     import torch
 
     from meta_learning_pacoh_torch.ops import launch_sched
@@ -535,6 +593,17 @@ def phase2_b2(errs, times, work):
         reps=3)
     times["fused_svgd"] = (k_ms / 200, p_ms / 5)
     k, p, (t, n, d) = 10, model.hyper_prior.dim, model.X.shape
+    cluster_report("fused_svgd", k, t, n, d, (32, 32))
+    # the window's largest K at sin_20's tasks: clusters of fewer CTAs
+    rs = np.random.RandomState(32)
+    hp = model.hyper_prior
+    wide = hp.loc + hp.scale * torch.from_numpy(rs.randn(32, p).astype(np.float32)).cuda()
+    wide_state = [wide, torch.zeros_like(wide), torch.zeros_like(wide)]
+    cluster_report("fused_svgd", 32, t, n, d, (32, 32))
+    wide_ms = statistics.median(median_ms(lambda: fk.fused_svgd_train(
+        *wide_state, model.X, model.Y, model.mask, trainer.w_t, 0, 1e-3, 0.01, hidden=(32, 32),
+        wps=0.5, bps=3.0, n_steps=200), 3)) / 200
+    print(f"  fused_svgd at K=32: {wide_ms:.4f} ms a step (launches of 200 steps)")
     step_flops = (k * (2 * mlp_flops(t * n, d, (32, 32), 1) + t * gp_task_flops(n, 1))
                   + 7 * k * k * p + 12 * k * p)
     # a launch of 200 steps reads and writes theta, m, v once, reads the data once
@@ -734,6 +803,22 @@ def phase2_b7(errs, times, work):
         lambda: vk.fused_vi_train_ref(*p_state, *data, pages[:5], 0, 1e-3, 0.01, n_steps=5, **kw),
         reps=3)
     times["fused_vi"] = (k_ms / n_launch, p_ms / 5)
+    t, n, d = model.X.shape
+    cluster_report("fused_vi", model.svi_batch_size, t, n, d, trainer.hidden)
+    # the window's largest S and the odd shape: their plans and times a step
+    for label, tasks, kw in (("S=32", train, {"svi_batch_size": 32}),
+                             ("the odd shape", odd, odd_kw)):
+        other = vi_model(tasks, **kw)
+        other_trainer = vi_trainer(other)
+        cluster_report("fused_vi", other.svi_batch_size, *other.X.shape,
+                       other_trainer.hidden)
+        other_pages = other_trainer.eps_pages(0, 200)
+        other_state = vi_state(other)
+        other_ms = statistics.median(median_ms(lambda: vk.fused_vi_train(
+            *other_state, other.X, other.Y, other.mask, other_trainer.w_t, other_pages, 0, 1e-3,
+            0.01, hidden=other_trainer.hidden, wps=0.5, bps=3.0,
+            mll_const=other_trainer.mll_const, n_steps=200), 3)) / 200
+        print(f"  fused_vi at {label}: {other_ms:.4f} ms a step (launches of 200 steps)")
     # per step: S samples' scores (both nets forward and backward, the task
     # MLLs, the sample, the hyper-prior term and its quad), the reduction over
     # the samples, and Adam on loc and log_scale
@@ -1747,6 +1832,12 @@ def phase4(profile_dir):
     if launches["fused_svgd"] < 1 or any(launches[k] for k in ("svgd_phi", "mll_fwd",
                                                                 "mll_bwd")):
         raise AssertionError(f"the fit was not carried by the fused kernel: {launches}")
+    k, (t, n, d) = model.num_particles, model.X.shape
+    plan = cluster_report("fused_svgd", k, t, n, d, tuple(model.cfg.mean_nn_layers))
+    if plan[0] < 2 or k * plan[0] <= 10:
+        raise AssertionError(f"sin_20's B2 runs {k} clusters of {plan[0]} CTAs")
+    print(f"  B2 ran {k} clusters of {plan[0]} CTAs, one grid barrier a step, on "
+          f"{model.device} (the learner was built without a device)")
     one_chunk = model.particles.clone()
     cuda.reset_launch_counts()
     t0 = time.perf_counter()
@@ -1925,6 +2016,10 @@ def phase6(profile_dir):
             v for k, v in launches.items() if k != "fused_vi"):
         raise AssertionError(f"the fit was not carried by the fused VI kernel alone, one launch "
                              f"per {model._fused.MAX_LAUNCH} steps: {launches}")
+    s_, (t, n, d) = model.svi_batch_size, model.X.shape
+    plan = cluster_report("fused_vi", s_, t, n, d, tuple(model.cfg.mean_nn_layers))
+    if plan[0] < 2 or s_ * plan[0] <= 10:
+        raise AssertionError(f"sin_20's B7 runs {s_} clusters of {plan[0]} CTAs")
     one_chunk = {k: v.clone() for k, v in model.posterior.items()}
     cuda.reset_launch_counts()
     t0 = time.perf_counter()

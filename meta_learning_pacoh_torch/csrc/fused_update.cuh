@@ -4,7 +4,9 @@
 // (fused_vi.cu, B7, and fused_vi_bign.cu, B11). The counterparts of
 // make_transport_section and the optax-exact Adam of
 // meta_learning_pacoh_tpu/ops/pallas/fused_train_kernel.py. The arithmetic
-// is B2's and B7's, moved here unchanged, so that both keep their bits.
+// of each function stays fixed, so that the kernels sharing it keep their
+// bits; B2 selects its median from the pairs (median_upper_pairs, the same
+// value as median_upper's).
 //
 // Included inside an anonymous namespace of each kernel's source, after its
 // Adam constants kB1, kB2, kEps, kOneMinusB1, kOneMinusB2.
@@ -54,6 +56,37 @@ __device__ float median_upper(const float* d2s, int kk, float* slot) {
   return *slot;
 }
 
+// Index of the pair (i, j), i < j, of K particles in the row-major list of
+// the K (K - 1) / 2 pairs (0,1), (0,2), .., (0,K-1), (1,2), ..
+__device__ __forceinline__ int pair_index(int i, int j, int K) {
+  return i * K - i * (i + 1) / 2 + (j - i - 1);
+}
+
+// median_upper of a K x K matrix of squared distances that is exactly
+// symmetric with a zero diagonal, from its K (K - 1) / 2 pair values d2p
+// (pair_index order): each pair counts twice and the diagonal K zeros, so
+// the value is median_upper's on the whole matrix, from a quarter of its
+// comparisons. slot: one shared float.
+__device__ float median_upper_pairs(const float* d2p, int n_pairs, int K, float* slot) {
+  const int tid = threadIdx.x, nth = blockDim.x;
+  if (tid == 0) *slot = nanf("");
+  __syncthreads();
+  const int rank = K * K / 2;
+  for (int c = tid; c <= n_pairs; c += nth) {
+    const float val = c < n_pairs ? d2p[c] : 0.f;  // the last candidate: the diagonal's 0
+    int less = 0, less_eq = 0;
+    for (int u = 0; u < n_pairs; ++u) {
+      less += d2p[u] < val;
+      less_eq += d2p[u] <= val;
+    }
+    less = 2 * less + (val > 0.f ? K : 0);
+    less_eq = 2 * less_eq + (val >= 0.f ? K : 0);
+    if (less <= rank && rank < less_eq) *slot = val;
+  }
+  __syncthreads();
+  return *slot;
+}
+
 // gamma of the RBF kernel exp(-gamma d2) at bandwidth med / (2 log(K+1)).
 __device__ __forceinline__ float rbf_gamma(float med, float log_kp1) {
   const float bw = med / (2.f * log_kp1);
@@ -74,6 +107,38 @@ __device__ __forceinline__ float transport_adam(const float* kw, int K, float ro
   for (int j = 0; j < K; ++j) {
     ks += kw[j] * score(j);
     kx += kw[j] * particle(j);
+  }
+  const float phi = (ks + two_gamma * (x * row_sum - kx)) / static_cast<float>(K);
+  adam(-phi, x, m, v, lr, bc1, bc2);
+  return x;
+}
+
+// transport_adam with the K particles' coordinate and score read from
+// device memory written in this launch (particle[j * stride], score[j *
+// stride], through L2), sixteen particles' loads in flight at a time: the
+// same arithmetic in the same order.
+__device__ __forceinline__ float transport_adam_l2(const float* kw, int K, float row_sum,
+                                                   float two_gamma, float x, const float* score,
+                                                   const float* particle, size_t stride,
+                                                   float& m, float& v, float lr, float bc1,
+                                                   float bc2) {
+  float ks = 0.f, kx = 0.f;
+  for (int j0 = 0; j0 < K; j0 += 16) {
+    float sv[16], xv[16];
+#pragma unroll
+    for (int u = 0; u < 16; ++u) {
+      if (j0 + u < K) {
+        sv[u] = __ldcg(score + (j0 + u) * stride);
+        xv[u] = __ldcg(particle + (j0 + u) * stride);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < 16; ++u) {
+      if (j0 + u < K) {
+        ks += kw[j0 + u] * sv[u];
+        kx += kw[j0 + u] * xv[u];
+      }
+    }
   }
   const float phi = (ks + two_gamma * (x * row_sum - kx)) / static_cast<float>(K);
   adam(-phi, x, m, v, lr, bc1, bc2);

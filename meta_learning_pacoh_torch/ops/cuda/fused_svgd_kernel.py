@@ -14,10 +14,15 @@ block-diagonal hidden weights, iota helper matrices) existed to fill TPU
 lanes and are not ported, so the learner's particles and Adam moments are
 updated in place and need no conversion afterwards.
 
-The window of the kernel (``fused_svgd_fits``): NN mean and NN kernel with
-feature_dim 1 and one hidden width, 1 <= K <= 32 particles, tasks of
-N <= 8 points, and a block's shared memory holding one particle's
-parameters, score and activations.
+The kernel runs one thread-block cluster of C CTAs a particle
+(``cluster_plan`` chooses C, the activations' row stride and the staging
+chunk; ``smem_bytes`` mirrors a CTA's shared memory). The window of
+the kernel (``fused_svgd_fits``) is fixed: NN mean and NN kernel with
+feature_dim 1 and one hidden width, 1 <= K <= 32 particles, tasks of N <= 8
+points, and one particle's parameters, score and activations within one
+block's shared memory (``window_bytes``), so that the learners' dispatch
+keeps its parity with the JAX learners'; ``cluster_plan`` finds a plan for
+every shape in it.
 """
 
 import dataclasses
@@ -44,6 +49,13 @@ from meta_learning_pacoh_torch.ops.launch_sched import (
 MAX_K = 32  # the transport keeps the K x K distances in shared memory
 MAX_N = 8  # the per-task factorization is unrolled in registers
 SMEM_BYTES = 232448  # shared memory one Hopper block can use
+# Cluster sizes in the order the plan tries them, fastest first at sin_20
+# (tools/fused_step_bench.py on the H100).
+CLUSTER_SIZES = (8, 5, 4, 2, 1)
+# Clusters of C CTAs resident at once on an H100 SXM (132 SMs) at one CTA an
+# SM, cudaOccupancyMaxActiveClusters (chip_smoke.py prints the card's own
+# beside the plan's).
+RESIDENT_CLUSTERS = {1: 132, 2: 66, 4: 30, 5: 22, 8: 15}
 
 
 @functools.lru_cache(maxsize=None)
@@ -80,8 +92,9 @@ def _device_operands(d, hidden, wps, bps, device):
     return hp.loc, hp.scale, offs.to(device)
 
 
-def smem_bytes(k, t, n, d, hidden, p):
-    """Shared memory of one block, as csrc/fused_svgd.cu lays it out."""
+def window_bytes(k, t, n, d, hidden, p):
+    """The bytes that bound the kernel's window: one particle's parameters,
+    score and activations over all T*N rows, its K x K distances."""
     m, h, n_layers = t * n, hidden[0], len(hidden)
     return 4 * (2 * p + 2 * n_layers * m * h + m * (d + 4) + 2 * t + k * k + k + 8)
 
@@ -93,7 +106,81 @@ def fused_svgd_fits(k, t, n, d, hidden):
             and len(set(hidden)) == 1):
         return False
     p = fused_prior(d, hidden, 1.0, 1.0).dim
-    return smem_bytes(k, t, n, d, hidden, p) <= SMEM_BYTES
+    return window_bytes(k, t, n, d, hidden, p) <= SMEM_BYTES
+
+
+def task_lo(r, t, c):
+    """First task of CTA r of a cluster of c over t tasks: CTA r owns
+    [task_lo(r), task_lo(r + 1)) (csrc/cluster_score.cuh)."""
+    return r * t // c
+
+
+def slice_len(p, c):
+    """Floats of each CTA's slice of P: CTA r owns [r * slice_len,
+    min(p, (r + 1) * slice_len)) (csrc/cluster_score.cuh)."""
+    return (-(-p // c) + 3) // 4 * 4
+
+
+def stash_pitch(ch):
+    """Row pitch of the staging for chunks of ch coordinates
+    (csrc/fused_svgd.cu): 4 mod 32 for 16-byte rows, odd otherwise."""
+    return ch + (36 - ch % 32) % 32 if ch % 4 == 0 else ch | 1
+
+
+def smem_bytes(k, t, n, d, hidden, p, c, hs, ch):
+    """Shared memory of one CTA, as csrc/fused_svgd.cu lays it out: the
+    staging of K particles' and scores' chunks of ch coordinates, the
+    particle and the CTA's partial score, its rows' activation slots (row
+    stride hs), its rows and tasks, the pair distances, their pairs and
+    segment sums, the kernel row, the leaf offsets."""
+    tmax = -(-t // c)
+    rmax = tmax * n
+    pairs = k * (k - 1) // 2
+    return 4 * (2 * p + (len(hidden) + 1) * 2 * rmax * hs + rmax * (d + 4) + 2 * tmax
+                + 2 * k * stash_pitch(ch) + 3 * pairs + max(pairs, 512) + k + 8 + 4 * len(hidden)
+                + 6)
+
+
+def cluster_plan(k, t, n, d, hidden, cluster=None):
+    """(C, hs, ch) of a launch: the first size of ``CLUSTER_SIZES`` with no
+    more CTAs than tasks whose K clusters ``RESIDENT_CLUSTERS`` holds at once
+    and whose CTA fits in shared memory, an odd activation row stride where
+    it fits (H otherwise), and the staging chunk ch (a whole slice where it
+    fits, a multiple of 4 floats where it can be). ``cluster`` forces C (the
+    learners never pass it)."""
+    hidden = tuple(int(h) for h in hidden)
+    p = fused_prior(d, hidden, 1.0, 1.0).dim
+    h = hidden[0]
+    for c in CLUSTER_SIZES if cluster is None else (int(cluster),):
+        if cluster is None and (c > t or k > RESIDENT_CLUSTERS[c]):
+            continue
+        for hs in dict.fromkeys((h | 1, h)):
+            # the pitch of a row of the staging that fits beside the rest
+            rest = smem_bytes(k, t, n, d, hidden, p, c, hs, 0) - 8 * k * stash_pitch(0)
+            room = (SMEM_BYTES - rest) // (8 * k)
+            sl = slice_len(p, c)
+            if stash_pitch(sl) <= room:
+                return c, hs, sl
+            if room >= 32:
+                return c, hs, (room - 28) // 4 * 4
+            if room >= 1:  # an odd chunk, its own pitch
+                return c, hs, room - 1 + room % 2
+    raise ValueError(f"fused_svgd: no cluster plan for K={k}, T={t}, N={n}, D={d}, "
+                     f"hidden={hidden}, cluster={cluster}")
+
+
+def resident_clusters(k, t, n, d, hidden, plan, device="cuda"):
+    """Clusters of the plan's C CTAs resident at once on the card
+    (cudaOccupancyMaxActiveClusters, read by the kernel's C entry)."""
+    import ctypes
+
+    hidden = tuple(int(h) for h in hidden)
+    c, hs, ch = plan
+    p = fused_prior(d, hidden, 1.0, 1.0).dim
+    out = ctypes.c_int(0)
+    launch("pacoh_fused_svgd_clusters", torch.empty(0, device=device), k, t, n, d, hidden[0],
+           len(hidden), p, c, hs, ch, ctypes.addressof(out))
+    return out.value
 
 
 def task_weights(mask, task_batch_size=None):
@@ -142,15 +229,16 @@ def fused_svgd_train_ref(theta, mu, nu, x, y, mask, w_t, step0, lr, prior_factor
 
 
 def fused_svgd_train(theta, mu, nu, x, y, mask, w_t, step0, lr, prior_factor, counts=None,
-                     *, hidden, wps, bps, n_steps):
+                     *, hidden, wps, bps, n_steps, cluster=None):
     """n_steps of PACOH-SVGD on flat particles theta [K, P] and Adam moments
     mu, nu [K, P], all updated in place.
 
     x [T, N, D], y [T, N], mask [T, N]; w_t [T] = ``task_weights(mask, ...)``;
     step0 the global step of the first step (its bias corrections); lr the
     launch's learning rate; counts [n_steps, T] the per-step task-draw counts
-    of a sampled batch, or None for the full batch. The plain version for
-    CPU tensors, the kernel for CUDA tensors.
+    of a sampled batch, or None for the full batch; ``cluster`` forces the
+    cluster size C (``cluster_plan``). The plain version for CPU tensors,
+    the kernel for CUDA tensors.
     """
     hidden = tuple(int(h) for h in hidden)
     if theta.device.type == "cpu":
@@ -176,16 +264,16 @@ def fused_svgd_train(theta, mu, nu, x, y, mask, w_t, step0, lr, prior_factor, co
         raise ValueError("fused_svgd: operand shapes do not match theta [K, P] and x [T, N, D]")
     if n_steps < 1:
         return theta, mu, nu
+    c, hs, ch = cluster_plan(k, t, n, d, hidden, cluster)
     loc, scale, offs = _device_operands(d, hidden, float(wps), float(bps), theta.device)
     th_buf = torch.empty(2, k, p, dtype=theta.dtype, device=theta.device)
     s_buf = torch.empty_like(th_buf)
-    d2 = torch.empty(k, k, dtype=theta.dtype, device=theta.device)
     launch("pacoh_fused_svgd", theta, theta.data_ptr(), mu.data_ptr(), nu.data_ptr(),
            x.data_ptr(), y.data_ptr(), mask.data_ptr(), w_t.data_ptr(),
            None if counts is None else counts.data_ptr(), loc.data_ptr(), scale.data_ptr(),
-           offs.data_ptr(), th_buf.data_ptr(), s_buf.data_ptr(), d2.data_ptr(),
-           k, t, n, d, hidden[0], len(hidden), p, int(n_steps), float(step0), float(lr),
-           float(prior_factor))
+           offs.data_ptr(), th_buf.data_ptr(), s_buf.data_ptr(),
+           k, t, n, d, hidden[0], len(hidden), p, int(n_steps), c, hs, ch, float(step0),
+           float(lr), float(prior_factor))
     cuda.LAUNCHES["fused_svgd"] += 1
     return theta, mu, nu
 

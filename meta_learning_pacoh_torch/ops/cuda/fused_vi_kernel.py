@@ -15,10 +15,15 @@ TPU kernel's ``pack_state``, ``eps_layout`` and ``pack_eps_page`` existed to
 fill TPU lanes and are not ported: a noise page is the step's ``[S, P]``
 standard normals as they are.
 
-The window of the kernel (``fused_vi_fits``): NN mean and NN kernel with
-feature_dim 1 and one hidden width, 1 <= S <= 32 samples, tasks of N <= 8
-points, and a block's shared memory holding the posterior, its Adam moments,
-one sample, its score and its activations.
+The kernel runs one thread-block cluster of C CTAs a sample
+(``cluster_plan`` chooses C and the activations' row stride; ``smem_bytes``
+mirrors a CTA's shared memory). The window of the kernel (``fused_vi_fits``)
+is fixed: NN mean and NN kernel with feature_dim 1 and one hidden width,
+1 <= S <= 32 samples, tasks of N <= 8 points, and the posterior, its Adam
+moments, one sample, its score and its activations within one block's
+shared memory (``window_bytes``), so that the learners' dispatch keeps its
+parity with the JAX learners'; ``cluster_plan`` finds a plan for every shape
+in it.
 """
 
 import math
@@ -31,9 +36,12 @@ from meta_learning_pacoh_torch.models.random_gp import neg_elbo
 from meta_learning_pacoh_torch.ops import cuda
 from meta_learning_pacoh_torch.ops.cuda.build import launch
 from meta_learning_pacoh_torch.ops.cuda.fused_svgd_kernel import (
+    CLUSTER_SIZES,
+    RESIDENT_CLUSTERS,
     _device_operands,
     _prior_on,
     fused_prior,
+    slice_len,
     task_weights,
 )
 from meta_learning_pacoh_torch.ops.launch_sched import (
@@ -48,10 +56,55 @@ SMEM_BYTES = 232448  # shared memory one Hopper block can use
 _LOG_2PI = math.log(2.0 * math.pi)
 
 
-def smem_bytes(t, n, d, hidden, p):
-    """Shared memory of one block, as csrc/fused_vi.cu lays it out."""
+def window_bytes(t, n, d, hidden, p):
+    """The bytes that bound the kernel's window: the posterior, its Adam
+    moments, one sample, its score and activations over all T*N rows."""
     m, h, n_layers = t * n, hidden[0], len(hidden)
     return 4 * (8 * p + 2 * n_layers * m * h + m * (d + 4) + 3 * t + 32 + 8)
+
+
+def smem_bytes(t, n, d, hidden, p, c, hs):
+    """Shared memory of one CTA, as csrc/fused_vi.cu lays it out: the sample
+    and the CTA's partial score, its rows' activation slots (row stride hs),
+    its rows and tasks, its slice of the posterior and of both pairs of Adam
+    moments, the leaf offsets."""
+    tmax = -(-t // c)
+    rmax = tmax * n
+    return 4 * (2 * p + (len(hidden) + 1) * 2 * rmax * hs + rmax * (d + 4) + 3 * tmax
+                + 6 * slice_len(p, c) + 32 + 8 + 4 * len(hidden) + 6)
+
+
+def cluster_plan(s, t, n, d, hidden, cluster=None):
+    """(C, hs) of a launch: the first size of ``CLUSTER_SIZES`` with no more
+    CTAs than tasks whose S clusters ``RESIDENT_CLUSTERS`` holds at once and
+    whose CTA fits in shared memory, with an odd activation row stride where
+    it fits (H otherwise). ``cluster`` forces C (the learners never pass
+    it)."""
+    hidden = tuple(int(h) for h in hidden)
+    p = fused_prior(d, hidden, 1.0, 1.0).dim
+    h = hidden[0]
+    for c in CLUSTER_SIZES if cluster is None else (int(cluster),):
+        if cluster is None and (c > t or s > RESIDENT_CLUSTERS[c]):
+            continue
+        for hs in dict.fromkeys((h | 1, h)):
+            if smem_bytes(t, n, d, hidden, p, c, hs) <= SMEM_BYTES:
+                return c, hs
+    raise ValueError(f"fused_vi: no cluster plan for S={s}, T={t}, N={n}, D={d}, "
+                     f"hidden={hidden}, cluster={cluster}")
+
+
+def resident_clusters(t, n, d, hidden, plan, device="cuda"):
+    """Clusters of the plan's C CTAs resident at once on the card
+    (cudaOccupancyMaxActiveClusters, read by the kernel's C entry)."""
+    import ctypes
+
+    hidden = tuple(int(h) for h in hidden)
+    c, hs = plan
+    p = fused_prior(d, hidden, 1.0, 1.0).dim
+    out = ctypes.c_int(0)
+    launch("pacoh_fused_vi_clusters", torch.empty(0, device=device), t, n, d, hidden[0],
+           len(hidden), p, c, hs, ctypes.addressof(out))
+    return out.value
 
 
 def fused_vi_fits(s, t, n, d, hidden):
@@ -61,7 +114,7 @@ def fused_vi_fits(s, t, n, d, hidden):
             and len(set(hidden)) == 1):
         return False
     p = fused_prior(d, hidden, 1.0, 1.0).dim
-    return smem_bytes(t, n, d, hidden, p) <= SMEM_BYTES
+    return window_bytes(t, n, d, hidden, p) <= SMEM_BYTES
 
 
 def mll_constant(mask, task_batch_size=None):
@@ -134,7 +187,8 @@ def fused_vi_train_ref(loc, lsc, m_loc, m_lsc, v_loc, v_lsc, x, y, mask, w_t, ep
 
 
 def fused_vi_train(loc, lsc, m_loc, m_lsc, v_loc, v_lsc, x, y, mask, w_t, eps, step0, lr,
-                   prior_factor, counts=None, *, hidden, wps, bps, mll_const, n_steps):
+                   prior_factor, counts=None, *, hidden, wps, bps, mll_const, n_steps,
+                   cluster=None):
     """n_steps of PACOH-VI on the flat posterior loc, lsc (log_scale) [P] and
     their Adam moments m_loc, m_lsc, v_loc, v_lsc [P], all updated in place.
     Returns (last loss, mean loss) of the steps as device scalars.
@@ -143,8 +197,9 @@ def fused_vi_train(loc, lsc, m_loc, m_lsc, v_loc, v_lsc, x, y, mask, w_t, eps, s
     eps [n_steps, S, P] the steps' standard normals; step0 the global step of
     the first step (its bias corrections); lr the launch's learning rate;
     counts [n_steps, T] the per-step task-draw counts of a sampled batch, or
-    None for the full batch; mll_const = ``mll_constant(mask, ...)``. The
-    plain version for CPU tensors, the kernel for CUDA tensors.
+    None for the full batch; mll_const = ``mll_constant(mask, ...)``;
+    ``cluster`` forces the cluster size C (``cluster_plan``). The plain
+    version for CPU tensors, the kernel for CUDA tensors.
     """
     hidden = tuple(int(h) for h in hidden)
     if n_steps < 1:
@@ -173,17 +228,18 @@ def fused_vi_train(loc, lsc, m_loc, m_lsc, v_loc, v_lsc, x, y, mask, w_t, eps, s
             or w_t.shape != (t,) or (counts is not None and counts.shape != (n_steps, t))):
         raise ValueError("fused_vi: operand shapes do not match loc [P], eps [n_steps, S, P] "
                          "and x [T, N, D]")
+    c, hs = cluster_plan(s, t, n, d, hidden, cluster)
     prior_loc, prior_scale, offs = _device_operands(d, hidden, float(wps), float(bps), loc.device)
     lp_const, ent_const = prior_constants(d, hidden, float(wps), float(bps))
     s_buf = torch.empty(2, s, p, dtype=loc.dtype, device=loc.device)
-    o_buf = torch.empty(2, s, dtype=loc.dtype, device=loc.device)
+    o_buf = torch.empty(2, s, c, 2, dtype=loc.dtype, device=loc.device)
     loss = torch.empty(2, dtype=loc.dtype, device=loc.device)
     launch("pacoh_fused_vi", loc, *(a.data_ptr() for _, a in state), x.data_ptr(),
            y.data_ptr(), mask.data_ptr(), w_t.data_ptr(),
            None if counts is None else counts.data_ptr(), eps.data_ptr(), prior_loc.data_ptr(),
            prior_scale.data_ptr(), offs.data_ptr(), s_buf.data_ptr(), o_buf.data_ptr(),
-           loss.data_ptr(), s, t, n, d, hidden[0], len(hidden), p, int(n_steps), float(step0),
-           float(lr), float(prior_factor), float(mll_const), lp_const, ent_const)
+           loss.data_ptr(), s, t, n, d, hidden[0], len(hidden), p, int(n_steps), c, hs,
+           float(step0), float(lr), float(prior_factor), float(mll_const), lp_const, ent_const)
     cuda.LAUNCHES["fused_vi"] += 1
     return loss[0], loss[1] / n_steps
 
@@ -206,7 +262,7 @@ class FusedVITrainer:
 
     def __init__(self, X, Y, mask, *, hidden, lr, prior_factor, weight_prior_std,
                  bias_prior_std, svi_batch_size, eps_draw, lr_decay=1.0, task_batch_size=None,
-                 task_draw=None):
+                 task_draw=None, cluster=None):
         self.X, self.Y, self.mask = X, Y, mask
         self.n_tasks = int(X.shape[0])
         self.hidden = tuple(int(h) for h in hidden)
@@ -223,6 +279,7 @@ class FusedVITrainer:
         self.w_t = torch.from_numpy(task_weights(mask_np, task_batch_size)).to(X.device)
         self.mll_const = mll_constant(mask_np, task_batch_size)
         self.last_loss = self.avg_loss = float("nan")
+        self.cluster = cluster  # forces the kernel's cluster size; the learners never set it
 
     def count_pages(self, step0, n_steps):
         """[n_steps, T] draw counts of global steps step0 .. step0 + n_steps - 1."""
@@ -242,11 +299,12 @@ class FusedVITrainer:
 
     def launch(self, loc, lsc, m_loc, m_lsc, v_loc, v_lsc, step0, n_steps):
         counts = self.count_pages(step0, n_steps) if self.counted else None
+        forced = {} if self.cluster is None else {"cluster": self.cluster}
         return self.train_fn(loc, lsc, m_loc, m_lsc, v_loc, v_lsc, self.X, self.Y, self.mask,
                              self.w_t, self.eps_pages(step0, n_steps), step0,
                              staircase_lr(self.lr, self.lr_decay, step0), self.prior_factor,
                              counts, hidden=self.hidden, wps=self.wps, bps=self.bps,
-                             mll_const=self.mll_const, n_steps=n_steps)
+                             mll_const=self.mll_const, n_steps=n_steps, **forced)
 
     def run(self, loc, lsc, m_loc, m_lsc, v_loc, v_lsc, n_steps, step0):
         """n_steps from global step step0; (last loss, mean loss) as device

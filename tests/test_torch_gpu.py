@@ -12,6 +12,8 @@ fused training kernels are compared after ten to thirty steps, as
 chip_smoke.py does.
 """
 
+import math
+
 import numpy as np
 import pytest
 import torch
@@ -279,16 +281,43 @@ FUSED_CASES = {  # name -> (K, T, N, hidden, ragged, task batch or None)
     "sin_20_counted": (10, 20, 5, (32, 32), False, 5),
     "n8_k32_kh1024": (32, 6, 8, (32, 32), True, None),
     "three_layers_n3": (8, 5, 3, (16, 16, 16), False, None),
+    "k1": (1, 20, 5, (32, 32), False, None),
+    "odd_width_h7": (3, 7, 7, (7, 7), True, None),  # P % 4 == 2: the staging by scalar loads
 }
 
 
-@pytest.mark.parametrize("case", sorted(FUSED_CASES))
-def test_fused_svgd_kernel_matches_plain(dev, case):
-    """Ten steps of the fused kernel against its plain version from one state
-    (step0 3, non-zero Adam moments): particles within 1e-4 (the kernel
-    net's output bias left out), Adam moments within 1e-4 of their largest
-    |plain| value. Two launches of 4 + 6 steps give the bits of one launch."""
+def plan_sizes(k, t):
+    """The cluster sizes the kernels' plan can return at K (or S) and T:
+    those of CLUSTER_SIZES with no more CTAs than tasks whose K clusters the
+    mirror holds at once."""
+    return [c for c in fk.CLUSTER_SIZES if c <= t and k <= fk.RESIDENT_CLUSTERS[c]]
+
+
+def phi_exact_distances(x, s):
+    """svgd_phi_ref on squared distances summed from differences, as the
+    kernel forms them. At K=1 the expansion |a|^2 + |b|^2 - 2ab leaves
+    rounding noise on the diagonal, and that noise is the median that sets
+    the bandwidth; the kernel's diagonal is exactly 0 (phi = score)."""
+    k = x.shape[0]
+    d2 = ((x[:, None, :] - x[None, :, :]) ** 2).sum(-1)
+    gamma = 1.0 / (1e-8 + 2.0 * svgd_kernel.median_upper(d2) / (2.0 * math.log(k + 1)))
+    k_xx = torch.exp(-gamma * d2)
+    return (k_xx @ s + 2.0 * gamma * (x * k_xx.sum(1, keepdim=True) - k_xx @ x)) / k
+
+
+@pytest.mark.parametrize("case,cluster", [(case, c) for case in sorted(FUSED_CASES)
+                                          for c in plan_sizes(*FUSED_CASES[case][:2])])
+def test_fused_svgd_kernel_matches_plain(dev, case, cluster, monkeypatch):
+    """Ten steps of the fused kernel, at each cluster size its plan can
+    return, against its plain version from one state (step0 3, non-zero
+    Adam moments): particles within 1e-4 (the kernel net's output bias left
+    out), Adam moments within 1e-4 of their largest |plain| value. Two
+    launches of 4 + 6 steps give the bits of one launch. At K=1 the plain
+    version's transport takes the distances as the kernel forms them
+    (phi_exact_distances)."""
     k, t, n, hidden, ragged, batch = FUSED_CASES[case]
+    if k == 1:
+        monkeypatch.setattr(fk, "svgd_phi_ref", phi_exact_distances)
     (x, y, mask), theta, hp, rs = _fused_case(k, t, n, hidden, sum(map(ord, case)), ragged, dev)
     mu = torch.from_numpy((0.01 * rs.randn(k, hp.dim)).astype(np.float32)).to(dev)
     nu = torch.from_numpy((1e-4 * rs.rand(k, hp.dim)).astype(np.float32)).to(dev)
@@ -301,13 +330,14 @@ def test_fused_svgd_kernel_matches_plain(dev, case):
 
     got, want, split = ([a.clone() for a in (theta, mu, nu)] for _ in range(3))
     cuda.reset_launch_counts()
-    fk.fused_svgd_train(*got, x, y, mask, w_t, 3, 1e-3, 0.01, counts, n_steps=10, **kw)
+    fk.fused_svgd_train(*got, x, y, mask, w_t, 3, 1e-3, 0.01, counts, n_steps=10,
+                        cluster=cluster, **kw)
     assert cuda.LAUNCHES["fused_svgd"] == 1
     fk.fused_svgd_train_ref(*want, x, y, mask, w_t, 3, 1e-3, 0.01, counts, n_steps=10, **kw)
     for s0, sub in ((0, 4), (4, 6)):
         fk.fused_svgd_train(*split, x, y, mask, w_t, 3 + s0, 1e-3, 0.01,
                             None if counts is None else counts[s0:s0 + sub].contiguous(),
-                            n_steps=sub, **kw)
+                            n_steps=sub, cluster=cluster, **kw)
     keep = torch.ones(hp.dim, dtype=torch.bool, device=dev)
     keep[hp.slice_of(("kernel_nn", "b_out"))] = False
     assert float((got[0] - want[0])[:, keep].abs().max()) <= 1e-4
@@ -316,6 +346,38 @@ def test_fused_svgd_kernel_matches_plain(dev, case):
     assert float((got[0] - theta)[:, keep].abs().max()) > 1e-3  # the steps moved it
     for g, s in zip(got, split):
         assert torch.equal(g, s)
+
+
+def test_fused_kernels_refuse_clusters_the_card_cannot_hold(dev):
+    """32 clusters of 8 CTAs are more than the card holds at once (15 on an
+    H100 SXM): the C entries refuse the launch
+    (cudaErrorCooperativeLaunchTooLarge) and the wrappers raise."""
+    (x, y, mask), theta, hp, rs = _fused_case(32, 20, 5, (32, 32), 1, False, dev)
+    state = [theta, torch.zeros_like(theta), torch.zeros_like(theta)]
+    w_t = torch.from_numpy(fk.task_weights(mask.cpu().numpy())).to(dev)
+    kw = dict(hidden=(32, 32), wps=0.5, bps=3.0)
+    plan = fk.cluster_plan(32, 20, 5, 1, (32, 32), cluster=8)
+    assert fk.resident_clusters(32, 20, 5, 1, (32, 32), plan) < 32
+    with pytest.raises(RuntimeError, match="CUDA error 720"):
+        fk.fused_svgd_train(*state, x, y, mask, w_t, 0, 1e-3, 0.01, n_steps=2, cluster=8, **kw)
+    post = [torch.zeros(hp.dim, device=dev) for _ in range(6)]
+    eps = torch.randn(2, 32, hp.dim, device=dev)
+    with pytest.raises(RuntimeError, match="CUDA error 720"):
+        vk.fused_vi_train(*post, x, y, mask, w_t, eps, 0, 1e-3, 0.01, n_steps=2, cluster=8,
+                          mll_const=vk.mll_constant(mask.cpu().numpy()), **kw)
+
+
+def test_mirror_of_resident_clusters_holds_on_the_card(dev):
+    """The card holds at least the clusters the Python mirror reckons with,
+    for every size, at the sin_20 plans (and at least K of the plan's)."""
+    for c in fk.RESIDENT_CLUSTERS:
+        plan = fk.cluster_plan(10, 20, 5, 1, (32, 32), cluster=c)
+        assert fk.resident_clusters(10, 20, 5, 1, (32, 32), plan) >= fk.RESIDENT_CLUSTERS[c]
+        vplan = vk.cluster_plan(10, 20, 5, 1, (32, 32), cluster=c)
+        assert vk.resident_clusters(20, 5, 1, (32, 32), vplan) >= fk.RESIDENT_CLUSTERS[c]
+    for k in (1, 10, 32):
+        plan = fk.cluster_plan(k, 20, 5, 1, (32, 32))
+        assert fk.resident_clusters(k, 20, 5, 1, (32, 32), plan) >= k
 
 
 def test_fused_learner_on_card_matches_plain_cpu_learner(dev):
@@ -511,6 +573,8 @@ VI_CASES = {
     "sin_20_counted": (10, 20, 5, 1, (32, 32), False, 5, 1.0),
     "sin_20_staircase": (10, 20, 5, 1, (32, 32), False, None, 0.5),
     "odd_shape": (3, 7, 7, 2, (16, 16, 16), True, None, 1.0),
+    "s1": (1, 20, 5, 1, (32, 32), False, None, 1.0),
+    "s32": (32, 20, 5, 1, (32, 32), False, None, 1.0),
 }
 
 
@@ -522,11 +586,14 @@ def _numpy_eps(s, p):
     return draw
 
 
-@pytest.mark.parametrize("case", sorted(VI_CASES))
-def test_fused_vi_kernel_matches_plain(dev, case, monkeypatch):
-    """The fused VI kernel against its plain version from one state (step 3,
-    non-zero Adam moments), 20 steps over the trainer's launches (a staircase
-    of 10-step transitions for lr_decay < 1) with one set of noise pages:
+@pytest.mark.parametrize("case,cluster", [(case, c) for case in sorted(VI_CASES)
+                                          for c in plan_sizes(VI_CASES[case][0],
+                                                              VI_CASES[case][1])])
+def test_fused_vi_kernel_matches_plain(dev, case, cluster, monkeypatch):
+    """The fused VI kernel, at each cluster size its plan can return, against
+    its plain version from one state (step 3, non-zero Adam moments), 20
+    steps over the trainer's launches (a staircase of 10-step transitions
+    for lr_decay < 1) with one set of noise pages:
     loc and log_scale max 1e-4 and mean 2e-6 (the kernel net's output bias
     left out: its true gradient is 0), the Adam moments within 1e-4 of their
     largest |plain| value, the last loss rtol 1e-5. The same steps split
@@ -554,7 +621,7 @@ def test_fused_vi_kernel_matches_plain(dev, case, monkeypatch):
     trainer = vk.FusedVITrainer(x, y, mask, hidden=hidden, lr=1e-3, prior_factor=0.01,
                                 weight_prior_std=0.5, bias_prior_std=3.0, svi_batch_size=s,
                                 eps_draw=_numpy_eps(s, p), lr_decay=decay,
-                                task_batch_size=batch, task_draw=draw)
+                                task_batch_size=batch, task_draw=draw, cluster=cluster)
     got, want, split = ([a.clone() for a in state] for _ in range(3))
     cuda.reset_launch_counts()
     got_loss, _ = trainer.run(*got, 20, 3)
