@@ -38,9 +38,11 @@ odd shape: S=3, 7 ragged tasks, D=2, nets (16,16,16)) and by one gradient at
 the sin_20 learner's own initial state, and the big-N fused SVGD and VI
 kernels B10 and B11 at the ``svgd_t5_n200`` / ``vi_t5_n200`` shapes (full
 batch, a sampled batch, across a staircase), at ``cauchy_20``'s (20 tasks of
-20 points, D=2: two systems a block; also timed) and two odd shapes (3
-ragged tasks of up to 240 points, D=2, nets (16,16,16): the matrices in
-device memory; 26 ragged tasks of up to 20 points: two systems a block).
+20 points, D=2: two systems a block; also timed) and three odd shapes (3
+ragged tasks of up to 240 points, D=2, nets (16,16,16): the packed matrix in
+shared memory, the activations in device memory; the same tasks with nets
+(128,128): both in device memory; 26 ragged tasks of up to 20 points: two
+systems a block).
 Phase 3 runs ``cauchy_20`` through the public entry points:
 ``provide_data("cauchy_20", seed=28)``,
 ``GPRegressionMetaLearnedSVGD(..., device="cuda")``, ``meta_fit`` and
@@ -175,6 +177,10 @@ SIN_LL_BAND, SIN_RMSE_BAND = (-0.146, 0.21), (0.309, 0.022)
 # B6 against its plain version: parameters with the twins' tolerances above,
 # AdamW moments as B2's, the loss of the last step rtol 1e-5
 B6_STEPS, B6_STAIR_STEPS, B6_LOSS_RTOL = 20, 30, 1e-5
+# where a big-N plan (B10, B11) holds a system's work areas
+BIGN_PLACEMENT = {2: "the matrix and the activations in shared memory",
+                  1: "the matrix in shared memory, the activations in device memory",
+                  0: "the matrix and the activations in device memory"}
 MAP_STEPS = 12000  # demo.py's fit
 MAP_CHUNK = 3000  # the second chunking
 # the band of seeds 30-32: tools/map_demo_band.json (written by
@@ -453,6 +459,7 @@ def phase2(param_dim):
     phase2_b8(errs, times, work)
     phase2_b10(errs, times, work)
     phase2_b11(errs, times, work)
+    bign_escalation()
     for name, (k_ms, p_ms) in times.items():
         unit = "ms a step" if name.startswith("fused") else "ms"
         lib = f", torch.linalg.cholesky_ex {library[name]:.4f} ms" if name in library else ""
@@ -1383,6 +1390,95 @@ def check_bign(name, label, got, want, wide, n_params, skip):
     return k64[0]
 
 
+# The big-N kernels' escalation case: svgd_t5_n200 / vi_t5_n200's learners on
+# their tasks with the inputs and targets duplicated in pairs and every
+# particle's (sample's) noise at softplus(-30) (about 1e-13): the Gram matrix
+# plus 1e-6 fails to factor in float32 at level 0 and takes the jitter 1e-4,
+# while in float64 it factors at level 0. So the kernels are held to their
+# plain versions in float64 at the level a float32 factor picks
+# (``level_dtype``). Float32 cannot meet the twins' limits on such a matrix
+# (on an H100 the float32 plain version's particles lie 3.4e-2 max, 3.3e-3
+# mean from that run after 20 steps, its first-step loss 2.7e-3 off), so B10
+# must lie no further from it than the float32 plain version does, B11's
+# first-step loss within BIGN_ESC_LOSS_RTOL of it (a few times the float32
+# plain version's gap), and both far from the level-0 run.
+BIGN_ESC_NOISE_RAW = -30.0
+BIGN_ESC_LOSS_RTOL = 1e-2
+
+
+def bign_escalating_tasks():
+    """The svgd_t5_n200 tasks with each input and target duplicated in pairs."""
+    train, _ = bign_data()
+    return [(x[0::2].repeat(2, axis=0), y[0::2].repeat(2, axis=0)) for x, y in train]
+
+
+def bign_escalation():
+    """The escalation case (above) through B10 (20 steps, one launch) and B11
+    (one step): returns the distances it prints, raises where the kernels
+    did not escalate or lie off their limits."""
+    import torch
+
+    from meta_learning_pacoh_torch.ops.cuda import fused_svgd_bign_kernel as sb
+    from meta_learning_pacoh_torch.ops.cuda import fused_vi_bign_kernel as vb
+
+    tasks = bign_escalating_tasks()
+    model = bign_svgd_model(tasks)
+    noise = model.hyper_prior.slice_of(("noise_raw",))
+    data = data_of(model)
+    wide_data = [t.double() for t in data]
+    trainer = sb.FusedSVGDBigNTrainer(*data, hidden=(32, 32), lr=1e-3, prior_factor=0.01,
+                                      weight_prior_std=0.5, bias_prior_std=3.0)
+    start = model.particles.clone()
+    start[:, noise] = BIGN_ESC_NOISE_RAW
+    kw = dict(hidden=(32, 32), wps=0.5, bps=3.0, n_steps=B6_STEPS)
+    state = lambda: [start.clone(), torch.zeros_like(start), torch.zeros_like(start)]  # noqa: E731
+    got, want = state(), state()
+    sb.fused_svgd_bign_train(*got, *data, trainer.w_t, 0, 1e-3, 0.01, **kw)
+    sb.fused_svgd_bign_train_ref(*want, *data, trainer.w_t, 0, 1e-3, 0.01, **kw)
+    wide = {}
+    for level in (None, torch.float32):
+        wide[level] = [t.double() for t in state()]
+        sb.fused_svgd_bign_train_ref(*wide[level], *wide_data, trainer.w_t, 0, 1e-3, 0.01,
+                                     level_dtype=level, **kw)
+    skip = model.hyper_prior.slice_of(("kernel_nn", "b_out"))
+    k32 = diff_excluding(got[0].cpu().double(), wide[torch.float32][0].cpu(), skip)
+    p32 = diff_excluding(want[0].cpu().double(), wide[torch.float32][0].cpu(), skip)
+    k64 = diff_excluding(got[0].cpu().double(), wide[None][0].cpu(), skip)
+    print(f"  fused_svgd_bign, escalation: duplicated inputs, noise softplus({BIGN_ESC_NOISE_RAW}), "
+          f"{B6_STEPS} steps: |param diff| to the float64 plain run at the float32 level max "
+          f"{k32[0]:.3e}, mean {k32[1]:.3e} (plain float32 {p32[0]:.3e}, {p32[1]:.3e}); to the "
+          f"float64 run at level 0 {k64[0]:.3e}, {k64[1]:.3e}")
+    if not (k32[0] <= p32[0] and k32[1] <= p32[1] and k32[1] < k64[1]):
+        raise AssertionError("fused_svgd_bign (escalation): the kernel is off its float64 plain "
+                             "version at the escalated level")
+
+    vi = bign_vi_model(tasks)
+    post = vi_state(vi)
+    post[0][noise] = BIGN_ESC_NOISE_RAW
+    post[1][noise] = math.log(1e-3)
+    vtrainer = bign_vi_trainer(vi)
+    eps = vtrainer.eps_pages(0, 1)
+    kw = dict(hidden=(32, 32), wps=0.5, bps=3.0, mll_const=vtrainer.mll_const, n_steps=1)
+    loss_k, _ = vb.fused_vi_bign_train(*[t.clone() for t in post], *data_of(vi), vtrainer.w_t, eps,
+                                       0, 1e-3, 0.01, **kw)
+    loss_p, _ = vb.fused_vi_bign_train_ref(*[t.clone() for t in post], *data_of(vi), vtrainer.w_t,
+                                           eps, 0, 1e-3, 0.01, **kw)
+    loss = {}
+    for level in (None, torch.float32):
+        loss[level], _ = vb.fused_vi_bign_train_ref(
+            *[t.double() for t in post], *(t.double() for t in data_of(vi)), vtrainer.w_t,
+            eps.double(), 0, 1e-3, 0.01, level_dtype=level, **kw)
+    ref, flat = float(loss[torch.float32]), float(loss[None])
+    rel, rel_p, rel_0 = (abs(float(v) - ref) / abs(ref) for v in (loss_k, loss_p, flat))
+    print(f"  fused_vi_bign, escalation: first-step loss {float(loss_k):.7e}, rel diff to the "
+          f"float64 plain run at the float32 level ({ref:.7e}) {rel:.3e} (plain float32 "
+          f"{rel_p:.3e}); the float64 run at level 0 {flat:.7e}")
+    if not (rel <= BIGN_ESC_LOSS_RTOL and abs(float(loss_k) - flat) > 0.5 * abs(flat)):
+        raise AssertionError("fused_vi_bign (escalation): the kernel's loss is not the escalated "
+                             "system's")
+    return {"b10": k32, "b10_plain32": p32, "b11_loss_rel": rel}
+
+
 def phase2_b10(errs, times, work):
     """B10 against its plain version at the svgd_t5_n200 shapes, at
     cauchy_20's and at two odd shapes, from the learner's initial state."""
@@ -1401,6 +1497,9 @@ def phase2_b10(errs, times, work):
               B6_STEPS),
              ("3 ragged tasks of up to 240 points, D=2, K=6, nets (16,16,16)", wide,
               dict(num_particles=6, mean_nn_layers=(16, 16, 16), kernel_nn_layers=(16, 16, 16)),
+              B6_STEPS),
+             ("the same tasks, K=4, nets (128,128): the matrix in device memory", wide,
+              dict(num_particles=4, mean_nn_layers=(128, 128), kernel_nn_layers=(128, 128)),
               B6_STEPS),
              ("26 ragged tasks of up to 20 points, K=6", many, dict(num_particles=6), B6_STEPS))
     transition = launch_sched.LR_TRANSITION_STEPS
@@ -1434,8 +1533,10 @@ def phase2_b10(errs, times, work):
         skip = model.hyper_prior.slice_of(("kernel_nn", "b_out"))
         t, n, d = model.X.shape
         blocks, spb, shared = sb.svgd_bign_plan(model.num_particles, t, n, d, hidden)
-        print(f"  fused_svgd_bign, {label} ({blocks} blocks of {spb} systems, matrices in "
-              f"{'shared' if shared else 'device'} memory), {n_steps} steps:")
+        print(f"  fused_svgd_bign, {label} ({blocks} blocks of {spb} systems, "
+              f"{BIGN_PLACEMENT[shared]}), {n_steps} steps:")
+        if "device memory" in label and shared != 0:
+            raise AssertionError(f"fused_svgd_bign ({label}): planned placement {shared}")
         d_max = check_bign("fused_svgd_bign", label, got, want, wide, 1, skip)
         errs["fused_svgd_bign"] = max(errs.get("fused_svgd_bign", 0.0), d_max)
 
@@ -1502,6 +1603,9 @@ def phase2_b11(errs, times, work):
              ("S=3, 3 ragged tasks of up to 240 points, D=2, nets (16,16,16)", wide,
               dict(svi_batch_size=3, mean_nn_layers=(16, 16, 16),
                    kernel_nn_layers=(16, 16, 16)), B6_STEPS),
+             ("S=4, the same tasks, nets (128,128): the matrix in device memory", wide,
+              dict(svi_batch_size=4, mean_nn_layers=(128, 128), kernel_nn_layers=(128, 128)),
+              B6_STEPS),
              ("S=6, 26 ragged tasks of up to 20 points", many, dict(svi_batch_size=6),
               B6_STEPS))
     transition = launch_sched.LR_TRANSITION_STEPS
@@ -1534,9 +1638,11 @@ def phase2_b11(errs, times, work):
         t, n, d = model.X.shape
         blocks, spb, shared = vb.vi_bign_plan(model.svi_batch_size, t, n, d, trainer.hidden)
         loss_rel = abs(float(got_loss) - float(wide_loss)) / abs(float(wide_loss))
-        print(f"  fused_vi_bign, {label} ({blocks} blocks of {spb} systems, matrices in "
-              f"{'shared' if shared else 'device'} memory), {n_steps} steps: last loss rel "
-              f"diff to the float64 plain run {loss_rel:.3e}")
+        print(f"  fused_vi_bign, {label} ({blocks} blocks of {spb} systems, "
+              f"{BIGN_PLACEMENT[shared]}), {n_steps} steps: last loss rel diff to the float64 "
+              f"plain run {loss_rel:.3e}")
+        if "device memory" in label and shared != 0:
+            raise AssertionError(f"fused_vi_bign ({label}): planned placement {shared}")
         d_max = check_bign("fused_vi_bign", label, got, want, wide, 2, skip)
         if not loss_rel <= B6_LOSS_RTOL:
             raise AssertionError(f"fused_vi_bign ({label}): kernel disagrees with its plain "

@@ -9,7 +9,7 @@
 // Per step, over the G = K*T systems g = k*T + t:
 //   score     each system's MLL gradient (bign_score.cuh, shared with the
 //             big-N VI kernel): both MLPs of particle k over task t's rows,
-//             the blocked factorization of its N x N matrix with the jitter
+//             the tiled factorization of its N x N matrix with the jitter
 //             on the real rows only, the hand-derived backward; summed over
 //             the particle's T systems in order, plus the hyper-prior term
 //             pf * -(theta - loc) / scale^2
@@ -20,18 +20,22 @@
 //
 // What bounds it on the card: at bench.py's svgd_t5_n200 (K=10, T=5,
 // N=200, nets 32x32, P=2308) a step needs per system about N^3/3 flops for
-// the factor, N^3/3 for the inverse and 2 N^3/3 for the K^-1 entries, about
-// 11 MFLOP with the matrix's chains, and 2.6 MFLOP of MLP products: 0.7
-// GFLOP a step, about 10 us at the card's f32 rate. Nothing near that is
-// reached: one block per system (50 of 132 SMs) walks the factorization's
-// and the inversion's columns in order, two barriers each, as B9 does for
-// one task, so the step is bound by that chain of barriers; the 50 chains
-// run side by side. The system's matrix lives in shared memory when it fits
-// beside the parameters (N=200 does; N <= 225 at these widths), else in the
-// block's region of a device scratch (in L2); the MLP activations live in a
-// device scratch. The systems go to at most 128 blocks, a block walking its
-// systems in order, so every block is resident for the grid barriers
-// (cooperative launch).
+// the factor, N^3/3 for the inverse and N^3/3 for K^-1, with the Gram
+// matrix's chains and 2.6 MFLOP of MLP products about 0.6 GFLOP a step, 9
+// us at the card's f32 rate. One block a system (50 of 132 SMs) walks its
+// system through the 32-column panels of tiled_chol.cuh (the residual as
+// the border row, so z = L^-1 r needs no forward substitution) and
+// tiled_inverse.cuh (W = L^-1 and K^-1 = W^T W in place, register
+// micro-tiles, a few barriers a panel), then the score loop reads each K^-1
+// entry once; the nets run in register tiles over activations held
+// [H][N | 1]. What is left is each phase's longest per-thread chain (the
+// deepest micro-tile, the diagonal tile's pivots) rather than a barrier a
+// column; the 50 systems run side by side. The system's packed matrix and
+// both nets' activations live in shared memory when they fit beside the
+// parameters (N=200 does: placement 2), else the activations and then the
+// matrix move to the block's region of a device scratch (in L2). The
+// systems go to at most 128 blocks, a block walking its systems in order,
+// so every block is resident for the grid barriers (cooperative launch).
 // A step: every block computes a share of the K x K squared distances of
 // the step's particles and its systems' partial gradients into a [G, P]
 // scratch; a grid barrier; every block selects the same median, forms the
@@ -56,7 +60,8 @@ constexpr int kMaxN = 256;
 constexpr int kMaxK = 32;
 constexpr int kMaxGroups = 128;
 
-#include "blocked_factor.cuh"
+#include "tiled_chol.cuh"
+#include "tiled_inverse.cuh"
 #include "map_nets.cuh"
 #include "fused_update.cuh"
 #include "bign_score.cuh"
@@ -75,51 +80,55 @@ struct Params {
   const int* offs;      // leaf offsets (bign_score.cuh)
   const int* widths;    // [2L] hidden widths
   float* gbuf;          // [G, P] scratch: minus the systems' partial gradients
-  float* act;           // [blocks, L N H * 2] scratch: MLP activations
+  float* act;           // [blocks, 2 L H (N | 1)] scratch: MLP activations, unless held in shared memory
   float* work;          // [blocks, N, N] scratch: the matrix, when not in shared memory
   float* th_buf;        // [2, K, P] scratch: the particles by step parity
   float* d2;            // [K, K] scratch
+  // shared: 0 the matrix and the activations in device memory, 1 the
+  // matrix in shared memory, 2 both
   int k, t, n, d, h, l, p, n_steps, blocks, spb, shared;
   float step0, lr, pf, log_kp1;
 };
 
 // Shared-memory floats of one block; ops/cuda/fused_svgd_bign_kernel.py
 // (smem_bytes) states the same count.
-size_t smem_floats(int k, int n, int d, int p, int shared) {
-  return static_cast<size_t>(p) + static_cast<size_t>(n) * (d + 10 + kPanel) + 4 +
-         2 * static_cast<size_t>(k) * k + k + 1 +
-         (shared ? static_cast<size_t>(n) * shared_ld(n) : 0);
+size_t smem_floats(int k, int n, int d, int p, int h, int l, int shared) {
+  return bign_matrix_floats(n, shared) + static_cast<size_t>(p) + bign_vector_floats(n, d) +
+         2 * static_cast<size_t>(k) * k + k + 1 + bign_act_floats(n, h, l, shared);
 }
 
 __global__ void __launch_bounds__(kThreads) fused_svgd_bign_kernel(Params q) {
-  extern __shared__ float smem[];
+  extern __shared__ __align__(16) float smem[];
   cg::grid_group grid = cg::this_grid();
   const int K = q.k, T = q.t, N = q.n, D = q.d, L = q.l, P = q.p;
   const int G = K * T, KP = K * P, kk = K * K;
   const int tid = threadIdx.x, nth = blockDim.x, blk = blockIdx.x, n_blk = gridDim.x;
   const int lane = tid & 31, warp = tid >> 5, n_warps = nth >> 5;
 
-  float* th = smem;                 // [P] the system's particle
+  float* tws = smem;                // the tiled matrix's scratch
+  float* tri = tws + tiled_scratch_floats(N, N + 1);  // its packed rows, when held here
+  float* th = tri + (q.shared ? packed_off(N + 1) : 0);  // [P] the system's particle
   float* xs = th + P;               // [N][D]
   float* ys = xs + N * D;           // [N]
   float* ms = ys + N;               // [N]
   float* outm = ms + N;             // [N]
   float* outk = outm + N;           // [N]
   float* rv = outk + N;             // [N]
-  float* zv = rv + N;               // [N]
-  float* al = zv + N;               // [N]
+  float* al = rv + N;               // [N]
   float* rowp = al + N;             // [N][3]
-  float* pcol = rowp + 3 * N;       // [kPanel][N]
-  float* red = pcol + kPanel * N;   // [1]
-  float* hyp = red + 1;             // [3]
-  float* d2s = hyp + 3;             // [K*K]
+  float* border = rowp + 3 * N;     // [N] the border row, when the matrix is in device memory
+  float* hyp = border + N;          // [4]
+  float* sums = hyp + 4;            // [kMaxTiles + 4]
+  float* d2s = sums + kMaxTiles + 4;  // [K*K]
   float* kws = d2s + kk;            // [K*K] the RBF kernel matrix
   float* rsum = kws + kk;           // [K] its row sums
   float* scal = rsum + K;           // [1]
-  float* mat = q.shared ? scal + 1 : q.work + static_cast<size_t>(blk) * N * N;
-  float* act_m = q.act + static_cast<size_t>(blk) * 2 * L * N * q.h;
-  const BignWork work{xs, ys, ms, outm, outk, rv, zv, al, rowp, pcol, red, hyp, mat,
-                      q.shared ? shared_ld(N) : N, act_m, act_m + L * N * q.h};
+  float* act_s = scal + 1;          // [2][L][H][N | 1] the activations, when held here
+  const TiledMatrix mat{q.shared ? tri : q.work + static_cast<size_t>(blk) * N * N,
+                        q.shared ? nullptr : border, N, N + 1, q.shared != 0};
+  float* act_m = q.shared == 2 ? act_s : q.act + blk * bign_act_size(N, q.h, L);
+  const BignWork work{xs, ys, ms, outm, outk, rv, al, rowp, hyp, sums, tws, mat,
+                      act_m, act_m + bign_act_size(N, q.h, L) / 2};
 
   // the particles into the step buffer of parity 0
   for (int e = blk * nth + tid; e < KP; e += n_blk * nth) q.th_buf[e] = q.theta[e];
@@ -223,12 +232,13 @@ extern "C" int pacoh_fused_svgd_bign(float* theta, float* m, float* v, const flo
   const int g = k * t;
   if (k < 1 || k > kMaxK || n < kMinN || n > kMaxN || t < 1 || d < 1 || h < 1 || l < 1 ||
       p < 1 || n_steps < 1 || blocks < 1 || blocks > kMaxGroups || spb < 1 || blocks * spb < g ||
-      (blocks - 1) * spb >= g || (!shared && work == nullptr))
+      (blocks - 1) * spb >= g || shared < 0 || shared > 2 || (!shared && work == nullptr) ||
+      (shared < 2 && act == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   int optin = 0;
   err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const size_t bytes = smem_floats(k, n, d, p, shared) * sizeof(float);
+  const size_t bytes = smem_floats(k, n, d, p, h, l, shared) * sizeof(float);
   if (bytes > static_cast<size_t>(optin)) return static_cast<int>(cudaErrorInvalidValue);
   err = cudaFuncSetAttribute(fused_svgd_bign_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              static_cast<int>(bytes));

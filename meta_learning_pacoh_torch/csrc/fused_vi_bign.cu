@@ -24,11 +24,12 @@
 //             float32; the loss -(mean_s obj_s + pf (ent_const + sum
 //             log_scale)) of the pre-update posterior.
 //
-// What bounds it on the card: the systems' algebra, as in the big-N SVGD
-// kernel (fused_svgd_bign.cu): one block per system walks its matrix's
-// column chains, 50 systems side by side at bench.py's vi_t5_n200 (S=10,
-// T=5, N=200); the step's noise page (S P floats) and the reduction over
-// the samples (about 3 S P flops) are small beside them.
+// What bounds it on the card: the systems' algebra and nets, as in the big-N
+// SVGD kernel (fused_svgd_bign.cu): one block per system walks its matrix
+// through the tiled panels of tiled_chol.cuh and tiled_inverse.cuh, 50
+// systems side by side at bench.py's vi_t5_n200 (S=10, T=5, N=200); the
+// step's noise page (S P floats) and the reduction over the samples (about
+// 3 S P flops) are small beside them.
 // A step: every block forms its systems' samples, computes their partial
 // gradients and weighted MLL values into a [G, P + 1] scratch (the block of
 // each sample's first task also the sample's prior quad, the block of
@@ -52,7 +53,8 @@ constexpr int kMaxN = 256;
 constexpr int kMaxS = 32;
 constexpr int kMaxGroups = 128;
 
-#include "blocked_factor.cuh"
+#include "tiled_chol.cuh"
+#include "tiled_inverse.cuh"
 #include "map_nets.cuh"
 #include "fused_update.cuh"
 #include "bign_score.cuh"
@@ -75,46 +77,51 @@ struct Params {
   const int* offs;      // leaf offsets (bign_score.cuh)
   const int* widths;    // [2L] hidden widths
   float* gbuf;          // [G, P + 1] scratch: minus the partial gradients; w (quad + logdet)
-  float* act;           // [blocks, L N H * 2] scratch: MLP activations
+  float* act;           // [blocks, 2 L H (N | 1)] scratch: MLP activations, unless held in shared memory
   float* work;          // [blocks, N, N] scratch: the matrix, when not in shared memory
   float* aux;           // [S + 1] scratch: the samples' prior quads, the sum of log_scale
   float* loss_out;      // [2] last step's loss, sum of the launch's losses
+  // shared: 0 the matrix and the activations in device memory, 1 the
+  // matrix in shared memory, 2 both
   int s, t, n, d, h, l, p, n_steps, blocks, spb, shared;
   float step0, lr, pf, mll_const, lp_const, ent_const;
 };
 
 // Shared-memory floats of one block; ops/cuda/fused_vi_bign_kernel.py
 // (smem_bytes) states the same count.
-size_t smem_floats(int n, int d, int p, int shared) {
-  return static_cast<size_t>(p) + static_cast<size_t>(n) * (d + 10 + kPanel) + 4 + 32 +
-         (shared ? static_cast<size_t>(n) * shared_ld(n) : 0);
+size_t smem_floats(int n, int d, int p, int h, int l, int shared) {
+  return bign_matrix_floats(n, shared) + static_cast<size_t>(p) + bign_vector_floats(n, d) + 32 +
+         bign_act_floats(n, h, l, shared);
 }
 
 __global__ void __launch_bounds__(kThreads) fused_vi_bign_kernel(Params q) {
-  extern __shared__ float smem[];
+  extern __shared__ __align__(16) float smem[];
   cg::grid_group grid = cg::this_grid();
   const int S = q.s, T = q.t, N = q.n, D = q.d, L = q.l, P = q.p;
   const int G = S * T, P1 = P + 1;
   const int tid = threadIdx.x, nth = blockDim.x, blk = blockIdx.x, n_blk = gridDim.x;
 
-  float* th = smem;                 // [P] the system's sample
+  float* tws = smem;                // the tiled matrix's scratch
+  float* tri = tws + tiled_scratch_floats(N, N + 1);  // its packed rows, when held here
+  float* th = tri + (q.shared ? packed_off(N + 1) : 0);  // [P] the system's sample
   float* xs = th + P;               // [N][D]
   float* ys = xs + N * D;           // [N]
   float* ms = ys + N;               // [N]
   float* outm = ms + N;             // [N]
   float* outk = outm + N;           // [N]
   float* rv = outk + N;             // [N]
-  float* zv = rv + N;               // [N]
-  float* al = zv + N;               // [N]
+  float* al = rv + N;               // [N]
   float* rowp = al + N;             // [N][3]
-  float* pcol = rowp + 3 * N;       // [kPanel][N]
-  float* red = pcol + kPanel * N;   // [1]
-  float* hyp = red + 1;             // [3]
-  float* red32 = hyp + 3;           // [32] block_sum's partials
-  float* mat = q.shared ? red32 + 32 : q.work + static_cast<size_t>(blk) * N * N;
-  float* act_m = q.act + static_cast<size_t>(blk) * 2 * L * N * q.h;
-  const BignWork work{xs, ys, ms, outm, outk, rv, zv, al, rowp, pcol, red, hyp, mat,
-                      q.shared ? shared_ld(N) : N, act_m, act_m + L * N * q.h};
+  float* border = rowp + 3 * N;     // [N] the border row, when the matrix is in device memory
+  float* hyp = border + N;          // [4]
+  float* sums = hyp + 4;            // [kMaxTiles + 4]
+  float* red32 = sums + kMaxTiles + 4;  // [32] block_sum's partials
+  float* act_s = red32 + 32;        // [2][L][H][N | 1] the activations, when held here
+  const TiledMatrix mat{q.shared ? tri : q.work + static_cast<size_t>(blk) * N * N,
+                        q.shared ? nullptr : border, N, N + 1, q.shared != 0};
+  float* act_m = q.shared == 2 ? act_s : q.act + blk * bign_act_size(N, q.h, L);
+  const BignWork work{xs, ys, ms, outm, outk, rv, al, rowp, hyp, sums, tws, mat,
+                      act_m, act_m + bign_act_size(N, q.h, L) / 2};
 
   const float sf = static_cast<float>(S);
   const int g0 = blk * q.spb, g1 = min(G, g0 + q.spb);
@@ -219,12 +226,13 @@ extern "C" int pacoh_fused_vi_bign(float* loc, float* lsc, float* m_loc, float* 
   const int g = s * t;
   if (s < 1 || s > kMaxS || n < kMinN || n > kMaxN || t < 1 || d < 1 || h < 1 || l < 1 ||
       p < 1 || n_steps < 1 || blocks < 1 || blocks > kMaxGroups || spb < 1 || blocks * spb < g ||
-      (blocks - 1) * spb >= g || (!shared && work == nullptr))
+      (blocks - 1) * spb >= g || shared < 0 || shared > 2 || (!shared && work == nullptr) ||
+      (shared < 2 && act == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   int optin = 0;
   err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const size_t bytes = smem_floats(n, d, p, shared) * sizeof(float);
+  const size_t bytes = smem_floats(n, d, p, h, l, shared) * sizeof(float);
   if (bytes > static_cast<size_t>(optin)) return static_cast<int>(cudaErrorInvalidValue);
   err = cudaFuncSetAttribute(fused_vi_bign_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              static_cast<int>(bytes));

@@ -22,17 +22,22 @@ SMEM_BYTES = 232448  # shared memory one Hopper block can use
 TILE = 32  # csrc/tiled_chol.cuh kTile: the columns of a panel
 
 
+def _round4(x):
+    return (x + 3) & ~3
+
+
+def tiled_scratch_bytes(n, n_rows):
+    """Shared-memory bytes of csrc/tiled_chol.cuh's scratch for an N x N
+    system with n_rows rows (N + 1 with a border row): L11^T, a flag and the
+    panel of TILE columns over the rows below the first tile."""
+    return 4 * (TILE * TILE + 4 + TILE * _round4(max(n_rows - min(n, TILE), 1)))
+
+
 def tiled_shared_bytes(n, n_rows):
     """Shared-memory bytes of a block of csrc/tiled_chol.cuh holding the
-    packed triangle of an N x N system with n_rows rows (N + 1 with a border
-    row): L11^T, a flag, the panel of TILE columns over the rows below the
-    first tile, and the rows, row i padded to a multiple of 4 floats."""
-    def round4(x):
-        return (x + 3) & ~3
-
-    panel_ld = round4(max(n_rows - min(n, TILE), 1))
-    packed = sum(round4(i + 1) for i in range(n_rows))
-    return 4 * (TILE * TILE + 4 + TILE * panel_ld + packed)
+    packed triangle of an N x N system with n_rows rows: the scratch and the
+    rows, row i padded to a multiple of 4 floats."""
+    return tiled_scratch_bytes(n, n_rows) + 4 * sum(_round4(i + 1) for i in range(n_rows))
 
 
 def chol_in_shared(n):

@@ -92,16 +92,19 @@ def bign_fits(t, n, d, f, mean_hidden, kernel_hidden):
     return bign_plan(t, n, d, f, mean_hidden, kernel_hidden) is not None
 
 
-def real_rows_mll(mean, K, y, noise, mask):
+def real_rows_mll(mean, K, y, noise, mask, level_dtype=None):
     """MLL / n of systems mean, y, mask [..., N], K [..., N, N], noise [...]
     under the big-N fused kernels' rule (B9, B10, B11): the jitter (0, 1e-4,
     1e-2) chosen per system, as a constant, and put on the real rows'
-    diagonal only."""
+    diagonal only. ``level_dtype`` chooses the level by a factorization in
+    that type (float32: as the kernels' own factor does) where it is not the
+    systems' own."""
     Kn = add_noise_masked(K, noise, mask, 1e-6)
     eye_real = torch.diag_embed(mask)
     jit = torch.full(y.shape[:-1], JITTERS[-1], dtype=y.dtype, device=y.device)
+    probe = Kn.detach() if level_dtype is None else Kn.detach().to(level_dtype)
     for j in reversed(JITTERS[:-1]):
-        ok = diag_ok(cholesky_ref(Kn.detach() + j * eye_real))
+        ok = diag_ok(cholesky_ref(probe + j * eye_real.to(probe.dtype)))
         jit = torch.where(ok, torch.full_like(jit, j), jit)
     L, info = torch.linalg.cholesky_ex(Kn + jit[..., None, None] * eye_real)
     L = torch.where((info > 0)[..., None, None], torch.nan, L)

@@ -8,7 +8,7 @@ sibling of the N <= 8 kernel (ops/cuda/fused_svgd_kernel.py) for tasks of
 ``n_steps`` PACOH-SVGD iterations of K particles on the learner's flat
 ``[K, P]`` state, with the same Adam, count pages and launch plan as the
 N <= 8 kernel; the per-(particle, task) GP algebra is the blocked one of
-csrc/blocked_factor.cuh (shared with B4 and B9), in csrc/bign_score.cuh
+csrc/tiled_chol.cuh and csrc/tiled_inverse.cuh, in csrc/bign_score.cuh
 (shared with the big-N VI kernel).
 
 One rule differs from the general step (``gp_prior_mll_batch``): the
@@ -31,8 +31,12 @@ import torch
 from meta_learning_pacoh_torch import config
 from meta_learning_pacoh_torch.models.gp_base import gp_gram, gp_mean, gp_noise
 from meta_learning_pacoh_torch.ops import cuda
-from meta_learning_pacoh_torch.ops.cuda.blocked_mll_kernel import PANEL, SMEM_BYTES
 from meta_learning_pacoh_torch.ops.cuda.build import launch
+from meta_learning_pacoh_torch.ops.cuda.chol_kernel import (
+    SMEM_BYTES,
+    tiled_scratch_bytes,
+    tiled_shared_bytes,
+)
 from meta_learning_pacoh_torch.ops.cuda.fused_map_bign_kernel import SCRATCH_BYTES, real_rows_mll
 from meta_learning_pacoh_torch.ops.cuda.fused_map_kernel import task_groups
 from meta_learning_pacoh_torch.ops.cuda.fused_svgd_kernel import (
@@ -48,43 +52,62 @@ MIN_N, MAX_N = 9, 256  # below: the N <= 8 kernel; above: the TPU kernel's windo
 MAX_WON_SYSTEMS_A_BLOCK = 8
 
 
-def smem_bytes(k, n, d, p, shared):
+def matrix_bytes(n, shared):
+    """Shared memory of a system's tiled matrix (csrc/bign_score.cuh,
+    bign_matrix_floats): the scratch of csrc/tiled_chol.cuh and, when
+    ``shared``, the packed rows of the N x N system and its border row."""
+    return (tiled_shared_bytes if shared else tiled_scratch_bytes)(n, n + 1)
+
+
+def vector_bytes(n, d):
+    """Shared memory of a system's rows and per-point vectors beside its
+    parameters (csrc/bign_score.cuh, bign_vector_floats)."""
+    return 4 * (n * (d + 10) + 16)
+
+
+def act_bytes(n, hidden, shared):
+    """Shared memory of both nets' activations [2][L][H][N | 1] (an odd row
+    pitch), held there when ``shared`` is 2 (csrc/bign_score.cuh,
+    bign_act_floats)."""
+    return 4 * 2 * (n | 1) * sum(hidden) if shared == 2 else 0
+
+
+def smem_bytes(k, n, d, p, shared, hidden=()):
     """Shared memory of one block, as csrc/fused_svgd_bign.cu lays it out:
-    one particle, the task's rows, a few per-point vectors, the K x K
-    distances and kernel matrix and, when ``shared``, the task's N x N
-    matrix with an odd leading dimension."""
-    return 4 * (p + n * (d + 10 + PANEL) + 4 + 2 * k * k + k + 1
-                + (n * (n | 1) if shared else 0))
+    the tiled matrix's area, one particle, the task's rows and per-point
+    vectors, the K x K distances and kernel matrix and, when ``shared`` is 2,
+    the activations of nets of ``hidden`` widths."""
+    return (matrix_bytes(n, shared) + vector_bytes(n, d) + 4 * (p + 2 * k * k + k + 1)
+            + act_bytes(n, hidden, shared))
 
 
 def systems_plan(g, n, smem_fn, scratch_floats):
-    """(blocks, systems a block, matrix in shared memory) of a big-N kernel on
-    g systems of n points, or None: the systems go to at most 128 blocks
-    (B9's grouping), each of 512 threads and at most one Hopper block's
-    shared memory (``smem_fn(shared)`` bytes), so that 132 SMs hold every
-    block of the cooperative launch at once; the matrix leaves shared memory
-    when it does not fit there; ``scratch_floats(blocks, shared)`` of device
-    scratch must stay under 1 GiB."""
+    """(blocks, systems a block, placement) of a big-N kernel on g systems of
+    n points, or None: the systems go to at most 128 blocks (B9's grouping),
+    each of 512 threads and at most one Hopper block's shared memory
+    (``smem_fn(placement)`` bytes), so that 132 SMs hold every block of the
+    cooperative launch at once. The placement is the most that fits shared
+    memory: 2 the matrix and the nets' activations, 1 the matrix (the
+    activations in device memory), 0 neither; ``scratch_floats(blocks,
+    placement)`` of device scratch must stay under 1 GiB."""
     blocks, spb = task_groups(g)
-    shared = smem_fn(True) <= SMEM_BYTES
-    if not shared and smem_fn(False) > SMEM_BYTES:
-        return None
-    if 4 * scratch_floats(blocks, shared) > SCRATCH_BYTES:
+    shared = next((s for s in (2, 1, 0) if smem_fn(s) <= SMEM_BYTES), None)
+    if shared is None or 4 * scratch_floats(blocks, shared) > SCRATCH_BYTES:
         return None
     return blocks, spb, shared
 
 
 def svgd_bign_plan(k, t, n, d, hidden):
-    """(blocks, systems a block, matrix in shared memory) of the kernel at this
-    configuration, or None where it does not take it.
+    """(blocks, systems a block, placement in shared memory: ``systems_plan``)
+    of the kernel at this configuration, or None where it does not take it.
 
     The kernel takes NN mean and NN kernel nets of one hidden width (feature
     dim 1), 1 <= K <= 32 particles (the transport keeps the K x K distances
     in shared memory), 9 <= N <= 256 and any T; the G = K T systems as
     ``systems_plan`` places them, the device scratch being the systems'
-    partial gradients [G, P], the activations, the particles twice and, above
-    N ~ 225, the matrices. The TPU's VMEM test and N >= 128 floor do not
-    apply.
+    partial gradients [G, P], the particles twice and, where they do not fit
+    shared memory, the activations (N > 201 at nets 32x32) and the matrices
+    (wide nets). The TPU's VMEM test and N >= 128 floor do not apply.
 
     Where the learners take it is ``bign_wins``."""
     hidden = tuple(hidden)
@@ -94,8 +117,9 @@ def svgd_bign_plan(k, t, n, d, hidden):
     p = fused_prior(d, hidden, 1.0, 1.0).dim
     g = k * t
     return systems_plan(
-        g, n, lambda shared: smem_bytes(k, n, d, p, shared),
-        lambda blocks, shared: (g * p + blocks * 2 * n * sum(hidden) + 2 * k * p + k * k
+        g, n, lambda shared: smem_bytes(k, n, d, p, shared, hidden),
+        lambda blocks, shared: (g * p + 2 * k * p + k * k
+                                + (0 if shared == 2 else blocks * 2 * (n | 1) * sum(hidden))
                                 + (0 if shared else blocks * n * n)))
 
 
@@ -113,11 +137,11 @@ def bign_wins(g):
     (tools/torch_bign_policy.py) ran both learners at K = S = 10, full
     batch, on their fused kernels and on their general steps, at the
     corners of the window: the kernels won everywhere. SVGD: N=9 with 50
-    systems 62.7x, cauchy_20 (N=20, 200 systems, two a block) 20.6x, N=48
-    20.9x, N=128 4.83x, N=200 (svgd_t5_n200) 2.88-4.37x, N=256 1.48x, N=200 with
-    200 systems 1.70x, N=48 with 1000 systems (8 a block) 2.67x, N=256 with
-    1000 systems 1.34x; VI 66.3x, 28.2x, 22.1x, 5.83x, 3.76-4.01x, 1.74x, 1.83x,
-    3.15x, 1.34x. So the learners take both kernels by default up to
+    systems 105.2x, cauchy_20 (N=20, 200 systems, two a block) 58.1x, N=48
+    68.9x, N=128 38.8x, N=200 (svgd_t5_n200) 17.3x, N=256 12.6x, N=200 with
+    200 systems 10.1x, N=48 with 1000 systems (8 a block) 9.2x, N=256 with
+    1000 systems 7.4x; VI 85.1x, 54.2x, 53.0x, 32.0x, 16.3x, 11.2x, 9.7x,
+    9.5x, 7.1x. So the learners take both kernels by default up to
     MAX_WON_SYSTEMS_A_BLOCK systems a block (g <= 1024), where the v5e's
     0.63-0.99x kept the TPU learner off them; beyond the shapes measured
     the default is the general step and ``PACOH_TORCH_FORCE_BIGN_FUSED=1``
@@ -126,26 +150,29 @@ def bign_wins(g):
     return config.force_bign_fused() or task_groups(g)[1] <= MAX_WON_SYSTEMS_A_BLOCK
 
 
-def bign_prior_mll_batch(cfg, params, X, Y, mask):
+def bign_prior_mll_batch(cfg, params, X, Y, mask, level_dtype=None):
     """``gp_prior_mll_batch`` under the big-N kernels' jitter rule
-    (``real_rows_mll``): MLL / n of T tasks under each of K parameter sets,
-    X [T, N, D], Y [T, N], mask [T, N] -> [K, T]."""
+    (``real_rows_mll``, which takes ``level_dtype``): MLL / n of T tasks under
+    each of K parameter sets, X [T, N, D], Y [T, N], mask [T, N] -> [K, T]."""
     k = params["noise_raw"].shape[0]
     shape = (k,) + tuple(Y.shape)
     x = X.expand(k, *X.shape)
     return real_rows_mll(gp_mean(cfg, params, x), gp_gram(cfg, params, x), Y.expand(shape),
-                         gp_noise(cfg, params)[:, None].expand(shape[:-1]), mask.expand(shape))
+                         gp_noise(cfg, params)[:, None].expand(shape[:-1]), mask.expand(shape),
+                         level_dtype)
 
 
 def fused_svgd_bign_train_ref(theta, mu, nu, x, y, mask, w_t, step0, lr, prior_factor,
-                              counts=None, *, hidden, wps, bps, n_steps):
+                              counts=None, *, hidden, wps, bps, n_steps, level_dtype=None):
     """Plain PyTorch version of ``fused_svgd_bign_train``, updating in place:
     each step the score by autograd of ``meta_log_prob`` with the task MLLs
-    of ``bign_prior_mll_batch`` (torch.linalg, no kernel), ``svgd_phi_ref``
-    and the kernels' Adam, as ``fused_svgd_train_ref``."""
+    of ``bign_prior_mll_batch`` (torch.linalg, no kernel; its jitter levels
+    chosen in ``level_dtype``), ``svgd_phi_ref`` and the kernels' Adam, as
+    ``fused_svgd_train_ref``."""
     return fused_svgd_train_ref(theta, mu, nu, x, y, mask, w_t, step0, lr, prior_factor, counts,
                                 hidden=hidden, wps=wps, bps=bps, n_steps=n_steps,
-                                task_mll=bign_prior_mll_batch)
+                                task_mll=functools.partial(bign_prior_mll_batch,
+                                                           level_dtype=level_dtype))
 
 
 @functools.lru_cache(maxsize=None)
@@ -193,14 +220,15 @@ def fused_svgd_bign_train(theta, mu, nu, x, y, mask, w_t, step0, lr, prior_facto
         return torch.empty(*shape, dtype=theta.dtype, device=theta.device)
 
     gbuf, th_buf, d2 = scratch(k * t, p), scratch(2, k, p), scratch(k, k)
-    act = scratch(blocks, 2 * n * sum(hidden))
+    act = None if shared == 2 else scratch(blocks, 2 * (n | 1) * sum(hidden))
     work = None if shared else scratch(blocks, n, n)
     launch("pacoh_fused_svgd_bign", theta, theta.data_ptr(), mu.data_ptr(), nu.data_ptr(),
            x.data_ptr(), y.data_ptr(), mask.data_ptr(), w_t.data_ptr(),
            None if counts is None else counts.data_ptr(), loc.data_ptr(), scale.data_ptr(),
-           offs.data_ptr(), widths.data_ptr(), gbuf.data_ptr(), act.data_ptr(),
+           offs.data_ptr(), widths.data_ptr(), gbuf.data_ptr(),
+           None if act is None else act.data_ptr(),
            None if work is None else work.data_ptr(), th_buf.data_ptr(), d2.data_ptr(),
-           k, t, n, d, hidden[0], len(hidden), p, int(n_steps), blocks, spb, int(shared),
+           k, t, n, d, hidden[0], len(hidden), p, int(n_steps), blocks, spb, shared,
            float(step0), float(lr), float(prior_factor))
     cuda.LAUNCHES["fused_svgd_bign"] += 1
     return theta, mu, nu

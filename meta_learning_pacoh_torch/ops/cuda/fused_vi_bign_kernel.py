@@ -18,17 +18,21 @@ log-determinant; the gradients agree. The plain version here follows the
 kernel.
 """
 
+import functools
+
 import torch
 
 from meta_learning_pacoh_torch.ops import cuda
-from meta_learning_pacoh_torch.ops.cuda.blocked_mll_kernel import PANEL
 from meta_learning_pacoh_torch.ops.cuda.build import launch
 from meta_learning_pacoh_torch.ops.cuda.fused_svgd_bign_kernel import (
     MAX_N,
     MIN_N,
+    act_bytes,
     bign_prior_mll_batch,
     hidden_widths,
+    matrix_bytes,
     systems_plan,
+    vector_bytes,
 )
 from meta_learning_pacoh_torch.ops.cuda.fused_svgd_kernel import _device_operands, fused_prior
 from meta_learning_pacoh_torch.ops.cuda.fused_vi_kernel import (
@@ -39,23 +43,25 @@ from meta_learning_pacoh_torch.ops.cuda.fused_vi_kernel import (
 )
 
 
-def smem_bytes(n, d, p, shared):
-    """Shared memory of one block, as csrc/fused_vi_bign.cu lays it out: one
-    sample, the task's rows, a few per-point vectors, a block sum's partials
-    and, when ``shared``, the task's N x N matrix with an odd leading
-    dimension."""
-    return 4 * (p + n * (d + 10 + PANEL) + 4 + 32 + (n * (n | 1) if shared else 0))
+def smem_bytes(n, d, p, shared, hidden=()):
+    """Shared memory of one block, as csrc/fused_vi_bign.cu lays it out: the
+    tiled matrix's area, one sample, the task's rows and per-point vectors,
+    a block sum's partials and, when ``shared`` is 2, the activations
+    (``fused_svgd_bign_kernel.matrix_bytes``, ``vector_bytes``,
+    ``act_bytes``)."""
+    return (matrix_bytes(n, shared) + vector_bytes(n, d) + 4 * (p + 32)
+            + act_bytes(n, hidden, shared))
 
 
 def vi_bign_plan(s, t, n, d, hidden):
-    """(blocks, systems a block, matrix in shared memory) of the kernel at this
-    configuration, or None where it does not take it: NN mean and NN kernel
-    nets of one hidden width (feature dim 1), 1 <= S <= 32 samples, 9 <= N
-    <= 256, any T; the G = S T systems as ``fused_svgd_bign_kernel.
+    """(blocks, systems a block, placement in shared memory) of the kernel at
+    this configuration, or None where it does not take it: NN mean and NN
+    kernel nets of one hidden width (feature dim 1), 1 <= S <= 32 samples,
+    9 <= N <= 256, any T; the G = S T systems as ``fused_svgd_bign_kernel.
     systems_plan`` places them, the device scratch being the systems'
-    partial gradients and values [G, P + 1], the activations and, above N ~
-    225, the matrices. Where the learners take it is
-    ``fused_svgd_bign_kernel.bign_wins``."""
+    partial gradients and values [G, P + 1] and, where they do not fit
+    shared memory, the activations and the matrices. Where the learners take
+    it is ``fused_svgd_bign_kernel.bign_wins``."""
     hidden = tuple(hidden)
     if not (1 <= s <= MAX_S and t >= 1 and d >= 1 and MIN_N <= n <= MAX_N
             and len(hidden) >= 1 and len(set(hidden)) == 1):
@@ -63,8 +69,9 @@ def vi_bign_plan(s, t, n, d, hidden):
     p = fused_prior(d, hidden, 1.0, 1.0).dim
     g = s * t
     return systems_plan(
-        g, n, lambda shared: smem_bytes(n, d, p, shared),
-        lambda blocks, shared: (g * (p + 1) + blocks * 2 * n * sum(hidden) + s + 1
+        g, n, lambda shared: smem_bytes(n, d, p, shared, hidden),
+        lambda blocks, shared: (g * (p + 1) + s + 1
+                                + (0 if shared == 2 else blocks * 2 * (n | 1) * sum(hidden))
                                 + (0 if shared else blocks * n * n)))
 
 
@@ -75,16 +82,17 @@ def vi_bign_fits(s, t, n, d, hidden):
 
 def fused_vi_bign_train_ref(loc, lsc, m_loc, m_lsc, v_loc, v_lsc, x, y, mask, w_t, eps, step0,
                             lr, prior_factor, counts=None, *, hidden, wps, bps, mll_const,
-                            n_steps):
+                            n_steps, level_dtype=None):
     """Plain PyTorch version of ``fused_vi_bign_train``, updating in place:
     each step the negative ELBO with the task MLLs of
     ``fused_svgd_bign_kernel.bign_prior_mll_batch`` (torch.linalg, no
-    kernel), its gradients by autograd and the kernels' Adam, as
-    ``fused_vi_train_ref``."""
+    kernel; its jitter levels chosen in ``level_dtype``), its gradients by
+    autograd and the kernels' Adam, as ``fused_vi_train_ref``."""
     return fused_vi_train_ref(loc, lsc, m_loc, m_lsc, v_loc, v_lsc, x, y, mask, w_t, eps, step0,
                               lr, prior_factor, counts, hidden=hidden, wps=wps, bps=bps,
                               mll_const=mll_const, n_steps=n_steps,
-                              task_mll=bign_prior_mll_batch)
+                              task_mll=functools.partial(bign_prior_mll_batch,
+                                                         level_dtype=level_dtype))
 
 
 def fused_vi_bign_train(loc, lsc, m_loc, m_lsc, v_loc, v_lsc, x, y, mask, w_t, eps, step0, lr,
@@ -130,15 +138,16 @@ def fused_vi_bign_train(loc, lsc, m_loc, m_lsc, v_loc, v_lsc, x, y, mask, w_t, e
         return torch.empty(*shape, dtype=loc.dtype, device=loc.device)
 
     gbuf, aux, loss = scratch(s * t, p + 1), scratch(s + 1), scratch(2)
-    act = scratch(blocks, 2 * n * sum(hidden))
+    act = None if shared == 2 else scratch(blocks, 2 * (n | 1) * sum(hidden))
     work = None if shared else scratch(blocks, n, n)
     launch("pacoh_fused_vi_bign", loc, *(a.data_ptr() for _, a in state), x.data_ptr(),
            y.data_ptr(), mask.data_ptr(), w_t.data_ptr(),
            None if counts is None else counts.data_ptr(), eps.data_ptr(), prior_loc.data_ptr(),
            prior_scale.data_ptr(), offs.data_ptr(), widths.data_ptr(), gbuf.data_ptr(),
-           act.data_ptr(), None if work is None else work.data_ptr(), aux.data_ptr(),
+           None if act is None else act.data_ptr(), None if work is None else work.data_ptr(),
+           aux.data_ptr(),
            loss.data_ptr(), s, t, n, d, hidden[0], len(hidden), p, int(n_steps), blocks, spb,
-           int(shared), float(step0), float(lr), float(prior_factor), float(mll_const), lp_const,
+           shared, float(step0), float(lr), float(prior_factor), float(mll_const), lp_const,
            ent_const)
     cuda.LAUNCHES["fused_vi_bign"] += 1
     return loss[0], loss[1] / n_steps

@@ -242,12 +242,13 @@ def test_chunkings_and_resume_are_bit_identical(monkeypatch):
 
 
 @pytest.mark.parametrize("k,t,n,hidden,plan", [
-    (4, 3, 12, (8, 8), (12, 1, True)),
-    (10, 5, 200, (32, 32), (50, 1, True)),  # svgd_t5_n200
-    (10, 5, 225, (32, 32), (50, 1, True)),  # the largest N with the matrix in shared memory
-    (10, 5, 226, (32, 32), (50, 1, False)),
-    (10, 20, 20, (32, 32), (100, 2, True)),  # cauchy_20: 2 systems a block
-    (32, 1000, 64, (32, 32), (128, 250, True)),
+    (4, 3, 12, (8, 8), (12, 1, 2)),
+    (10, 5, 200, (32, 32), (50, 1, 2)),  # svgd_t5_n200
+    (10, 5, 201, (32, 32), (50, 1, 2)),  # the largest N with the activations in shared memory
+    (10, 5, 202, (32, 32), (50, 1, 1)),  # the packed triangle alone
+    (4, 2, 240, (128, 128), (8, 1, 0)),  # wide nets: the matrix in device memory
+    (10, 20, 20, (32, 32), (100, 2, 2)),  # cauchy_20: 2 systems a block
+    (32, 1000, 64, (32, 32), (128, 250, 2)),
     (10, 5, 8, (32, 32), None),  # the N <= 8 kernel's
     (10, 5, 257, (32, 32), None),
     (33, 5, 200, (32, 32), None),

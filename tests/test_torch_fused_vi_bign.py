@@ -233,11 +233,12 @@ def test_chunkings_and_resume_are_bit_identical(monkeypatch):
 
 
 @pytest.mark.parametrize("s,t,n,hidden,plan", [
-    (6, 3, 12, (8, 8), (18, 1, True)),
-    (10, 5, 200, (32, 32), (50, 1, True)),  # vi_t5_n200
-    (10, 5, 226, (32, 32), (50, 1, True)),  # the largest N with the matrix in shared memory
-    (10, 5, 227, (32, 32), (50, 1, False)),
-    (32, 300, 20, (32, 32), (128, 75, True)),
+    (6, 3, 12, (8, 8), (18, 1, 2)),
+    (10, 5, 200, (32, 32), (50, 1, 2)),  # vi_t5_n200
+    (10, 5, 202, (32, 32), (50, 1, 2)),  # the largest N with the activations in shared memory
+    (10, 5, 203, (32, 32), (50, 1, 1)),  # the packed triangle alone
+    (4, 2, 240, (128, 128), (8, 1, 0)),  # wide nets: the matrix in device memory
+    (32, 300, 20, (32, 32), (128, 75, 2)),
     (10, 5, 8, (32, 32), None),  # the N <= 8 kernel's
     (10, 5, 257, (32, 32), None),
     (33, 5, 200, (32,), None),

@@ -802,9 +802,24 @@ BIGN_FUSED_CASES = {
     "t5_n200": (10, 5, 200, (32, 32), False, None, 1.0),
     "t5_n200_counted": (10, 5, 200, (32, 32), False, 2, 1.0),
     "t5_n200_staircase": (10, 5, 200, (32, 32), False, None, 0.5),
-    "n240_device_matrix": (4, 2, 240, (16, 16, 16), True, None, 1.0),
+    # the packed triangle holds N=240 in shared memory since the tiled layout
+    "n240_three_layers_packed": (4, 2, 240, (16, 16, 16), True, None, 1.0),
     "grouped_systems": (6, 26, 20, (16, 16), True, None, 1.0),
+    # the 32-column panels' edges and the window's largest N
+    "n31_panel_edge": (4, 3, 31, (8, 8), True, None, 1.0),
+    "n32_panel_edge": (4, 3, 32, (8, 8), False, None, 1.0),
+    "n33_panel_edge": (4, 3, 33, (8, 8), True, None, 1.0),
+    "n65_panel_edge": (4, 2, 65, (16, 16), True, None, 1.0),
+    "n256_window_edge": (4, 2, 256, (16, 16), True, None, 1.0),
+    # wide nets leave no room for the triangle: the matrix in device memory
+    "n240_wide_nets_device_matrix": (4, 2, 240, (128, 128), True, None, 1.0),
+    # a width that is no multiple of the nets' 4-unit register tiles
+    "odd_width_h7": (3, 4, 40, (7, 7), True, None, 1.0),
 }
+# the plan's placement where a case is about it: 2 the matrix and the
+# activations in shared memory, 1 the matrix alone, 0 neither
+BIGN_SHARED = {"t5_n200": 2, "n240_three_layers_packed": 1, "n256_window_edge": 1,
+               "n240_wide_nets_device_matrix": 0}
 
 
 def _bign_trainer_run(trainer, ref, got, want, split, n_steps, counter, **kw):
@@ -837,11 +852,13 @@ def test_fused_svgd_bign_kernel_matches_plain(dev, case, monkeypatch):
     """B10 against its plain version from one state (step 3, non-zero Adam
     moments), 20 steps over the trainer's launches (a staircase of 10-step
     transitions for lr_decay < 1): particles max 1e-4 and mean 2e-6 (the
-    kernel net's output bias left out), the Adam moments within 1e-4 of their
-    largest |value| in the plain version's float64 run (not its float32 run:
-    clustered inputs and a small noise leave the Gram matrix ill-conditioned,
-    and small_ragged's float32 plain m lies 3.2e-4 from its float64 run).
-    The same steps split into two launches give the same bits."""
+    kernel net's output bias left out) and the Adam moments within 1e-4 of
+    their largest |value|, both in the plain version's float64 run (not its
+    float32 run: clustered inputs and a small noise leave the Gram matrix
+    ill-conditioned; small_ragged's float32 plain m lies 3.2e-4 from its
+    float64 run, n33_panel_edge's float32 plain particles 5.0e-5 max and
+    2.8e-6 mean, where the kernel's are 1.9e-6 and 7.7e-8). The same steps
+    split into two launches give the same bits."""
     k, t, n, hidden, ragged, batch, decay = BIGN_FUSED_CASES[case]
     monkeypatch.setattr(launch_sched, "LR_TRANSITION_STEPS", 10)
     (x, y, mask), theta, hp, rs = _fused_case(k, t, n, hidden, sum(map(ord, case)), ragged, dev)
@@ -851,6 +868,8 @@ def test_fused_svgd_bign_kernel_matches_plain(dev, case, monkeypatch):
     def draw(step):
         return torch.from_numpy(np.random.RandomState(step).randint(0, t, batch))
 
+    if case in BIGN_SHARED:
+        assert sb.svgd_bign_plan(k, t, n, 1, hidden)[2] == BIGN_SHARED[case]
     trainer = sb.FusedSVGDBigNTrainer(x, y, mask, hidden=hidden, lr=1e-3, prior_factor=0.01,
                                       weight_prior_std=0.5, bias_prior_std=3.0, lr_decay=decay,
                                       task_batch_size=batch, task_draw=draw)
@@ -859,7 +878,7 @@ def test_fused_svgd_bign_kernel_matches_plain(dev, case, monkeypatch):
                                    "fused_svgd_bign")
     keep = torch.ones(hp.dim, dtype=torch.bool, device=dev)
     keep[hp.slice_of(("kernel_nn", "b_out"))] = False
-    diff = (got[0] - want[0])[:, keep].abs()
+    diff = (got[0].double() - wide[0])[:, keep].abs()
     assert float(diff.max()) <= 1e-4 and float(diff.mean()) <= 2e-6, (diff.max(), diff.mean())
     for g, w in zip(got[1:], wide[1:]):
         err = float((g.double() - w)[:, keep].abs().max()) / float(w.abs().max())
@@ -888,6 +907,8 @@ def test_fused_vi_bign_kernel_matches_plain(dev, case, monkeypatch):
     def draw(step):
         return torch.from_numpy(np.random.RandomState(step).randint(0, t, batch))
 
+    if case in BIGN_SHARED:
+        assert vb.vi_bign_plan(s, t, n, 1, hidden)[2] == BIGN_SHARED[case]
     trainer = vb.FusedVIBigNTrainer(x, y, mask, hidden=hidden, lr=1e-3, prior_factor=0.01,
                                     weight_prior_std=0.5, bias_prior_std=3.0, svi_batch_size=s,
                                     eps_draw=_numpy_eps(s, p), lr_decay=decay,
@@ -908,6 +929,18 @@ def test_fused_vi_bign_kernel_matches_plain(dev, case, monkeypatch):
     assert float((got[0] - state[0])[keep].abs().max()) > 1e-3  # the steps moved it
     for g, sp in zip(got, split):
         assert torch.equal(g, sp)
+
+
+def test_fused_bign_kernels_escalate(dev):
+    """B10 and B11 on svgd_t5_n200's tasks with duplicated inputs and a noise
+    of about 1e-13 (chip_smoke.bign_escalation): their factor fails in
+    float32 at level 0 and takes the jitter 1e-4; B10's particles lie no
+    further from the float64 plain run at that level than the float32 plain
+    version's, and B11's first-step loss within 1e-2 of it, far from the
+    level-0 run's."""
+    out = chip_smoke.bign_escalation()
+    assert out["b10"][0] <= out["b10_plain32"][0]
+    assert out["b11_loss_rel"] <= chip_smoke.BIGN_ESC_LOSS_RTOL
 
 
 def test_bign_learners_on_card_match_plain_cpu_learners(dev):

@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
-"""Profile the phases of the fused SVGD (B2) and VI (B7) kernels by ``clock64()``
-marks, on one CUDA card.
+"""Profile the phases of the fused SVGD (B2) and VI (B7) kernels, or of the big-N
+ones (B10, B11), by ``clock64()`` marks, on one CUDA card.
 
     python3 tools/fused_phase_profile.py [--root DIR] [--work DIR] [--out FILE]
+    python3 tools/fused_phase_profile.py --bign [--root DIR] [--work DIR] [--out FILE]
 
 Copies ``meta_learning_pacoh_torch`` of the checkout ``--root`` (default:
 this one) into ``--work`` (default ``_scratch_tree/phase_profile``, which
@@ -16,6 +17,14 @@ card's name, power limit and SM clock. It knows two layouts of the kernels:
 one block a particle or sample (score_section.cuh) and one cluster a
 particle or sample (cluster_score.cuh). The marks add a few barriers and
 global stores, so the times are the profiled build's, not the kernel's.
+
+``--bign`` marks B10 and B11 instead (one block a system, bign_score.cuh;
+two layouts: the column-at-a-time algebra of blocked_factor.cuh, and the
+tiled panels of tiled_chol.cuh and tiled_inverse.cuh) and runs 100 steps of
+each at ``svgd_t5_n200`` / ``vi_t5_n200`` (K = S = 10, 5 tasks of N=200,
+NN/NN 32x32, from the learners' initial states) and B10 at ``cauchy_20``'s
+shapes (N=20, 200 systems, two a block) and at the faceoff's N=9 corner (5
+tasks).
 """
 
 import argparse
@@ -28,9 +37,11 @@ import sys
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 STEPS = 200
+BIGN_STEPS = 100
+N_MARKS = 24
 
 PROF = """
-__device__ long long g_prof[16];
+__device__ long long g_prof[24];
 __device__ long long g_t0;
 __device__ __forceinline__ void prof_mark(int i) {
   if (blockIdx.x == 0 && threadIdx.x == 0) {
@@ -43,7 +54,7 @@ __device__ __forceinline__ void prof_mark(int i) {
 
 READER = """
 extern "C" int pacoh_prof_read_%s(long long* out) {
-  long long zero[16] = {0};
+  long long zero[24] = {0};
   cudaError_t e = cudaMemcpyFromSymbol(out, g_prof, sizeof(zero));
   if (e != cudaSuccess) return (int)e;
   return (int)cudaMemcpyToSymbol(g_prof, zero, sizeof(zero));
@@ -139,13 +150,107 @@ CLUSTER = {
 }
 
 
-def patched_copy(root, work):
+# the big-N kernels' step, shared by both layouts of their system
+BIGN_STEP = [
+    ("fused_svgd_bign.cu", "    const int par = it & 1;\n", "    prof_mark(0);\n"),
+    ("fused_svgd_bign.cu", "    // ---- the block's systems, in order: minus their partial gradients\n",
+     "    __syncthreads();\n    prof_mark(14);\n"),
+    ("fused_svgd_bign.cu", "    grid.sync();\n\n    // ---- every block: the median (rank K*K/2) and the "
+     "K x K kernel matrix\n", "    prof_mark(13);\n"),
+    ("fused_svgd_bign.cu", "      rsum[tid] = s;\n    }\n    __syncthreads();\n", "    prof_mark(15);\n"),
+    ("fused_svgd_bign.cu", "    grid.sync();\n  }\n\n  // the block's own coordinates of the last step\n",
+     "    __syncthreads();\n    prof_mark(16);\n    grid.sync();\n    prof_mark(17);\n  }\n\n"
+     "  // the block's own coordinates of the last step\n", "replace"),
+    ("fused_vi_bign.cu", "    const float* eps_it = q.eps + static_cast<size_t>(it) * S * P;\n",
+     "    prof_mark(0);\n"),
+    ("fused_vi_bign.cu", "    }\n    grid.sync();\n\n    // ---- a share of the P coordinates",
+     "    }\n    __syncthreads();\n    prof_mark(14);\n    grid.sync();\n    prof_mark(13);\n\n"
+     "    // ---- a share of the P coordinates", "replace"),
+    ("fused_vi_bign.cu", "      loss_sum += loss;\n    }\n    grid.sync();\n  }\n",
+     "      loss_sum += loss;\n    }\n    __syncthreads();\n    prof_mark(16);\n    grid.sync();\n"
+     "    prof_mark(17);\n  }\n", "replace"),
+    ("bign_score.cuh", "  const int off_ls = o[4 * L + 4], off_nz = o[4 * L + 5];\n",
+     "  prof_mark(1);\n"),
+]
+BIGN_SVGD = {0: "loop", 14: "distances", 1: "load the system", 2: "both nets forward",
+             3: "matrix and factor, level 0", 4: "matrix and factor, level 1",
+             5: "matrix and factor, level 2", 6: "forward_subst", 7: "logdet (and quad)",
+             18: "inverse: diagonal tiles", 19: "inverse: Y = L21 W11",
+             20: "inverse: W21 = -W22 Y", 8: "inverse W = L^-1 (the rest)",
+             9: "alpha = W^T z", 10: "K^-1 = W^T W",
+             11: "score loop", 12: "both nets backward", 13: "grid barrier 1",
+             15: "median, kernel matrix", 16: "transport, Adam", 17: "grid barrier 2"}
+BIGN_VI = {**{i: v for i, v in BIGN_SVGD.items() if i not in (14, 15, 16)},
+           14: "prior quad, sum of log_scale", 16: "reduction over S, Adam, loss"}
+
+# one block a system, the column-at-a-time algebra of blocked_factor.cuh
+BIGN_COLUMN = {
+    "header": "bign_score.cuh (blocked_factor.cuh)",
+    "patches": BIGN_STEP + [
+        ("bign_score.cuh", "  net_forward(th, o_k, wd + L, L, 1, k.xs, D, N, N, k.act_k, k.outk);\n"
+         "  __syncthreads();\n", "  prof_mark(2);\n"),
+        ("bign_score.cuh", "  net_backward(th, o_k, wd + L, L, 1, k.xs, D, N, N, k.act_k, k.outk, gb);\n",
+         "  __syncthreads();\n  prof_mark(12);\n"),
+        ("blocked_factor.cuh", "    if (factor_lower(m, n, ld, pcol)) return level;\n",
+         "    const bool done = factor_lower(m, n, ld, pcol);\n    prof_mark(3 + level);\n"
+         "    if (done) return level;\n", "replace"),
+        ("bign_score.cuh", "  const float quad = forward_subst(mat, N, ld, k.rv, k.zv, k.red);\n",
+         "  prof_mark(6);\n"),
+        ("bign_score.cuh", "  const float ql = quad + logdet_lower(mat, N, ld, k.red);\n",
+         "  prof_mark(7);\n"),
+        ("bign_score.cuh", "  invert_lower(mat, N, ld, k.pcol);\n", "  prof_mark(8);\n"),
+        ("bign_score.cuh", "  wt_times(mat, N, ld, k.zv, k.al);\n", "  prof_mark(9);\n"),
+        ("bign_score.cuh", "  for (int i = tid; i < N; i += nth) ph[i] = k.rowp[3 * i] / sp_ls;\n",
+         "  prof_mark(11);\n", "before"),
+    ],
+    "svgd_bign": BIGN_SVGD,
+    "vi_bign": BIGN_VI,
+}
+
+
+# one block a system, the tiled panels of tiled_chol.cuh and tiled_inverse.cuh
+BIGN_TILED = {
+    "header": "bign_score.cuh (tiled_chol.cuh, tiled_inverse.cuh)",
+    "patches": BIGN_STEP + [
+        ("bign_score.cuh", "  bign_net_forward(th, o_k, L, H, D, k.xs, N, k.act_k, k.outk);\n"
+         "  __syncthreads();\n", "  prof_mark(2);\n"),
+        ("bign_score.cuh", "  bign_net_backward(th, o_k, L, H, D, k.xs, N, k.act_k, k.outk, gb);\n",
+         "  prof_mark(12);\n"),
+        ("bign_score.cuh", "    ok = tiled_factor(M, 0.f, k.tws);\n", "    prof_mark(3 + level);\n"),
+        ("tiled_inverse.cuh", "                tile_log + t);\n  __syncthreads();\n",
+         "  prof_mark(18);\n"),
+        ("tiled_inverse.cuh", "y[4 * q + 3]);\n    }\n    __syncthreads();\n", "    prof_mark(19);\n"),
+        ("tiled_inverse.cuh", "-acc[u][2], -acc[u][3]));\n    }\n    __syncthreads();\n",
+         "    prof_mark(20);\n"),
+        ("bign_score.cuh", "  tiled_invert(M, k.tws, k.sums);\n", "  prof_mark(8);\n"),
+        ("bign_score.cuh", "  tiled_wt_times(M, z, k.al);\n", "  prof_mark(9);\n"),
+        ("bign_score.cuh", "  tiled_lauum(M);\n", "  prof_mark(10);\n"),
+        ("bign_score.cuh", "  for (int i = tid; i < N; i += nth) ph[i] = k.rowp[3 * i] / sp_ls;\n",
+         "  prof_mark(11);\n", "before"),
+    ],
+    "svgd_bign": BIGN_SVGD,
+    "vi_bign": BIGN_VI,
+}
+
+
+def patch(body, anchor, text, how="after"):
+    if body.count(anchor) != 1:
+        raise RuntimeError(f"fused_phase_profile: anchor found {body.count(anchor)} times: "
+                           f"{anchor!r}")
+    return body.replace(anchor, {"after": anchor + text, "before": text + anchor,
+                                 "replace": text}[how])
+
+
+def patched_copy(root, work, bign=False):
     src = os.path.join(os.path.abspath(root), "meta_learning_pacoh_torch")
     dst = os.path.join(work, "meta_learning_pacoh_torch")
     shutil.rmtree(work, ignore_errors=True)
     shutil.copytree(src, dst, ignore=shutil.ignore_patterns("_build", "__pycache__"))
     csrc = os.path.join(dst, "csrc")
-    layout = CLUSTER if os.path.exists(os.path.join(csrc, "cluster_score.cuh")) else ONE_BLOCK
+    if bign:
+        layout = BIGN_TILED if os.path.exists(os.path.join(csrc, "tiled_inverse.cuh")) else BIGN_COLUMN
+    else:
+        layout = CLUSTER if os.path.exists(os.path.join(csrc, "cluster_score.cuh")) else ONE_BLOCK
     texts = {}
 
     def text(name):
@@ -154,16 +259,19 @@ def patched_copy(root, work):
                 texts[name] = f.read()
         return texts[name]
 
-    head = text(layout["header"])
-    texts[layout["header"]] = head.replace("namespace {\n", "namespace {\n" + PROF, 1)
-    for name, anchor, insert in layout["patches"]:
-        body = text(name)
-        if body.count(anchor) != 1:
-            raise RuntimeError(f"fused_phase_profile: anchor found {body.count(anchor)} times "
-                               f"in {name}: {anchor!r}")
-        texts[name] = body.replace(anchor, anchor + insert)
-    texts["fused_svgd.cu"] = text("fused_svgd.cu") + READER % "svgd"
-    texts["fused_vi.cu"] = text("fused_vi.cu") + READER % "vi"
+    if bign:  # the patched headers are included by several sources: marks in each
+        for name in os.listdir(csrc):
+            if name.endswith(".cu"):
+                texts[name] = patch(text(name), "namespace {\n", PROF)
+    else:
+        texts[layout["header"]] = patch(text(layout["header"]), "namespace {\n", PROF)
+    for name, anchor, insert, *how in layout["patches"]:
+        try:
+            texts[name] = patch(text(name), anchor, insert, *how)
+        except RuntimeError as e:
+            raise RuntimeError(f"{e} (in {name})") from None
+    for label in ("svgd_bign", "vi_bign") if bign else ("svgd", "vi"):
+        texts[f"fused_{label}.cu"] = text(f"fused_{label}.cu") + READER % label
     for name, body in texts.items():
         with open(os.path.join(csrc, name), "w") as f:
             f.write(body)
@@ -176,66 +284,45 @@ def main():
     parser.add_argument("--work", default=os.path.join(os.path.dirname(HERE), "_scratch_tree",
                                                        "phase_profile"))
     parser.add_argument("--out")
+    parser.add_argument("--bign", action="store_true", help="profile B10 and B11 instead")
     args = parser.parse_args()
     import numpy as np
     import torch
 
     if not torch.cuda.is_available():
         sys.exit("fused_phase_profile: no CUDA device")
-    layout = patched_copy(args.root, os.path.abspath(args.work))
+    layout = patched_copy(args.root, os.path.abspath(args.work), args.bign)
     sys.path.insert(0, os.path.abspath(args.work))
     from meta_learning_pacoh_torch.ops.cuda import build
-    from meta_learning_pacoh_torch.ops.cuda import fused_svgd_kernel as fk
-    from meta_learning_pacoh_torch.ops.cuda import fused_vi_kernel as vk
-
-    sys.path.insert(0, HERE)
-    from fused_step_bench import sin20_arrays
 
     lib = build.library()
-    query = ["nvidia-smi", "--query-gpu=name,power.limit,clocks.sm", "--format=csv,noheader"]
-    dev = torch.device("cuda")
-    x, y, mask = (torch.from_numpy(a).to(dev) for a in sin20_arrays())
-    hidden, k = (32, 32), 10
-    hp = fk.fused_prior(x.shape[-1], hidden, 0.5, 3.0)
-    rs = np.random.RandomState(10)
-    theta = (hp.loc + hp.scale * torch.from_numpy(rs.randn(k, hp.dim).astype(np.float32))).to(dev)
-    w_t = torch.from_numpy(fk.task_weights(mask.cpu().numpy())).to(dev)
-    eps = torch.from_numpy(rs.randn(STEPS, k, hp.dim).astype(np.float32)).to(dev)
-    svgd_state = [theta.clone(), torch.zeros_like(theta), torch.zeros_like(theta)]
-    post = [0.1 * torch.randn(hp.dim, device=dev), torch.full((hp.dim,), -2.0, device=dev)]
-    post += [torch.zeros(hp.dim, device=dev) for _ in range(4)]
-    runs = {
-        "svgd": lambda n: fk.fused_svgd_train(*svgd_state, x, y, mask, w_t, 0, 1e-3, 0.01,
-                                              hidden=hidden, wps=0.5, bps=3.0, n_steps=n),
-        "vi": lambda n: vk.fused_vi_train(*post, x, y, mask, w_t, eps[:n].contiguous(), 0, 1e-3,
-                                          0.01, hidden=hidden, wps=0.5, bps=3.0,
-                                          mll_const=vk.mll_constant(mask.cpu().numpy()),
-                                          n_steps=n),
-    }
-    buf = (ctypes.c_longlong * 16)()
+    steps = BIGN_STEPS if args.bign else STEPS
+    runs = bign_runs(steps) if args.bign else fused_runs(steps)
     result = {"root": os.path.abspath(args.root), "layout": layout["header"]}
-    for label, run in runs.items():
-        read = getattr(lib, f"pacoh_prof_read_{label}")
+    buf = (ctypes.c_longlong * N_MARKS)()
+    for label, (kind, run) in runs.items():
+        read = getattr(lib, f"pacoh_prof_read_{kind}")
         read.argtypes = [ctypes.c_void_p]
         run(10)
         torch.cuda.synchronize()
         read(buf)
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
-        run(STEPS)
+        run(steps)
         end.record()
         end.synchronize()
-        ms = start.elapsed_time(end) / STEPS
+        ms = start.elapsed_time(end) / steps
         err = read(buf)
         if err:
             raise RuntimeError(f"fused_phase_profile: reading the marks failed ({err})")
-        phases = {name: buf[i] / STEPS for i, name in layout[label].items() if i != 0}
+        phases = {name: buf[i] / steps for i, name in layout[kind].items() if i != 0}
         total = sum(phases.values())
         print(f"{label} ({layout['header']}): {ms:.5f} ms a step (profiled build); "
               f"cycles a step by phase, block 0 ({total:.0f} in all):")
         for name, cyc in phases.items():
             print(f"  {name:58s} {cyc:10.0f}  {100 * cyc / total:5.1f}%")
         result[label] = {"ms_per_step": ms, "cycles": phases}
+    query = ["nvidia-smi", "--query-gpu=name,power.limit,clocks.sm", "--format=csv,noheader"]
     card = subprocess.run(query, capture_output=True, text=True, check=True, timeout=60)
     result["card"] = card.stdout.strip()
     print(result["card"])
@@ -244,6 +331,83 @@ def main():
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as f:
             json.dump(result, f, indent=1)
+
+
+def bign_runs(steps):
+    """label -> (kernel, run(n_steps)): B10 and B11 at svgd_t5_n200 /
+    vi_t5_n200 and B10 at cauchy_20 and N=9, from the learners' initial
+    states (chip_smoke.py's learners)."""
+    import numpy as np
+    import torch
+
+    sys.path.insert(1, os.path.dirname(HERE))
+    import chip_smoke as cs
+    from meta_learning_pacoh_torch.ops.cuda import fused_svgd_bign_kernel as sb
+    from meta_learning_pacoh_torch.ops.cuda import fused_vi_bign_kernel as vb
+    from meta_learning_pacoh_torch.ops.cuda import fused_vi_kernel as vk
+
+    train, _ = cs.bign_data()
+    cauchy, _ = cs.cauchy20()
+    kw = dict(hidden=(32, 32), wps=0.5, bps=3.0)
+
+    def svgd(model):
+        data = (model.X, model.Y, model.mask)
+        w_t = sb.FusedSVGDBigNTrainer(*data, hidden=(32, 32), lr=1e-3, prior_factor=0.01,
+                                      weight_prior_std=0.5, bias_prior_std=3.0).w_t
+        state = [model.particles.clone(), torch.zeros_like(model.particles),
+                 torch.zeros_like(model.particles)]
+        return "svgd_bign", lambda n: sb.fused_svgd_bign_train(*state, *data, w_t, 0, 1e-3, 0.01,
+                                                              n_steps=n, **kw)
+
+    vi = cs.bign_vi_model(train)
+    data = (vi.X, vi.Y, vi.mask)
+    w_t = sb.FusedSVGDBigNTrainer(*data, hidden=(32, 32), lr=1e-3, prior_factor=0.01,
+                                  weight_prior_std=0.5, bias_prior_std=3.0).w_t
+    eps = torch.from_numpy(np.random.RandomState(0).randn(steps, 10, vi.hyper_prior.dim)
+                           .astype(np.float32)).to(vi.X.device)
+    mll_const = vk.mll_constant(vi.mask.cpu().numpy())
+    post = cs.vi_state(vi)
+    return {
+        "svgd_t5_n200": svgd(cs.bign_svgd_model(train)),
+        "vi_t5_n200": ("vi_bign", lambda n: vb.fused_vi_bign_train(
+            *post, *data, w_t, eps[:n].contiguous(), 0, 1e-3, 0.01, mll_const=mll_const,
+            n_steps=n, **kw)),
+        "cauchy_20 (B10)": svgd(cs.bign_svgd_model(cauchy, seed=30)),
+        "N=9, 5 tasks (B10)": svgd(cs.bign_svgd_model(cs.faceoff_tasks(5, 9))),
+    }
+
+
+def fused_runs(steps):
+    """label -> (kernel, run(n_steps)): B2 and B7 at sin_20's shapes."""
+    import numpy as np
+    import torch
+
+    from meta_learning_pacoh_torch.ops.cuda import fused_svgd_kernel as fk
+    from meta_learning_pacoh_torch.ops.cuda import fused_vi_kernel as vk
+
+    sys.path.insert(0, HERE)
+    from fused_step_bench import sin20_arrays
+
+    dev = torch.device("cuda")
+    x, y, mask = (torch.from_numpy(a).to(dev) for a in sin20_arrays())
+    hidden, k = (32, 32), 10
+    hp = fk.fused_prior(x.shape[-1], hidden, 0.5, 3.0)
+    rs = np.random.RandomState(10)
+    theta = (hp.loc + hp.scale * torch.from_numpy(rs.randn(k, hp.dim).astype(np.float32))).to(dev)
+    w_t = torch.from_numpy(fk.task_weights(mask.cpu().numpy())).to(dev)
+    eps = torch.from_numpy(rs.randn(steps, k, hp.dim).astype(np.float32)).to(dev)
+    svgd_state = [theta.clone(), torch.zeros_like(theta), torch.zeros_like(theta)]
+    post = [0.1 * torch.randn(hp.dim, device=dev), torch.full((hp.dim,), -2.0, device=dev)]
+    post += [torch.zeros(hp.dim, device=dev) for _ in range(4)]
+    return {
+        "svgd": ("svgd", lambda n: fk.fused_svgd_train(*svgd_state, x, y, mask, w_t, 0, 1e-3, 0.01,
+                                                       hidden=hidden, wps=0.5, bps=3.0,
+                                                       n_steps=n)),
+        "vi": ("vi", lambda n: vk.fused_vi_train(*post, x, y, mask, w_t, eps[:n].contiguous(), 0,
+                                                 1e-3, 0.01, hidden=hidden, wps=0.5, bps=3.0,
+                                                 mll_const=vk.mll_constant(mask.cpu().numpy()),
+                                                 n_steps=n)),
+    }
 
 
 if __name__ == "__main__":

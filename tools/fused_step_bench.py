@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Time the fused SVGD (B2) and VI (B7) training kernels a step at ``sin_20``'s
-shapes, on one CUDA card.
+shapes, or the big-N ones (B10, B11) at theirs, on one CUDA card.
 
     python3 tools/fused_step_bench.py [--root DIR] [--out FILE] [--clusters 1,2,4,5,8]
+    python3 tools/fused_step_bench.py --bign [--root DIR] [--out FILE]
 
 ``--root`` imports ``meta_learning_pacoh_torch`` from another checkout (an
 unpacked parent commit), so that two trees can be timed on the same card:
@@ -14,6 +15,13 @@ pairs of one launch, divided by its steps. Where the tree's wrappers take a
 ``cluster`` keyword, each shape is also timed at every size of
 ``--clusters`` that the card holds, beside the default plan. The card's
 name and power limit are printed beside the times.
+
+``--bign`` times B10 and B11 instead, from the learners' own data and
+initial states (K = S = 10, full batch, NN/NN 32x32; the learners of
+``chip_smoke.py``): at ``svgd_t5_n200`` / ``vi_t5_n200`` (5 tasks of 200 points),
+``cauchy_20`` (20 tasks of 20 points, D=2: two systems a block) and the
+corners of the big-N faceoff (5 sinusoid tasks of N in {9, 48, 128, 256},
+20 tasks of N=200), each the median over 7 launches of 100 steps.
 """
 
 import argparse
@@ -26,6 +34,11 @@ import sys
 
 STEPS = 200
 REPS = 7
+BIGN_STEPS = 100
+# (label, tasks, points): cauchy_20's tasks where tasks is None
+BIGN_SHAPES = (("t5_n200", 5, 200), ("cauchy_20", None, None), ("N=9, 5 tasks", 5, 9),
+               ("N=48, 5 tasks", 5, 48), ("N=128, 5 tasks", 5, 128),
+               ("N=256, 5 tasks", 5, 256), ("N=200, 20 tasks", 20, 200))
 
 
 def per_step_ms(fn, steps=STEPS, reps=REPS):
@@ -56,11 +69,55 @@ def sin20_arrays():
     return x, y, np.ones(y.shape, np.float32)
 
 
+def bign_rows():
+    """B10 and B11 a step at BIGN_SHAPES, from the learners' data and initial
+    states (chip_smoke.py's learners, importing the package on sys.path)."""
+    import numpy as np
+    import torch
+
+    sys.path.insert(1, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    import chip_smoke as cs
+    from meta_learning_pacoh_torch.ops.cuda import fused_svgd_bign_kernel as sb
+    from meta_learning_pacoh_torch.ops.cuda import fused_vi_bign_kernel as vb
+    from meta_learning_pacoh_torch.ops.cuda import fused_vi_kernel as vk
+
+    rows = []
+    for label, n_tasks, n_points in BIGN_SHAPES:
+        tasks = cs.bign_data()[0] if label == "t5_n200" else cs.faceoff_tasks(n_tasks, n_points)
+        seed = 30 if label == "cauchy_20" else 1
+        svgd, vi = cs.bign_svgd_model(tasks, seed=seed), cs.bign_vi_model(tasks, seed=seed)
+        data = (svgd.X, svgd.Y, svgd.mask)
+        t, n, d = svgd.X.shape
+        kw = dict(hidden=(32, 32), wps=0.5, bps=3.0, n_steps=BIGN_STEPS)
+        trainer = sb.FusedSVGDBigNTrainer(*data, hidden=(32, 32), lr=1e-3, prior_factor=0.01,
+                                          weight_prior_std=0.5, bias_prior_std=3.0)
+        state = [svgd.particles.clone(), torch.zeros_like(svgd.particles),
+                 torch.zeros_like(svgd.particles)]
+        b10 = per_step_ms(lambda: sb.fused_svgd_bign_train(*state, *data, trainer.w_t, 0, 1e-3,
+                                                           0.01, **kw), BIGN_STEPS)
+        p = vi.hyper_prior.dim
+        eps = torch.from_numpy(np.random.RandomState(0).randn(BIGN_STEPS, 10, p)
+                               .astype(np.float32)).to(vi.X.device)
+        mll_const = vk.mll_constant(vi.mask.cpu().numpy())
+        post = cs.vi_state(vi)
+        b11 = per_step_ms(lambda: vb.fused_vi_bign_train(*post, vi.X, vi.Y, vi.mask, trainer.w_t,
+                                                         eps, 0, 1e-3, 0.01,
+                                                         mll_const=mll_const, **kw), BIGN_STEPS)
+        plan = sb.svgd_bign_plan(10, t, n, d, (32, 32))
+        print(f"{label} (T={t}, N={n}, D={d}; {plan[0]} blocks of {plan[1]} systems, matrices "
+              f"in {'shared' if plan[2] else 'device'} memory): B10 {b10:.5f} ms a step, "
+              f"B11 {b11:.5f} ms a step")
+        rows.append({"shape": label, "T": t, "N": n, "D": d, "plan": list(plan), "b10_ms": b10,
+                     "b11_ms": b11})
+    return rows
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--root", default=os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
     parser.add_argument("--out")
     parser.add_argument("--clusters", default="1,2,4,5,8")
+    parser.add_argument("--bign", action="store_true", help="time B10 and B11 instead")
     args = parser.parse_args()
     sys.path.insert(0, os.path.abspath(args.root))
     import numpy as np
@@ -69,11 +126,17 @@ def main():
     if not torch.cuda.is_available():
         sys.exit("fused_step_bench: no CUDA device")
     import meta_learning_pacoh_torch
-    from meta_learning_pacoh_torch.ops.cuda import fused_svgd_kernel as fk
-    from meta_learning_pacoh_torch.ops.cuda import fused_vi_kernel as vk
 
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, check=True, timeout=60).stdout.strip()
+    if args.bign:
+        emit(args, {"root": os.path.abspath(args.root),
+                    "package": os.path.dirname(meta_learning_pacoh_torch.__file__), "card": card,
+                    "rows": bign_rows()})
+        return
+    from meta_learning_pacoh_torch.ops.cuda import fused_svgd_kernel as fk
+    from meta_learning_pacoh_torch.ops.cuda import fused_vi_kernel as vk
+
     dev = torch.device("cuda")
     x, y, mask = (torch.from_numpy(a).to(dev) for a in sin20_arrays())
     t, n, d = x.shape
@@ -109,10 +172,13 @@ def main():
             label = "plan" if c is None else f"C={c}"
             print(f"K=S={k} {label} {plan}: B2 {b2:.5f} ms a step, B7 {b7:.5f} ms a step")
             rows.append({"K": k, "cluster": c, "plan": plan, "b2_ms": b2, "b7_ms": b7})
-    result = {"root": os.path.abspath(args.root),
-              "package": os.path.dirname(meta_learning_pacoh_torch.__file__), "card": card,
-              "rows": rows}
-    print(card)
+    emit(args, {"root": os.path.abspath(args.root),
+                "package": os.path.dirname(meta_learning_pacoh_torch.__file__), "card": card,
+                "rows": rows})
+
+
+def emit(args, result):
+    print(result["card"])
     print(json.dumps(result))
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
