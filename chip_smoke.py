@@ -17,7 +17,9 @@ batch, and a run across a staircase boundary of the lr schedule; its
 cluster plan, the clusters the card holds at once, ptxas' registers and
 spills, and its time a step at K=10 and K=32), the fused
 MAP training kernel B6 at the reference demo's (the same three runs, and one
-odd shape: 7 ragged tasks, D=3, F=3, nets of other depths and widths), the
+odd shape: 7 ragged tasks, D=3, F=3, nets of other depths and widths; one
+thread-block cluster; also nets (7, 7) on the scalar passes, 200 tasks,
+and 1000 tasks of 8 points on the first design's cooperative grid), the
 fused VI training kernel B7 at the sin_20 VI fit's (the same three runs, and
 one odd shape: S=3, 7 ragged tasks of up to 7 points, D=2, nets (16,16,16);
 its cluster plans and times a step at S=10, S=32 and the odd shape),
@@ -30,7 +32,12 @@ in {65, 96, 97, 129, 235, 236, 307, 308}), with its resident blocks per SM, and 
 big-N fused MAP
 kernel B9 at the ``map_t5_n200`` shapes (full batch, a sampled batch, across
 a staircase) and one odd shape (ragged tasks of up to 300 points, D=2, F=3,
-nets (16,16,16)), the small-matrix Cholesky B5 at N in {32, 50, 64} and B in
+nets (16,16,16)), also at 3 tasks of 512 points, nets (7, 7)
+at N=48 (the scalar passes), F=3 with nets (12,20,4)/(8,16) at N=33, 200
+tasks of 12 points (two a block), and on duplicated inputs with an
+outputscale of softplus(1000) and a noise of softplus(-30), where float32
+escalates and float64 does not (held to the float64 plain version at the
+float32 levels), the small-matrix Cholesky B5 at N in {32, 50, 64} and B in
 {1, 20, 200, 257} and on a batch with an indefinite matrix, and the fused
 MLAP kernel B8 at bench.py's ``mlap`` shapes from a well-conditioned state
 (full batch, a sampled batch, across a staircase, the meta-test mode, one
@@ -51,7 +58,10 @@ alone in the fit, its counter at 0 before and above 0 after); then twins
 of the fit and of the eval from one state, with the kernels disabled and
 with the fused kernel disabled (the general step: K1-K3), compared with
 B10's; from the state 200 steps later, B10 against its plain version in
-float64 (the general step's distance printed beside it); then the same learner with the SE covariance of the experiments'
+float64, and B10's moments and the general step's particles within twice
+the JAX float32 step's own drift from its float64 run there
+(tools/c1_drift.json);
+then the same learner with the SE covariance of the experiments'
 ``--covar_module SE``, whose fit takes the general step by default, with
 the counters of K1-K4 at 0 before its fit and eval and above 0 after.
 Phase 4 runs the ``sin_20`` main path of ``bench.py`` (the fused path): a
@@ -178,6 +188,8 @@ SIN_LL_BAND, SIN_RMSE_BAND = (-0.146, 0.21), (0.309, 0.022)
 # AdamW moments as B2's, the loss of the last step rtol 1e-5
 B6_STEPS, B6_STAIR_STEPS, B6_LOSS_RTOL = 20, 30, 1e-5
 # where a big-N plan (B10, B11) holds a system's work areas
+C1_DRIFT_FILE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tools",
+                             "c1_drift.json")
 BIGN_PLACEMENT = {2: "the matrix and the activations in shared memory",
                   1: "the matrix in shared memory, the activations in device memory",
                   0: "the matrix and the activations in device memory"}
@@ -640,14 +652,26 @@ def phase2_b6(errs, times, work):
     odd = [(rs.uniform(-2.0, 2.0, (m, 3)), rs.randn(m)) for m in (8, 5, 8, 3, 7, 8, 1)]
     odd_kw = dict(task_batch_size=-1, feature_dim=3, mean_nn_layers=(16, 16, 16),
                   kernel_nn_layers=(32, 32))
+    many = [(rs.uniform(-2.0, 2.0, (8, 1)), rs.randn(8)) for _ in range(1000)]
     cases = (("full batch", train, {"task_batch_size": -1}, B6_STEPS),
              ("sampled batch of 5", train, {}, B6_STEPS),
              ("staircase lr_decay 0.5", train, {"task_batch_size": -1, "lr_decay": 0.5},
               B6_STAIR_STEPS),
-             ("7 ragged tasks, D=3, F=3, nets (16,16,16)/(32,32)", odd, odd_kw, B6_STEPS))
+             ("7 ragged tasks, D=3, F=3, nets (16,16,16)/(32,32)", odd, odd_kw, B6_STEPS),
+             ("nets (7,7): the scalar passes", train,
+              dict(mean_nn_layers=(7, 7), kernel_nn_layers=(7, 7)), B6_STEPS),
+             ("200 tasks, sampled batch of 37", faceoff_tasks(200, 5),
+              dict(task_batch_size=37), B6_STEPS),
+             ("1000 tasks of 8 points: the cooperative grid", many, {"task_batch_size": 50},
+              B6_STEPS))
     transition = launch_sched.LR_TRANSITION_STEPS
     for label, tasks, kw, n_steps in cases:
         model = demo_model(tasks, **kw)
+        t, n, d = model.X.shape
+        c, tiled = mk.map_plan(t, n, d, model.cfg.feature_dim, model.cfg.mean_nn_layers,
+                               model.cfg.kernel_nn_layers)
+        label += (f" (a cluster of {c} CTAs" if c else f" ({mk.task_groups(t)[0]} blocks") + \
+            f", {'tiled' if tiled else 'scalar'} nets)"
         launch_sched.LR_TRANSITION_STEPS = B2_STAIR_TRANSITION
         try:
             trainer = model._fused_trainer()
@@ -696,7 +720,9 @@ def phase2_b6(errs, times, work):
     full_ms = statistics.median(median_ms(
         lambda: mk.fused_map_train(*k_state, *data, 0, 1e-3, 0.2, layout=model.layout,
                                    n_steps=200), 3)) / 200
-    print(f"  fused_map, full batch: kernel {full_ms:.4f} ms a step (launches of 200 steps)")
+    print(f"  fused_map, full batch: kernel {full_ms:.4f} ms a step (launches of 200 steps); "
+          f"plan (C, tiled) {mk.map_plan(*model.X.shape, 2, (32, 32), (32, 32))}; ptxas "
+          f"{ptxas_usage('fused_map_cluster_kernel')} (registers, spill stores and loads)")
     # the function needs only the rows of the tasks each step draws (an
     # undrawn task adds exactly 0): both nets' forward and backward over
     # them, their MLLs, and AdamW; as a mean over the launch's count pages
@@ -968,7 +994,16 @@ def phase2_b9(errs, times, work):
              ("sampled batch of 2", train, {"task_batch_size": 2}, B6_STEPS),
              ("staircase lr_decay 0.5", train, {"lr_decay": 0.5}, B6_STAIR_STEPS),
              ("ragged tasks of up to 300 points, D=2, F=3, nets (16,16,16)", odd, odd_kw,
-              B6_STEPS))
+              B6_STEPS),
+             ("3 tasks of 512 points", faceoff_tasks(3, 512), {}, B6_STEPS),
+             ("5 tasks of 48 points, nets (7,7): the scalar passes", faceoff_tasks(5, 48),
+              dict(mean_nn_layers=(7, 7), kernel_nn_layers=(7, 7)), B6_STEPS),
+             ("5 tasks of 33 points, F=3, nets (12,20,4)/(8,16)", faceoff_tasks(5, 33),
+              dict(feature_dim=3, mean_nn_layers=(12, 20, 4), kernel_nn_layers=(8, 16)),
+              B6_STEPS),
+             ("200 tasks of 12 points, sampled batch of 37 (two tasks a block)",
+              faceoff_tasks(200, 12), dict(task_batch_size=37, mean_nn_layers=(8, 8),
+                                           kernel_nn_layers=(8, 8)), B6_STEPS))
     transition = launch_sched.LR_TRANSITION_STEPS
     for label, tasks, kw, n_steps in cases:
         model = bign_model(tasks, **kw)
@@ -996,10 +1031,10 @@ def phase2_b9(errs, times, work):
                for g, w in zip(got[1:], want[1:])]
         loss_rel = abs(float(got_loss) - float(want_loss)) / abs(float(want_loss))
         t, n, d = model.X.shape
-        _, _, shared = bg.bign_plan(t, n, d, model.cfg.feature_dim, model.cfg.mean_nn_layers,
-                                    model.cfg.kernel_nn_layers)
-        where = "shared" if shared else "device"
-        print(f"  fused_map_bign, {label} (matrices in {where} memory), {n_steps} steps: "
+        plan = bg.bign_plan(t, n, d, model.cfg.feature_dim, model.cfg.mean_nn_layers,
+                            model.cfg.kernel_nn_layers)
+        print(f"  fused_map_bign, {label} ({plan[0]} blocks of {plan[1]} tasks, "
+              f"{BIGN_PLACEMENT[plan[2]]}, {'tiled' if plan[3] else 'scalar'} nets), {n_steps} steps: "
               f"|param diff| max {d_max:.3e}, mean {d_mean:.3e}; AdamW m, v max diff / max "
               f"|plain| {rel[0]:.3e}, {rel[1]:.3e}; last loss rel diff {loss_rel:.3e} "
               f"(kernel_nn.b_out excluded)")
@@ -1033,6 +1068,58 @@ def phase2_b9(errs, times, work):
     step_flops = (mlp_flops(t * n, d, (32, 32), 1) + mlp_flops(t * n, d, (32, 32), f)
                   + t * (n ** 3 + n * n * (3 * f + 20)) + 12 * p)
     work["fused_map_bign"] = (step_flops, 4 * (6 * p + t * n * (d + 2) + t) / n_launch)
+    print(f"  fused_map_bign: ptxas {ptxas_usage('fused_map_bign_kernel')} (registers, spill "
+          f"stores and loads in bytes)")
+    map_bign_escalation()
+
+
+MAP_ESC_OUTPUTSCALE_RAW = 1000.0
+
+
+def map_bign_escalation():
+    """B9 on map_t5_n200's tasks with each input and target duplicated in
+    pairs, an outputscale of 1000 and a noise of softplus(-30) (the noise
+    floor of 1e-3 is then 1e-6 of the Gram matrix's scale): float32 fails
+    the factor at level 0 where
+    float64 does not, so B9 is held to its plain version in float64 at the
+    levels a float32 factor takes (``level_dtype``): no further from it than
+    twice the float32 plain version (or the twins' limits; two float32 orders
+    part chaotically on these systems), and nearer to it than to the float64
+    run at level 0. Returns the distances it prints."""
+    import torch
+
+    from meta_learning_pacoh_torch.models.random_gp import layout_slice
+    from meta_learning_pacoh_torch.ops.cuda import fused_map_bign_kernel as bg
+
+    model = bign_model(bign_escalating_tasks())
+    trainer = model._fused_trainer()
+    start = model.params.clone()
+    start[layout_slice(model.layout, ("outputscale_raw",))] = MAP_ESC_OUTPUTSCALE_RAW
+    start[layout_slice(model.layout, ("noise_raw",))] = BIGN_ESC_NOISE_RAW
+    data = (model.X, model.Y, model.mask)
+    kw = dict(layout=model.layout, n_steps=B6_STEPS)
+    state = lambda: [start.clone(), torch.zeros_like(start), torch.zeros_like(start)]  # noqa: E731
+    got, want = state(), state()
+    bg.fused_map_bign_train(*got, *data, trainer.w_t, 0, 1e-3, model.weight_decay, **kw)
+    bg.fused_map_bign_train_ref(*want, *data, trainer.w_t, 0, 1e-3, model.weight_decay, **kw)
+    wide = {}
+    for level in (None, torch.float32):
+        wide[level] = [t.double() for t in state()]
+        bg.fused_map_bign_train_ref(*wide[level], *(t.double() for t in data), trainer.w_t, 0,
+                                    1e-3, model.weight_decay, level_dtype=level, **kw)
+    skip = layout_slice(model.layout, ("kernel_nn", "b_out"))
+    k32 = diff_excluding(got[0].cpu().double(), wide[torch.float32][0].cpu(), skip)
+    p32 = diff_excluding(want[0].cpu().double(), wide[torch.float32][0].cpu(), skip)
+    k64 = diff_excluding(got[0].cpu().double(), wide[None][0].cpu(), skip)
+    print(f"  fused_map_bign, escalation: duplicated inputs, outputscale softplus("
+          f"{MAP_ESC_OUTPUTSCALE_RAW}), noise softplus({BIGN_ESC_NOISE_RAW}), {B6_STEPS} steps: |param diff| to the float64 plain run at "
+          f"the float32 levels max {k32[0]:.3e}, mean {k32[1]:.3e} (plain float32 {p32[0]:.3e}, "
+          f"{p32[1]:.3e}); to the float64 run at level 0 {k64[0]:.3e}, {k64[1]:.3e}")
+    if not (k32[0] <= 2 * max(p32[0], TWIN_ATOL) and k32[1] <= 2 * max(p32[1], TWIN_MEAN_ATOL)
+            and k32[1] < k64[1]):
+        raise AssertionError("fused_map_bign (escalation): the kernel is off its float64 plain "
+                             "version at the escalated levels")
+    return {"b9": k32, "b9_plain32": p32, "b9_level0": k64}
 
 
 def phase2_b5(errs, times, work, library):
@@ -1763,7 +1850,27 @@ def cauchy_later_twins(train, later, skip):
     if not (k64[0] <= TWIN_ATOL and k64[1] <= TWIN_MEAN_ATOL):
         raise AssertionError("cauchy_20: B10's particles disagree with its plain version in "
                              "float64 from the later state")
+    lim = later_limits()
+    print(f"  later-state limits from the JAX float32 step's own drift (tools/c1_drift.json, "
+          f"twice it): particles max {lim[0]:.3e}, mean {lim[1]:.3e}, moments {lim[2]:.3e}")
+    # the general step's own moments are printed, not held: a float32 path's
+    # moments part from float64 by their JAX order there (1e-2)
+    if not (g64[0] <= lim[0] and g64[1] <= lim[1] and k64[2] <= lim[2]):
+        raise AssertionError("cauchy_20: from the later state the general step's particles or "
+                             "B10's moments drift from float64 further than twice the JAX "
+                             "float32 step does")
     return {"b10_f64": k64, "general_f64": g64, "plain32_f64": p64, "b10_general": kg}
+
+
+def later_limits():
+    """(particles max, mean, moments max / largest) limits of a float32 path's
+    distance from its float64 run 20 steps from cauchy_20's later state: twice
+    the JAX float32 general step's own distance from its float64 run there
+    (tools/c1_drift.py, JAX on the CPU): the drift there is float32's, not
+    the port's."""
+    with open(C1_DRIFT_FILE) as f:
+        gap = json.load(f)["gaps"]["later"]["jax_f32_vs_jax_f64"]
+    return 2 * gap["max"], 2 * gap["mean"], 2 * gap["moments_rel"]
 
 
 def phase3(profile_dir):

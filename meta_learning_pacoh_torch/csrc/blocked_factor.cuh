@@ -1,7 +1,7 @@
-// Dense per-block linear algebra of one N x N GP system (N <= 512), shared
-// by the blocked MLL kernel (csrc/blocked_mll.cu, B4) and the big-N fused
-// PACOH-MAP kernel (csrc/fused_map_bign.cu, B9). The counterparts of the
-// helpers of meta_learning_pacoh_tpu/ops/pallas/blocked_mll_kernel.py:
+// Dense per-block linear algebra of one N x N GP system (N <= 512), column
+// by column: the blocked MLL kernel's backward (csrc/blocked_mll.cu, B4).
+// The counterparts of the helpers of
+// meta_learning_pacoh_tpu/ops/pallas/blocked_mll_kernel.py:
 //
 //   factor_escalated   factor_escalated :507 (and factor_panels :461)
 //   forward_subst      zsubst_blocked :595

@@ -48,15 +48,7 @@ namespace cgc = cooperative_groups;
 constexpr int kClusterThreads = 256;
 constexpr int kMaxCluster = 8;  // the portable cluster size
 
-// First task of CTA r of c over t tasks (contiguous groups, sizes differ by
-// at most one); CTA r owns [task_lo(r), task_lo(r + 1)).
-__host__ __device__ __forceinline__ int task_lo(int r, int t, int c) { return (r * t) / c; }
-
-// Floats of each CTA's slice of a vector of p (a multiple of 4): CTA r owns
-// [r * slice_len, min(p, (r + 1) * slice_len)), which may be empty.
-__host__ __device__ __forceinline__ int slice_len(int p, int c) {
-  return ((p + c - 1) / c + 3) / 4 * 4;
-}
+#include "cluster_util.cuh"
 
 // The CTA's shared-memory work areas of the score section and its rows.
 struct ClusterRows {
@@ -489,20 +481,10 @@ int with_task_size(int n, F f) {
   }
 }
 
-// Coordinate c of the cluster's vector whose CTA partials are v: the
-// partials summed in rank order 0..C-1 over distributed shared memory, the
-// C loads in flight together.
+// Coordinate c of the cluster's vector whose CTA partials are v, summed in
+// rank order (cluster_util.cuh).
 __device__ __forceinline__ float cluster_sum(const cgc::cluster_group& cluster, float* v, int c) {
-  const int n = static_cast<int>(cluster.num_blocks());
-  float part[kMaxCluster];
-#pragma unroll
-  for (int q = 0; q < kMaxCluster; ++q)
-    if (q < n) part[q] = cluster.map_shared_rank(v, q)[c];
-  float s = 0.f;
-#pragma unroll
-  for (int q = 0; q < kMaxCluster; ++q)
-    if (q < n) s += part[q];
-  return s;
+  return cluster_sum_upto<kMaxCluster>(cluster, v, c);
 }
 
 // Copies the other CTAs' slices of the cluster's vector v [p] (slices of

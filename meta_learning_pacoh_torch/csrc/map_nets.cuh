@@ -1,8 +1,9 @@
 // Device code shared by the two fused PACOH-MAP training kernels,
 // csrc/fused_map.cu (B6, N <= 8) and csrc/fused_map_bign.cu (B9, 9 <= N <= 512):
-// both tanh MLPs' forward and backward over a block's rows, and the split
-// AdamW step that follows the grid barrier. The arithmetic is B6's, moved
-// here unchanged, so B6 keeps its bits.
+// both tanh MLPs' forward and backward over a block's rows one output at a
+// time (the scalar passes, which the kernels take for nets whose widths are
+// no multiple of map_tiles.cuh's 4-unit tiles), the AdamW constants, and the
+// split AdamW step that follows a grid barrier.
 //
 // Included inside an anonymous namespace of each kernel's source.
 
@@ -143,18 +144,19 @@ __device__ void net_backward(const float* th, const int* o, const int* wd, int L
 }
 
 // The split AdamW step, after the grid barrier that follows every block's
-// partials: block blk of G reduces its share of the P coordinates over the
-// G partial gradients in gbuf [G, P + 1], in one fixed order, and applies
-// optax's AdamW at step t_f (1-based, float32) to theta, m, v; th is the
-// block's copy of the parameters the step started from. Returns the step's
-// loss, the sum of the G partial losses (column P), in thread 0 of block 0.
+// partials: each block of the grid reduces its share of the P coordinates
+// over the G partial gradients in gbuf [G, P + 1], in one fixed order, and
+// applies optax's AdamW at step t_f (1-based, float32) to theta, m, v; th is
+// the block's copy of the parameters the step started from. Returns the
+// step's loss, the sum of the G partial losses (column P), in thread 0 of
+// block 0.
 __device__ __forceinline__ float adamw_split(const float* gbuf, int G, int P, const float* th,
                                              float* theta, float* m, float* v, float t_f,
                                              float lr, float wd) {
   const int tid = threadIdx.x, nth = blockDim.x, blk = blockIdx.x;
   const float bc1 = 1.f - expf(t_f * kLogB1);
   const float bc2 = 1.f - expf(t_f * kLogB2);
-  for (int c = blk * nth + tid; c < P; c += G * nth) {
+  for (int c = blk * nth + tid; c < P; c += gridDim.x * nth) {
     float g = 0.f;
     for (int k = 0; k < G; ++k) g += __ldcg(gbuf + static_cast<size_t>(k) * (P + 1) + c);
     const float mn = kB1 * m[c] + kOneMinusB1 * g;

@@ -4,19 +4,24 @@
 // csrc/fused_vi_bign.cu, B11, through csrc/bign_score.cuh).
 //
 // The counterpart of assemble_w_inv and of the K^-1 = W^T W product of
-// meta_learning_pacoh_tpu/ops/pallas/fused_svgd_bign_kernel.py (:254-256),
-// as LAPACK's trtri and lauum (lower) order them:
+// meta_learning_pacoh_tpu/ops/pallas/fused_svgd_bign_kernel.py (:254-256)
+// and fused_map_bign_kernel.py (:267-274), as LAPACK's trtri and lauum
+// (lower) order them, for N <= 512 at 512 threads (B9 takes N up to 512):
 //   tiled_invert  every diagonal tile inverted at once, a warp a tile, in
 //                 registers (one row a lane, each finished row broadcast
 //                 through a 32-float buffer); then the panels from the last
 //                 up, two block barriers each: every thread forms one row of
 //                 Y = L21 W11 in registers into a row-major buffer, then
 //                 every thread one 4 x 4 micro-tile of W21 = -W22 Y from
-//                 16-byte loads, written in place (W22 is final by then);
-//   tiled_lauum   block rows of 32 from the top, one 4 x 4 micro-tile of
-//                 (W^T W) a thread held in registers, one block barrier,
-//                 written back over the block row's W (later block rows
-//                 read only rows below it), so about N/32 barriers.
+//                 16-byte loads (a second round where the panel has more
+//                 micro-tiles than the block threads), written in place
+//                 (W22 is final by then);
+//   tiled_lauum   block rows of 32 from the top (of 16 where a block row
+//                 of 32 has more micro-tiles than the block threads: N >
+//                 280 at 512 threads), one 4 x 4 micro-tile of (W^T W) a
+//                 thread held in registers, one block barrier, written
+//                 back over the block row's W (later block rows read only
+//                 rows below it), so about N/32 barriers.
 // A column at a time (blocked_factor.cuh) took two barriers and a warp's
 // shuffle tree a column for the inverse and a serial dot a K^-1 entry.
 // Full float32 FMA throughout (TF32 breaks these matrices), each sum in one
@@ -29,30 +34,9 @@
 // threads of the block and ends with a barrier. Included after
 // tiled_chol.cuh inside an anonymous namespace of each kernel's source.
 
-constexpr int kMaxTiles = 8;  // diagonal tiles of the largest system, N = 256
+constexpr int kMaxTiles = 8;  // diagonal tiles of B10 and B11's largest system, N = 256
 
-// The sum of v over the warp, the same order in every lane.
-__device__ __forceinline__ float warp_total(float v) {
-  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
-  return v;
-}
-
-// The lanes that share one item's sum where `items` items spread over the
-// block: the largest power of two g <= 32 with items * g <= blockDim.x
-// (1 when items > blockDim.x / 2) that leaves each lane at least two of the
-// `reach` terms of a sum. Thread t takes item t / g, part t % g.
-__device__ __forceinline__ int group_lanes(int items, int reach) {
-  int g = 1;
-  while (g < 32 && items * 2 * g <= static_cast<int>(blockDim.x) && 4 * g <= reach) g *= 2;
-  return g;
-}
-
-// The sum of v over the g lanes of an aligned group, the same xor tree in
-// each; every lane of the warp calls it.
-__device__ __forceinline__ float group_total(float v, int g) {
-  for (int off = g >> 1; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
-  return v;
-}
+#include "lane_sums.cuh"
 
 // Entries c..c+3 of row i, c a multiple of 4 and c <= i: 16 bytes from a
 // packed row (entries past i are its padding, any value); from the square,
@@ -175,50 +159,54 @@ __device__ void tiled_invert(const TiledMatrix& M, float* scratch, float* tile_l
     // each summed over k = j_end..i0+3 (W22 is lower triangular) by a group
     // of g lanes, lane part taking the 4-row chunks part, part + g, ...
     const int n_tiles = (n - j_end + 3) / 4 * (kTile / 4);
-    const int g = group_lanes(n_tiles, (n - j_end + 3) / 4), item = tid / g, part = tid % g;
-    const bool mine = item < n_tiles;
-    const int i0 = j_end + 4 * (item / (kTile / 4)), c0 = 4 * (item % (kTile / 4));
-    float acc[4][4];
-#pragma unroll
-    for (int u = 0; u < 4; ++u)
-#pragma unroll
-      for (int v = 0; v < 4; ++v) acc[u][v] = 0.f;
-    for (int k = j_end + 4 * part; mine && k <= i0; k += 4 * g) {
-      float wv[4][4], yv[4][4];
-#pragma unroll
-      for (int u = 0; u < 4; ++u) {
-        float4 w = make_float4(0.f, 0.f, 0.f, 0.f);
-        if (i0 + u < n) w = row_quad(M, i0 + u, k);
-        // the chunk on the diagonal: W_{i0+u, k+v} = 0 for k + v > i0 + u
-        const bool diag = k == i0;
-        wv[u][0] = w.x;
-        wv[u][1] = diag && u < 1 ? 0.f : w.y;
-        wv[u][2] = diag && u < 2 ? 0.f : w.z;
-        wv[u][3] = diag && u < 3 ? 0.f : w.w;
-        float4 yy = make_float4(0.f, 0.f, 0.f, 0.f);
-        if (k + u < n) yy = *reinterpret_cast<const float4*>(ybuf + (k + u - j_end) * kTile + c0);
-        yv[u][0] = yy.x;
-        yv[u][1] = yy.y;
-        yv[u][2] = yy.z;
-        yv[u][3] = yy.w;
-      }
-#pragma unroll
-      for (int v = 0; v < 4; ++v)
-#pragma unroll
-        for (int u = 0; u < 4; ++u)
-#pragma unroll
-          for (int c = 0; c < 4; ++c) acc[u][c] = fmaf(wv[u][v], yv[v][c], acc[u][c]);
-    }
-#pragma unroll
-    for (int u = 0; u < 4; ++u)
-#pragma unroll
-      for (int v = 0; v < 4; ++v) acc[u][v] = group_total(acc[u][v], g);
-    if (mine && part == 0) {
+    const int g = group_lanes(n_tiles, (n - j_end + 3) / 4);
+    // every thread runs the same rounds, so that a group's lanes meet in its shuffles
+    for (int base = 0; base < n_tiles * g; base += nth) {
+      const int item = (base + tid) / g, part = (base + tid) % g;
+      const bool mine = item < n_tiles;
+      const int i0 = j_end + 4 * (item / (kTile / 4)), c0 = 4 * (item % (kTile / 4));
+      float acc[4][4];
 #pragma unroll
       for (int u = 0; u < 4; ++u)
-        if (i0 + u < n)
-          row_quad_store(M, i0 + u, j0 + c0,
-                         make_float4(-acc[u][0], -acc[u][1], -acc[u][2], -acc[u][3]));
+#pragma unroll
+        for (int v = 0; v < 4; ++v) acc[u][v] = 0.f;
+      for (int k = j_end + 4 * part; mine && k <= i0; k += 4 * g) {
+        float wv[4][4], yv[4][4];
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          float4 w = make_float4(0.f, 0.f, 0.f, 0.f);
+          if (i0 + u < n) w = row_quad(M, i0 + u, k);
+          // the chunk on the diagonal: W_{i0+u, k+v} = 0 for k + v > i0 + u
+          const bool diag = k == i0;
+          wv[u][0] = w.x;
+          wv[u][1] = diag && u < 1 ? 0.f : w.y;
+          wv[u][2] = diag && u < 2 ? 0.f : w.z;
+          wv[u][3] = diag && u < 3 ? 0.f : w.w;
+          float4 yy = make_float4(0.f, 0.f, 0.f, 0.f);
+          if (k + u < n) yy = *reinterpret_cast<const float4*>(ybuf + (k + u - j_end) * kTile + c0);
+          yv[u][0] = yy.x;
+          yv[u][1] = yy.y;
+          yv[u][2] = yy.z;
+          yv[u][3] = yy.w;
+        }
+#pragma unroll
+        for (int v = 0; v < 4; ++v)
+#pragma unroll
+          for (int u = 0; u < 4; ++u)
+#pragma unroll
+            for (int c = 0; c < 4; ++c) acc[u][c] = fmaf(wv[u][v], yv[v][c], acc[u][c]);
+      }
+#pragma unroll
+      for (int u = 0; u < 4; ++u)
+#pragma unroll
+        for (int v = 0; v < 4; ++v) acc[u][v] = group_total(acc[u][v], g);
+      if (mine && part == 0) {
+#pragma unroll
+        for (int u = 0; u < 4; ++u)
+          if (i0 + u < n)
+            row_quad_store(M, i0 + u, j0 + c0,
+                           make_float4(-acc[u][0], -acc[u][1], -acc[u][2], -acc[u][3]));
+      }
     }
     __syncthreads();
   }
@@ -241,13 +229,24 @@ __device__ void tiled_wt_times(const TiledMatrix& M, const float* z, float* alph
 // the top; in each, 4 x 4 micro-tiles (rows i0..i0+3, columns c0..c0+3 <=
 // i0+3), each summed by a group of g lanes (lane part taking k = i0 + part,
 // i0 + part + g, ..., then the group's xor tree) and held in registers
-// until the block barrier, then written over the block row. A block row has
-// at most 8 (N/4 + 1) micro-tiles: at most blockDim.x for N <= 4 blockDim.x
-// / 8 - 4 (N = 256 at 512 threads, its last group partial).
+// until the block barrier, then written over the block row. A block row of
+// 32 has at most 8 (N/4 + 1) micro-tiles, at most blockDim.x for N <= 280 at
+// 512 threads; beyond, block rows of 16 (at most 4 (N/4 + 1) micro-tiles:
+// N = 512 fits).
 __device__ void tiled_lauum(const TiledMatrix& M) {
   const int tid = threadIdx.x, n = M.n;
-  for (int r0 = 0; r0 < n; r0 += kTile) {
-    const int tr = (min(kTile, n - r0) + 3) / 4;
+  // block rows of rh rows: 32, halved while one has more micro-tiles than threads
+  int rh = kTile;
+  for (bool fits = false; !fits && rh > 4;) {
+    fits = true;
+    for (int r0 = 0; r0 < n; r0 += rh) {
+      const int tr = (min(rh, n - r0) + 3) / 4;
+      fits = fits && tr * (r0 / 4) + tr * (tr + 1) / 2 <= static_cast<int>(blockDim.x);
+    }
+    if (!fits) rh /= 2;
+  }
+  for (int r0 = 0; r0 < n; r0 += rh) {
+    const int tr = (min(rh, n - r0) + 3) / 4;
     const int n_tiles = tr * (r0 / 4) + tr * (tr + 1) / 2;
     const int g = group_lanes(n_tiles, n - r0), part = tid % g;
     // micro-tile row R < tr holds r0/4 + R + 1 column groups

@@ -37,7 +37,7 @@ from meta_learning_pacoh_torch.ops.cuda.mll_kernel import (
 
 BLOCKED_MIN_N = 49  # below: the K2/K3 kernels
 BLOCKED_MAX_N = 512  # the kernel's limit and the TPU kernel's window
-PANEL = 8  # csrc/blocked_factor.cuh kPanel (the backward, B9)
+PANEL = 8  # csrc/blocked_factor.cuh kPanel (the backward)
 
 
 def blocked_in_shared(n):

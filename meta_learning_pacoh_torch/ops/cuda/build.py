@@ -42,7 +42,8 @@ SIGNATURES = {
     "pacoh_fused_svgd": (_P,) * 13 + (_I,) * 11 + (_F,) * 3 + (_I, _P),
     "pacoh_fused_svgd_clusters": (_I,) * 10 + (_P, _I, _P),
     "pacoh_fused_map": (_P,) * 12 + (_I,) * 12 + (_F,) * 4 + (_I, _P),
-    "pacoh_fused_map_bign": (_P,) * 14 + (_I,) * 13 + (_F,) * 4 + (_I, _P),
+    "pacoh_fused_map_cluster": (_P,) * 11 + (_I,) * 12 + (_F,) * 4 + (_I, _P),
+    "pacoh_fused_map_bign": (_P,) * 16 + (_I,) * 15 + (_F,) * 4 + (_I, _P),
     "pacoh_fused_vi": (_P,) * 18 + (_I,) * 10 + (_F,) * 6 + (_I, _P),
     "pacoh_fused_vi_clusters": (_I,) * 8 + (_P, _I, _P),
     "pacoh_fused_mlap": (_P,) * 27 + (_I,) * 9 + (_F,) * 10 + (_I, _P),

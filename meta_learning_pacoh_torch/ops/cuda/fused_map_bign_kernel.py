@@ -5,9 +5,12 @@ Replaces meta_learning_pacoh_tpu/ops/pallas/fused_map_bign_kernel.py
 ``bign_fits`` and ``FusedMAPBigNTrainer``): the sibling of the N <= 8 kernel
 (ops/cuda/fused_map_kernel.py) for tasks of 9 <= N <= 512 points, the
 Swissfel/Physionet window. One launch runs ``n_steps`` PACOH-MAP iterations
-on the learner's flat state, with the same AdamW, count pages and launch
-plan as the N <= 8 kernel; the per-task GP algebra is the blocked one of
-csrc/blocked_factor.cuh, shared with the blocked MLL kernel (B4).
+on the learner's flat state, with the same AdamW and count pages as the
+N <= 8 kernel; each task's GP system runs through the 32-column panels of
+csrc/tiled_chol.cuh (the residual as its border row) and
+csrc/tiled_inverse.cuh, as in the big-N SVGD and VI kernels (B10, B11), and
+its nets through csrc/map_tiles.cuh's register tiles (or, for widths that
+are no multiple of 4, csrc/map_nets.cuh's scalar passes).
 
 One rule differs from the general step (``gp_mll_batch``): the escalated
 jitter lands on the diagonal of a task's real rows only (the TPU kernel's
@@ -27,15 +30,21 @@ import torch
 from meta_learning_pacoh_torch.models.gp_base import gp_gram, gp_mean, gp_noise
 from meta_learning_pacoh_torch.models.random_gp import layout_dim, unravel_flat
 from meta_learning_pacoh_torch.ops import cuda
-from meta_learning_pacoh_torch.ops.cuda.blocked_mll_kernel import PANEL, SMEM_BYTES
 from meta_learning_pacoh_torch.ops.cuda.build import launch
-from meta_learning_pacoh_torch.ops.cuda.chol_kernel import cholesky_ref, diag_ok
+from meta_learning_pacoh_torch.ops.cuda.chol_kernel import (
+    SMEM_BYTES,
+    cholesky_ref,
+    diag_ok,
+    tiled_scratch_bytes,
+    tiled_shared_bytes,
+)
 from meta_learning_pacoh_torch.ops.cuda.fused_map_kernel import (
     FusedMAPTrainer,
     _device_operands,
     config_of,
     map_layout,
     nets_of,
+    nets_tiled,
     task_groups,
     task_weights,
 )
@@ -48,28 +57,65 @@ SCRATCH_BYTES = 2 ** 30  # device scratch a launch may take
 _LOG_2PI = math.log(2.0 * math.pi)
 
 
-def smem_bytes(tpb, n, d, f, p, shared):
-    """Shared memory of one block, as csrc/fused_map_bign.cu lays it out: the
-    parameters, the block's rows, a few per-point vectors and, when
-    ``shared``, the task's N x N matrix with an odd leading dimension."""
+MAP_TILES = 16  # csrc/fused_map_bign.cu kMapTiles: diagonal tiles of N = 512
+# the first design's shared memory bound (kPanel columns of a panel), kept for the window
+_WINDOW_PANEL = 8
+
+
+def window_bytes(tpb, n, d, f, p, matrix=False):
+    """Shared memory of one block of the kernel's first design: the
+    parameters, the block's rows, its per-point vectors and, with
+    ``matrix``, the task's N x N matrix. The window (``bign_fits``) is the
+    one the learners' dispatch was set by; ``bign_plan`` finds a plan for
+    every shape in it."""
     r = tpb * n
-    return 4 * (p + r * (d + 3 + f) + f + (f + 3) + 3 * n + n * (2 * f + 2) + PANEL * n + 1
-                + (n * (n | 1) if shared else 0))
+    return 4 * (p + r * (d + 3 + f) + f + (f + 3) + 3 * n + n * (2 * f + 2) + _WINDOW_PANEL * n + 1
+                + (n * (n | 1) if matrix else 0))
+
+
+def window_fits(t, n, d, f, p, sum_h):
+    """The first design's test: the block's parameters and rows in shared
+    memory, its device scratch (partial gradients, activations and, where
+    shared memory does not hold it, the matrix) within 1 GiB."""
+    groups, tpb = task_groups(t)
+    matrix = window_bytes(tpb, n, d, f, p, True) <= SMEM_BYTES
+    scratch = 4 * groups * ((p + 1) + tpb * n * sum_h + (0 if matrix else n * n))
+    return window_bytes(tpb, n, d, f, p) <= SMEM_BYTES and scratch <= SCRATCH_BYTES
+
+
+def vector_floats(n, d, f):
+    """Shared-memory floats of a task's rows, its per-point vectors and the
+    hyperparameter sums and tile logs (csrc/fused_map_bign.cu, vector_floats)."""
+    return n * (d + f + 7) + 2 * f + 4 + MAP_TILES
+
+
+def smem_bytes(n, d, f, p, sum_h, shared, th_shared=True):
+    """Shared memory of one block, as csrc/fused_map_bign.cu lays it out: the
+    tiled matrix's scratch and, when ``shared`` >= 1, the packed rows of the
+    task's system and its border row; the parameters when ``th_shared``; the
+    task's rows and vectors; when ``shared`` is 2, both nets' activations
+    (``sum_h`` hidden units in all) with the odd pitch N | 1."""
+    return ((tiled_shared_bytes if shared else tiled_scratch_bytes)(n, n + 1)
+            + 4 * ((p if th_shared else 0) + vector_floats(n, d, f)
+                   + (sum_h * (n | 1) if shared == 2 else 0)))
 
 
 def bign_plan(t, n, d, f, mean_hidden, kernel_hidden):
-    """(blocks, tasks a block, matrix in shared memory) of the kernel at this
-    configuration, or None where it does not take it.
+    """(blocks, tasks a block, placement, tiled nets, parameters in shared
+    memory) of the kernel at this configuration, or None where it does not
+    take it.
 
     The kernel takes NN mean and NN kernel nets of any depths (at least one
-    hidden layer each) and widths, 9 <= N <= 512, F <= 8, any T. It is one
-    cooperative launch, so every block must be resident at once: the tasks
-    go to at most 128 blocks (B6's grouping), each of 512 threads and at most
-    one Hopper block's shared memory, which 132 SMs hold one a SM. It
-    refuses a configuration whose parameters and rows do not fit one block's
-    shared memory even with the matrix in device memory, or whose device
-    scratch (partial gradients, activations, matrices) exceeds 1 GiB. The
-    TPU's VMEM test (4 Tp Np^2 floats within 72 MB) does not apply.
+    hidden layer each) and widths, 9 <= N <= 512, F <= 8, any T, within the
+    window of its first design (``window_bytes``: the parameters and a
+    block's rows within one Hopper block's shared memory, its device
+    scratch within 1 GiB). It is one cooperative launch, so every block must
+    be resident at once: the tasks go to at most 128 blocks (B6's grouping),
+    each of 512 threads, which 132 SMs hold one a SM. The placement is the
+    most that fits shared memory beside the parameters: 2 the task's packed
+    matrix and both nets' activations, 1 the matrix, 0 neither; where even
+    0 does not fit, the parameters too move to device memory. The TPU's
+    VMEM test (4 Tp Np^2 floats within 72 MB) does not apply.
     """
     mean_hidden, kernel_hidden = tuple(mean_hidden), tuple(kernel_hidden)
     if not (t >= 1 and d >= 1 and MIN_N <= n <= MAX_N and 1 <= f <= MAX_F
@@ -77,19 +123,31 @@ def bign_plan(t, n, d, f, mean_hidden, kernel_hidden):
         return None
     p = layout_dim(map_layout(d, f, mean_hidden, kernel_hidden))
     groups, tpb = task_groups(t)
-    shared = smem_bytes(tpb, n, d, f, p, True) <= SMEM_BYTES
-    if not shared and smem_bytes(tpb, n, d, f, p, False) > SMEM_BYTES:
+    sum_h = sum(mean_hidden) + sum(kernel_hidden)
+    if not window_fits(t, n, d, f, p, sum_h):
         return None
-    scratch = 4 * groups * ((p + 1) + tpb * n * (sum(mean_hidden) + sum(kernel_hidden))
-                            + (0 if shared else n * n))
-    if scratch > SCRATCH_BYTES:
-        return None
-    return groups, tpb, shared
+    for th_shared in (True, False):
+        for shared in (2, 1, 0):
+            if smem_bytes(n, d, f, p, sum_h, shared, th_shared) <= SMEM_BYTES:
+                return groups, tpb, shared, nets_tiled(mean_hidden, kernel_hidden), th_shared
+    return None
 
 
 def bign_fits(t, n, d, f, mean_hidden, kernel_hidden):
     """Whether the kernel takes this configuration (see ``bign_plan``)."""
     return bign_plan(t, n, d, f, mean_hidden, kernel_hidden) is not None
+
+
+def scratch_shapes(plan, n, p, sum_h):
+    """name -> shape of the launch's device scratch under ``plan``: the
+    blocks' partial gradients, one task's (several tasks a block), the
+    parameters, the activations and the matrices where shared memory does
+    not hold them."""
+    groups, tpb, shared, _, th_shared = plan
+    return {"gbuf": (groups, p + 1), "gtask": (groups, p + 1) if tpb > 1 else None,
+            "th_dev": None if th_shared else (groups, p),
+            "act": None if shared == 2 else (groups, sum_h * (n | 1)),
+            "work": None if shared else (groups, n, n)}
 
 
 def real_rows_mll(mean, K, y, noise, mask, level_dtype=None):
@@ -116,30 +174,31 @@ def real_rows_mll(mean, K, y, noise, mask, level_dtype=None):
     return -0.5 * (quad + logdet + n_eff * _LOG_2PI) / n_eff
 
 
-def bign_task_mll(layout, theta, x, y, mask):
+def bign_task_mll(layout, theta, x, y, mask, level_dtype=None):
     """Per-task MLL / n_t [T] at flat parameters theta [P] under the kernel's
-    rule (``real_rows_mll``)."""
+    rule (``real_rows_mll``, its jitter levels chosen in ``level_dtype``)."""
     cfg = config_of(layout)
     params = unravel_flat(layout, theta[None])
     mean = gp_mean(cfg, params, x[None])[0]
     K = gp_gram(cfg, params, x[None])[0]
     noise = gp_noise(cfg, params)[0]
-    return real_rows_mll(mean, K, y, noise.expand(y.shape[:-1]), mask)
+    return real_rows_mll(mean, K, y, noise.expand(y.shape[:-1]), mask, level_dtype)
 
 
 def fused_map_bign_train_ref(theta, mu, nu, x, y, mask, w_t, step0, lr, weight_decay,
-                             counts=None, *, layout, n_steps):
+                             counts=None, *, layout, n_steps, level_dtype=None):
     """Plain PyTorch version of ``fused_map_bign_train``, updating in place:
     each step the loss -sum_t MLL_t of ``bign_task_mll`` (count-weighted with
-    ``counts[i]``, a never-drawn task adding exactly 0), its gradient by
-    autograd, and the kernels' AdamW (``cuda.adam_step_``)."""
+    ``counts[i]``, a never-drawn task adding exactly 0; the jitter levels
+    chosen in ``level_dtype``), its gradient by autograd, and the kernels'
+    AdamW (``cuda.adam_step_``)."""
     want_w = torch.from_numpy(task_weights(mask.cpu().numpy())).to(w_t.device)
     if not torch.allclose(w_t, want_w, rtol=1e-6, atol=0.0):
         raise ValueError("fused_map_bign: w_t differs from task_weights(mask)")
     losses = []
     for i in range(n_steps):
         p = theta.detach().requires_grad_(True)
-        lls = bign_task_mll(layout, p, x, y, mask)
+        lls = bign_task_mll(layout, p, x, y, mask, level_dtype)
         if counts is not None:
             c = counts[i]
             lls = torch.where(c > 0, c * torch.where(c > 0, lls, 0.0), 0.0)
@@ -181,20 +240,19 @@ def fused_map_bign_train(theta, mu, nu, x, y, mask, w_t, step0, lr, weight_decay
             or mask.shape != (t, n) or w_t.shape != (t,)
             or (counts is not None and counts.shape != (n_steps, t))):
         raise ValueError("fused_map_bign: operand shapes do not match theta [P] and x [T, N, D]")
-    groups, tpb, shared = plan
+    groups, tpb, shared, tiled, th_shared = plan
     offs, widths = _device_operands(layout, theta.device)
-    gbuf = torch.empty(groups, p + 1, dtype=theta.dtype, device=theta.device)
-    act = torch.empty(groups, tpb * n * (sum(mh) + sum(kh)), dtype=theta.dtype,
-                      device=theta.device)
-    work = None if shared else torch.empty(groups, n, n, dtype=theta.dtype, device=theta.device)
+    scratch = {name: None if shape is None
+               else torch.empty(*shape, dtype=theta.dtype, device=theta.device)
+               for name, shape in scratch_shapes(plan, n, p, sum(mh) + sum(kh)).items()}
     loss = torch.empty(2, dtype=theta.dtype, device=theta.device)
     launch("pacoh_fused_map_bign", theta, theta.data_ptr(), mu.data_ptr(), nu.data_ptr(),
            x.data_ptr(), y.data_ptr(), mask.data_ptr(), w_t.data_ptr(),
            None if counts is None else counts.data_ptr(), offs.data_ptr(), widths.data_ptr(),
-           gbuf.data_ptr(), act.data_ptr(), None if work is None else work.data_ptr(),
+           *(None if a is None else a.data_ptr() for a in scratch.values()),
            loss.data_ptr(), t, n, d, f, len(mh), len(kh), sum(mh), sum(kh), p, int(n_steps),
-           groups, tpb, int(shared), float(step0), float(lr), float(weight_decay),
-           float(config_of(layout).noise_floor))
+           groups, tpb, int(shared), int(tiled), int(th_shared), float(step0), float(lr),
+           float(weight_decay), float(config_of(layout).noise_floor))
     cuda.LAUNCHES["fused_map_bign"] += 1
     return loss[0], loss[1] / n_steps
 

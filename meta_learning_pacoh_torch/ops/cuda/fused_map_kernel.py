@@ -18,7 +18,12 @@ sync.
 The window of the kernel (``fused_map_fits``): NN mean and NN kernel of any
 depths (at least one hidden layer each) and widths, feature_dim F <= 8,
 tasks of N <= 8 points, and one block's shared memory holding the
-parameters and its task group's rows and activations.
+parameters and its task group's rows and activations, the test of the
+kernel's first design (a cooperative grid of up to 128 blocks). The kernel
+now runs one thread-block cluster of C CTAs (``map_plan`` chooses C; each
+CTA holds the parameters, a group of tasks and a slice of P); where one
+cluster's CTAs cannot hold the tasks' rows, the plan keeps the first
+design.
 """
 
 import functools
@@ -30,6 +35,7 @@ from meta_learning_pacoh_torch.models.gp_base import GPConfig, gp_prior_mll_batc
 from meta_learning_pacoh_torch.models.random_gp import flat_layout, layout_dim, unravel_flat
 from meta_learning_pacoh_torch.ops import cuda
 from meta_learning_pacoh_torch.ops.cuda.build import launch
+from meta_learning_pacoh_torch.ops.cuda.fused_svgd_kernel import slice_len
 from meta_learning_pacoh_torch.ops.launch_sched import (
     count_pages,
     staircase_launches,
@@ -38,8 +44,12 @@ from meta_learning_pacoh_torch.ops.launch_sched import (
 
 MAX_N = 8  # the per-task factorization is unrolled in registers
 MAX_F = 8
-MAX_GROUPS = 128  # blocks of the cooperative launch; tasks beyond are grouped
+MAX_GROUPS = 128  # blocks of the first design's cooperative launch; tasks beyond are grouped
 SMEM_BYTES = 232448  # shared memory one Hopper block can use
+# Cluster sizes in the order the plan tries them, fastest first at the demo
+# (tools/fused_step_bench.py --map on the H100); 16 is a non-portable size.
+CLUSTER_SIZES = (8, 4, 2, 1)
+MAX_CLUSTER = 16
 
 
 def map_layout(d, f, mean_hidden, kernel_hidden):
@@ -105,6 +115,47 @@ def fused_map_fits(t, n, d, f, mean_hidden, kernel_hidden):
     return smem_bytes(t, n, d, f, mean_hidden, kernel_hidden, p) <= SMEM_BYTES
 
 
+def cluster_smem_bytes(t, n, d, f, p, sum_h, c):
+    """Shared memory of one CTA of a cluster of c, as csrc/fused_map.cu lays
+    it out (cluster_smem_floats): the parameters, the CTA's partial gradient
+    and loss, the AdamW moments of its slice, both nets' activations with
+    the odd pitch rmax | 1, its rows and their compaction to the drawn
+    tasks', the nets' outputs, per-task partials, weights and indices."""
+    tmax = -(-t // c)
+    rmax = tmax * n
+    return 4 * (2 * p + 1 + 2 * slice_len(p, c) + sum_h * (rmax | 1) + rmax * (2 * d + 5 + f)
+                + tmax * (f + 5) + f + 4)
+
+
+def nets_tiled(mean_hidden, kernel_hidden):
+    """Whether both nets take csrc/map_tiles.cuh's register tiles: every
+    hidden width a multiple of their 4 units (else map_nets.cuh's scalar
+    passes)."""
+    return all(h % 4 == 0 for h in tuple(mean_hidden) + tuple(kernel_hidden))
+
+
+def cluster_fits(t, n, d, f, mean_hidden, kernel_hidden, c):
+    """Whether one cluster of c CTAs holds this configuration: no more CTAs
+    than tasks, and each CTA within one Hopper block's shared memory."""
+    p = layout_dim(map_layout(d, f, mean_hidden, kernel_hidden))
+    sum_h = sum(mean_hidden) + sum(kernel_hidden)
+    return 1 <= c <= min(t, MAX_CLUSTER) and cluster_smem_bytes(t, n, d, f, p, sum_h, c) <= SMEM_BYTES
+
+
+def map_plan(t, n, d, f, mean_hidden, kernel_hidden, cluster=None):
+    """(C, tiled nets) of a launch: C CTAs of one thread-block cluster, the
+    first size of ``CLUSTER_SIZES`` that ``cluster_fits``; C = 0 where none
+    does (the first design's cooperative grid, ``task_groups``); tiled nets
+    where every width is a multiple of 4. ``cluster`` forces C (the
+    learners never pass it)."""
+    sizes = CLUSTER_SIZES if cluster is None else (int(cluster),)
+    c = next((c for c in sizes if cluster_fits(t, n, d, f, mean_hidden, kernel_hidden, c)), 0)
+    if cluster is not None and c == 0:
+        raise ValueError(f"fused_map: no cluster of {cluster} CTAs holds T={t}, N={n}, D={d}, "
+                         f"F={f}, mean_hidden={mean_hidden}, kernel_hidden={kernel_hidden}")
+    return c, nets_tiled(mean_hidden, kernel_hidden)
+
+
 def task_weights(mask):
     """Per-task MLL weight 1 / n_t (0 for an empty task), as float32. Unlike
     the SVGD kernel's there is no harmonic pre-factor: the MAP loss is the
@@ -151,7 +202,7 @@ def fused_map_train_ref(theta, mu, nu, x, y, mask, w_t, step0, lr, weight_decay,
 
 
 def fused_map_train(theta, mu, nu, x, y, mask, w_t, step0, lr, weight_decay, counts=None,
-                    *, layout, n_steps):
+                    *, layout, n_steps, cluster=None):
     """n_steps of PACOH-MAP on flat parameters theta [P] and AdamW moments
     mu, nu [P], all updated in place. Returns (last loss, mean loss) of the
     steps as device scalars.
@@ -160,8 +211,9 @@ def fused_map_train(theta, mu, nu, x, y, mask, w_t, step0, lr, weight_decay, cou
     step0 the global step of the first step (its bias corrections); lr the
     launch's learning rate; counts [n_steps, T] the per-step task-draw
     counts of a sampled batch, or None for the full batch; layout the
-    configuration's ``flat_layout``. The plain version for CPU tensors, the
-    kernel for CUDA tensors.
+    configuration's ``flat_layout``; ``cluster`` forces the cluster size
+    (tests and tools only; ``map_plan``). The plain version for CPU
+    tensors, the kernel for CUDA tensors.
     """
     if n_steps < 1:
         raise ValueError(f"fused_map: n_steps must be >= 1, got {n_steps}")
@@ -187,15 +239,21 @@ def fused_map_train(theta, mu, nu, x, y, mask, w_t, step0, lr, weight_decay, cou
             or (counts is not None and counts.shape != (n_steps, t))):
         raise ValueError("fused_map: operand shapes do not match theta [P] and x [T, N, D]")
     offs, widths = _device_operands(layout, theta.device)
-    groups, tpb = task_groups(t)
-    gbuf = torch.empty(groups, p + 1, dtype=theta.dtype, device=theta.device)
+    c, tiled = map_plan(t, n, d, f, mh, kh, cluster)
     loss = torch.empty(2, dtype=theta.dtype, device=theta.device)
-    launch("pacoh_fused_map", theta, theta.data_ptr(), mu.data_ptr(), nu.data_ptr(),
-           x.data_ptr(), y.data_ptr(), mask.data_ptr(), w_t.data_ptr(),
-           None if counts is None else counts.data_ptr(), offs.data_ptr(), widths.data_ptr(),
-           gbuf.data_ptr(), loss.data_ptr(), t, n, d, f, len(mh), len(kh), sum(mh), sum(kh), p,
-           int(n_steps), groups, tpb, float(step0), float(lr), float(weight_decay),
-           float(config_of(layout).noise_floor))
+    common = (theta.data_ptr(), mu.data_ptr(), nu.data_ptr(), x.data_ptr(), y.data_ptr(),
+              mask.data_ptr(), w_t.data_ptr(), None if counts is None else counts.data_ptr(),
+              offs.data_ptr(), widths.data_ptr())
+    shape = (t, n, d, f, len(mh), len(kh), sum(mh), sum(kh), p, int(n_steps))
+    hyper = (float(step0), float(lr), float(weight_decay), float(config_of(layout).noise_floor))
+    if c:
+        launch("pacoh_fused_map_cluster", theta, *common, loss.data_ptr(), *shape, c, int(tiled),
+               *hyper)
+    else:  # the first design: a cooperative grid of task groups
+        groups, tpb = task_groups(t)
+        gbuf = torch.empty(groups, p + 1, dtype=theta.dtype, device=theta.device)
+        launch("pacoh_fused_map", theta, *common, gbuf.data_ptr(), loss.data_ptr(), *shape,
+               groups, tpb, *hyper)
     cuda.LAUNCHES["fused_map"] += 1
     return loss[0], loss[1] / n_steps
 

@@ -413,6 +413,10 @@ MAP_CASES = {
     "demo_staircase": (20, 5, 1, 2, (32, 32), (32, 32), False, None, 0.5, 30),
     "odd_shape": (7, 8, 3, 3, (16, 16, 16), (32, 32), True, None, 1.0, 20),
     "grouped_tasks": (300, 4, 2, 2, (8,), (8, 8), True, 37, 1.0, 10),
+    # widths that are no multiple of 4: map_nets.cuh's scalar passes in the cluster
+    "odd_width_h7_counted": (20, 5, 1, 2, (7, 7), (7, 7), False, 5, 1.0, 20),
+    # more tasks than one cluster's CTAs hold: the first design's cooperative grid
+    "grid_t1000": (1000, 8, 1, 2, (32, 32), (32, 32), True, 50, 1.0, 10),
 }
 
 
@@ -446,6 +450,16 @@ def test_fused_map_kernel_matches_plain(dev, case, monkeypatch):
     _map_kernel_matches_plain(dev, case, MAP_CASES[case], monkeypatch)
 
 
+@pytest.mark.parametrize("c", [1, 2, 4, 16])
+def test_fused_map_kernel_cluster_sizes(dev, c, monkeypatch):
+    """B6 with clusters of 1, 2, 4 and 16 CTAs (16: the non-portable size) at
+    the demo's counted batch, held to its plain version as above; the plan
+    takes the size it is given and the route is the cluster's."""
+    monkeypatch.setattr(mk, "CLUSTER_SIZES", (c,))
+    assert mk.map_plan(20, 5, 1, 2, (32, 32), (32, 32)) == (c, True)
+    _map_kernel_matches_plain(dev, "demo_counted", MAP_CASES["demo_counted"], monkeypatch)
+
+
 # big-N (B9): bench.py's map_t5_n200 shapes, and tasks of up to 300 points
 # (the matrix in device memory), D=2, F=3
 BIGN_CASES = {
@@ -454,6 +468,16 @@ BIGN_CASES = {
     "t5_n200_staircase": (5, 200, 1, 2, (32, 32), (32, 32), False, None, 0.5, 30),
     "odd_shape_n300": (4, 300, 2, 3, (16, 16, 16), (16, 16, 16), True, None, 1.0, 20),
     "n12_grouped_tasks": (200, 12, 1, 2, (8, 8), (8, 8), True, 37, 1.0, 10),
+    # widths that are no multiple of 4: map_nets.cuh's scalar passes
+    "odd_width_h7": (5, 48, 1, 2, (7, 7), (7, 7), True, None, 1.0, 20),
+    # per-layer widths in register tiles, the panel edge N = 33
+    "mixed_widths_n33": (3, 33, 2, 3, (12, 20, 4), (8, 16), True, None, 1.0, 20),
+    # the largest N: the packed matrix and the activations in device memory
+    "n512_device_matrix": (2, 512, 1, 2, (32, 32), (32, 32), True, None, 1.0, 10),
+    # N = 300 counted, F = 8: the matrix in device memory, undrawn tasks skipped
+    "n300_counted_f8": (6, 300, 1, 8, (16, 16), (16, 16), True, 2, 1.0, 10),
+    # nets too wide for shared memory beside the system: the parameters in device memory
+    "n512_wide_nets_device_params": (2, 512, 1, 2, (136, 136), (136, 136), True, None, 1.0, 10),
 }
 
 
@@ -929,6 +953,16 @@ def test_fused_vi_bign_kernel_matches_plain(dev, case, monkeypatch):
     assert float((got[0] - state[0])[keep].abs().max()) > 1e-3  # the steps moved it
     for g, sp in zip(got, split):
         assert torch.equal(g, sp)
+
+
+def test_fused_map_bign_kernel_escalates(dev):
+    """B9 on map_t5_n200's tasks with duplicated inputs, an outputscale of
+    1000 and a noise of softplus(-30) (chip_smoke.map_bign_escalation): no
+    further from its float64 plain run at the float32 levels than twice the
+    float32 plain version (or the twins' limits), and nearer to it than to
+    the float64 run at level 0."""
+    out = chip_smoke.map_bign_escalation()
+    assert out["b9"][1] < out["b9_level0"][1]
 
 
 def test_fused_bign_kernels_escalate(dev):

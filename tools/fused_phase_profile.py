@@ -1,9 +1,11 @@
 #!/usr/bin/env python3
-"""Profile the phases of the fused SVGD (B2) and VI (B7) kernels, or of the big-N
-ones (B10, B11), by ``clock64()`` marks, on one CUDA card.
+"""Profile the phases of the fused SVGD (B2) and VI (B7) kernels, of the big-N
+ones (B10, B11), or of the PACOH-MAP ones (B6, B9), by ``clock64()`` marks, on
+one CUDA card.
 
     python3 tools/fused_phase_profile.py [--root DIR] [--work DIR] [--out FILE]
     python3 tools/fused_phase_profile.py --bign [--root DIR] [--work DIR] [--out FILE]
+    python3 tools/fused_phase_profile.py --map [--root DIR] [--work DIR] [--out FILE]
 
 Copies ``meta_learning_pacoh_torch`` of the checkout ``--root`` (default:
 this one) into ``--work`` (default ``_scratch_tree/phase_profile``, which
@@ -25,6 +27,14 @@ each at ``svgd_t5_n200`` / ``vi_t5_n200`` (K = S = 10, 5 tasks of N=200,
 NN/NN 32x32, from the learners' initial states) and B10 at ``cauchy_20``'s
 shapes (N=20, 200 systems, two a block) and at the faceoff's N=9 corner (5
 tasks).
+
+``--map`` marks B9 and B6 instead (each tree's layout: B9 one block a task
+group on blocked_factor.cuh's columns, or one block a task on the tiled
+panels; B6 one cooperative grid of blocks, or one thread-block cluster) and
+runs 100 steps of B9 at ``map_t5_n200`` (5 tasks of N=200, F=2, NN/NN
+32x32, full batch) and 200 of B6 at the MAP demo's shapes (20 tasks of 5
+points, F=2), counted (task batch 5, the learner's count pages) and full
+batch, from the learners' initial states.
 """
 
 import argparse
@@ -220,7 +230,7 @@ BIGN_TILED = {
         ("tiled_inverse.cuh", "                tile_log + t);\n  __syncthreads();\n",
          "  prof_mark(18);\n"),
         ("tiled_inverse.cuh", "y[4 * q + 3]);\n    }\n    __syncthreads();\n", "    prof_mark(19);\n"),
-        ("tiled_inverse.cuh", "-acc[u][2], -acc[u][3]));\n    }\n    __syncthreads();\n",
+        ("tiled_inverse.cuh", "-acc[u][2], -acc[u][3]));\n      }\n    }\n    __syncthreads();\n",
          "    prof_mark(20);\n"),
         ("bign_score.cuh", "  tiled_invert(M, k.tws, k.sums);\n", "  prof_mark(8);\n"),
         ("bign_score.cuh", "  tiled_wt_times(M, z, k.al);\n", "  prof_mark(9);\n"),
@@ -233,6 +243,138 @@ BIGN_TILED = {
 }
 
 
+# PACOH-MAP, the parents' layouts: B9 one block a task group on the column
+# chains of blocked_factor.cuh, B6 a cooperative grid of blocks
+MAP_GRID_STEP = [
+    ("fused_map.cu", "    float* gb = q.gbuf + static_cast<size_t>(blk) * (P + 1);\n",
+     "    prof_mark(0);\n", "before"),
+    ("fused_map.cu", "    const float diag_add = softplus(th[off_nz]) + q.noise_floor + 1e-6f;\n",
+     "    prof_mark(1);\n", "before"),
+    ("fused_map.cu", "    // both nets' backward, and the hyperparameters' gradients\n",
+     "    prof_mark(2);\n", "before"),
+    ("fused_map.cu", "    grid.sync();\n\n    // reduce my coordinates",
+     "    __syncthreads();\n    prof_mark(10);\n    grid.sync();\n    prof_mark(11);\n\n"
+     "    // reduce my coordinates", "replace"),
+    ("fused_map.cu", "    if (it + 1 < q.n_steps) {\n      grid.sync();\n",
+     "    __syncthreads();\n    prof_mark(12);\n    if (it + 1 < q.n_steps) {\n      grid.sync();\n"
+     "      prof_mark(13);\n", "replace"),
+    ("fused_map.cu", "      for (int c = tid; c < P; c += nth) th[c] = __ldcg(q.theta + c);\n"
+     "      __syncthreads();\n", "      prof_mark(14);\n"),
+]
+MAP_BIGN_COLUMN_STEP = [
+    ("fused_map_bign.cu", "    float* gb = q.gbuf + static_cast<size_t>(blk) * (P + 1);\n",
+     "    prof_mark(0);\n", "before"),
+    ("fused_map_bign.cu", "    if (tid < F + 3) hyp[tid] = 0.f;\n    __syncthreads();\n",
+     "    prof_mark(1);\n"),
+    ("fused_map_bign.cu", "  for (int i = tid; i < N; i += nth) rv[i] = (y[i] - mu[i]) * msk[i];\n"
+     "  __syncthreads();\n", "  prof_mark(2);\n"),
+    ("fused_map_bign.cu", "  const float quad = forward_subst(", "  prof_mark(3);\n", "before"),
+    ("fused_map_bign.cu", "  const float logdet = logdet_lower(mat, N, ld, red);\n",
+     "  prof_mark(4);\n", "before"),
+    ("fused_map_bign.cu", "  invert_lower(mat, N, ld, pcol);\n", "  prof_mark(5);\n", "before"),
+    ("fused_map_bign.cu", "  wt_times(mat, N, ld, zv, al);\n", "  prof_mark(6);\n", "before"),
+    ("fused_map_bign.cu", "  for (int i = tid; i < N; i += nth) mu[i] = w * al[i] * msk[i];\n",
+     "  prof_mark(7);\n", "before"),
+    ("fused_map_bign.cu", "  for (int e = tid; e < N * F; e += nth) ph[e] = rowp[",
+     "  prof_mark(8);\n", "before"),
+    ("fused_map_bign.cu", "    // both nets' backward, and the hyperparameters' gradients\n",
+     "    prof_mark(9);\n", "before"),
+    ("fused_map_bign.cu", "    grid.sync();\n\n    // reduce my coordinates",
+     "    __syncthreads();\n    prof_mark(10);\n    grid.sync();\n    prof_mark(11);\n\n"
+     "    // reduce my coordinates", "replace"),
+    ("fused_map_bign.cu", "    if (it + 1 < q.n_steps) {\n      grid.sync();\n",
+     "    __syncthreads();\n    prof_mark(12);\n    if (it + 1 < q.n_steps) {\n      grid.sync();\n"
+     "      prof_mark(13);\n", "replace"),
+    ("fused_map_bign.cu", "      for (int c = tid; c < P; c += nth) th[c] = __ldcg(q.theta + c);\n"
+     "      __syncthreads();\n", "      prof_mark(14);\n"),
+]
+MAP_GRID_NAMES = {0: "loop", 1: "both nets forward", 2: "per-task MLL (a thread a task)",
+                  10: "both nets backward, hyperparameters", 11: "grid barrier 1",
+                  12: "AdamW split", 13: "grid barrier 2", 14: "theta re-read"}
+MAP_BIGN_COLUMN_NAMES = {0: "loop", 1: "both nets forward", 2: "z, residual",
+                         3: "matrix and factor (escalation)", 4: "forward_subst",
+                         5: "logdet, loss term", 6: "inverse W = L^-1", 7: "alpha = W^T z",
+                         8: "score loop (kinv_entry)", 9: "the task's sums",
+                         10: "both nets backward, hyperparameters", 11: "grid barrier 1",
+                         12: "AdamW split", 13: "grid barrier 2", 14: "theta re-read"}
+# PACOH-MAP, the redesign's layouts: B9 one block a task on the tiled
+# panels, B6 one thread-block cluster
+MAP_TILED_BIGN_STEP = [
+    ("fused_map_bign.cu", "  for (int it = 0; it < q.n_steps; ++it) {\n", "    prof_mark(0);\n"),
+    ("fused_map_bign.cu", "      if (q.tiled) {\n        tile_nets_forward(th, nets, xs, D, N, ld);\n",
+     "      prof_mark(1);\n", "before"),
+    ("fused_map_bign.cu", "      map_task_grad(N, F, sp_os, diag_add, w, k);\n", "      prof_mark(2);\n",
+     "before"),
+    ("fused_map_bign.cu", "  // the bordered system at the first jitter level that factors, a warp a row\n",
+     "  prof_mark(3);\n", "before"),
+    ("fused_map_bign.cu", "    ok = tiled_factor(M, 0.f, k.tws);\n", "    prof_mark(4 + level);\n"),
+    ("fused_map_bign.cu", "  tiled_invert(M, k.tws, k.sums);\n", "  prof_mark(7);\n"),
+    ("fused_map_bign.cu", "  tiled_wt_times(M, z, k.al);\n", "  prof_mark(8);\n"),
+    ("fused_map_bign.cu", "  tiled_lauum(M);\n", "  prof_mark(9);\n"),
+    ("fused_map_bign.cu", "  for (int e = tid; e < N * F; e += nth) ph[e] = rowp[",
+     "  prof_mark(10);\n", "before"),
+    ("fused_map_bign.cu", "      if (q.tiled) {\n        tile_nets_backward(th, nets, xs", "      prof_mark(11);\n",
+     "before"),
+    ("fused_map_bign.cu", "      if (gb != gsum) {\n", "      prof_mark(12);\n", "before"),
+    ("fused_map_bign.cu", "    grid.sync();\n\n    // reduce my coordinates over the G partials",
+     "    __syncthreads();\n    prof_mark(13);\n    grid.sync();\n    prof_mark(14);\n\n"
+     "    // reduce my coordinates over the G partials", "replace"),
+    ("fused_map_bign.cu", "    if (it + 1 < q.n_steps) {\n      grid.sync();\n",
+     "    __syncthreads();\n    prof_mark(15);\n    if (it + 1 < q.n_steps) {\n      grid.sync();\n"
+     "      prof_mark(16);\n", "replace"),
+    ("fused_map_bign.cu", "      for (int c = tid; c < P; c += nth) th[c] = __ldcg(q.theta + c);\n"
+     "      __syncthreads();\n", "      prof_mark(17);\n"),
+    ("tiled_inverse.cuh", "                tile_log + t);\n  __syncthreads();\n", "  prof_mark(18);\n"),
+    ("tiled_inverse.cuh", "y[4 * q + 3]);\n    }\n    __syncthreads();\n", "    prof_mark(19);\n"),
+    ("tiled_inverse.cuh", "-acc[u][2], -acc[u][3]));\n      }\n    }\n    __syncthreads();\n",
+     "    prof_mark(20);\n"),
+]
+MAP_CLUSTER_STEP = [
+    ("fused_map.cu", "    // the step's drawn tasks of the CTA, in order (warp 0, 32 tasks a round)\n",
+     "    prof_mark(0);\n", "before"),
+    ("fused_map.cu", "    const float* xr = all ? xs : xa;\n", "    prof_mark(1);\n", "before"),
+    ("fused_map.cu", "    // per-task loss and gradient, task a on thread (a mod 32) * warps + a / 32\n",
+     "    prof_mark(2);\n", "before"),
+    ("fused_map.cu", "    // both nets' backward, and the hyperparameters' gradients and the loss\n",
+     "    prof_mark(3);\n", "before"),
+    ("fused_map.cu", "        sc[P] = s;\n      }\n    }\n    cluster.sync();\n",
+     "        sc[P] = s;\n      }\n    }\n    __syncthreads();\n    prof_mark(4);\n"
+     "    cluster.sync();\n    prof_mark(5);\n", "replace"),
+    ("fused_map.cu", "    // every slice is updated and in every copy (and no CTA reads another's\n",
+     "    __syncthreads();\n    prof_mark(6);\n", "before"),
+    ("fused_map.cu", "    // shared memory any more, so none may exit early)\n    cluster.sync();\n",
+     "    prof_mark(7);\n"),
+]
+MAP_CLUSTER_NAMES = {0: "loop", 1: "drawn tasks, compaction", 2: "both nets forward",
+                     3: "per-task MLL (a thread a task)", 4: "both nets backward, hyperparameters",
+                     5: "cluster barrier A",
+                     6: "rank-order sums of the slice, AdamW, its stores to every CTA, loss",
+                     7: "cluster barrier B"}
+MAP_TILED_BIGN_NAMES = {0: "loop", 1: "load the task", 2: "both nets forward", 3: "z, residual",
+                        4: "matrix and factor, level 0", 5: "matrix and factor, level 1",
+                        6: "matrix and factor, level 2", 18: "inverse: diagonal tiles",
+                        19: "inverse: Y = L21 W11", 20: "inverse: W21 = -W22 Y",
+                        7: "inverse W = L^-1 (the rest)", 8: "alpha = W^T z",
+                        9: "K^-1 = W^T W, |z|^2, n_eff", 10: "score loop",
+                        11: "the task's sums, loss", 12: "both nets backward, hyperparameters",
+                        13: "block sums", 14: "grid barrier 1", 15: "AdamW split",
+                        16: "grid barrier 2", 17: "theta re-read"}
+MAP_TILED = {"header": "fused_map.cu (cluster), fused_map_bign.cu (tiled_chol.cuh, tiled_inverse.cuh)",
+             "patches": MAP_CLUSTER_STEP + MAP_TILED_BIGN_STEP,
+             "map": MAP_CLUSTER_NAMES, "map_bign": MAP_TILED_BIGN_NAMES}
+MAP_PARENT = {"header": "fused_map.cu (grid), fused_map_bign.cu (blocked_factor.cuh)",
+              "patches": MAP_GRID_STEP + MAP_BIGN_COLUMN_STEP,
+              "map": MAP_GRID_NAMES, "map_bign": MAP_BIGN_COLUMN_NAMES}
+
+
+def map_layout(csrc):
+    """The layout of a tree's B6 and B9 sources."""
+    with open(os.path.join(csrc, "fused_map_bign.cu")) as f:
+        if "#include \"blocked_factor.cuh\"" in f.read():
+            return MAP_PARENT
+    return MAP_TILED
+
+
 def patch(body, anchor, text, how="after"):
     if body.count(anchor) != 1:
         raise RuntimeError(f"fused_phase_profile: anchor found {body.count(anchor)} times: "
@@ -241,13 +383,15 @@ def patch(body, anchor, text, how="after"):
                                  "replace": text}[how])
 
 
-def patched_copy(root, work, bign=False):
+def patched_copy(root, work, bign=False, map_kernels=False):
     src = os.path.join(os.path.abspath(root), "meta_learning_pacoh_torch")
     dst = os.path.join(work, "meta_learning_pacoh_torch")
     shutil.rmtree(work, ignore_errors=True)
     shutil.copytree(src, dst, ignore=shutil.ignore_patterns("_build", "__pycache__"))
     csrc = os.path.join(dst, "csrc")
-    if bign:
+    if map_kernels:
+        layout = map_layout(csrc)
+    elif bign:
         layout = BIGN_TILED if os.path.exists(os.path.join(csrc, "tiled_inverse.cuh")) else BIGN_COLUMN
     else:
         layout = CLUSTER if os.path.exists(os.path.join(csrc, "cluster_score.cuh")) else ONE_BLOCK
@@ -259,7 +403,7 @@ def patched_copy(root, work, bign=False):
                 texts[name] = f.read()
         return texts[name]
 
-    if bign:  # the patched headers are included by several sources: marks in each
+    if bign or map_kernels:  # the patched headers are included by several sources: marks in each
         for name in os.listdir(csrc):
             if name.endswith(".cu"):
                 texts[name] = patch(text(name), "namespace {\n", PROF)
@@ -270,7 +414,8 @@ def patched_copy(root, work, bign=False):
             texts[name] = patch(text(name), anchor, insert, *how)
         except RuntimeError as e:
             raise RuntimeError(f"{e} (in {name})") from None
-    for label in ("svgd_bign", "vi_bign") if bign else ("svgd", "vi"):
+    kinds = ("map", "map_bign") if map_kernels else ("svgd_bign", "vi_bign") if bign else ("svgd", "vi")
+    for label in kinds:
         texts[f"fused_{label}.cu"] = text(f"fused_{label}.cu") + READER % label
     for name, body in texts.items():
         with open(os.path.join(csrc, name), "w") as f:
@@ -285,22 +430,29 @@ def main():
                                                        "phase_profile"))
     parser.add_argument("--out")
     parser.add_argument("--bign", action="store_true", help="profile B10 and B11 instead")
+    parser.add_argument("--map", action="store_true", help="profile B9 and B6 instead")
     args = parser.parse_args()
     import numpy as np
     import torch
 
     if not torch.cuda.is_available():
         sys.exit("fused_phase_profile: no CUDA device")
-    layout = patched_copy(args.root, os.path.abspath(args.work), args.bign)
+    layout = patched_copy(args.root, os.path.abspath(args.work), args.bign, args.map)
     sys.path.insert(0, os.path.abspath(args.work))
     from meta_learning_pacoh_torch.ops.cuda import build
 
     lib = build.library()
     steps = BIGN_STEPS if args.bign else STEPS
-    runs = bign_runs(steps) if args.bign else fused_runs(steps)
+    if args.map:
+        runs = map_runs()
+    elif args.bign:
+        runs = bign_runs(steps)
+    else:
+        runs = fused_runs(steps)
     result = {"root": os.path.abspath(args.root), "layout": layout["header"]}
     buf = (ctypes.c_longlong * N_MARKS)()
-    for label, (kind, run) in runs.items():
+    for label, (kind, run, *own) in runs.items():
+        steps = own[0] if own else steps
         read = getattr(lib, f"pacoh_prof_read_{kind}")
         read.argtypes = [ctypes.c_void_p]
         run(10)
@@ -374,6 +526,41 @@ def bign_runs(steps):
             n_steps=n, **kw)),
         "cauchy_20 (B10)": svgd(cs.bign_svgd_model(cauchy, seed=30)),
         "N=9, 5 tasks (B10)": svgd(cs.bign_svgd_model(cs.faceoff_tasks(5, 9))),
+    }
+
+
+def map_runs():
+    """label -> (kernel, run(n_steps), steps): B9 at map_t5_n200 (100 steps a
+    launch) and B6 at the demo's shapes, counted and full batch (200),
+    from the learners' initial states (chip_smoke.py's learners)."""
+    import torch
+
+    sys.path.insert(1, os.path.dirname(HERE))
+    import chip_smoke as cs
+    from meta_learning_pacoh_torch.ops.cuda import fused_map_bign_kernel as bg
+    from meta_learning_pacoh_torch.ops.cuda import fused_map_kernel as mk
+
+    def state(model):
+        return [model.params.clone(), torch.zeros_like(model.params),
+                torch.zeros_like(model.params)]
+
+    big = cs.bign_model(cs.bign_data()[0])
+    big_tr = big._fused_trainer()
+    big_s = state(big)
+    demo = cs.demo_model(cs.sin20()[0])
+    tr = demo._fused_trainer()
+    counts = tr.count_pages(0, STEPS)
+    full_s, counted_s = state(demo), state(demo)
+    data = (demo.X, demo.Y, demo.mask, tr.w_t)
+    return {
+        "map_t5_n200 (B9)": ("map_bign", lambda n: bg.fused_map_bign_train(
+            *big_s, big.X, big.Y, big.mask, big_tr.w_t, 0, 1e-3, 0.0, layout=big.layout,
+            n_steps=n), BIGN_STEPS),
+        "demo, counted batch of 5 (B6)": ("map", lambda n: mk.fused_map_train(
+            *counted_s, *data, 0, 1e-3, 0.2, counts[:n].contiguous(), layout=demo.layout,
+            n_steps=n), STEPS),
+        "demo, full batch (B6)": ("map", lambda n: mk.fused_map_train(
+            *full_s, *data, 0, 1e-3, 0.2, layout=demo.layout, n_steps=n), STEPS),
     }
 
 

@@ -1,9 +1,11 @@
 #!/usr/bin/env python3
 """Time the fused SVGD (B2) and VI (B7) training kernels a step at ``sin_20``'s
-shapes, or the big-N ones (B10, B11) at theirs, on one CUDA card.
+shapes, the big-N ones (B10, B11) at theirs, or the PACOH-MAP ones (B9, B6),
+on one CUDA card.
 
     python3 tools/fused_step_bench.py [--root DIR] [--out FILE] [--clusters 1,2,4,5,8]
     python3 tools/fused_step_bench.py --bign [--root DIR] [--out FILE]
+    python3 tools/fused_step_bench.py --map [--root DIR] [--out FILE] [--clusters 1,2,4,8,16]
 
 ``--root`` imports ``meta_learning_pacoh_torch`` from another checkout (an
 unpacked parent commit), so that two trees can be timed on the same card:
@@ -22,6 +24,17 @@ initial states (K = S = 10, full batch, NN/NN 32x32; the learners of
 ``cauchy_20`` (20 tasks of 20 points, D=2: two systems a block) and the
 corners of the big-N faceoff (5 sinusoid tasks of N in {9, 48, 128, 256},
 20 tasks of N=200), each the median over 7 launches of 100 steps.
+
+``--map`` times B9 and B6 instead, from the MAP learners' own data and
+initial states (chip_smoke.py's learners, NN/NN 32x32, F=2 unless said):
+B9 at ``map_t5_n200`` (5 tasks of 200 points, full batch), at 5 sinusoid
+tasks of N in {9, 48, 200, 256, 300, 512} and at phase 2's odd shape
+(ragged tasks of up to 300 points, D=2, F=3, nets (16,16,16)), launches of
+100 steps (25 at N=512); B6 at the demo's shapes (20 tasks of 5 points),
+counted (task batch 5, launches of 512 steps from the learner's count
+pages) and full batch (launches of 200 steps). Where the tree's B6 wrapper
+takes a ``cluster`` keyword, B6 is also timed at every size of
+``--clusters`` the card holds.
 """
 
 import argparse
@@ -112,12 +125,79 @@ def bign_rows():
     return rows
 
 
+def map_rows(clusters):
+    """B9 and B6 a step (see the module's docstring)."""
+    import numpy as np
+    import torch
+
+    sys.path.insert(1, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    import chip_smoke as cs
+    from meta_learning_pacoh_torch.ops.cuda import fused_map_bign_kernel as bg
+    from meta_learning_pacoh_torch.ops.cuda import fused_map_kernel as mk
+
+    rows = []
+    rs = np.random.RandomState(9)  # chip_smoke.phase2_b9's odd shape
+    odd = [(rs.uniform(-2.0, 2.0, (m, 2)), rs.randn(m)) for m in (300, 250, 300, 120)]
+    shapes = [("map_t5_n200", cs.bign_data()[0], {})]
+    shapes += [(f"N={n}, 5 tasks", cs.faceoff_tasks(5, n), {}) for n in (9, 48, 200, 256, 300, 512)]
+    shapes += [("odd: ragged up to 300, D=2, F=3, nets (16,16,16)", odd,
+                dict(feature_dim=3, mean_nn_layers=(16, 16, 16), kernel_nn_layers=(16, 16, 16)))]
+    for label, tasks, kw in shapes:
+        model = cs.bign_model(tasks, **kw)
+        tr = model._fused_trainer()
+        t, n, d = model.X.shape
+        steps = 25 if n > 300 else BIGN_STEPS
+        state = [model.params.clone(), torch.zeros_like(model.params),
+                 torch.zeros_like(model.params)]
+        ms = per_step_ms(lambda: bg.fused_map_bign_train(
+            *state, model.X, model.Y, model.mask, tr.w_t, 0, 1e-3, 0.0, layout=model.layout,
+            n_steps=steps), steps)
+        plan = bg.bign_plan(t, n, d, model.cfg.feature_dim, model.cfg.mean_nn_layers,
+                            model.cfg.kernel_nn_layers)
+        print(f"B9 {label} (T={t}, N={n}, D={d}; plan {plan}): {ms:.5f} ms a step")
+        rows.append({"kernel": "B9", "shape": label, "T": t, "N": n, "D": d, "plan": list(plan),
+                     "ms": ms})
+    demo = cs.demo_model(cs.sin20()[0])
+    tr = demo._fused_trainer()
+    counts = tr.count_pages(0, mk.FusedMAPTrainer.MAX_LAUNCH)
+    data = (demo.X, demo.Y, demo.mask, tr.w_t)
+    clustered = "cluster" in inspect.signature(mk.fused_map_train).parameters
+    sizes = [None] + (clusters if clustered else [])
+    for c in sizes:
+        forced = {} if c is None else {"cluster": c}
+        if c is not None and not mk.cluster_fits(*demo.X.shape, demo.cfg.feature_dim,
+                                                 demo.cfg.mean_nn_layers,
+                                                 demo.cfg.kernel_nn_layers, c):
+            print(f"B6 C={c}: not taken at the demo's shapes")
+            continue
+        for label, cnt, steps in (("demo, counted batch of 5", counts, counts.shape[0]),
+                                  ("demo, full batch", None, STEPS)):
+            state = [demo.params.clone(), torch.zeros_like(demo.params),
+                     torch.zeros_like(demo.params)]
+            try:
+                ms = per_step_ms(lambda: mk.fused_map_train(
+                    *state, *data, 0, 1e-3, 0.2, cnt, layout=demo.layout, n_steps=steps,
+                    **forced), steps)
+            except RuntimeError as e:  # a cluster size the card does not hold
+                print(f"B6 {label} C={c}: {e}")
+                continue
+            plan = mk.map_plan(*demo.X.shape, demo.cfg.feature_dim, demo.cfg.mean_nn_layers,
+                               demo.cfg.kernel_nn_layers, c) if clustered else None
+            name = "plan" if c is None else f"C={c}"
+            print(f"B6 {label} {name} {plan}: {ms:.5f} ms a step")
+            rows.append({"kernel": "B6", "shape": label, "cluster": c,
+                         "plan": None if plan is None else list(plan), "ms": ms})
+    return rows
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--root", default=os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
     parser.add_argument("--out")
-    parser.add_argument("--clusters", default="1,2,4,5,8")
+    parser.add_argument("--clusters", help="cluster sizes to time beside the plan "
+                        "(default 1,2,4,5,8; with --map 1,2,4,8,16)")
     parser.add_argument("--bign", action="store_true", help="time B10 and B11 instead")
+    parser.add_argument("--map", action="store_true", help="time B9 and B6 instead")
     args = parser.parse_args()
     sys.path.insert(0, os.path.abspath(args.root))
     import numpy as np
@@ -129,6 +209,11 @@ def main():
 
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, check=True, timeout=60).stdout.strip()
+    if args.map:
+        emit(args, {"root": os.path.abspath(args.root),
+                    "package": os.path.dirname(meta_learning_pacoh_torch.__file__), "card": card,
+                    "rows": map_rows([int(c) for c in (args.clusters or "1,2,4,8,16").split(",")])})
+        return
     if args.bign:
         emit(args, {"root": os.path.abspath(args.root),
                     "package": os.path.dirname(meta_learning_pacoh_torch.__file__), "card": card,
@@ -144,7 +229,8 @@ def main():
     hp = fk.fused_prior(d, hidden, 0.5, 3.0)
     p = hp.dim
     clustered = "cluster" in inspect.signature(fk.fused_svgd_train).parameters
-    sizes = [None] + ([int(c) for c in args.clusters.split(",")] if clustered else [])
+    sizes = [None] + ([int(c) for c in (args.clusters or "1,2,4,5,8").split(",")] if clustered
+                      else [])
     rows = []
     for k in (10, 32):
         rs = np.random.RandomState(k)
