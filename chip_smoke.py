@@ -25,10 +25,12 @@ one odd shape: S=3, 7 ragged tasks of up to 7 points, D=2, nets (16,16,16);
 its cluster plans and times a step at S=10, S=32 and the odd shape),
 the blocked MLL kernels B4 (forward and backward) at bench.py's B=200, N=200,
 at the general steps' B=5 (MAP) and B=50 (SVGD), N=200 (the forward beside
-``cholesky_ex``), at N in {49, 231, 232, 512}, and on one batch whose systems
-escalate to 1e-4 and 1e-2 (the backward also fed the forward kernel's L and
-z), the forward also at its tiles' and both kernels' shared-memory edges (N
-in {65, 96, 97, 129, 235, 236, 307, 308}), with its resident blocks per SM, and the
+``cholesky_ex``, the backward beside ``cholesky_inverse``), at N in {49, 231,
+232, 512}, and on one batch whose systems escalate to 1e-4 and 1e-2 (the
+backward also fed the forward kernel's L and z), both also at their tiles'
+and shared-memory edges (N in {65, 96, 97, 129, 206, 207, 208, 235, 236,
+306, 307, 308}), with their resident blocks per SM, a failed system NaN through both
+and dKn exactly symmetric, and the
 big-N fused MAP
 kernel B9 at the ``map_t5_n200`` shapes (full batch, a sampled batch, across
 a staircase) and one odd shape (ragged tasks of up to 300 points, D=2, F=3,
@@ -40,9 +42,11 @@ escalates and float64 does not (held to the float64 plain version at the
 float32 levels), the small-matrix Cholesky B5 at N in {32, 50, 64} and B in
 {1, 20, 200, 257} and on a batch with an indefinite matrix, and the fused
 MLAP kernel B8 at bench.py's ``mlap`` shapes from a well-conditioned state
-(full batch, a sampled batch, across a staircase, the meta-test mode, one
-odd shape: S=3, 7 ragged tasks, D=2, nets (16,16,16)) and by one gradient at
-the sin_20 learner's own initial state, and the big-N fused SVGD and VI
+(full batch, a sampled batch, across a staircase, the meta-test mode at 20
+and at 5 tasks, one odd shape: S=3, 7 ragged tasks, D=2, nets (16,16,16)),
+each at every cluster size its plan can return, and by one gradient at the
+sin_20 learner's own initial state (its cluster plans, the clusters the card
+holds at once, ptxas' registers and spills), and the big-N fused SVGD and VI
 kernels B10 and B11 at the ``svgd_t5_n200`` / ``vi_t5_n200`` shapes (full
 batch, a sampled batch, across a staircase), at ``cauchy_20``'s (20 tasks of
 20 points, D=2: two systems a block; also timed) and three odd shapes (3
@@ -217,10 +221,12 @@ VI_BAND_FILE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tools",
 B4_CASES = (("bench.py B=200, N=200", 200, 200), ("MAP general step B=5, N=200", 5, 200),
             ("svgd_t5_n200 general step B=50, N=200", 50, 200), ("N=49", 8, 49),
             ("N=231", 8, 231), ("N=232", 8, 232), ("N=512", 8, 512))
-# the B4 forward beside its plain version at the 32-column tiles' edges, on
-# both sides of its shared-memory edge (N=307) and of the backward's (N=235);
-# B in {1, 5} as the tests
-B4_EDGES = ((1, 65), (5, 96), (5, 97), (1, 129), (5, 235), (5, 236), (1, 307), (5, 308))
+# the B4 forward and backward beside their plain versions at the 32-column
+# tiles' edges, on both sides of the two-blocks-an-SM edges (N=206 backward,
+# 207 forward), of the shared-memory edges (N=306 backward, 307 forward) and
+# of the first backward's (N=235); B in {1, 5} as the tests
+B4_EDGES = ((1, 65), (5, 96), (5, 97), (1, 129), (5, 206), (5, 207), (5, 208), (5, 235),
+            (5, 236), (1, 306), (1, 307), (5, 308))
 # K4 beside its plain version at the 32-column tiles' edges and on both sides
 # of its shared-memory edge (N=308)
 K4_EDGES = (65, 96, 97, 129, 308, 309, 512)
@@ -474,7 +480,8 @@ def phase2(param_dim):
     bign_escalation()
     for name, (k_ms, p_ms) in times.items():
         unit = "ms a step" if name.startswith("fused") else "ms"
-        lib = f", torch.linalg.cholesky_ex {library[name]:.4f} ms" if name in library else ""
+        call = "torch.cholesky_inverse" if name == "blocked_bwd" else "torch.linalg.cholesky_ex"
+        lib = f", {call} {library[name]:.4f} ms" if name in library else ""
         print(f"  {name}: kernel {k_ms:.4f} {unit}, plain {p_ms:.4f} {unit} (median){lib}")
     return errs, times, work, library
 
@@ -520,13 +527,15 @@ def ptxas_usage(entry):
 
 
 def cluster_report(kernel, count, t, n, d, hidden):
-    """Print the cluster plan of B2 (``fused_svgd``, K = count) or B7
-    (``fused_vi``, S = count) at these shapes: its cluster size C, its
-    CTAs, the clusters of C the card holds at once
-    (cudaOccupancyMaxActiveClusters) and CTAs an SM so, ptxas' registers and
-    spills. Raises if the card cannot hold every cluster. Returns the plan."""
+    """Print the cluster plan of B2 (``fused_svgd``, K = count), B7
+    (``fused_vi``, S = count) or B8 (``fused_mlap``, S = count) at these
+    shapes: its cluster size C, its CTAs, the clusters of C the card holds
+    at once (cudaOccupancyMaxActiveClusters) and CTAs an SM so, ptxas'
+    registers and spills. Raises if the card cannot hold every cluster.
+    Returns the plan."""
     import torch
 
+    from meta_learning_pacoh_torch.ops.cuda import fused_mlap_kernel as mk
     from meta_learning_pacoh_torch.ops.cuda import fused_svgd_kernel as fk
     from meta_learning_pacoh_torch.ops.cuda import fused_vi_kernel as vk
 
@@ -534,8 +543,9 @@ def cluster_report(kernel, count, t, n, d, hidden):
         plan = fk.cluster_plan(count, t, n, d, hidden)
         resident = fk.resident_clusters(count, t, n, d, hidden, plan)
     else:
-        plan = vk.cluster_plan(count, t, n, d, hidden)
-        resident = vk.resident_clusters(t, n, d, hidden, plan)
+        module = vk if kernel == "fused_vi" else mk
+        plan = module.cluster_plan(count, t, n, d, hidden)
+        resident = module.resident_clusters(t, n, d, hidden, plan)
     c, sms = plan[0], torch.cuda.get_device_properties(0).multi_processor_count
     usage = ptxas_usage(f"{kernel}_kernelILi{n}E")  # the kernel instance of N
     ptxas = ("not in this run's build log" if usage is None else
@@ -916,16 +926,35 @@ def phase2_b4(errs, times, work, library):
             print(f"    ({name})")
         check_bwd_on_kernel_fwd(bk, kn, r, torch.randn(b, generator=edge_gen).cuda(),
                                 torch.randn(b, generator=edge_gen).cuda(), errs)
-    print(f"  blocked_fwd: {bk.blocked_fwd_blocks_per_sm(200)} resident blocks per SM at N=200")
+    # a system that fails at every jitter level: NaN out of the forward, NaN
+    # out of the backward; the others' dKn exactly symmetric
+    for n in (200, 400):
+        kn = spd(4, n, edge_gen, scale=0.5)
+        kn[1] -= 10.0 * torch.eye(n, device="cuda")
+        r = torch.randn(4, n, generator=edge_gen).cuda()
+        _, _, L, z = bk.blocked_mll_fwd(kn, r)
+        dkn, dr = bk.blocked_mll_bwd(L, z, torch.randn(4, generator=edge_gen).cuda(),
+                                     torch.randn(4, generator=edge_gen).cuda())
+        keep = torch.tensor([0, 2, 3], device="cuda")
+        if not (bool(torch.isnan(dkn[1]).all()) and bool(torch.isnan(dr[1]).all())
+                and not bool(torch.isnan(dkn[keep]).any())
+                and torch.equal(dkn[keep], dkn[keep].mT)):
+            raise AssertionError(f"blocked_bwd at N={n}: a failed system is not NaN, or dKn "
+                                 f"is not symmetric")
+        print(f"  blocked_bwd at N={n}: the failed system NaN, the others' dKn symmetric")
+    print(f"  blocked_fwd: {bk.blocked_fwd_blocks_per_sm(200)} resident blocks per SM at N=200; "
+          f"blocked_bwd: {bk.blocked_bwd_blocks_per_sm(200)} at N=200, "
+          f"{bk.blocked_bwd_blocks_per_sm(300)} at N=300")
     for b in (5, 50):  # the general steps' batches: one wave of blocks
         kn, r, L, z, gq, gl = timed[b]
         fwd = time_pair(lambda: bk.blocked_mll_fwd(kn, r), lambda: bk.blocked_mll_fwd_ref(kn, r))
         bwd = time_pair(lambda: bk.blocked_mll_bwd(L, z, gq, gl),
                         lambda: bk.blocked_mll_bwd_ref(L, z, gq, gl))
         lib_ms = statistics.median(median_ms(lambda: torch.linalg.cholesky_ex(kn), 10))
+        inv_ms = statistics.median(median_ms(lambda: torch.cholesky_inverse(L), 10))
         print(f"  blocked_fwd/bwd at B={b}, N=200: kernel {fwd[0]:.4f} / {bwd[0]:.4f} ms, "
               f"plain {fwd[1]:.4f} / {bwd[1]:.4f} ms (median); torch.linalg.cholesky_ex "
-              f"{lib_ms:.4f} ms")
+              f"{lib_ms:.4f} ms, torch.cholesky_inverse {inv_ms:.4f} ms")
     kn, r, L, z, gq, gl = timed[200]
     b, n = kn.shape[0], kn.shape[-1]
     times["blocked_fwd"] = time_pair(lambda: bk.blocked_mll_fwd(kn, r),
@@ -933,6 +962,8 @@ def phase2_b4(errs, times, work, library):
     times["blocked_bwd"] = time_pair(lambda: bk.blocked_mll_bwd(L, z, gq, gl),
                                      lambda: bk.blocked_mll_bwd_ref(L, z, gq, gl), reps=5)
     library["blocked_fwd"] = statistics.median(median_ms(lambda: torch.linalg.cholesky_ex(kn), 5))
+    # the backward's yardstick: K^-1 alone from L, as the forward's is the factor alone
+    library["blocked_bwd"] = statistics.median(median_ms(lambda: torch.cholesky_inverse(L), 5))
     # forward: one factorization (no system escalates here), the solve, quad
     # and logdet; in: the lower triangle of Kn (all it reads), r; out: L (the
     # square), z, quad, logdet. Backward: L^-1 (N^3/3) and the symmetric
@@ -1265,15 +1296,17 @@ def compare_mlap(label, got, want, got_loss, want_loss, skip, meta_test=False):
 
 def phase2_b8(errs, times, work):
     """B8 against its plain version at the mlap shapes (sin_20's S=5, T=20,
-    N=5, D=1, nets (32,32)) and one odd shape, from a well-conditioned state:
-    30 steps full batch, with a sampled batch's count pages, across a
-    staircase, and 30 meta-test steps; then one step's gradient at the sin_20
-    learner's own initial state; then the times of a 512-step launch."""
+    N=5, D=1, nets (32,32)) and one odd shape, from a well-conditioned state,
+    at every cluster size its plan can return: 30 steps full batch, with a
+    sampled batch's count pages, across a staircase, and 30 meta-test steps
+    at 20 and at 5 tasks; then one step's gradient at the sin_20 learner's
+    own initial state; then the times of a 512-step launch and the plans."""
     import numpy as np
     import torch
 
     from meta_learning_pacoh_torch.ops import launch_sched
     from meta_learning_pacoh_torch.ops.cuda import fused_mlap_kernel as mk
+    from meta_learning_pacoh_torch.ops.cuda import fused_svgd_kernel as fk
 
     rs = np.random.RandomState(8)
     cases = (
@@ -1284,6 +1317,8 @@ def phase2_b8(errs, times, work):
         ("S=3, 7 ragged tasks of up to 7 points, D=2, nets (16,16,16)",
          dict(svi_batch_size=3, mean_nn_layers=(16, 16, 16), kernel_nn_layers=(16, 16, 16)),
          7, 1.0, False, (7, 7, 2), (7, 5, 7, 3, 7, 6, 2)),
+        # last, so that the cases above keep the data they drew before it
+        ("meta-test, 5 tasks", dict(), None, 1.0, True, (5, 5, 1), None),
     )
     transition = launch_sched.LR_TRANSITION_STEPS
     for label, kw, batch, decay, meta_test, (t, n, d), sizes in cases:
@@ -1299,28 +1334,37 @@ def phase2_b8(errs, times, work):
         if batch is not None:
             counts = torch.stack([torch.bincount(model._task_draw(i), minlength=t).float()
                                   for i in range(B8_STEPS)]).cuda()
-        got, want = mlap_state(model), mlap_state(model)
         kw8 = dict(hidden=hidden, wps=0.5, bps=3.0, task_kl_weight=1.0, meta_kl_weight=1e-3,
                    delta=0.1, n_tasks=t, meta_test=meta_test)
         launch_sched.LR_TRANSITION_STEPS = B2_STAIR_TRANSITION
+        plans = [c for c in fk.CLUSTER_SIZES
+                 if c <= t and model.svi_batch_size <= fk.RESIDENT_CLUSTERS[c]]
+        runs = {c: mlap_state(model) for c in plans}
+        losses = {}
+        want = mlap_state(model)
         try:
             for s0, sub in launch_sched.staircase_launches(0, B8_STEPS, 512, decay):
-                c = None if counts is None else counts[s0:s0 + sub]
+                c_page = None if counts is None else counts[s0:s0 + sub]
                 lrs = (launch_sched.staircase_lr(lr_main, decay, s0),
                        launch_sched.staircase_lr(lr_post, decay, s0))
-                got_loss, _, _ = mk.fused_mlap_train(*got, model.X, model.Y, model.mask,
-                                                     eps[s0:s0 + sub], c, s0, *lrs, batch=batch,
-                                                     n_steps=sub, **kw8)
+                for c, got in runs.items():
+                    losses[c], _, _ = mk.fused_mlap_train(*got, model.X, model.Y, model.mask,
+                                                          eps[s0:s0 + sub], c_page, s0, *lrs,
+                                                          batch=batch, n_steps=sub, cluster=c,
+                                                          **kw8)
                 want_loss, _, _ = mk.fused_mlap_train_ref(*want, model.X, model.Y, model.mask,
-                                                          eps[s0:s0 + sub], c, s0, *lrs,
+                                                          eps[s0:s0 + sub], c_page, s0, *lrs,
                                                           n_steps=sub, **kw8)
         finally:
             launch_sched.LR_TRANSITION_STEPS = transition
         torch.cuda.synchronize()
         skip = model.hyper_prior.slice_of(("kernel_nn", "b_out"))
-        d_max = compare_mlap(f"{label}, {B8_STEPS} steps", got, want, got_loss, want_loss, skip,
-                             meta_test)
-        errs["fused_mlap"] = max(errs.get("fused_mlap", 0.0), d_max)
+        plan = mk.cluster_plan(model.svi_batch_size, t, n, d, hidden)
+        for c, got in runs.items():
+            name = f"C={c}{' (the plan)' if c == plan[0] else ''}"
+            d_max = compare_mlap(f"{label}, {name}, {B8_STEPS} steps", got, want, losses[c],
+                                 want_loss, skip, meta_test)
+            errs["fused_mlap"] = max(errs.get("fused_mlap", 0.0), d_max)
 
     # one step's gradient at the sin_20 learner's own initial state (lr 0: the
     # first moments are 0.1 g), against the plain version in float32 and float64
@@ -1381,7 +1425,17 @@ def phase2_b8(errs, times, work):
     mt_ms = statistics.median(median_ms(
         lambda: mk.fused_mlap_train(mt_state[0], *mt_state[1:], *data, eps, None, 0, 0.0, 1e-2,
                                     meta_test=True, n_steps=n_launch, **kw8), 3)) / n_launch
-    print(f"  fused_mlap, meta-test mode (20 tasks): kernel {mt_ms:.4f} ms a step")
+    # bench.py's meta-test row: 5 context sets of the sin_20 test tasks
+    ctx = mlap_model([task[:2] for task in sin20()[1][:5]])
+    ctx_state = mlap_state(ctx)
+    ctx_ms = statistics.median(median_ms(
+        lambda: mk.fused_mlap_train(ctx_state[0], *ctx_state[1:], ctx.X, ctx.Y, ctx.mask, eps,
+                                    None, 0, 0.0, 1e-2, meta_test=True, n_steps=n_launch,
+                                    **kw8), 3)) / n_launch
+    print(f"  fused_mlap, meta-test mode: kernel {mt_ms:.4f} ms a step at 20 tasks, "
+          f"{ctx_ms:.4f} at 5")
+    cluster_report("fused_mlap", model.svi_batch_size, *model.X.shape, hidden)
+    cluster_report("fused_mlap", ctx.svi_batch_size, *ctx.X.shape, hidden)
     # a step: S samples' both nets forward and backward over T*N rows, the
     # S*T KL systems (the factorization trials, L^-1, K^-1, K^-1 L0 and the
     # gram's chain, about 4 N^3 + 12 N^2), the reduction over the samples and

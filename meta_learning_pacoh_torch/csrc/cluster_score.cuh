@@ -1,7 +1,10 @@
 // The particle score of PACOH's GP prior for one parameter vector, split
 // over a thread-block cluster of C CTAs: used by the fused SVGD kernel
 // (fused_svgd.cu, one cluster per particle) and the fused VI kernel
-// (fused_vi.cu, one cluster per posterior sample). The counterpart of
+// (fused_vi.cu, one cluster per posterior sample); the fused MLAP kernel
+// (fused_mlap.cu, one cluster per hyper-posterior sample) takes its MLP
+// passes, factor_inv and the cluster sums, with its own per-task algebra
+// (the inner KL's) between the passes. The counterpart of
 // make_score_section in meta_learning_pacoh_tpu/ops/pallas/
 // fused_train_kernel.py.
 //
@@ -39,11 +42,15 @@
 
 #include <type_traits>
 
-#include "score_section.cuh"  // softplus, sigmoid
-
 namespace {
 
 namespace cgc = cooperative_groups;
+
+__device__ __forceinline__ float softplus(float x) {
+  return fmaxf(x, 0.f) + log1pf(expf(-fabsf(x)));
+}
+
+__device__ __forceinline__ float sigmoid(float x) { return 1.f / (1.f + expf(-x)); }
 
 constexpr int kClusterThreads = 256;
 constexpr int kMaxCluster = 8;  // the portable cluster size
@@ -161,8 +168,7 @@ __device__ void cluster_forward(const float* th, const int* o, int D, int H, int
 
 // The Cholesky factor lf of a + jit I (lower, N <= 8 unrolled) with the
 // reciprocals of its diagonal in inv (rsqrt of each pivot, the factor's
-// entries by multiplication); true when every pivot is finite and > 0,
-// factor<N>'s test.
+// entries by multiplication); true when every pivot is finite and > 0.
 template <int N>
 __device__ bool factor_inv(const float (&a)[N][N], float jit, float (&lf)[N][N], float (&inv)[N]) {
   bool ok = true;

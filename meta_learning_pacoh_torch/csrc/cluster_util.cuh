@@ -1,7 +1,7 @@
 // Splitting one model over a thread-block cluster of C CTAs: the task groups
 // and the slices of the parameter vector, and the rank-order sums over
-// distributed shared memory. Shared by the score section of the fused SVGD
-// and VI kernels (cluster_score.cuh, C <= 8) and the fused MAP kernel
+// distributed shared memory. Shared by the score section of the fused SVGD,
+// VI and MLAP kernels (cluster_score.cuh, C <= 8) and the fused MAP kernel
 // (fused_map.cu, C <= 16). Included inside an anonymous namespace, after
 // <cooperative_groups.h>.
 

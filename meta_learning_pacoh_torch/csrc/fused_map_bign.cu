@@ -34,7 +34,7 @@
 // tiled_chol.cuh and tiled_inverse.cuh (register micro-tiles, a few barriers
 // a panel), so what is left is each phase's longest per-thread chain (the
 // diagonal tile's pivots, the deepest micro-tile) rather than the two
-// barriers a column of the first design (blocked_factor.cuh, 77% of its
+// barriers a column of the first design (a column at a time, 77% of its
 // step). The nets run in register tiles over activations held [H][N | 1]
 // (map_tiles.cuh) where every width is a multiple of 4, else in
 // map_nets.cuh's scalar passes. The task's packed matrix and both nets'

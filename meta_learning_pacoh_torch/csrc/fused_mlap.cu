@@ -23,7 +23,7 @@
 //   gradients gamma_t = u_t tkw / (2 (2 (n_t - 1)) C_t S); the KL's closed
 //             form VJP dKL/dK1 = 0.5 (K^-1 - (K^-1 L0)(K^-1 L0)^T - w w^T)
 //             chained through the gram into d(mean), d(feature) and both
-//             MLPs' backward (score_section.cuh) into score_s; (loc,
+//             MLPs' backward (cluster_score.cuh) into score_s; (loc,
 //             log_scale) by the reparameterisation reduction over s plus the
 //             outer KL's terms; q_t and the noise from the expected
 //             log-likelihood and the sqrt chain
@@ -39,41 +39,51 @@
 // kernel's (both MLPs forward and backward over T*N rows, about 1.3 MFLOP at
 // sin_20) plus T small KL systems, and the step's reduction over the samples
 // is about 3 S P flops: a few MFLOP on a few hundred KB, microseconds at the
-// card's peaks. Not bytes and not flops but one SM per sample does (its
-// shared-memory loads in the MLP products, block barriers, the serial N x N
-// algebra of one thread a task) plus two grid barriers a step (one in
-// meta-test mode).
-// The design: one block owns one sample s. Each block holds the whole state
-// (hyper-posterior, per-task posteriors, noise, their Adam moments) in
-// shared memory, 135 KB at sin_20 with the MLP activations. A step: each
-// block forms theta_s, runs both MLPs forward, and one thread a task
-// computes KL_st with gamma left out (the gradients are linear in gamma_t):
-// K^-1 (mu - m0) and K^-1 L0 (the q-side partials) and the task's
-// d(mean), d(feature), d(lengthscale). It publishes KL_st and the partials
-// to a scratch in device memory, double-buffered by step parity, and passes
-// a grid barrier (cooperative launch). Every block then forms the same
-// gamma_t from all samples' KLs, scales its own cotangents, runs both MLPs
-// backward into score_s, publishes it, and passes the second barrier; then
-// every block performs the identical reduction over the samples, in one
-// fixed order, and the identical Adam update of its own copy of the state,
-// so all copies keep the same bits; block 0 writes the state back at the end.
-// No float atomics: a run gives the same bits however it is split into
-// launches.
+// card's peaks. Not bytes and not flops but latency bounds it: the MLP
+// passes, the serial N x N algebra of one thread a task, and the grid
+// barriers (two a step, one in meta-test mode). The first design ran one
+// block a sample (5 of 132 SMs at mlap's S=5) on one-block MLP passes and
+// repeated the whole Adam update of every coordinate in every block.
+// The design: one thread-block cluster of C CTAs a sample (C from
+// ops/cuda/fused_mlap_kernel.py's cluster_plan), B7's layout (fused_vi.cu).
+// Every CTA holds the sample whole in shared memory and owns a contiguous
+// group of tasks (their rows, the q-side state of those tasks and its Adam
+// moments) and a slice of P (loc, log_scale and both pairs of moments of
+// it). A step: both nets forward over the CTA's rows in register tiles
+// (cluster_forward); one thread a task computes KL_st (rsqrt pivots,
+// cluster_score.cuh's factor_inv) with gamma left out (the gradients are
+// linear in gamma_t), the q-side partials K^-1 (mu - m0) and K^-1 L0, the
+// task's d(mean), d(feature), d(lengthscale), avg_ll and its noise
+// derivative; it publishes them to an L2-resident scratch double-buffered
+// by step parity, and the grid passes barrier 1 (cooperative launch).
+// Every CTA then forms every task's bound from all samples' KLs, in one
+// order: gamma_t of its own tasks, chi, the noise gradient (cluster 0 also
+// the loss and diagnostics). It scales its rows' cotangents by gamma_t,
+// runs both nets backward (cluster_backward), the cluster sums the CTAs'
+// partial scores slice by slice in rank order over distributed shared
+// memory, each CTA publishes its slice, and the grid passes barrier 2. Then
+// the CTA of rank r of every cluster reduces over the S samples, in one
+// fixed order, its slice of P and its tasks' q-side coordinates, and runs
+// Adam on them, so all copies of a coordinate keep the same bits; it forms
+// its slice of the next sample and of the next step's outer KL, and the
+// cluster gathers both over distributed shared memory. No float atomics: a
+// run gives the same bits however it is split into launches.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <math.h>
 
-#include "score_section.cuh"
+#include "cluster_score.cuh"
 
 namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int kThreads = 256;
 constexpr int kMaxS = 32;
 constexpr int kMaxN = 8;
 constexpr size_t kMaxSmem = 232448;
+constexpr int kWarps = kClusterThreads / 32;
+constexpr int kRed = 5 * kWarps;  // block_sums' partials, up to five values
 // Adam constants as optax forms them in float32 from Python doubles
 constexpr float kB1 = 0.9f, kB2 = 0.999f, kEps = 1e-8f;
 constexpr float kOneMinusB1 = static_cast<float>(1.0 - 0.9);
@@ -108,45 +118,68 @@ struct Params {
   const float* eps;     // [n_steps, S, P] standard normals
   const float* prior_loc;    // [P]
   const float* prior_scale;  // [P]
-  const int* offs;      // leaf offsets (score_section.cuh)
-  float* kl_buf;        // [2, S, T] scratch: KL_st
+  const int* offs;      // leaf offsets (cluster_score.cuh)
+  float* kl_buf;        // [2, S, T, 3] scratch: KL_st, avg_ll_t, d avg_ll_t / d noise_var
   float* q_buf;         // [2, S, T N (N + 1)] scratch: K^-1 (mu - m0), then K^-1 L0
   float* s_buf;         // [2, S, P] scratch: the samples' scores
   float* out;           // [5] last loss, sum of the launch's losses, and the last
                         // step's sum_t u_t avg_ll_t, kl_outer, sum_t u_t kl_inner_t
   int s, t, n, d, h, l, p, n_steps, meta_test;
+  int c;                // CTAs a cluster
+  int hs;               // row stride of the activations, H or H + 1
   float step0, lr_main, lr_post, u_scale, tkw, mkw, neg_log_delta, log_n_tasks, cm2,
       sum_log_sigma_p;
 };
 
-// Shared-memory floats of one block; ops/cuda/fused_mlap_kernel.py
+// Shared-memory floats of one CTA; ops/cuda/fused_mlap_kernel.py
 // (smem_bytes) states the same count.
-size_t smem_floats(int t, int n, int d, int h, int l, int p) {
-  const size_t m = static_cast<size_t>(t) * n;
-  return 8 * static_cast<size_t>(p) + 3 * m * (n + 1) + 2 * static_cast<size_t>(l) * m * h +
-         m * (d + 4) + 8 * static_cast<size_t>(t) + 32 + 16;
+size_t smem_floats(int t, int n, int d, int l, int p, int c, int hs) {
+  const size_t tmax = (t + c - 1) / c, rmax = tmax * n;
+  return 2 * static_cast<size_t>(p) + act_floats(l, static_cast<int>(rmax), hs) + rmax * (d + 4) +
+         4 * tmax + 3 * rmax * (n + 1) + 6 * static_cast<size_t>(slice_len(p, c)) + kRed + 16 +
+         4 * static_cast<size_t>(l) + 6;
 }
 
-// The block's sum of one value a thread, in one fixed order (the same in
-// every block); every thread receives it. red: [32] shared floats.
-__device__ float block_sum(float v, float* red) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, n_warps = blockDim.x >> 5;
-  for (int off = 16; off > 0; off >>= 1) v += __shfl_down_sync(0xffffffffu, v, off);
-  if (lane == 0) red[warp] = v;
+#include "fused_update.cuh"
+
+// The block's sums of K values a thread, each in one fixed order (the same
+// in every block); every thread receives them in v. red: [K * kWarps]
+// shared floats.
+template <int K>
+__device__ __forceinline__ void block_sums(float (&v)[K], float* red) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int k = 0; k < K; ++k)
+    for (int off = 16; off > 0; off >>= 1) v[k] += __shfl_down_sync(0xffffffffu, v[k], off);
+  if (lane == 0) {
+#pragma unroll
+    for (int k = 0; k < K; ++k) red[k * kWarps + warp] = v[k];
+  }
   __syncthreads();
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    float s = 0.f;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) s += red[k * kWarps + w];
+    v[k] = s;
+  }
+  __syncthreads();
+}
+
+// sum_j p[j * stride], j < n, in order of j, eight loads in flight at a
+// time (device memory written in this launch: read through L2).
+__device__ __forceinline__ float sum_rows(const float* p, size_t stride, int n) {
   float s = 0.f;
-  for (int w = 0; w < n_warps; ++w) s += red[w];
-  __syncthreads();
+  for (int j0 = 0; j0 < n; j0 += 8) {
+    float v[8];
+#pragma unroll
+    for (int u = 0; u < 8; ++u)
+      if (j0 + u < n) v[u] = __ldcg(p + (j0 + u) * stride);
+#pragma unroll
+    for (int u = 0; u < 8; ++u)
+      if (j0 + u < n) s += v[u];
+  }
   return s;
-}
-
-__device__ __forceinline__ void adam(float g, float& theta, float& m, float& v, float lr, float bc1,
-                                     float bc2) {
-  const float mn = kB1 * m + kOneMinusB1 * g;
-  const float vn = kB2 * v + kOneMinusB2 * g * g;
-  m = mn;
-  v = vn;
-  theta -= lr * ((mn / bc1) / (sqrtf(vn / bc2) + kEps));
 }
 
 __device__ __forceinline__ float signf(float v) {
@@ -208,8 +241,9 @@ __device__ void task_kl(float* mu, float* ph, const float* y, const float* msk, 
       a[i][j] = v;
     }
   }
-  float lf[N][N];
-  if (!factor<N>(a, 1e-6f, lf) && !factor<N>(a, 1e-4f, lf)) factor<N>(a, 1e-2f, lf);
+  float lf[N][N], inv[N];
+  if (!factor_inv<N>(a, 1e-6f, lf, inv) && !factor_inv<N>(a, 1e-4f, lf, inv))
+    factor_inv<N>(a, 1e-2f, lf, inv);
 
   // W = L1^-1 (lower), then K^-1 = W^T W into a (symmetric, full)
   float wi[N][N];
@@ -220,7 +254,7 @@ __device__ void task_kl(float* mu, float* ph, const float* y, const float* msk, 
       float s = (i == j) ? 1.f : 0.f;
 #pragma unroll
       for (int q = j; q < i; ++q) s -= lf[i][q] * wi[q][j];
-      wi[i][j] = s / lf[i][i];
+      wi[i][j] = s * inv[i];
     }
   }
 #pragma unroll
@@ -293,298 +327,377 @@ __device__ void task_kl(float* mu, float* ph, const float* y, const float* msk, 
   *dls = dl;
 }
 
-__device__ void task_kl_n(int n, float* mu, float* ph, const float* y, const float* msk,
-                          const float* qm, const float* qt, float sp_ls, float nv, float* kl,
-                          float* dls, float* avg_ll, float* dvar, float* wq, float* pq) {
-  switch (n) {
-    case 1: task_kl<1>(mu, ph, y, msk, qm, qt, sp_ls, nv, kl, dls, avg_ll, dvar, wq, pq); break;
-    case 2: task_kl<2>(mu, ph, y, msk, qm, qt, sp_ls, nv, kl, dls, avg_ll, dvar, wq, pq); break;
-    case 3: task_kl<3>(mu, ph, y, msk, qm, qt, sp_ls, nv, kl, dls, avg_ll, dvar, wq, pq); break;
-    case 4: task_kl<4>(mu, ph, y, msk, qm, qt, sp_ls, nv, kl, dls, avg_ll, dvar, wq, pq); break;
-    case 5: task_kl<5>(mu, ph, y, msk, qm, qt, sp_ls, nv, kl, dls, avg_ll, dvar, wq, pq); break;
-    case 6: task_kl<6>(mu, ph, y, msk, qm, qt, sp_ls, nv, kl, dls, avg_ll, dvar, wq, pq); break;
-    case 7: task_kl<7>(mu, ph, y, msk, qm, qt, sp_ls, nv, kl, dls, avg_ll, dvar, wq, pq); break;
-    default: task_kl<8>(mu, ph, y, msk, qm, qt, sp_ls, nv, kl, dls, avg_ll, dvar, wq, pq); break;
+// The outer KL's sums over the CTA's slice of the hyper-posterior:
+// sum (exp(log_scale) / prior_scale)^2, sum ((loc - prior_loc) /
+// prior_scale)^2, sum log_scale, into part [3] (one thread writes them).
+__device__ __forceinline__ void outer_partials(const float* loc, const float* lsc, int s_lo,
+                                               int s_hi, const float* prior_loc,
+                                               const float* prior_scale, float* red,
+                                               float* part) {
+  float v[3] = {0.f, 0.f, 0.f};
+  for (int c = s_lo + threadIdx.x; c < s_hi; c += blockDim.x) {
+    const int i = c - s_lo;
+    const float sp = prior_scale[c];
+    const float rs = expf(lsc[i]) / sp;
+    const float rq = (loc[i] - prior_loc[c]) / sp;
+    v[0] += rs * rs;
+    v[1] += rq * rq;
+    v[2] += lsc[i];
+  }
+  block_sums<3>(v, red);
+  if (threadIdx.x == 0) {
+    part[0] = v[0];
+    part[1] = v[1];
+    part[2] = v[2];
   }
 }
 
-__global__ void __launch_bounds__(kThreads) fused_mlap_kernel(Params q) {
+// The weighted outer KL from the cluster's slice sums (part [3] in every
+// CTA's shared memory), summed in rank order, into part[3]: warp 0, rank r's
+// sums on lane r. Run after a cluster barrier that follows every CTA's
+// write of its part; part[3] is read after the next block barrier.
+__device__ __forceinline__ void outer_kl(const cg::cluster_group& cluster, float* part,
+                                         const Params& q) {
+  if (threadIdx.x >= 32) return;
+  const int lane = threadIdx.x;
+  float v[3] = {0.f, 0.f, 0.f};
+  if (lane < q.c) {
+    const float* pr = cluster.map_shared_rank(part, lane);
+    v[0] = pr[0];
+    v[1] = pr[1];
+    v[2] = pr[2];
+  }
+  float a_sq = 0.f, a_rq = 0.f, a_ls = 0.f;
+  for (int r = 0; r < q.c; ++r) {
+    a_sq += __shfl_sync(0xffffffffu, v[0], r);
+    a_rq += __shfl_sync(0xffffffffu, v[1], r);
+    a_ls += __shfl_sync(0xffffffffu, v[2], r);
+  }
+  if (lane == 0)
+    part[3] = q.mkw * (0.5f * (a_sq + a_rq - static_cast<float>(q.p) + 2.f * q.sum_log_sigma_p -
+                               2.f * a_ls));
+}
+
+template <int N>
+__global__ void __launch_bounds__(kClusterThreads, 1) fused_mlap_kernel(Params q) {
   extern __shared__ float smem[];
   cg::grid_group grid = cg::this_grid();
-  const int S = q.s, T = q.t, N = q.n, D = q.d, H = q.h, L = q.l, P = q.p;
-  const int M = T * N, MN = M * N;
-  const int NQ = M + MN;  // q-side partials of one sample: w [T, N], then K^-1 L0 [T, N, N]
+  const cg::cluster_group cluster = cg::this_cluster();
+  const int S = q.s, T = q.t, D = q.d, H = q.h, L = q.l, P = q.p, C = q.c;
+  const int M = T * N;
+  const int NQ = M + M * N;  // q-side partials of one sample: w [T, N], then K^-1 L0 [T, N, N]
   const bool train = q.meta_test == 0;
-  const int me = blockIdx.x;
+  const int me = blockIdx.x / C, rank = blockIdx.x - me * C;  // sample, CTA of its cluster
   const int tid = threadIdx.x, nth = blockDim.x;
-  const int n_leaves = 2 * L + 2;
-  const int off_ls = q.offs[2 * n_leaves], off_nz = q.offs[2 * n_leaves + 1];
+  const int tmax = (T + C - 1) / C, rmax = tmax * N;
+  const int t0 = task_lo(rank, T, C), nt = task_lo(rank + 1, T, C) - t0, rows = nt * N;
+  const int sl = slice_len(P, C), s_lo = min(P, rank * sl), s_hi = min(P, s_lo + sl);
+  const size_t q0 = static_cast<size_t>(t0) * N;  // my tasks' first point
 
-  float* th = smem;                 // [P] this block's sample
-  float* sc = th + P;               // [P] its score
-  float* loc = sc + P;              // [P] the hyper-posterior and its Adam moments,
-  float* lsc = loc + P;             //     the same bits in every block
-  float* mlo = lsc + P;
-  float* mls = mlo + P;
-  float* vlo = mls + P;
-  float* vls = vlo + P;
-  float* qm = vls + P;              // [M] q_means and its moments
-  float* mqm = qm + M;
-  float* vqm = mqm + M;
-  float* qt = vqm + M;              // [M N] q_trils and its moments
-  float* mqt = qt + MN;
-  float* vqt = mqt + MN;
-  float* act = vqt + MN;            // [2 nets][L][M][H]
-  float* xs = act + 2 * L * M * H;  // [M][D]
-  float* ys = xs + M * D;           // [M]
-  float* ms = ys + M;               // [M]
-  float* outm = ms + M;             // [M]
-  float* outk = outm + M;           // [M]
-  float* pls = outk + M;            // [T] d(lengthscale) of the task, gamma left out
-  float* avl = pls + T;             // [T] avg_ll
-  float* dvr = avl + T;             // [T] d avg_ll / d noise_var
-  float* uu = dvr + T;              // [T] u_t
-  float* gam = uu + T;              // [T] gamma_t
-  float* bet = gam + T;             // [T] beta_t
-  float* bnd = bet + T;             // [T] u_t bound_t
-  float* ukl = bnd + T;             // [T] u_t kl_inner_t
-  float* red = ukl + T;             // [32] block_sum's partials
-  float* scal = red + 32;           // [16] 0 loss, 1 chi, 8-10 raw_noise and its m, v
-  const ScoreSmem ws{act, xs, ys, ms, outm, outk, nullptr, nullptr, nullptr};
+  float* th = smem;                             // [P] this cluster's sample, whole
+  float* sc = th + P;                           // [P] this CTA's partial score
+  float* act = sc + P;                          // activation slots
+  float* xs = act + act_floats(L, rmax, q.hs);  // [rmax][D]
+  float* ys = xs + rmax * D;                    // [rmax]
+  float* ms = ys + rmax;                        // [rmax]
+  float* outm = ms + rmax;                      // [rmax]
+  float* outk = outm + rmax;                    // [rmax]
+  float* pls = outk + rmax;                     // [tmax] d(lengthscale), then times gamma_t
+  float* pnz = pls + tmax;                      // [tmax] 0: the inner KL has no noise
+  float* gam = pnz + tmax;                      // [tmax] gamma_t of my tasks
+  float* uu = gam + tmax;                       // [tmax] u_t of my tasks
+  float* qm = uu + tmax;                        // [rmax] my tasks' q_means and moments,
+  float* mqm = qm + rmax;                       //        the same bits in every cluster
+  float* vqm = mqm + rmax;
+  float* qt = vqm + rmax;                       // [rmax N] their q_trils and moments
+  float* mqt = qt + rmax * N;
+  float* vqt = mqt + rmax * N;
+  float* loc = vqt + rmax * N;                  // [sl] my slice of the hyper-posterior and
+  float* lsc = loc + sl;                        //      of its Adam moments, the same bits
+  float* mlo = lsc + sl;                        //      in every cluster
+  float* mls = mlo + sl;
+  float* vlo = mls + sl;
+  float* vls = vlo + sl;
+  float* red = vls + sl;                        // [kRed] block_sums' partials
+  float* scal = red + kRed;                     // [16] 0-2 my slice's outer-KL sums, 3 the
+                                                //      outer KL, 8-10 raw_noise and its m, v
+  int* o = reinterpret_cast<int*>(scal + 16);   // [4L + 6] the leaf offsets
+  const ClusterRows w{act, xs, ys, ms, outm, outk, pls, pnz, nullptr, t0, nt, rows, rmax, q.hs};
+  const int off_ls = 4 * L + 4;                 // o[off_ls]: lengthscale_raw
 
-  for (int c = tid; c < P; c += nth) {
-    loc[c] = q.loc[c];
-    lsc[c] = q.lsc[c];
+  for (int c = s_lo + tid; c < s_hi; c += nth) {
+    const int i = c - s_lo;
+    loc[i] = q.loc[c];
+    lsc[i] = q.lsc[c];
     if (train) {
-      mlo[c] = q.m_loc[c];
-      mls[c] = q.m_lsc[c];
-      vlo[c] = q.v_loc[c];
-      vls[c] = q.v_lsc[c];
+      mlo[i] = q.m_loc[c];
+      mls[i] = q.m_lsc[c];
+      vlo[i] = q.v_loc[c];
+      vls[i] = q.v_lsc[c];
     }
+    th[c] = loc[i] + expf(lsc[i]) * __ldg(q.eps + static_cast<size_t>(me) * P + c);
   }
-  for (int c = tid; c < M; c += nth) {
-    qm[c] = q.qm[c];
-    mqm[c] = q.m_qm[c];
-    vqm[c] = q.v_qm[c];
-    ys[c] = q.y[c];
-    ms[c] = q.mask[c];
+  load_rows(q.x, q.y, q.mask, N, D, w);
+  for (int c = tid; c < rows; c += nth) {
+    qm[c] = q.qm[q0 + c];
+    mqm[c] = q.m_qm[q0 + c];
+    vqm[c] = q.v_qm[q0 + c];
   }
-  for (int c = tid; c < MN; c += nth) {
-    qt[c] = q.qt[c];
-    mqt[c] = q.m_qt[c];
-    vqt[c] = q.v_qt[c];
+  for (int c = tid; c < rows * N; c += nth) {
+    qt[c] = q.qt[q0 * N + c];
+    mqt[c] = q.m_qt[q0 * N + c];
+    vqt[c] = q.v_qt[q0 * N + c];
   }
-  for (int c = tid; c < M * D; c += nth) xs[c] = q.x[c];
+  for (int i = tid; i < 4 * L + 6; i += nth) o[i] = q.offs[i];
   if (tid == 0) {
     scal[8] = q.nu[0];
     scal[9] = train ? q.m_nu[0] : 0.f;
     scal[10] = train ? q.v_nu[0] : 0.f;
   }
+  outer_partials(loc, lsc, s_lo, s_hi, q.prior_loc, q.prior_scale, red, scal);
+  cluster.sync();
+  cluster_gather(cluster, th, P);
+  outer_kl(cluster, scal, q);  // of the pre-update hyper-posterior
   __syncthreads();
 
   const float sf = static_cast<float>(S);
-  float loss_sum = 0.f;  // kept by block 0's thread 0
+  const int n_warps = nth >> 5;
+  float loss_sum = 0.f;  // kept by CTA 0 of cluster 0
   for (int it = 0; it < q.n_steps; ++it) {
     const int par = it & 1;
     const float* eps_it = q.eps + static_cast<size_t>(it) * S * P;
+    const bool more = it + 1 < q.n_steps;
+    const float* eps_next = eps_it + static_cast<size_t>(S) * P + static_cast<size_t>(me) * P;
     const float* cnt = q.counts == nullptr ? nullptr : q.counts + static_cast<size_t>(it) * T;
+    // bring the step's noise of my slice (every sample's, for the reduction)
+    // and the next step's of my sample into L2 while the step runs
+    const int line0 = s_lo >> 5, n_lines = s_hi > s_lo ? ((s_hi - 1) >> 5) - line0 + 1 : 0;
+    const int n_pre = train ? S : 0;
+    for (int e = tid; e < (n_pre + more) * n_lines; e += nth) {
+      const int j = e / n_lines, at = (line0 + e - j * n_lines) << 5;
+      const float* row = j < n_pre ? eps_it + static_cast<size_t>(j) * P : eps_next;
+      asm volatile("prefetch.global.L2 [%0];" ::"l"(row + at));
+    }
     const float nv = softplus(scal[8]) + 1e-4f;  // the pre-update noise variance
 
-    // ---- the outer KL of the pre-update hyper-posterior; my sample
-    float a_sq = 0.f, a_rq = 0.f, a_ls = 0.f;
-    const float* eps_me = eps_it + static_cast<size_t>(me) * P;
-    for (int c = tid; c < P; c += nth) {
-      const float sp = q.prior_scale[c];
-      const float scale = expf(lsc[c]);
-      const float rs = scale / sp;
-      const float rq = (loc[c] - q.prior_loc[c]) / sp;
-      a_sq += rs * rs;
-      a_rq += rq * rq;
-      a_ls += lsc[c];
-      th[c] = loc[c] + scale * __ldg(eps_me + c);
-    }
-    a_sq = block_sum(a_sq, red);
-    a_rq = block_sum(a_rq, red);
-    a_ls = block_sum(a_ls, red);
-    const float kl_outer = q.mkw * (0.5f * (a_sq + a_rq - static_cast<float>(P) +
-                                            2.f * q.sum_log_sigma_p - 2.f * a_ls));
-
-    // ---- both nets forward; one thread a task: its KL and partials, published
-    nets_forward(th, q.offs, M, D, H, L, ws);
-    const float sp_ls = softplus(th[off_ls]);
-    float* kl_pub = q.kl_buf + (static_cast<size_t>(par) * S + me) * T;
+    // ---- both nets forward over my rows; one thread a task (one lane in
+    // each warp first): its KL and partials, published
+    cluster_forward(th, o, D, H, L, w);
+    const float sp_ls = softplus(th[o[off_ls]]);
+    float* kl_pub = q.kl_buf + (static_cast<size_t>(par) * S + me) * T * 3;
     float* q_pub = q.q_buf + (static_cast<size_t>(par) * S + me) * NQ;
-    for (int t = tid; t < T; t += nth) {
-      float kl;
-      task_kl_n(N, outm + t * N, outk + t * N, ys + t * N, ms + t * N, qm + t * N,
-                qt + t * N * N, sp_ls, nv, &kl, pls + t, avl + t, dvr + t, q_pub + t * N,
-                q_pub + M + t * N * N);
-      kl_pub[t] = kl;
+    for (int i = (tid & 31) * n_warps + (tid >> 5); i < nt; i += nth) {
+      const int t = t0 + i;
+      float kl, avl, dvr;
+      task_kl<N>(outm + i * N, outk + i * N, ys + i * N, ms + i * N, qm + i * N, qt + i * N * N,
+                 sp_ls, nv, &kl, pls + i, &avl, &dvr, q_pub + t * N, q_pub + M + t * N * N);
+      kl_pub[3 * t] = kl;
+      kl_pub[3 * t + 1] = avl;
+      kl_pub[3 * t + 2] = dvr;
     }
     grid.sync();
 
-    // ---- every block: the bound from all samples' KLs, gamma, the loss
-    const float* kl_all = q.kl_buf + static_cast<size_t>(par) * S * T;
+    // ---- every CTA: every task's bound from all samples' KLs, in one
+    // order; gamma_t and u_t of my tasks, chi, the noise's gradient and the
+    // loss terms
+    const float* kl_all = q.kl_buf + static_cast<size_t>(par) * S * T * 3;
+    const float* kl_mine = kl_all + static_cast<size_t>(me) * T * 3;
+    const float kl_outer = scal[3];
+    float v[5] = {0.f, 0.f, 0.f, 0.f, 0.f};  // beta, u (-dvar), u bound, u avg_ll, u kl_in
     for (int t = tid; t < T; t += nth) {
-      float ks = 0.f, n_eff = 0.f;
-      for (int j = 0; j < S; ++j) ks += __ldcg(kl_all + j * T + t);
-      for (int i = 0; i < N; ++i) n_eff += ms[t * N + i];
+      const float avl = __ldcg(kl_mine + 3 * t + 1), dvr = __ldcg(kl_mine + 3 * t + 2);
+      float n_eff = 0.f;
+#pragma unroll
+      for (int i = 0; i < N; ++i) n_eff += __ldg(q.mask + static_cast<size_t>(t) * N + i);
+      const float ks = sum_rows(kl_all + 3 * t, static_cast<size_t>(T) * 3, S);
       const float kl_in = q.tkw * (ks / sf);
       const float c_t = ((kLog2 + logf(n_eff)) + q.log_n_tasks) + q.neg_log_delta;
       const float c2 = 2.f * (n_eff - 1.f);
       const float cplx = sqrtf((kl_outer + kl_in + c_t) / c2);
-      const float u = (cnt == nullptr ? 1.f : cnt[t]) * q.u_scale;
+      const float u = (cnt == nullptr ? 1.f : __ldg(cnt + t)) * q.u_scale;
       const float beta = u / (2.f * c2 * cplx);
-      uu[t] = u;
-      gam[t] = beta * q.tkw / sf;
-      bet[t] = beta;
-      bnd[t] = u * (-avl[t] + cplx);
-      ukl[t] = u * kl_in;
+      if (t >= t0 && t < t0 + nt) {
+        gam[t - t0] = beta * q.tkw / sf;
+        uu[t - t0] = u;
+      }
+      v[0] += beta;
+      v[1] += u * (-dvr);
+      v[2] += u * (-avl + cplx);
+      v[3] += u * avl;
+      v[4] += u * kl_in;
     }
+    // not needed for order (block_sums has its own), but measured: a step
+    // 3-4 us faster with it on an H100 (block 0's bound phase 8.5k to 3.2k
+    // cycles in the clock64() profile)
     __syncthreads();
-    if (tid == 0) {
-      float loss = 0.f, chi = 0.f;
-      for (int t = 0; t < T; ++t) {
-        loss += bnd[t];
-        chi += bet[t];
-      }
-      if (train) {
-        const float meta_c =
-            sqrtf((((kl_outer + kLog2) + q.log_n_tasks) + q.neg_log_delta) / q.cm2);
-        loss += meta_c;
-        chi += 1.f / (2.f * q.cm2 * meta_c);
-      }
-      scal[0] = loss;
-      scal[1] = chi;
-      if (me == 0) {
-        float s_ll = 0.f, s_kl = 0.f;
-        for (int t = 0; t < T; ++t) {
-          s_ll += uu[t] * avl[t];
-          s_kl += ukl[t];
-        }
-        loss_sum += loss;
-        if (it == q.n_steps - 1) {
-          q.out[0] = loss;
-          q.out[1] = loss_sum;
-          q.out[2] = s_ll;
-          q.out[3] = kl_outer;
-          q.out[4] = s_kl;
-        }
+    block_sums<5>(v, red);
+    float chi = v[0];
+    if (train) {
+      const float meta_c =
+          sqrtf((((kl_outer + kLog2) + q.log_n_tasks) + q.neg_log_delta) / q.cm2);
+      chi += 1.f / (2.f * q.cm2 * meta_c);
+      v[2] += meta_c;
+    }
+    if (me == 0 && rank == 0 && tid == 0) {
+      loss_sum += v[2];
+      if (!more) {
+        q.out[0] = v[2];
+        q.out[1] = loss_sum;
+        q.out[2] = v[3];
+        q.out[3] = kl_outer;
+        q.out[4] = v[4];
       }
     }
-    __syncthreads();
 
     const float t_f = q.step0 + static_cast<float>(it) + 1.f;
     const float bc1 = 1.f - expf(t_f * kLogB1);
     const float bc2 = 1.f - expf(t_f * kLogB2);
     if (train) {
-      // ---- my sample's score: the cotangents times gamma_t, both nets backward
-      for (int row = tid; row < M; row += nth) {
-        const float g = gam[row / N];
-        outm[row] *= g;
-        outk[row] *= g;
+      // ---- my rows' share of the sample's score: the cotangents times
+      // gamma_t, both nets backward; the cluster's sum of my slice, published
+      for (int r = tid; r < rows; r += nth) {
+        const float g = gam[r / N];
+        outm[r] *= g;
+        outk[r] *= g;
+      }
+      for (int i = tid; i < nt; i += nth) {
+        pls[i] *= gam[i];
+        pnz[i] = 0.f;
       }
       __syncthreads();
-      nets_backward(th, sc, q.offs, M, D, H, L, ws);
-      if (tid == 0) {
-        float dl = 0.f;
-        for (int t = 0; t < T; ++t) dl += gam[t] * pls[t];
-        sc[off_ls] = dl * sigmoid(th[off_ls]);
-        sc[off_nz] = 0.f;
-      }
-      __syncthreads();
+      cluster_backward<false>(th, sc, o, D, H, L, w, nullptr);
+      cluster.sync();
       float* s_pub = q.s_buf + (static_cast<size_t>(par) * S + me) * P;
-      for (int c = tid; c < P; c += nth) s_pub[c] = sc[c];
+      for (int c = s_lo + tid; c < s_hi; c += nth) s_pub[c] = cluster_sum(cluster, sc, c);
       grid.sync();
 
-      // ---- every block: the hyper-posterior's gradients over the S samples
-      // in one order, Adam
-      const float chi = scal[1];
+      // ---- every cluster: the gradients of my slice over the S samples in
+      // one order, Adam; my slice of the next sample and of the outer KL
       const float* s_all = q.s_buf + static_cast<size_t>(par) * S * P;
-      for (int c = tid; c < P; c += nth) {
+      float vo[3] = {0.f, 0.f, 0.f};
+      for (int c = s_lo + tid; c < s_hi; c += nth) {
+        const int i = c - s_lo;
+        const float sp = __ldg(q.prior_scale + c), mp = __ldg(q.prior_loc + c);
+        const float e_next = more ? __ldg(eps_next + c) : 0.f;
         float gs = 0.f, ge = 0.f;
-        for (int j = 0; j < S; ++j) {
-          const float sj = __ldcg(s_all + static_cast<size_t>(j) * P + c);
-          gs += sj;
-          ge += sj * __ldg(eps_it + static_cast<size_t>(j) * P + c);
+        for (int j0 = 0; j0 < S; j0 += 16) {  // sixteen samples' loads in flight
+          float sv[16], ev[16];
+#pragma unroll
+          for (int u = 0; u < 16; ++u) {
+            if (j0 + u < S) {
+              sv[u] = __ldcg(s_all + static_cast<size_t>(j0 + u) * P + c);
+              ev[u] = __ldg(eps_it + static_cast<size_t>(j0 + u) * P + c);
+            }
+          }
+#pragma unroll
+          for (int u = 0; u < 16; ++u) {
+            if (j0 + u < S) {
+              gs += sv[u];
+              ge += sv[u] * ev[u];
+            }
+          }
         }
-        const float sp = q.prior_scale[c];
-        const float scale = expf(lsc[c]);
+        const float scale = expf(lsc[i]);
         const float rs = scale / sp;
-        const float g_loc = gs + chi * q.mkw * (loc[c] - q.prior_loc[c]) / (sp * sp);
+        const float g_loc = gs + chi * q.mkw * (loc[i] - mp) / (sp * sp);
         const float g_lsc = scale * ge + chi * q.mkw * (rs * rs - 1.f);
-        adam(g_loc, loc[c], mlo[c], vlo[c], q.lr_main, bc1, bc2);
-        adam(g_lsc, lsc[c], mls[c], vls[c], q.lr_main, bc1, bc2);
+        adam(g_loc, loc[i], mlo[i], vlo[i], q.lr_main, bc1, bc2);
+        adam(g_lsc, lsc[i], mls[i], vls[i], q.lr_main, bc1, bc2);
+        const float scale_n = expf(lsc[i]);
+        const float rs_n = scale_n / sp, rq_n = (loc[i] - mp) / sp;
+        vo[0] += rs_n * rs_n;
+        vo[1] += rq_n * rq_n;
+        vo[2] += lsc[i];
+        if (more) th[c] = loc[i] + scale_n * e_next;
       }
-      if (tid == 0) {  // the noise, from the pre-update state
-        float g = 0.f;
-        for (int t = 0; t < T; ++t) g += uu[t] * (-dvr[t]);
-        adam(sigmoid(scal[8]) * g, scal[8], scal[9], scal[10], q.lr_main, bc1, bc2);
+      block_sums<3>(vo, red);
+      if (tid == 0) {
+        scal[0] = vo[0];
+        scal[1] = vo[1];
+        scal[2] = vo[2];
+        // the noise, from the pre-update state
+        adam(sigmoid(scal[8]) * v[1], scal[8], scal[9], scal[10], q.lr_main, bc1, bc2);
+      }
+    } else if (more) {  // meta-test: the frozen hyper-posterior's next sample
+      for (int c = s_lo + tid; c < s_hi; c += nth) {
+        const int i = c - s_lo;
+        th[c] = loc[i] + expf(lsc[i]) * __ldg(eps_next + c);
       }
     }
 
-    // ---- every block: the per-task posteriors' gradients over the S samples
-    // in one order, Adam at lr_post
+    // ---- my tasks' posteriors: their gradients over the S samples in one
+    // order, Adam at lr_post; q_means on threads [0, rows), q_trils after
     const float* q_all = q.q_buf + static_cast<size_t>(par) * S * NQ;
-    for (int e = tid; e < M; e += nth) {
-      const int t = e / N;
-      const float mk = ms[e];
-      float ws_ = 0.f;
-      for (int j = 0; j < S; ++j) ws_ += __ldcg(q_all + static_cast<size_t>(j) * NQ + e);
+    for (int f = tid; f < rows * (N + 1); f += nth) {
+      const bool mean = f < rows;
+      const int e = mean ? f : f - rows;
+      const int i = e / (mean ? N : N * N);  // my task
       float n_eff = 0.f;
-      for (int i = 0; i < N; ++i) n_eff += ms[t * N + i];
-      const float ll_coef = uu[t] / (nv * n_eff);
-      const float r = ys[e] - qm[e] * mk;
-      const float g = -ll_coef * mk * r - mk * (gam[t] * ws_);
-      adam(g, qm[e], mqm[e], vqm[e], q.lr_post, bc1, bc2);
-    }
-    for (int e = tid; e < MN; e += nth) {
-      const int t = e / (N * N);
-      const int ij = e - t * N * N;
-      const int i = ij / N, j = ij - i * N;
-      float g = 0.f;
-      if (j <= i) {
-        const float mi = ms[t * N + i], mj = ms[t * N + j];
-        float l0 = qt[e] * mi * mj;
-        if (i == j) l0 += 1.f - mi;
-        float ps = 0.f;
-        for (int k = 0; k < S; ++k) ps += __ldcg(q_all + static_cast<size_t>(k) * NQ + M + e);
-        float n_eff = 0.f;
-        for (int c = 0; c < N; ++c) n_eff += ms[t * N + c];
-        float gl = gam[t] * ps;
-        if (i == j) gl -= (sf * gam[t]) * (signf(l0) / (fabsf(l0) + 1e-12f));
-        g = ((uu[t] / (nv * n_eff)) * l0 + gl) * mi * mj;
+#pragma unroll
+      for (int k = 0; k < N; ++k) n_eff += ms[i * N + k];
+      const float ll_coef = uu[i] / (nv * n_eff);
+      if (mean) {
+        const float mk = ms[e];
+        const float ws_ = sum_rows(q_all + q0 + e, NQ, S);
+        const float r = ys[e] - qm[e] * mk;
+        const float g = -ll_coef * mk * r - mk * (gam[i] * ws_);
+        adam(g, qm[e], mqm[e], vqm[e], q.lr_post, bc1, bc2);
+      } else {
+        const int ij = e - i * N * N;
+        const int a = ij / N, b = ij - a * N;
+        float g = 0.f;
+        if (b <= a) {
+          const float mi = ms[i * N + a], mj = ms[i * N + b];
+          float l0 = qt[e] * mi * mj;
+          if (a == b) l0 += 1.f - mi;
+          const float ps = sum_rows(q_all + M + q0 * N + e, NQ, S);
+          float gl = gam[i] * ps;
+          if (a == b) gl -= (sf * gam[i]) * (signf(l0) / (fabsf(l0) + 1e-12f));
+          g = ((uu[i] / (nv * n_eff)) * l0 + gl) * mi * mj;
+        }
+        adam(g, qt[e], mqt[e], vqt[e], q.lr_post, bc1, bc2);
       }
-      adam(g, qt[e], mqt[e], vqt[e], q.lr_post, bc1, bc2);
+    }
+    if (more) {  // the next sample whole, and the next step's outer KL
+      cluster.sync();
+      cluster_gather(cluster, th, P);
+      if (train) outer_kl(cluster, scal, q);
     }
     __syncthreads();
   }
+  cluster.sync();  // no CTA exits while another reads its shared memory
 
   if (me == 0) {
-    for (int c = tid; c < P && train; c += nth) {
-      q.loc[c] = loc[c];
-      q.lsc[c] = lsc[c];
-      q.m_loc[c] = mlo[c];
-      q.m_lsc[c] = mls[c];
-      q.v_loc[c] = vlo[c];
-      q.v_lsc[c] = vls[c];
+    for (int c = s_lo + tid; c < s_hi && train; c += nth) {
+      const int i = c - s_lo;
+      q.loc[c] = loc[i];
+      q.lsc[c] = lsc[i];
+      q.m_loc[c] = mlo[i];
+      q.m_lsc[c] = mls[i];
+      q.v_loc[c] = vlo[i];
+      q.v_lsc[c] = vls[i];
     }
-    for (int c = tid; c < M; c += nth) {
-      q.qm[c] = qm[c];
-      q.m_qm[c] = mqm[c];
-      q.v_qm[c] = vqm[c];
+    for (int c = tid; c < rows; c += nth) {
+      q.qm[q0 + c] = qm[c];
+      q.m_qm[q0 + c] = mqm[c];
+      q.v_qm[q0 + c] = vqm[c];
     }
-    for (int c = tid; c < MN; c += nth) {
-      q.qt[c] = qt[c];
-      q.m_qt[c] = mqt[c];
-      q.v_qt[c] = vqt[c];
+    for (int c = tid; c < rows * N; c += nth) {
+      q.qt[q0 * N + c] = qt[c];
+      q.m_qt[q0 * N + c] = mqt[c];
+      q.v_qt[q0 * N + c] = vqt[c];
     }
-    if (tid == 0 && train) {
+    if (rank == 0 && tid == 0 && train) {
       q.nu[0] = scal[8];
       q.m_nu[0] = scal[9];
       q.v_nu[0] = scal[10];
     }
   }
+}
+
+bool valid(int n, int d, int h, int l, int p, int c, int hs) {
+  return n >= 1 && n <= kMaxN && d >= 1 && h >= 1 && l >= 1 && p >= 1 && c >= 1 &&
+         c <= kMaxCluster && (hs == h || hs == h + 1);
 }
 
 }  // namespace
@@ -596,35 +709,37 @@ extern "C" int pacoh_fused_mlap(float* loc, float* lsc, float* qm, float* qt, fl
                                 const float* counts, const float* eps, const float* prior_loc,
                                 const float* prior_scale, const int* offs, float* kl_buf,
                                 float* q_buf, float* s_buf, float* out, int s, int t, int n, int d,
-                                int h, int l, int p, int n_steps, int meta_test, float step0,
-                                float lr_main, float lr_post, float u_scale, float tkw, float mkw,
-                                float neg_log_delta, float log_n_tasks, float cm2,
-                                float sum_log_sigma_p, int device, void* stream) {
+                                int h, int l, int p, int n_steps, int meta_test, int c, int hs,
+                                float step0, float lr_main, float lr_post, float u_scale,
+                                float tkw, float mkw, float neg_log_delta, float log_n_tasks,
+                                float cm2, float sum_log_sigma_p, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (s < 1 || s > kMaxS || n < 1 || n > kMaxN || t < 1 || d < 1 || h < 1 || l < 1 || p < 1 ||
-      n_steps < 1)
+  if (s < 1 || s > kMaxS || t < 1 || n_steps < 1 || !valid(n, d, h, l, p, c, hs))
     return static_cast<int>(cudaErrorInvalidValue);
-  const size_t bytes = smem_floats(t, n, d, h, l, p) * sizeof(float);
+  const size_t bytes = smem_floats(t, n, d, l, p, c, hs) * sizeof(float);
   if (bytes > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
-  err = cudaFuncSetAttribute(fused_mlap_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(bytes));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  // every block must be resident at once for the grid barrier
-  int per_sm = 0, n_sm = 0;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fused_mlap_kernel, kThreads, bytes);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  err = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, device);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (per_sm * n_sm < s) return static_cast<int>(cudaErrorCooperativeLaunchTooLarge);
+  const Params q{loc, lsc, qm, qt, nu, m_loc, m_lsc, m_qm, m_qt, m_nu, v_loc, v_lsc, v_qm, v_qt,
+                 v_nu, x, y, mask, counts, eps, prior_loc, prior_scale, offs, kl_buf, q_buf,
+                 s_buf, out, s, t, n, d, h, l, p, n_steps, meta_test, c, hs, step0, lr_main,
+                 lr_post, u_scale, tkw, mkw, neg_log_delta, log_n_tasks, cm2, sum_log_sigma_p};
+  return with_task_size(n, [&](auto nn) {
+    return cluster_launch(fused_mlap_kernel<decltype(nn)::value>, q, s, c, bytes,
+                          static_cast<cudaStream_t>(stream));
+  });
+}
 
-  Params q{loc, lsc, qm, qt, nu, m_loc, m_lsc, m_qm, m_qt, m_nu, v_loc, v_lsc, v_qm, v_qt, v_nu,
-           x, y, mask, counts, eps, prior_loc, prior_scale, offs, kl_buf, q_buf, s_buf, out,
-           s, t, n, d, h, l, p, n_steps, meta_test, step0, lr_main, lr_post, u_scale, tkw, mkw,
-           neg_log_delta, log_n_tasks, cm2, sum_log_sigma_p};
-  void* args[] = {&q};
-  err = cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(fused_mlap_kernel), dim3(s),
-                                    dim3(kThreads), args, bytes, static_cast<cudaStream_t>(stream));
+// Resident clusters of c CTAs of the kernel at this configuration, into *out
+// (cudaOccupancyMaxActiveClusters).
+extern "C" int pacoh_fused_mlap_clusters(int t, int n, int d, int h, int l, int p, int c, int hs,
+                                         int* out, int device, void* stream) {
+  (void)stream;
+  cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  return static_cast<int>(cudaGetLastError());
+  if (t < 1 || !valid(n, d, h, l, p, c, hs)) return static_cast<int>(cudaErrorInvalidValue);
+  const size_t bytes = smem_floats(t, n, d, l, p, c, hs) * sizeof(float);
+  if (bytes > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
+  return with_task_size(n, [&](auto nn) {
+    return cluster_capacity(fused_mlap_kernel<decltype(nn)::value>, c, bytes, out);
+  });
 }

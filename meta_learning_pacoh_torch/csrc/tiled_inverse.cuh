@@ -1,7 +1,9 @@
 // The inverse W = L^-1 of a factor held as csrc/tiled_chol.cuh leaves it, and
 // K^-1 = W^T W from it, in place, in 32-column tiles: the system algebra of the
 // big-N fused SVGD and VI kernels (csrc/fused_svgd_bign.cu, B10, and
-// csrc/fused_vi_bign.cu, B11, through csrc/bign_score.cuh).
+// csrc/fused_vi_bign.cu, B11, through csrc/bign_score.cuh), of the big-N
+// fused MAP kernel (csrc/fused_map_bign.cu, B9) and of the blocked MLL
+// backward (csrc/blocked_mll.cu, B4).
 //
 // The counterpart of assemble_w_inv and of the K^-1 = W^T W product of
 // meta_learning_pacoh_tpu/ops/pallas/fused_svgd_bign_kernel.py (:254-256)
@@ -22,7 +24,7 @@
 //                 thread held in registers, one block barrier, written
 //                 back over the block row's W (later block rows read only
 //                 rows below it), so about N/32 barriers.
-// A column at a time (blocked_factor.cuh) took two barriers and a warp's
+// The column-at-a-time design these replace took two barriers and a warp's
 // shuffle tree a column for the inverse and a serial dot a K^-1 entry.
 // Full float32 FMA throughout (TF32 breaks these matrices), each sum in one
 // fixed order, no atomics.

@@ -15,9 +15,11 @@ one of the K2/K3 kernels (ops/cuda/mll_kernel.py), at larger N. On the card
 each system is one block. The forward factors with the tiled design of
 csrc/tiled_chol.cuh, r carried as the factor's border row (so z comes out of
 the factorization), its packed triangle in shared memory up to
-``SHARED_MAX_N`` and in device memory above; the backward keeps the
-column-at-a-time algebra of csrc/blocked_factor.cuh, its matrix in shared
-memory up to ``BWD_SHARED_MAX_N`` (see the source).
+``SHARED_MAX_N`` and in device memory above; the backward inverts the factor
+with csrc/tiled_inverse.cuh's 32-column panels (W = L^-1, alpha = W^T z,
+K^-1 = W^T W in place) and writes dKn whole, its packed triangle in shared
+memory up to ``BWD_SHARED_MAX_N`` and in place in its output above (see the
+source).
 """
 
 import torch
@@ -37,7 +39,6 @@ from meta_learning_pacoh_torch.ops.cuda.mll_kernel import (
 
 BLOCKED_MIN_N = 49  # below: the K2/K3 kernels
 BLOCKED_MAX_N = 512  # the kernel's limit and the TPU kernel's window
-PANEL = 8  # csrc/blocked_factor.cuh kPanel (the backward)
 
 
 def blocked_in_shared(n):
@@ -46,11 +47,18 @@ def blocked_in_shared(n):
     return tiled_shared_bytes(n, n + 1) <= SMEM_BYTES
 
 
+def bwd_shared_bytes(n):
+    """Shared memory of a backward block holding its packed triangle, as
+    csrc/blocked_mll.cu lays it out: the tiled passes' scratch and the packed
+    lower triangle of N rows (``tiled_shared_bytes``), z and alpha, and the
+    16 diagonal tiles' log sums."""
+    return tiled_shared_bytes(n, n) + 4 * (2 * ((n + 3) & ~3) + 16)
+
+
 def blocked_bwd_in_shared(n):
-    """Whether the backward holds an N x N system in shared memory (as
-    csrc/blocked_mll.cu decides): the matrix with an odd leading dimension
-    and (PANEL + 3) N + 1 floats of vectors."""
-    return 4 * (n * (n | 1) + (PANEL + 3) * n + 1) <= SMEM_BYTES
+    """Whether the backward holds its packed triangle in shared memory (as
+    csrc/blocked_mll.cu decides)."""
+    return bwd_shared_bytes(n) <= SMEM_BYTES
 
 
 SHARED_MAX_N = max(n for n in range(1, BLOCKED_MAX_N + 1) if blocked_in_shared(n))
@@ -60,6 +68,12 @@ BWD_SHARED_MAX_N = max(n for n in range(1, BLOCKED_MAX_N + 1) if blocked_bwd_in_
 def blocked_fwd_blocks_per_sm(n, device="cuda"):
     """Resident forward blocks per SM at this N."""
     return blocks_per_sm("pacoh_blocked_mll_fwd_blocks_per_sm", n, device)
+
+
+def blocked_bwd_blocks_per_sm(n, device="cuda"):
+    """Resident backward blocks per SM at this N for a batch of more systems
+    than the card has SMs (a smaller batch runs one block an SM)."""
+    return blocks_per_sm("pacoh_blocked_mll_bwd_blocks_per_sm", n, device)
 
 
 # The plain versions: those of K2/K3, whose contract this kernel keeps at any N

@@ -20,10 +20,17 @@ Adam moments. The TPU kernel's packed layouts and pages existed to fill TPU
 lanes and are not ported: a noise page is the step's [S, P] standard
 normals, a count page the step's [T] task-draw counts.
 
-The window of the kernel (``fused_mlap_fits``): NN mean and NN kernel with
-feature_dim 1 and one hidden width, 1 <= S <= 32 samples, tasks of N <= 8
-points, and a block's shared memory holding the whole state, its Adam
-moments, one sample, its score and its activations.
+The kernel runs one thread-block cluster of C CTAs a sample
+(``cluster_plan`` chooses C and the activations' row stride; ``smem_bytes``
+mirrors a CTA's shared memory): each CTA holds the sample whole and owns a
+group of tasks, with their posteriors and moments, and a slice of P, with
+the hyper-posterior and its moments there. The window of the kernel
+(``fused_mlap_fits``) is fixed: NN mean and NN kernel with feature_dim 1
+and one hidden width, 1 <= S <= 32 samples, tasks of N <= 8 points, and the
+whole state, its Adam moments, one sample, its score and its activations
+within one block's shared memory (``window_bytes``), so that the learners'
+dispatch keeps its parity with the JAX learner's; ``cluster_plan`` finds a
+plan for every shape in it.
 """
 
 import math
@@ -36,9 +43,12 @@ from meta_learning_pacoh_torch.ops.chol import unrolled_cholesky, unrolled_solve
 from meta_learning_pacoh_torch.ops.cuda.build import launch
 from meta_learning_pacoh_torch.ops.cuda.chol_kernel import diag_ok
 from meta_learning_pacoh_torch.ops.cuda.fused_svgd_kernel import (
+    CLUSTER_SIZES,
+    RESIDENT_CLUSTERS,
     _device_operands,
     _prior_on,
     fused_prior,
+    slice_len,
 )
 from meta_learning_pacoh_torch.ops.kernels import softplus
 from meta_learning_pacoh_torch.ops.launch_sched import (
@@ -47,7 +57,7 @@ from meta_learning_pacoh_torch.ops.launch_sched import (
     staircase_lr,
 )
 
-MAX_S = 32  # samples, one block each
+MAX_S = 32  # samples, one cluster each
 MAX_N = 8  # the per-task algebra is unrolled in registers
 SMEM_BYTES = 232448  # shared memory one Hopper block can use
 STATE_KEYS = ("loc", "log_scale", "q_means", "q_trils", "raw_noise")
@@ -56,10 +66,63 @@ KL_JITTERS = (1e-6, 1e-4, 1e-2)
 _LOG_2PI = math.log(2.0 * math.pi)
 
 
-def smem_bytes(t, n, d, hidden, p):
-    """Shared memory of one block, as csrc/fused_mlap.cu lays it out."""
+def window_bytes(t, n, d, hidden, p):
+    """The bytes that bound the kernel's window: the whole state and its Adam
+    moments, one sample, its score and activations over all T*N rows."""
     m, h, n_layers = t * n, hidden[0], len(hidden)
     return 4 * (8 * p + 3 * m * (n + 1) + 2 * n_layers * m * h + m * (d + 4) + 8 * t + 48)
+
+
+def smem_bytes(t, n, d, hidden, p, c, hs):
+    """Shared memory of one CTA, as csrc/fused_mlap.cu lays it out: the sample
+    and the CTA's partial score, its rows' activation slots (row stride hs),
+    its rows, four floats a task, its tasks' posteriors and their moments,
+    its slice of the hyper-posterior and of both pairs of moments, the block
+    sums' partials, 16 scalars and the leaf offsets."""
+    tmax = -(-t // c)
+    rmax = tmax * n
+    n_layers = len(hidden)
+    return 4 * (2 * p + (n_layers + 1) * 2 * rmax * hs + rmax * (d + 4) + 4 * tmax
+                + 3 * rmax * (n + 1) + 6 * slice_len(p, c) + 40 + 16 + 4 * n_layers + 6)
+
+
+def cluster_plan(s, t, n, d, hidden, cluster=None):
+    """(C, hs) of a launch: the first size of ``CLUSTER_SIZES`` with no more
+    CTAs than tasks whose S clusters ``RESIDENT_CLUSTERS`` holds at once and
+    whose CTA fits in shared memory, with an odd activation row stride where
+    it fits (H otherwise); where none fits (a task or two of a wide net), the
+    smallest such size with more CTAs than tasks, whose CTAs without a task
+    hold only their slices. ``cluster`` forces C (the learners never pass
+    it)."""
+    hidden = tuple(int(h) for h in hidden)
+    p = fused_prior(d, hidden, 1.0, 1.0).dim
+    h = hidden[0]
+    if cluster is None:
+        sizes = ([c for c in CLUSTER_SIZES if c <= t]
+                 + [c for c in reversed(CLUSTER_SIZES) if c > t])
+        sizes = [c for c in sizes if s <= RESIDENT_CLUSTERS[c]]
+    else:
+        sizes = [int(cluster)]
+    for c in sizes:
+        for hs in dict.fromkeys((h | 1, h)):
+            if smem_bytes(t, n, d, hidden, p, c, hs) <= SMEM_BYTES:
+                return c, hs
+    raise ValueError(f"fused_mlap: no cluster plan for S={s}, T={t}, N={n}, D={d}, "
+                     f"hidden={hidden}, cluster={cluster}")
+
+
+def resident_clusters(t, n, d, hidden, plan, device="cuda"):
+    """Clusters of the plan's C CTAs resident at once on the card
+    (cudaOccupancyMaxActiveClusters, read by the kernel's C entry)."""
+    import ctypes
+
+    hidden = tuple(int(h) for h in hidden)
+    c, hs = plan
+    p = fused_prior(d, hidden, 1.0, 1.0).dim
+    out = ctypes.c_int(0)
+    launch("pacoh_fused_mlap_clusters", torch.empty(0, device=device), t, n, d, hidden[0],
+           len(hidden), p, c, hs, ctypes.addressof(out))
+    return out.value
 
 
 def fused_mlap_fits(s, t, n, d, hidden):
@@ -69,7 +132,7 @@ def fused_mlap_fits(s, t, n, d, hidden):
             and len(set(hidden)) == 1):
         return False
     p = fused_prior(d, hidden, 1.0, 1.0).dim
-    return smem_bytes(t, n, d, hidden, p) <= SMEM_BYTES
+    return window_bytes(t, n, d, hidden, p) <= SMEM_BYTES
 
 
 def sum_log_prior_scale(d, hidden, wps, bps):
@@ -251,7 +314,7 @@ def fused_mlap_train_ref(params, mu, nu, x, y, mask, eps, counts, step0, lr_main
 
 def fused_mlap_train(params, mu, nu, x, y, mask, eps, counts, step0, lr_main, lr_post, *,
                      hidden, wps, bps, task_kl_weight, meta_kl_weight, delta, n_tasks,
-                     meta_test=False, batch=None, n_steps):
+                     meta_test=False, batch=None, n_steps, cluster=None):
     """n_steps of PACOH-MLAP (or of its meta-test) on the state ``params`` and
     its Adam moments ``mu``, ``nu`` (dicts keyed by STATE_KEYS; in meta-test
     mode the moments need only Q_KEYS), all updated in place. Returns (last
@@ -262,8 +325,9 @@ def fused_mlap_train(params, mu, nu, x, y, mask, eps, counts, step0, lr_main, lr
     None (the full batch: u_t = 1/T; meta-test mode takes None, u_t = 1),
     with ``batch`` the draws a step (each page's sum); step0 the Adam step
     count before the first step; lr_main, lr_post the launch's learning
-    rates; n_tasks the bound's task count. The plain version for CPU tensors,
-    the kernel for CUDA tensors.
+    rates; n_tasks the bound's task count; ``cluster`` forces the cluster
+    size C (``cluster_plan``). The plain version for CPU tensors, the kernel
+    for CUDA tensors.
     """
     hidden = tuple(int(h) for h in hidden)
     if n_steps < 1:
@@ -300,8 +364,9 @@ def fused_mlap_train(params, mu, nu, x, y, mask, eps, counts, step0, lr_main, lr
     if not fused_mlap_fits(s, t, n, d, hidden) or p != fused_prior(d, hidden, 1.0, 1.0).dim:
         raise ValueError(f"fused_mlap: the kernel does not take S={s}, T={t}, N={n}, D={d}, "
                          f"hidden={hidden}, P={p}")
+    c, hs = cluster_plan(s, t, n, d, hidden, cluster)
     prior_loc, prior_scale, offs = _device_operands(d, hidden, float(wps), float(bps), dev)
-    kl_buf = torch.empty(2, s, t, dtype=torch.float32, device=dev)
+    kl_buf = torch.empty(2, s, t, 3, dtype=torch.float32, device=dev)
     q_buf = torch.empty(2, s, t * n * (n + 1), dtype=torch.float32, device=dev)
     s_buf = torch.empty(2, s, p, dtype=torch.float32, device=dev)
     out = torch.empty(5, dtype=torch.float32, device=dev)
@@ -316,7 +381,7 @@ def fused_mlap_train(params, mu, nu, x, y, mask, eps, counts, step0, lr_main, lr
            None if counts is None else counts.data_ptr(), eps.data_ptr(), prior_loc.data_ptr(),
            prior_scale.data_ptr(), offs.data_ptr(), kl_buf.data_ptr(), q_buf.data_ptr(),
            s_buf.data_ptr(), out.data_ptr(), s, t, n, d, hidden[0], len(hidden), p,
-           int(n_steps), int(bool(meta_test)), float(step0), float(lr_main), float(lr_post),
+           int(n_steps), int(bool(meta_test)), c, hs, float(step0), float(lr_main), float(lr_post),
            float(u_scale), float(task_kl_weight), float(meta_kl_weight), float(-math.log(delta)),
            float(math.log(float(n_tasks))), float(2.0 * (n_tasks - 1.0)),
            sum_log_prior_scale(d, hidden, float(wps), float(bps)))

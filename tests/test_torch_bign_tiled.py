@@ -14,13 +14,17 @@ unsynchronised phase applied as each is done, once in thread order and once
 in reverse, and every entry above the diagonal (a packed row's padding)
 NaN, so that a read-after-write fault or a missing mask shows. It is held
 against ``np.linalg.cholesky`` / ``np.linalg.inv`` and, for the score
-chain, against autograd of the kernels' plain MLL (``real_rows_mll``).
+chain, against autograd of the kernels' plain MLL (``real_rows_mll``). The
+blocked MLL backward (B4, csrc/blocked_mll.cu) runs the same inverse, alpha
+and K^-1 on the forward's factor, then writes dKn whole: that composition is
+held against its plain version ``blocked_mll_bwd_ref``.
 """
 
 import numpy as np
 import pytest
 import torch
 
+from meta_learning_pacoh_torch.ops.cuda.blocked_mll_kernel import blocked_mll_bwd_ref
 from meta_learning_pacoh_torch.ops.cuda import fused_svgd_bign_kernel as sb
 from meta_learning_pacoh_torch.ops.cuda import fused_vi_bign_kernel as vb
 from meta_learning_pacoh_torch.ops.cuda.chol_kernel import SMEM_BYTES
@@ -142,12 +146,17 @@ def wt_times(P, z):
     return np.array([sum(P.a[k, a] * z[k] for k in range(a, n)) for a in range(n)])
 
 
-def lauum(P, order):
-    """tiled_lauum: block rows of 32 from the top, each micro-tile held until
-    the block row's barrier."""
+def lauum(P, order, threads=512):
+    """tiled_lauum: block rows of 32 from the top (halved while one has more
+    micro-tiles than the block's threads), each micro-tile held until the
+    block row's barrier."""
     n = P.n
-    for r0 in range(0, n, TILE):
-        tr = -(-min(TILE, n - r0) // 4)
+    rh = TILE
+    while rh > 4 and any(-(-min(rh, n - r0) // 4) * (r0 // 4 + (-(-min(rh, n - r0) // 4) + 1) / 2)
+                         > threads for r0 in range(0, n, rh)):
+        rh //= 2
+    for r0 in range(0, n, rh):
+        tr = -(-min(rh, n - r0) // 4)
         tiles = [(r0 + 4 * R, 4 * C) for R in range(tr) for C in range(r0 // 4 + R + 1)]
         held = []
         for i0, c0 in tiles[::order]:
@@ -162,6 +171,23 @@ def lauum(P, order):
             for u in range(4):
                 if i0 + u < n:
                     P.store(i0 + u, c0, acc[u])
+
+
+def backward_schedule(L, z, gq, gl, order, threads=512):
+    """The B4 backward's algebra (csrc/blocked_mll.cu): L's lower triangle
+    packed, W = L^-1, alpha = W^T z and K^-1 = W^T W in place, then dKn_ab =
+    gl K^-1 - gq alpha_a alpha_b from the lower triangle (row a for b <= a,
+    row b above) and dr = 2 gq alpha."""
+    n = len(z)
+    P = Packed(n, n)
+    for i in range(n):
+        P.a[i, :i + 1] = L[i, :i + 1]
+    invert(P, order)
+    alpha = wt_times(P, z)
+    lauum(P, order, threads)
+    C = P.lower(n)
+    kinv = np.where(np.arange(n)[None, :] <= np.arange(n)[:, None], C, C.T)
+    return gl * kinv - gq * (alpha[:, None] * alpha[None, :]), 2.0 * gq * alpha
 
 
 def system(n, seed, ragged, diag_add=None):
@@ -283,6 +309,27 @@ def test_score_chain_on_the_schedule_matches_autograd(n, ragged):
     (w * ll * m.sum()).backward()
     np.testing.assert_allclose(d_mean, mean.grad.numpy(), atol=1e-10)
     np.testing.assert_allclose(d_feat, feat.grad.numpy(), atol=1e-9)
+
+
+@pytest.mark.parametrize("n,threads", [(49, 512), (97, 512), (97, 64), (200, 512)])
+def test_blocked_backward_composition_matches_plain(n, threads):
+    """The B4 backward's composition on the tiled schedule (invert, alpha,
+    lauum, the symmetric dKn and dr) against ``blocked_mll_bwd_ref`` in
+    float64, in both orders of each phase's micro-tiles; dKn comes out
+    exactly symmetric. At 64 emulated threads K^-1's block rows halve, as
+    they do past N = 280 at the kernel's 512."""
+    rs = np.random.RandomState(n + threads)
+    g = rs.randn(n, n + 3)
+    L = np.linalg.cholesky(g @ g.T / n + 0.5 * np.eye(n))
+    z, gq, gl = rs.randn(n), rs.randn(), rs.randn()
+    dkn_ref, dr_ref = (a[0].numpy() for a in blocked_mll_bwd_ref(
+        torch.from_numpy(L)[None], torch.from_numpy(z)[None],
+        torch.tensor([gq], dtype=torch.float64), torch.tensor([gl], dtype=torch.float64)))
+    for order in (1, -1):
+        dkn, dr = backward_schedule(L, z, gq, gl, order, threads)
+        assert np.array_equal(dkn, dkn.T)
+        np.testing.assert_allclose(dkn, dkn_ref, atol=1e-10 * np.abs(dkn_ref).max())
+        np.testing.assert_allclose(dr, dr_ref, atol=1e-10 * np.abs(dr_ref).max())
 
 
 def grid():

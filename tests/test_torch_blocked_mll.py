@@ -176,13 +176,13 @@ def test_gp_mll_batch_blocked_matches_jax_with_ragged_masks(monkeypatch):
 
 def test_shared_memory_edge_and_wrapper_checks():
     """The forward holds its packed system in shared memory up to N=307 and
-    the backward its square up to N=235 (the edges the card tests cross); the
-    CPU wrapper is the plain version; shapes out of the window are refused on
-    the card's path before any launch."""
+    the backward its packed triangle up to N=306 (the edges the card tests
+    cross); the CPU wrapper is the plain version; shapes out of the window are
+    refused on the card's path before any launch."""
     assert bk.SHARED_MAX_N == 307
     assert bk.blocked_in_shared(307) and not bk.blocked_in_shared(308)
-    assert bk.BWD_SHARED_MAX_N == 235
-    assert bk.blocked_bwd_in_shared(235) and not bk.blocked_bwd_in_shared(236)
+    assert bk.BWD_SHARED_MAX_N == 306
+    assert bk.blocked_bwd_in_shared(306) and not bk.blocked_bwd_in_shared(307)
     kn = torch.from_numpy(_psd(2, 50, seed=1))
     r = torch.ones(2, 50)
     for got, want in zip(bk.blocked_mll_fwd(kn, r), bk.blocked_mll_fwd_ref(kn, r)):
@@ -198,19 +198,26 @@ OPTIN_BYTES, SM_BYTES, BLOCK_RESERVED = 232448, 233472, 1024
 @pytest.mark.parametrize("name,rows_of,max_n,two_up_to", [
     ("chol", lambda n: n, 308, 208),
     ("blocked_fwd", lambda n: n + 1, 307, 207),
+    ("blocked_bwd", lambda n: n, 306, 206),
 ])
 def test_tiled_footprint_fits_where_claimed(name, rows_of, max_n, two_up_to):
     """The tiled kernels' shared-memory budget (csrc/tiled_chol.cuh, mirrored
-    by ``chol_kernel.tiled_shared_bytes``) fits a block's opt-in limit at every
-    N the wrappers hold in shared memory, and two blocks an SM up to N=208
-    (K4) / 207 (the B4 forward), bench.py's N=200 among them."""
-    in_shared = chol_kernel.chol_in_shared if name == "chol" else bk.blocked_in_shared
+    by ``chol_kernel.tiled_shared_bytes``; the B4 backward adds z, alpha and
+    the tiles' log sums, ``bwd_shared_bytes``) fits a block's opt-in limit at
+    every N the wrappers hold in shared memory, and two blocks an SM up to
+    N=208 (K4) / 207 (the B4 forward) / 206 (the B4 backward), bench.py's
+    N=200 among them."""
+    in_shared = {"chol": chol_kernel.chol_in_shared, "blocked_fwd": bk.blocked_in_shared,
+                 "blocked_bwd": bk.blocked_bwd_in_shared}[name]
+    def footprint(n):
+        if name == "blocked_bwd":
+            return bk.bwd_shared_bytes(n)
+        return chol_kernel.tiled_shared_bytes(n, rows_of(n))
     claimed = [n for n in range(1, 513) if in_shared(n)]
     assert claimed == list(range(1, max_n + 1))
     for n in claimed:
-        assert chol_kernel.tiled_shared_bytes(n, rows_of(n)) <= OPTIN_BYTES
-    two = [n for n in range(1, 513)
-           if 2 * (chol_kernel.tiled_shared_bytes(n, rows_of(n)) + BLOCK_RESERVED) <= SM_BYTES]
+        assert footprint(n) <= OPTIN_BYTES
+    two = [n for n in range(1, 513) if 2 * (footprint(n) + BLOCK_RESERVED) <= SM_BYTES]
     assert two == list(range(1, two_up_to + 1))
 
 

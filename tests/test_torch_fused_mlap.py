@@ -215,12 +215,12 @@ def test_plain_meta_test_steps_match_jax_optax():
 
 
 def test_kernel_window_and_constants():
-    """The kernel takes the sin_20 mlap shapes (135 KB of shared memory a
-    block) and refuses more than 32 samples, 9 points, two widths, or a
-    state beyond a block's shared memory; the hyper-prior's log-scale sum
-    is the JAX trainer's Python float."""
+    """The kernel takes the sin_20 mlap shapes (39 KB of shared memory a CTA
+    in clusters of 8) and refuses more than 32 samples, 9 points, two widths,
+    or a state beyond a block's shared memory; the hyper-prior's log-scale
+    sum is the JAX trainer's Python float."""
     assert mk.fused_mlap_fits(5, 20, 5, 1, (32, 32))
-    assert mk.smem_bytes(20, 5, 1, (32, 32), 2308) == 4 * 33772
+    assert mk.smem_bytes(20, 5, 1, (32, 32), 2308, 8, 33) == 4 * 9765
     assert not mk.fused_mlap_fits(33, 20, 5, 1, (32, 32))
     assert not mk.fused_mlap_fits(5, 20, 9, 1, (32, 32))
     assert not mk.fused_mlap_fits(5, 20, 5, 1, (32, 16))

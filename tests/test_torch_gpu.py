@@ -104,10 +104,10 @@ def test_mll_kernels_with_escalation(dev, n):
         assert_close_per_system(got.reshape(12, -1), want.reshape(12, -1))
 
 
-@pytest.mark.parametrize("n", [49, 200, 231, 232, 235, 236, 300, 307, 308, 512])
+@pytest.mark.parametrize("n", [49, 200, 231, 232, 235, 236, 300, 306, 307, 308, 512])
 def test_blocked_mll_kernels_with_escalation(dev, n):
     """B4 forward and backward against their plain versions: the forward's
-    system in shared memory up to N=307, the backward's up to 235, above in
+    system in shared memory up to N=307, the backward's up to 306, above in
     device memory; system 2 escalates to 1e-4 and system 4 to 1e-2. Then the
     autograd Function's values and gradients."""
     rs = np.random.RandomState(n)
@@ -116,7 +116,7 @@ def test_blocked_mll_kernels_with_escalation(dev, n):
     kn[4] = _escalating(n, -5e-3, rs)
     kn, r = kn.to(dev), torch.tensor(rs.randn(6, n), dtype=torch.float32, device=dev)
     assert bk.blocked_in_shared(n) == (n <= 307)
-    assert bk.blocked_bwd_in_shared(n) == (n <= 235)
+    assert bk.blocked_bwd_in_shared(n) == (n <= 306)
     cuda.reset_launch_counts()
     for got, want in zip(bk.blocked_mll_fwd(kn, r), bk.blocked_mll_fwd_ref(kn, r)):
         assert_close_per_system(got.reshape(6, -1), want.reshape(6, -1))
@@ -134,6 +134,29 @@ def test_blocked_mll_kernels_with_escalation(dev, n):
         grads.append((quad.detach(), logdet.detach(), kn_g.grad, r_g.grad))
     for got, want in zip(*grads):
         assert_close_per_system(got.reshape(6, -1), want.reshape(6, -1))
+
+
+@pytest.mark.parametrize("n", [200, 306, 307, 512])
+def test_blocked_bwd_is_symmetric_and_keeps_nan(dev, n):
+    """The B4 backward on the forward kernel's L and z, system 1 failing at
+    every jitter level: its dKn and dr come back all NaN, the others' dKn is
+    exactly symmetric and within rtol 1e-4 of the plain version; two blocks
+    an SM at N=200 (one wave at bench.py's B=200), one above N=206."""
+    rs = np.random.RandomState(n + 1)
+    kn = _psd(4, n, seed=n + 1)
+    kn[1] -= 10.0 * torch.eye(n)
+    kn, r = kn.to(dev), torch.tensor(rs.randn(4, n), dtype=torch.float32, device=dev)
+    _, _, L, z = bk.blocked_mll_fwd(kn, r)
+    gq = torch.tensor(rs.randn(4), dtype=torch.float32, device=dev)
+    gl = torch.tensor(rs.randn(4), dtype=torch.float32, device=dev)
+    dkn, dr = bk.blocked_mll_bwd(L, z, gq, gl)
+    assert bool(torch.isnan(dkn[1]).all()) and bool(torch.isnan(dr[1]).all())
+    keep = torch.tensor([0, 2, 3], device=dev)
+    assert not bool(torch.isnan(dkn[keep]).any()) and torch.equal(dkn[keep], dkn[keep].mT)
+    want = bk.blocked_mll_bwd_ref(L[keep], z[keep], gq[keep], gl[keep])
+    for got, w in zip((dkn[keep], dr[keep]), want):
+        assert_close_per_system(got, w)
+    assert bk.blocked_bwd_blocks_per_sm(n) == (2 if n <= 206 else 1)
 
 
 @pytest.mark.parametrize("n", [70, 200, 300, 308, 309, 512])
@@ -350,7 +373,7 @@ def test_fused_svgd_kernel_matches_plain(dev, case, cluster, monkeypatch):
 
 def test_fused_kernels_refuse_clusters_the_card_cannot_hold(dev):
     """32 clusters of 8 CTAs are more than the card holds at once (15 on an
-    H100 SXM): the C entries refuse the launch
+    H100 SXM): the C entries of B2, B7 and B8 refuse the launch
     (cudaErrorCooperativeLaunchTooLarge) and the wrappers raise."""
     (x, y, mask), theta, hp, rs = _fused_case(32, 20, 5, (32, 32), 1, False, dev)
     state = [theta, torch.zeros_like(theta), torch.zeros_like(theta)]
@@ -365,6 +388,15 @@ def test_fused_kernels_refuse_clusters_the_card_cannot_hold(dev):
     with pytest.raises(RuntimeError, match="CUDA error 720"):
         vk.fused_vi_train(*post, x, y, mask, w_t, eps, 0, 1e-3, 0.01, n_steps=2, cluster=8,
                           mll_const=vk.mll_constant(mask.cpu().numpy()), **kw)
+    mlap = {"loc": post[0], "log_scale": post[1], "q_means": torch.zeros(20, 5, device=dev),
+            "q_trils": torch.zeros(20, 5, 5, device=dev), "raw_noise": torch.zeros((), device=dev)}
+    moments = [{k: torch.zeros_like(v) for k, v in mlap.items()} for _ in range(2)]
+    assert lk.resident_clusters(20, 5, 1, (32, 32), lk.cluster_plan(32, 20, 5, 1, (32, 32),
+                                                                    cluster=8)) < 32
+    with pytest.raises(RuntimeError, match="CUDA error 720"):
+        lk.fused_mlap_train(mlap, *moments, x, y, mask, eps, None, 0, 1e-3, 1e-3, hidden=(32, 32),
+                            wps=0.5, bps=3.0, task_kl_weight=1.0, meta_kl_weight=1e-3, delta=0.1,
+                            n_tasks=20, n_steps=2, cluster=8)
 
 
 def test_mirror_of_resident_clusters_holds_on_the_card(dev):
@@ -375,6 +407,8 @@ def test_mirror_of_resident_clusters_holds_on_the_card(dev):
         assert fk.resident_clusters(10, 20, 5, 1, (32, 32), plan) >= fk.RESIDENT_CLUSTERS[c]
         vplan = vk.cluster_plan(10, 20, 5, 1, (32, 32), cluster=c)
         assert vk.resident_clusters(20, 5, 1, (32, 32), vplan) >= fk.RESIDENT_CLUSTERS[c]
+        lplan = lk.cluster_plan(5, 20, 5, 1, (32, 32), cluster=c)
+        assert lk.resident_clusters(20, 5, 1, (32, 32), lplan) >= fk.RESIDENT_CLUSTERS[c]
     for k in (1, 10, 32):
         plan = fk.cluster_plan(k, 20, 5, 1, (32, 32))
         assert fk.resident_clusters(k, 20, 5, 1, (32, 32), plan) >= k
@@ -737,13 +771,18 @@ MLAP_CASES = {
     "meta_test": (dict(), None, True, (20, 5, 1), None),
     "odd": (dict(svi_batch_size=3, mean_nn_layers=(16, 16, 16), kernel_nn_layers=(16, 16, 16)),
             7, False, (7, 7, 2), (7, 5, 7, 3, 7, 6, 2)),
+    "meta_test_t5": (dict(), None, True, (5, 5, 1), None),
 }
+MLAP_S = {"odd": 3}  # samples where a case is not the learner's default 5
 
 
-@pytest.mark.parametrize("case", sorted(MLAP_CASES))
-def test_fused_mlap_kernel_matches_plain(dev, case):
-    """B8 against its plain version on the card, 20 steps in one launch
-    from chip_smoke.py's well-conditioned state, with the twins' tolerances
+@pytest.mark.parametrize("case,cluster", [(case, c) for case in sorted(MLAP_CASES)
+                                          for c in plan_sizes(MLAP_S.get(case, 5),
+                                                              MLAP_CASES[case][3][0])])
+def test_fused_mlap_kernel_matches_plain(dev, case, cluster):
+    """B8, at each cluster size its plan can return, against its plain
+    version on the card, 20 steps in one launch from chip_smoke.py's
+    well-conditioned state, with the twins' tolerances
     (chip_smoke.compare_mlap)."""
     kw, batch, meta_test, (t, n, d), sizes = MLAP_CASES[case]
     rs = np.random.RandomState(len(case))
@@ -761,7 +800,7 @@ def test_fused_mlap_kernel_matches_plain(dev, case):
     got, want = chip_smoke.mlap_state(model), chip_smoke.mlap_state(model)
     cuda.reset_launch_counts()
     got_loss, _, _ = lk.fused_mlap_train(*got, model.X, model.Y, model.mask, eps, counts, 0, *lrs,
-                                         batch=batch, **kw8)
+                                         batch=batch, cluster=cluster, **kw8)
     assert cuda.LAUNCHES["fused_mlap"] == 1 and sum(cuda.LAUNCHES.values()) == 1
     want_loss, _, _ = lk.fused_mlap_train_ref(*want, model.X, model.Y, model.mask, eps, counts, 0,
                                               *lrs, **kw8)

@@ -6,6 +6,7 @@ one CUDA card.
     python3 tools/fused_phase_profile.py [--root DIR] [--work DIR] [--out FILE]
     python3 tools/fused_phase_profile.py --bign [--root DIR] [--work DIR] [--out FILE]
     python3 tools/fused_phase_profile.py --map [--root DIR] [--work DIR] [--out FILE]
+    python3 tools/fused_phase_profile.py --mlap [--root DIR] [--work DIR] [--out FILE]
 
 Copies ``meta_learning_pacoh_torch`` of the checkout ``--root`` (default:
 this one) into ``--work`` (default ``_scratch_tree/phase_profile``, which
@@ -35,6 +36,13 @@ runs 100 steps of B9 at ``map_t5_n200`` (5 tasks of N=200, F=2, NN/NN
 32x32, full batch) and 200 of B6 at the MAP demo's shapes (20 tasks of 5
 points, F=2), counted (task batch 5, the learner's count pages) and full
 batch, from the learners' initial states.
+
+``--mlap`` marks the fused PACOH-MLAP kernel B8 instead (each tree's layout:
+one block a sample, or one thread-block cluster a sample) and runs 200
+steps at bench.py's ``mlap`` shapes (S=5, 20 tasks of 5 points, NN/NN
+32x32, from the learner's initial state and its own pages), counted (the
+learner's count pages) and full batch, and 200 meta-test steps at T=5 and
+T=20 (the same phases without the backward).
 """
 
 import argparse
@@ -367,6 +375,71 @@ MAP_PARENT = {"header": "fused_map.cu (grid), fused_map_bign.cu (blocked_factor.
               "map": MAP_GRID_NAMES, "map_bign": MAP_BIGN_COLUMN_NAMES}
 
 
+# PACOH-MLAP (B8): the parent's layout, one block a sample on the one-block
+# passes of score_section.cuh, two grid barriers a step (one in meta-test mode)
+MLAP_NAMES = {0: "loop", 1: "outer KL, sample", 2: "both nets forward", 3: "per-task KL",
+              4: "grid barrier 1", 5: "bound, gamma, loss", 6: "both nets backward",
+              7: "publish the score", 8: "grid barrier 2",
+              9: "reduction over S, Adam (meta-test: the q side only)"}
+MLAP_ONE_BLOCK = {
+    "header": "fused_mlap.cu (one block a sample)",
+    "patches": [
+        ("fused_mlap.cu", "    const int par = it & 1;\n", "    prof_mark(0);\n"),
+        ("fused_mlap.cu", "2.f * q.sum_log_sigma_p - 2.f * a_ls));\n", "    prof_mark(1);\n"),
+        ("fused_mlap.cu", "    nets_forward(th, q.offs, M, D, H, L, ws);\n", "    prof_mark(2);\n"),
+        ("fused_mlap.cu", "      kl_pub[t] = kl;\n    }\n", "    __syncthreads();\n    prof_mark(3);\n"),
+        ("fused_mlap.cu", "    grid.sync();\n\n    // ---- every block: the bound",
+         "    grid.sync();\n    prof_mark(4);\n\n    // ---- every block: the bound", "replace"),
+        ("fused_mlap.cu", "    __syncthreads();\n\n    const float t_f",
+         "    __syncthreads();\n    prof_mark(5);\n\n    const float t_f", "replace"),
+        ("fused_mlap.cu", "        sc[off_nz] = 0.f;\n      }\n      __syncthreads();\n",
+         "      prof_mark(6);\n"),
+        ("fused_mlap.cu", "      for (int c = tid; c < P; c += nth) s_pub[c] = sc[c];\n",
+         "      __syncthreads();\n      prof_mark(7);\n"),
+        ("fused_mlap.cu", "      grid.sync();\n\n      // ---- every block: the hyper-posterior's",
+         "      grid.sync();\n      prof_mark(8);\n\n      // ---- every block: the hyper-posterior's",
+         "replace"),
+        ("fused_mlap.cu", "      adam(g, qt[e], mqt[e], vqt[e], q.lr_post, bc1, bc2);\n    }\n"
+         "    __syncthreads();\n", "    prof_mark(9);\n"),
+    ],
+    "mlap": MLAP_NAMES,
+}
+# one thread-block cluster a sample (cluster_score.cuh's passes), B7's layout
+MLAP_CLUSTER = {
+    "header": "fused_mlap.cu (one cluster a sample)",
+    "patches": [
+        ("fused_mlap.cu", "    const int par = it & 1;\n", "    prof_mark(0);\n"),
+        ("fused_mlap.cu", "    cluster_forward(th, o, D, H, L, w);\n", "    prof_mark(1);\n"),
+        ("fused_mlap.cu", "      kl_pub[3 * t + 2] = dvr;\n    }\n",
+         "    __syncthreads();\n    prof_mark(3);\n"),
+        ("fused_mlap.cu", "    grid.sync();\n\n    // ---- every CTA: every task's bound",
+         "    grid.sync();\n    prof_mark(4);\n\n    // ---- every CTA: every task's bound", "replace"),
+        ("fused_mlap.cu", "    block_sums<5>(v, red);\n", "    prof_mark(5);\n"),
+        ("fused_mlap.cu", "      cluster_backward<false>(th, sc, o, D, H, L, w, nullptr);\n",
+         "      __syncthreads();\n      prof_mark(6);\n"),
+        ("fused_mlap.cu", "      cluster.sync();\n      float* s_pub",
+         "      cluster.sync();\n      prof_mark(10);\n      float* s_pub", "replace"),
+        ("fused_mlap.cu", "s_pub[c] = cluster_sum(cluster, sc, c);\n",
+         "      __syncthreads();\n      prof_mark(7);\n"),
+        ("fused_mlap.cu", "      grid.sync();\n\n      // ---- every cluster: the gradients",
+         "      grid.sync();\n      prof_mark(8);\n\n      // ---- every cluster: the gradients",
+         "replace"),
+        ("fused_mlap.cu", "scal[9], scal[10], q.lr_main, bc1, bc2);\n      }\n",
+         "      __syncthreads();\n      prof_mark(9);\n"),
+        ("fused_mlap.cu", "        adam(g, qt[e], mqt[e], vqt[e], q.lr_post, bc1, bc2);\n      }\n"
+         "    }\n", "    __syncthreads();\n    prof_mark(11);\n"),
+        ("fused_mlap.cu", "      if (train) outer_kl(cluster, scal, q);\n    }\n"
+         "    __syncthreads();\n", "    prof_mark(12);\n"),
+    ],
+    "mlap": {0: "loop", 1: "both nets forward", 3: "per-task KL", 4: "grid barrier 1",
+             5: "bound, gamma, loss", 6: "both nets backward", 10: "cluster barrier A",
+             7: "cluster sum of the slice, publish", 8: "grid barrier 2",
+             9: "reduction over S, Adam of the slice (meta-test: the next sample)",
+             11: "reduction over S, Adam of the tasks' posteriors",
+             12: "cluster barrier B, gather, outer KL"},
+}
+
+
 def map_layout(csrc):
     """The layout of a tree's B6 and B9 sources."""
     with open(os.path.join(csrc, "fused_map_bign.cu")) as f:
@@ -383,13 +456,17 @@ def patch(body, anchor, text, how="after"):
                                  "replace": text}[how])
 
 
-def patched_copy(root, work, bign=False, map_kernels=False):
+def patched_copy(root, work, bign=False, map_kernels=False, mlap=False):
     src = os.path.join(os.path.abspath(root), "meta_learning_pacoh_torch")
     dst = os.path.join(work, "meta_learning_pacoh_torch")
     shutil.rmtree(work, ignore_errors=True)
     shutil.copytree(src, dst, ignore=shutil.ignore_patterns("_build", "__pycache__"))
     csrc = os.path.join(dst, "csrc")
-    if map_kernels:
+    if mlap:
+        with open(os.path.join(csrc, "fused_mlap.cu")) as f:
+            layout = (MLAP_CLUSTER if '#include "cluster_score.cuh"' in f.read()
+                      else MLAP_ONE_BLOCK)
+    elif map_kernels:
         layout = map_layout(csrc)
     elif bign:
         layout = BIGN_TILED if os.path.exists(os.path.join(csrc, "tiled_inverse.cuh")) else BIGN_COLUMN
@@ -403,7 +480,9 @@ def patched_copy(root, work, bign=False, map_kernels=False):
                 texts[name] = f.read()
         return texts[name]
 
-    if bign or map_kernels:  # the patched headers are included by several sources: marks in each
+    if mlap:
+        texts["fused_mlap.cu"] = patch(text("fused_mlap.cu"), "namespace {\n", PROF)
+    elif bign or map_kernels:  # the patched headers are included by several sources: marks in each
         for name in os.listdir(csrc):
             if name.endswith(".cu"):
                 texts[name] = patch(text(name), "namespace {\n", PROF)
@@ -414,7 +493,8 @@ def patched_copy(root, work, bign=False, map_kernels=False):
             texts[name] = patch(text(name), anchor, insert, *how)
         except RuntimeError as e:
             raise RuntimeError(f"{e} (in {name})") from None
-    kinds = ("map", "map_bign") if map_kernels else ("svgd_bign", "vi_bign") if bign else ("svgd", "vi")
+    kinds = (("mlap",) if mlap else ("map", "map_bign") if map_kernels
+             else ("svgd_bign", "vi_bign") if bign else ("svgd", "vi"))
     for label in kinds:
         texts[f"fused_{label}.cu"] = text(f"fused_{label}.cu") + READER % label
     for name, body in texts.items():
@@ -431,19 +511,22 @@ def main():
     parser.add_argument("--out")
     parser.add_argument("--bign", action="store_true", help="profile B10 and B11 instead")
     parser.add_argument("--map", action="store_true", help="profile B9 and B6 instead")
+    parser.add_argument("--mlap", action="store_true", help="profile B8 instead")
     args = parser.parse_args()
     import numpy as np
     import torch
 
     if not torch.cuda.is_available():
         sys.exit("fused_phase_profile: no CUDA device")
-    layout = patched_copy(args.root, os.path.abspath(args.work), args.bign, args.map)
+    layout = patched_copy(args.root, os.path.abspath(args.work), args.bign, args.map, args.mlap)
     sys.path.insert(0, os.path.abspath(args.work))
     from meta_learning_pacoh_torch.ops.cuda import build
 
     lib = build.library()
     steps = BIGN_STEPS if args.bign else STEPS
-    if args.map:
+    if args.mlap:
+        runs = mlap_runs()
+    elif args.map:
         runs = map_runs()
     elif args.bign:
         runs = bign_runs(steps)
@@ -561,6 +644,47 @@ def map_runs():
             n_steps=n), STEPS),
         "demo, full batch (B6)": ("map", lambda n: mk.fused_map_train(
             *full_s, *data, 0, 1e-3, 0.2, layout=demo.layout, n_steps=n), STEPS),
+    }
+
+
+def mlap_runs():
+    """label -> (kernel, run(n_steps), steps): B8 at bench.py's mlap shapes
+    from the learner's initial state and its own pages, counted and full
+    batch, and in meta-test mode at T=5 (five test context sets) and T=20
+    (chip_smoke.py's learners)."""
+    sys.path.insert(1, os.path.dirname(HERE))
+    import chip_smoke as cs
+    from meta_learning_pacoh_torch.ops.cuda import fused_mlap_kernel as mk
+
+    train, test = cs.sin20()
+    model = cs.mlap_model(train)
+    ctx = cs.mlap_model([t[:2] for t in test[:5]])
+    kw = dict(hidden=(32, 32), wps=0.5, bps=3.0, task_kl_weight=1.0, meta_kl_weight=1e-3,
+              delta=0.1, n_tasks=20)
+    trainer = mk.FusedMLAPTrainer(
+        model.X, model.Y, model.mask, hidden=(32, 32), lr=1e-3, posterior_lr_multiplier=1.0,
+        svi_batch_size=model.svi_batch_size, task_batch_size=20, task_kl_weight=1.0,
+        meta_kl_weight=1e-3, delta=0.1, weight_prior_std=0.5, bias_prior_std=3.0,
+        eps_draw=model._draw_eps, task_draw=model._task_draw)
+    eps, counts = trainer.eps_pages(0, STEPS), trainer.count_pages(0, STEPS)
+    counted, full, mt20, mt5 = (cs.mlap_state(m) for m in (model, model, model, ctx))
+
+    def fit(state, cnt):
+        return lambda n: mk.fused_mlap_train(
+            *state, model.X, model.Y, model.mask, eps[:n].contiguous(),
+            None if cnt is None else cnt[:n].contiguous(), 0, 1e-3, 1e-3,
+            batch=None if cnt is None else 20, n_steps=n, **kw)
+
+    def meta_test(state, m):
+        return lambda n: mk.fused_mlap_train(
+            *state, m.X, m.Y, m.mask, eps[:n].contiguous(), None, 0, 0.0, 1e-2, meta_test=True,
+            n_steps=n, **kw)
+
+    return {
+        "mlap, counted (the learner's pages)": ("mlap", fit(counted, counts), STEPS),
+        "mlap, full batch": ("mlap", fit(full, None), STEPS),
+        "mlap meta-test, T=20": ("mlap", meta_test(mt20, model), STEPS),
+        "mlap meta-test, T=5": ("mlap", meta_test(mt5, ctx), STEPS),
     }
 
 

@@ -6,6 +6,7 @@ on one CUDA card.
     python3 tools/fused_step_bench.py [--root DIR] [--out FILE] [--clusters 1,2,4,5,8]
     python3 tools/fused_step_bench.py --bign [--root DIR] [--out FILE]
     python3 tools/fused_step_bench.py --map [--root DIR] [--out FILE] [--clusters 1,2,4,8,16]
+    python3 tools/fused_step_bench.py --mlap [--root DIR] [--out FILE] [--clusters 1,2,4,5,8]
 
 ``--root`` imports ``meta_learning_pacoh_torch`` from another checkout (an
 unpacked parent commit), so that two trees can be timed on the same card:
@@ -35,6 +36,15 @@ counted (task batch 5, launches of 512 steps from the learner's count
 pages) and full batch (launches of 200 steps). Where the tree's B6 wrapper
 takes a ``cluster`` keyword, B6 is also timed at every size of
 ``--clusters`` the card holds.
+
+``--mlap`` times the fused PACOH-MLAP kernel B8 instead, from the learner's
+own data, initial state and pages (chip_smoke.py's ``mlap`` learner: S=5, 20
+tasks of 5 points, NN/NN 32x32): the fit counted (the learner's count pages)
+and full batch, the meta-test mode at T=5 (five test context sets) and T=20,
+each in launches of 200 steps, and phase 2's odd shape (S=3, 7 ragged tasks
+of up to 7 points, D=2, nets (16,16,16)). Where the tree's wrapper takes a
+``cluster`` keyword, every shape is also timed at each size of ``--clusters``
+that is no larger than its task count.
 """
 
 import argparse
@@ -190,6 +200,57 @@ def map_rows(clusters):
     return rows
 
 
+def mlap_rows(clusters):
+    """B8 a step (see the module's docstring)."""
+    import numpy as np
+
+    sys.path.insert(1, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    import chip_smoke as cs
+    from meta_learning_pacoh_torch.ops.cuda import fused_mlap_kernel as mk
+
+    train, test = cs.sin20()
+    rs = np.random.RandomState(8)  # chip_smoke.phase2_b8's odd shape
+    odd_kw = dict(svi_batch_size=3, mean_nn_layers=(16, 16, 16), kernel_nn_layers=(16, 16, 16))
+    odd = cs.mlap_model(cs.conditioned_tasks(rs, 7, 7, 2, (7, 5, 7, 3, 7, 6, 2)), **odd_kw)
+    fit, ctx = cs.mlap_model(train), cs.mlap_model([t[:2] for t in test[:5]])
+    clustered = "cluster" in inspect.signature(mk.fused_mlap_train).parameters
+    rows = []
+    for label, model, counted, meta_test in (("mlap, counted", fit, True, False),
+                                             ("mlap, full batch", fit, False, False),
+                                             ("mlap meta-test, T=5", ctx, False, True),
+                                             ("mlap meta-test, T=20", fit, False, True),
+                                             ("odd shape, counted", odd, True, False)):
+        t, n, d = model.X.shape
+        hidden = tuple(model.cfg.mean_nn_layers)
+        trainer = mk.FusedMLAPTrainer(
+            model.X, model.Y, model.mask, hidden=hidden, lr=1e-3, posterior_lr_multiplier=1.0,
+            svi_batch_size=model.svi_batch_size, task_batch_size=t, task_kl_weight=1.0,
+            meta_kl_weight=1e-3, delta=0.1, weight_prior_std=0.5, bias_prior_std=3.0,
+            eps_draw=model._draw_eps, task_draw=model._task_draw)
+        eps = trainer.eps_pages(0, STEPS)
+        counts = trainer.count_pages(0, STEPS) if counted else None
+        kw = dict(hidden=hidden, wps=0.5, bps=3.0, task_kl_weight=1.0, meta_kl_weight=1e-3,
+                  delta=0.1, n_tasks=20 if meta_test else t, meta_test=meta_test,
+                  batch=t if counted else None, n_steps=STEPS)
+        lrs = (0.0, 1e-2) if meta_test else (1e-3, 1e-3)
+        for c in [None] + ([c for c in clusters if c <= t] if clustered else []):
+            forced = {} if c is None else {"cluster": c}
+            state = cs.mlap_state(model)
+            try:
+                ms = per_step_ms(lambda: mk.fused_mlap_train(
+                    *state, model.X, model.Y, model.mask, eps, counts, 0, *lrs, **kw, **forced))
+            except RuntimeError as e:  # a cluster size the card does not hold
+                print(f"B8 {label} C={c}: {e}")
+                continue
+            plan = (list(mk.cluster_plan(model.svi_batch_size, t, n, d, hidden, c)) if clustered
+                    else None)
+            name = "plan" if c is None else f"C={c}"
+            print(f"B8 {label} (S={model.svi_batch_size}, T={t}, N={n}, D={d}, {hidden}) {name} "
+                  f"{plan}: {ms:.5f} ms a step")
+            rows.append({"kernel": "B8", "shape": label, "cluster": c, "plan": plan, "ms": ms})
+    return rows
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--root", default=os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
@@ -198,6 +259,7 @@ def main():
                         "(default 1,2,4,5,8; with --map 1,2,4,8,16)")
     parser.add_argument("--bign", action="store_true", help="time B10 and B11 instead")
     parser.add_argument("--map", action="store_true", help="time B9 and B6 instead")
+    parser.add_argument("--mlap", action="store_true", help="time B8 instead")
     args = parser.parse_args()
     sys.path.insert(0, os.path.abspath(args.root))
     import numpy as np
@@ -209,6 +271,11 @@ def main():
 
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, check=True, timeout=60).stdout.strip()
+    if args.mlap:
+        emit(args, {"root": os.path.abspath(args.root),
+                    "package": os.path.dirname(meta_learning_pacoh_torch.__file__), "card": card,
+                    "rows": mlap_rows([int(c) for c in (args.clusters or "1,2,4,5,8").split(",")])})
+        return
     if args.map:
         emit(args, {"root": os.path.abspath(args.root),
                     "package": os.path.dirname(meta_learning_pacoh_torch.__file__), "card": card,
