@@ -8,7 +8,20 @@
 Phase 0 requires CUDA and prints the card's name and power limit.
 Phase 1 builds the hand-written kernels from ``meta_learning_pacoh_torch/csrc``.
 Phase 2 holds each kernel against its plain PyTorch version on the card, at
-the shapes its main path gives it, and times both: K1-K3 at ``cauchy_20``'s,
+the shapes its main path gives it, and times both; the pure kernels (K1-K4,
+B4, B5) as device time (``device_pair``: calls queued behind a device-side
+wait, then an event pair around 100 of them), with the single-call wall
+beside it: K1 at ``cauchy_20``'s [10, 2372] and at its SE learner's [10,
+1188] (the cluster plans printed), at K=1 (against exact distances) and
+K=32 (also at P=20000, past the staged slices), at a ragged P=2371, at
+P=37 and P=3 (smaller than one CTA's slice), two calls giving the same
+bits; K2 on escalating systems at B=200, N=20
+(timed beside ``cholesky_ex``), at B=1, at B=1000 and B=7 (no multiple of
+the systems a block) and at N in {32, 33, 48, 64}, each batch but the timed
+one with a system that fails at every jitter level (non-finite where the
+plain version is); K3 on the plain version's and on K2's own L and z (timed
+beside ``cholesky_inverse``); ptxas' registers and spills of both kernels'
+instances (none may spill);
 K4 at the evals' B=2000 and B=200 (N=200, beside ``torch.linalg.cholesky_ex``),
 at its tiles' and shared-memory edges N in {65, 96, 97, 129, 308, 309, 512},
 with its resident blocks per SM,
@@ -171,6 +184,18 @@ PEAK_FLOPS, PEAK_BYTES = 67e12, 3.35e12
 GENERAL_STEP_KERNELS = ("svgd_phi", "mll_fwd", "mll_bwd", "chol")
 # per-system error, normalised by the system's largest |plain| value
 KERNEL_RTOL = 2e-4
+# the pure kernels' device time: calls queued behind a device-side wait of
+# this many cycles a second of host enqueue time (above the H100's 1980 MHz)
+QUEUED_RUN, SLEEP_CYCLES_PER_S = 100, 2.5e9
+PROFILED_CALLS = 20  # calls of a plain version whose kernels torch.profiler sums
+# how each plain version's and library call's device time was taken, by
+# "<kernel> plain" / "<kernel> library": "queued", or "kernel sum" for a call
+# that reads back to the host and so cannot be queued: its function waits in
+# UNQUEUED until settle_kernel_sums, after the last phase, since a
+# torch.profiler session may slow the host's later launches, which phases 3-9
+# time ("host included" until then)
+TIMED_AS = {}
+UNQUEUED = {}
 FIT_STEPS = 500
 TWIN_STEPS = 20
 # particles after TWIN_STEPS Adam steps from one state: max difference a tenth
@@ -322,6 +347,123 @@ def time_pair(kernel, plain, reps=10):
     return statistics.median(k), statistics.median(p)
 
 
+def device_ms(fn, run=QUEUED_RUN):
+    """ms a call of ``run`` calls queued behind a device-side wait
+    (``torch.cuda._sleep``) long enough for the host to enqueue them all, so
+    that the host's time is outside the event pair; and whether the host
+    caught up all the same (a call that reads a value back to the host
+    cannot be queued: its time then holds the host's)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(run):
+        fn()
+    torch.cuda.synchronize()
+    enqueue_s = time.perf_counter() - t0
+    for _ in range(3):
+        torch.cuda._sleep(int(SLEEP_CYCLES_PER_S * (2.0 * enqueue_s + 2e-3)))
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(run):
+            fn()
+        end.record()
+        queued = not start.query()
+        end.synchronize()
+        if queued:
+            return start.elapsed_time(end) / run, False
+        enqueue_s *= 2.0
+    return start.elapsed_time(end) / run, True
+
+
+def profiled_ms(fn, calls=PROFILED_CALLS):
+    """Device ms a call: the durations of the kernels and copies that
+    ``torch.profiler`` records on the card over ``calls`` calls, summed (the
+    gaps between them left out), over ``calls``; None where it records
+    none."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    # the card's own events only: a CPU op's device time repeats its kernels'
+    us = sum(e.time_range.elapsed_us() for e in prof.events()
+             if e.device_type == DeviceType.CUDA and not getattr(e, "is_user_annotation", False))
+    return us / 1e3 / calls if us > 0 else None
+
+
+def note_unqueued(key, fn, host):
+    """Record how the time of ``key`` ("<kernel> plain" / "<kernel>
+    library") was taken; a call that could not be queued waits in UNQUEUED
+    for its kernels' sum."""
+    TIMED_AS[key] = "host included" if host else "queued"
+    if host:
+        UNQUEUED[key] = fn
+
+
+def device_pair(name, kernel, plain, walls, run=QUEUED_RUN):
+    """Device ms a call of a kernel and of its plain version (``device_ms``),
+    in turns: plain, kernel, kernel, plain, each the mean of its two runs;
+    the kernel's single-call wall (one event pair around one synchronised
+    call, median of 10) into ``walls[name]``; a plain version that could
+    not be queued into UNQUEUED."""
+    import torch
+
+    kernel(), plain()
+    torch.cuda.synchronize()
+    p1, p1_host = device_ms(plain, run)
+    k1, k_host = device_ms(kernel, run)
+    k2, _ = device_ms(kernel, run)
+    p2, p2_host = device_ms(plain, run)
+    if k_host:
+        raise AssertionError(f"{name}: the kernel's calls could not be queued ahead of the card")
+    walls[name] = statistics.median(median_ms(kernel, 10))
+    note_unqueued(f"{name} plain", plain, p1_host or p2_host)
+    how = ("host included; its kernels' sum after the last phase" if p1_host or p2_host
+           else "queued")
+    print(f"  {name}: device {k1:.5f} / {k2:.5f} ms a call over {run} queued calls, plain "
+          f"{p1:.5f} / {p2:.5f} ({how}); single-call wall {walls[name]:.5f} ms")
+    return 0.5 * (k1 + k2), 0.5 * (p1 + p2)
+
+
+def library_time(name, fn, run=QUEUED_RUN):
+    """Device ms a call of a kernel's library yardstick (``device_ms``),
+    into UNQUEUED if it could not be queued."""
+    ms, host = device_ms(fn, run)
+    note_unqueued(f"{name} library", fn, host)
+    return ms
+
+
+def settle_kernel_sums(times, library):
+    """Replace each recorded plain version's and library call's time that
+    holds host time (UNQUEUED) by the sum of its kernels' device times
+    (``profiled_ms``, up to three tries), now that no phase is left for a
+    profiler session to slow."""
+    for key, fn in UNQUEUED.items():
+        name, what = key.rsplit(" ", 1)
+        if name not in times:  # a shape printed in phase 2, not recorded
+            continue
+        for _ in range(3):
+            summed = profiled_ms(fn)
+            if summed is not None:
+                break
+        if summed is None:
+            print(f"  {key}: torch.profiler recorded no device time; host time stays included")
+            continue
+        if what == "plain":
+            times[name] = (times[name][0], summed)
+        else:
+            library[name] = summed
+        TIMED_AS[key] = "kernel sum"
+        print(f"  {key}: {summed:.5f} ms a call, the sum of its kernels' device times")
+
+
 def system_err(got, want):
     """(max abs error, max per-system error / max |want| of that system)."""
     import torch
@@ -378,58 +520,11 @@ def phase2(param_dim):
 
     gen = torch.Generator().manual_seed(0)
     # work[name] = (flops, bytes) of one timed call (B2, B6: of one step);
-    # library[name] = ms of one PyTorch call computing the same function
-    errs, times, work, library = {}, {}, {}, {}
+    # library[name] = ms of one PyTorch call computing the same function;
+    # walls[name] = a pure kernel's single-call wall
+    errs, times, work, library, walls = {}, {}, {}, {}, {}
 
-    # K1 at the slice's [K, P]
-    x = torch.randn(10, param_dim, generator=gen).cuda()
-    s = 10.0 * torch.randn(10, param_dim, generator=gen).cuda()
-    check("svgd_phi", svgd_kernel.svgd_phi_fused(x, s)[None],
-          svgd_kernel.svgd_phi_ref(x, s)[None], errs)
-    times["svgd_phi"] = time_pair(lambda: svgd_kernel.svgd_phi_fused(x, s),
-                                  lambda: svgd_kernel.svgd_phi_ref(x, s))
-    # distances, the kernel row sums and two K x K by K x P products
-    work["svgd_phi"] = (7 * 10 * 10 * param_dim, 4 * 3 * 10 * param_dim)
-
-    # K2/K3 at the slice's B = K*T = 200 systems of N = 20, with systems whose
-    # factorization needs the 1e-4 and the 1e-2 jitter
-    b, n = 200, 20
-    kn = spd(b, n, gen, scale=0.5)
-    for i in (3, 50, 120):
-        kn[i] = escalating_systems(n, gen, -5e-5)
-    for i in (7, 160):
-        kn[i] = escalating_systems(n, gen, -5e-3)
-    r = torch.randn(b, n, generator=gen).cuda()
-    eye = torch.eye(n, device="cuda")
-    ok = [chol_kernel.diag_ok(chol_kernel.cholesky_ref(kn + j * eye))
-          for j in mll_kernel.JITTERS]
-    level = torch.where(ok[0], 0, torch.where(ok[1], 1, 2))
-    if not {0, 1, 2} <= set(level.tolist()):
-        raise AssertionError(f"escalation levels hit: {sorted(set(level.tolist()))}")
-    got = mll_kernel.mll_fwd(kn, r)
-    want = mll_kernel.mll_fwd_ref(kn, r)
-    for label, g_, w_ in zip(("quad", "logdet", "L", "z"), got, want):
-        check("mll_fwd", g_[:, None] if g_.dim() == 1 else g_,
-              w_[:, None] if w_.dim() == 1 else w_, errs)
-        print(f"    ({label})")
-    L, z = want[2], want[3]
-    gq = torch.randn(b, generator=gen).cuda()
-    gl = torch.randn(b, generator=gen).cuda()
-    for label, g_, w_ in zip(("dkn", "dr"), mll_kernel.mll_bwd(L, z, gq, gl),
-                             mll_kernel.mll_bwd_ref(L, z, gq, gl)):
-        check("mll_bwd", g_, w_, errs)
-        print(f"    ({label})")
-    times["mll_fwd"] = time_pair(lambda: mll_kernel.mll_fwd(kn, r),
-                                 lambda: mll_kernel.mll_fwd_ref(kn, r))
-    times["mll_bwd"] = time_pair(lambda: mll_kernel.mll_bwd(L, z, gq, gl),
-                                 lambda: mll_kernel.mll_bwd_ref(L, z, gq, gl))
-    # one factorization a system per jitter level it needed, the solve, quad
-    # and logdet; in: Kn, r; out: quad, logdet, L, z (the backward's in and
-    # out have the same size: L, z, gq, gl; dKn, dr)
-    n_fact = float((level + 1).sum())
-    mll_bytes = 4 * (2 * b * n * n + 2 * b * n + 2 * b)
-    work["mll_fwd"] = (n_fact * n ** 3 / 3 + b * (n * n + 3 * n), mll_bytes)
-    work["mll_bwd"] = (b * (2 * n ** 3 / 3 + 3 * n * n), mll_bytes)
+    phase2_general(param_dim, gen, errs, times, work, library, walls)
 
     # K4 at the eval's shape: 200 test tasks x 10 particles of N = 200, with
     # one indefinite matrix that must come back NaN as in the plain version
@@ -458,32 +553,183 @@ def phase2(param_dim):
     # the evals' batches: cauchy_20 and vi_t5_n200 (B=2000), svgd_t5_n200 and
     # map_t5_n200 (B=200)
     a200 = a[:200].clone()
-    k_ms, p_ms = time_pair(lambda: chol_kernel.cholesky_fused(a200),
-                           lambda: chol_kernel.cholesky_ref(a200), reps=10)
-    lib_ms = statistics.median(median_ms(lambda: torch.linalg.cholesky_ex(a200), 10))
-    print(f"  chol at B=200, N=200: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, "
-          f"torch.linalg.cholesky_ex {lib_ms:.4f} ms (median)")
-    times["chol"] = time_pair(lambda: chol_kernel.cholesky_fused(a),
-                              lambda: chol_kernel.cholesky_ref(a), reps=5)
+    k_ms, p_ms = device_pair("chol at B=200", lambda: chol_kernel.cholesky_fused(a200),
+                             lambda: chol_kernel.cholesky_ref(a200), walls)
+    lib_ms = device_ms(lambda: torch.linalg.cholesky_ex(a200))[0]
+    print(f"  chol at B=200, N=200: kernel {k_ms:.5f} ms, plain {p_ms:.5f} ms, "
+          f"torch.linalg.cholesky_ex {lib_ms:.5f} ms (device)")
+    times["chol"] = device_pair("chol", lambda: chol_kernel.cholesky_fused(a),
+                                lambda: chol_kernel.cholesky_ref(a), walls, run=20)
     # in: the lower triangle of each matrix (all the kernel reads); out: the square
     work["chol"] = (2000 * 200 ** 3 / 3, 4 * 2000 * (200 * 201 // 2 + 200 * 200))
-    library["chol"] = statistics.median(median_ms(lambda: torch.linalg.cholesky_ex(a), 5))
+    library["chol"] = library_time("chol", lambda: torch.linalg.cholesky_ex(a), run=20)
     phase2_b2(errs, times, work)
     phase2_b6(errs, times, work)
     phase2_b7(errs, times, work)
-    phase2_b4(errs, times, work, library)
+    phase2_b4(errs, times, work, library, walls)
     phase2_b9(errs, times, work)
-    phase2_b5(errs, times, work, library)
+    phase2_b5(errs, times, work, library, walls)
     phase2_b8(errs, times, work)
     phase2_b10(errs, times, work)
     phase2_b11(errs, times, work)
     bign_escalation()
     for name, (k_ms, p_ms) in times.items():
         unit = "ms a step" if name.startswith("fused") else "ms"
-        call = "torch.cholesky_inverse" if name == "blocked_bwd" else "torch.linalg.cholesky_ex"
-        lib = f", {call} {library[name]:.4f} ms" if name in library else ""
-        print(f"  {name}: kernel {k_ms:.4f} {unit}, plain {p_ms:.4f} {unit} (median){lib}")
+        call = ("torch.cholesky_inverse" if name in ("blocked_bwd", "mll_bwd")
+                else "torch.linalg.cholesky_ex")
+        lib = (f", {call} {library[name]:.5f} ms ({TIMED_AS[f'{name} library']})"
+               if name in library else "")
+        how = (f"device time, queued; plain: {TIMED_AS[f'{name} plain']}; single-call wall "
+               f"{walls[name]:.5f} ms" if name in walls else "median of single calls")
+        print(f"  {name}: kernel {k_ms:.5f} {unit}, plain {p_ms:.5f} {unit} ({how}){lib}")
     return errs, times, work, library
+
+
+def svgd_phi_exact(x, s):
+    """The plain transport on squared distances summed from differences, as
+    K1 forms them: at K=1 the expansion |a|^2 + |b|^2 - 2ab leaves rounding
+    noise on the diagonal, and that noise is the median that sets the
+    bandwidth; the kernel's diagonal is exactly 0 (phi = score)."""
+    import torch
+
+    from meta_learning_pacoh_torch.ops.cuda import svgd_kernel
+
+    k = x.shape[0]
+    d2 = ((x[:, None, :] - x[None, :, :]) ** 2).sum(-1)
+    gamma = 1.0 / (1e-8 + 2.0 * svgd_kernel.median_upper(d2) / (2.0 * math.log(k + 1)))
+    k_xx = torch.exp(-gamma * d2)
+    return (k_xx @ s + 2.0 * gamma * (x * k_xx.sum(1, keepdim=True) - k_xx @ x)) / k
+
+
+def report_usage(label, entry, usage_entry, instance):
+    """Print a kernel instance's registers and local memory a thread as the
+    card reports them (``build.kernel_usage`` through C entry
+    ``usage_entry``), whichever run built the library, and ptxas' spills
+    where this run built it; raise if the kernel uses local memory (spills
+    or a stack frame), which a design that keeps its rows in registers must
+    not."""
+    from meta_learning_pacoh_torch.ops.cuda import build
+
+    regs, local = build.kernel_usage(usage_entry, instance)
+    usage = ptxas_usage(entry)
+    spills = (f"ptxas spill stores/loads {usage[1]} bytes" if usage is not None
+              else "no ptxas log: library from an earlier build")
+    print(f"  {label}: {regs} registers, {local} bytes of local memory a thread ({spills})")
+    if local != 0 or (usage is not None and usage[1] != (0, 0)):
+        raise AssertionError(f"{label} uses local memory: {local} bytes a thread, {spills}")
+
+
+def phase2_general(param_dim, gen, errs, times, work, library, walls):
+    """K1-K3, the general step's kernels, against their plain versions:
+    K1 at the slice's [10, P] and at the SE learner's [10, 1188], at K=1
+    (exact distances) and K=32 (also at P=20000, its slices read from device
+    memory), at a ragged P and at P smaller than one CTA's slice, two calls
+    bit for bit; K2 on escalating systems at N=20 (B=200, 1, 7 and 1000)
+    and at N in {32, 33, 48, 64}, each batch with a system that fails at
+    every jitter level (non-finite where the plain version is); K3 on the
+    plain version's L and z and on K2's own. Both kernels' registers and
+    local memory. Times at the slice's shapes as device time
+    (``device_pair``), with the library calls."""
+    import torch
+
+    from meta_learning_pacoh_torch.ops.cuda import chol_kernel, mll_kernel, svgd_kernel
+
+    for label, k, p in (("the slice's", 10, param_dim), ("the SE learner's", 10, 1188)):
+        plan = svgd_kernel.svgd_plan(k, p)
+        print(f"  svgd_phi plan at {label} [{k}, {p}]: {plan}")
+        if plan.cluster < 2:
+            raise AssertionError(f"svgd_phi: one CTA at {label} [{k}, {p}]")
+    report_usage("svgd_phi (P staged)", "svgd_phi_cluster_kernelILb1", "pacoh_svgd_phi_usage", 1)
+    report_usage("svgd_phi (P in device memory)", "svgd_phi_cluster_kernelILb0",
+                 "pacoh_svgd_phi_usage", 0)
+    for k, p, cluster in ((10, param_dim, None), (10, 1188, None), (1, param_dim, None),
+                          (32, param_dim, None), (32, 20000, None), (10, 2371, None),
+                          (10, 37, None), (10, 3, 16)):
+        x = torch.randn(k, p, generator=gen).cuda()
+        s = 10.0 * torch.randn(k, p, generator=gen).cuda()
+        got = svgd_kernel.svgd_phi_fused(x, s, cluster=cluster)
+        plain = svgd_phi_exact if k == 1 else svgd_kernel.svgd_phi_ref
+        print(f"  svgd_phi at [{k}, {p}], plan {svgd_kernel.svgd_plan(k, p, cluster)}:")
+        check("svgd_phi", got[None], plain(x, s)[None], errs)
+        if k == 10 and p == param_dim:
+            if not torch.equal(got, svgd_kernel.svgd_phi_fused(x, s)):
+                raise AssertionError("svgd_phi: two calls differ")
+            print("    two calls give the same bits")
+            x_main, s_main = x, s
+    times["svgd_phi"] = device_pair("svgd_phi", lambda: svgd_kernel.svgd_phi_fused(x_main, s_main),
+                                    lambda: svgd_kernel.svgd_phi_ref(x_main, s_main), walls)
+    # distances, the kernel row sums and two K x K by K x P products
+    work["svgd_phi"] = (7 * 10 * 10 * param_dim, 4 * 3 * 10 * param_dim)
+
+    report_usage("mll_fwd (N <= 32)", "mll_fwd_warp_kernelILi1", "pacoh_mll_fwd_usage", 0)
+    report_usage("mll_fwd (33 <= N <= 64)", "mll_fwd_warp_kernelILi2", "pacoh_mll_fwd_usage", 1)
+
+    def systems(b, n, esc, fail):
+        """b SPD systems of size n; at esc (index, lam_min) pairs a system
+        needing the 1e-4 (lam_min -5e-5) or the 1e-2 jitter (-5e-3); at the
+        indices in fail one indefinite at every level."""
+        kn = spd(b, n, gen, scale=0.5)
+        for i, lam_min in esc:
+            kn[i] = escalating_systems(n, gen, lam_min)
+        for i in fail:
+            kn[i] -= 10.0 * torch.eye(n, device="cuda")
+        return kn, torch.randn(b, n, generator=gen).cuda()
+
+    esc5 = ((3, -5e-5), (50, -5e-5), (120, -5e-5), (7, -5e-3), (160, -5e-3))
+    for b, n, esc, fail in ((200, 20, esc5, ()), (200, 20, esc5[:2], (11,)), (1, 20, (), ()),
+                            (1000, 20, esc5, (999,)), (7, 20, ((2, -5e-5), (4, -5e-3)), (5,)),
+                            (200, 32, esc5[:2], (11,)), (200, 33, esc5[:2], (11,)),
+                            (200, 48, esc5[:2], (11,)), (200, 64, esc5[:2], (11,))):
+        kn, r = systems(b, n, esc, fail)
+        eye = torch.eye(n, device="cuda")
+        ok = [chol_kernel.diag_ok(chol_kernel.cholesky_ref(kn + j * eye))
+              for j in mll_kernel.JITTERS]
+        level = torch.where(ok[0], 0, torch.where(ok[1], 1, 2))
+        if b == 200 and n == 20 and not fail and not {0, 1, 2} <= set(level.tolist()):
+            raise AssertionError(f"escalation levels hit: {sorted(set(level.tolist()))}")
+        got = mll_kernel.mll_fwd(kn, r)
+        want = mll_kernel.mll_fwd_ref(kn, r)
+        print(f"  mll_fwd at B={b}, N={n}, levels {sorted(set(level.tolist()))}, "
+              f"{len(fail)} failing at every level:")
+        keep = torch.ones(b, dtype=torch.bool, device="cuda")
+        keep[list(fail)] = False
+        for g_, w_ in zip(got[:2], want[:2]):
+            if not torch.equal(torch.isfinite(g_), torch.isfinite(w_)):
+                raise AssertionError("mll_fwd: quad or logdet finite where the plain version's "
+                                     "is not, or the other way")
+        for label, g_, w_ in zip(("quad", "logdet", "L", "z"), got, want):
+            check("mll_fwd", g_[keep].reshape(int(keep.sum()), -1),
+                  w_[keep].reshape(int(keep.sum()), -1), errs)
+            print(f"    ({label})")
+        gq = torch.randn(b, generator=gen).cuda()
+        gl = torch.randn(b, generator=gen).cuda()
+        for source, (_, _, L, z) in (("the plain version's", want), ("K2's own", got)):
+            L, z = L[keep].contiguous(), z[keep].contiguous()
+            for label, g_, w_ in zip(("dkn", "dr"), mll_kernel.mll_bwd(L, z, gq[keep], gl[keep]),
+                                     mll_kernel.mll_bwd_ref(L, z, gq[keep], gl[keep])):
+                check("mll_bwd", g_, w_, errs)
+                print(f"    (K3 {label} on {source} L and z)")
+        if b == 200 and n == 20 and not fail:  # the slice's shape: timed
+            timed = (kn, r, want[2], want[3], gq, gl)
+    kn, r, L, z, gq, gl = timed
+    b, n = kn.shape[0], kn.shape[-1]
+    times["mll_fwd"] = device_pair("mll_fwd", lambda: mll_kernel.mll_fwd(kn, r),
+                                   lambda: mll_kernel.mll_fwd_ref(kn, r), walls)
+    times["mll_bwd"] = device_pair("mll_bwd", lambda: mll_kernel.mll_bwd(L, z, gq, gl),
+                                   lambda: mll_kernel.mll_bwd_ref(L, z, gq, gl), walls)
+    # the yardsticks: the factor alone (K2), K^-1 alone from L (K3)
+    library["mll_fwd"] = library_time("mll_fwd", lambda: torch.linalg.cholesky_ex(kn))
+    library["mll_bwd"] = library_time("mll_bwd", lambda: torch.cholesky_inverse(L))
+    # one factorization a system per jitter level it needed, the solve, quad
+    # and logdet; in: Kn, r; out: quad, logdet, L, z (the backward's in and
+    # out have the same size: L, z, gq, gl; dKn, dr)
+    eye = torch.eye(n, device="cuda")
+    ok = [chol_kernel.diag_ok(chol_kernel.cholesky_ref(kn + j * eye)) for j in mll_kernel.JITTERS]
+    level = torch.where(ok[0], 0, torch.where(ok[1], 1, 2))
+    n_fact = float((level + 1).sum())
+    mll_bytes = 4 * (2 * b * n * n + 2 * b * n + 2 * b)
+    work["mll_fwd"] = (n_fact * n ** 3 / 3 + b * (n * n + 3 * n), mll_bytes)
+    work["mll_bwd"] = (b * (2 * n ** 3 / 3 + 3 * n * n), mll_bytes)
 
 
 def sin20():
@@ -874,7 +1120,7 @@ def phase2_b7(errs, times, work):
                         4 * (s * p + (12 * p + t * n * (d + 2) + t) / n_launch))
 
 
-def phase2_b4(errs, times, work, library):
+def phase2_b4(errs, times, work, library, walls):
     """B4 against its plain version at its main paths' shapes, at N on both
     sides of the shared-memory edge, and on a batch of escalating systems."""
     import torch
@@ -947,23 +1193,24 @@ def phase2_b4(errs, times, work, library):
           f"{bk.blocked_bwd_blocks_per_sm(300)} at N=300")
     for b in (5, 50):  # the general steps' batches: one wave of blocks
         kn, r, L, z, gq, gl = timed[b]
-        fwd = time_pair(lambda: bk.blocked_mll_fwd(kn, r), lambda: bk.blocked_mll_fwd_ref(kn, r))
-        bwd = time_pair(lambda: bk.blocked_mll_bwd(L, z, gq, gl),
-                        lambda: bk.blocked_mll_bwd_ref(L, z, gq, gl))
-        lib_ms = statistics.median(median_ms(lambda: torch.linalg.cholesky_ex(kn), 10))
-        inv_ms = statistics.median(median_ms(lambda: torch.cholesky_inverse(L), 10))
-        print(f"  blocked_fwd/bwd at B={b}, N=200: kernel {fwd[0]:.4f} / {bwd[0]:.4f} ms, "
-              f"plain {fwd[1]:.4f} / {bwd[1]:.4f} ms (median); torch.linalg.cholesky_ex "
-              f"{lib_ms:.4f} ms, torch.cholesky_inverse {inv_ms:.4f} ms")
+        fwd = device_pair(f"blocked_fwd at B={b}", lambda: bk.blocked_mll_fwd(kn, r),
+                          lambda: bk.blocked_mll_fwd_ref(kn, r), walls)
+        bwd = device_pair(f"blocked_bwd at B={b}", lambda: bk.blocked_mll_bwd(L, z, gq, gl),
+                          lambda: bk.blocked_mll_bwd_ref(L, z, gq, gl), walls)
+        lib_ms = device_ms(lambda: torch.linalg.cholesky_ex(kn))[0]
+        inv_ms = device_ms(lambda: torch.cholesky_inverse(L))[0]
+        print(f"  blocked_fwd/bwd at B={b}, N=200: kernel {fwd[0]:.5f} / {bwd[0]:.5f} ms, "
+              f"plain {fwd[1]:.5f} / {bwd[1]:.5f} ms (device); torch.linalg.cholesky_ex "
+              f"{lib_ms:.5f} ms, torch.cholesky_inverse {inv_ms:.5f} ms")
     kn, r, L, z, gq, gl = timed[200]
     b, n = kn.shape[0], kn.shape[-1]
-    times["blocked_fwd"] = time_pair(lambda: bk.blocked_mll_fwd(kn, r),
-                                     lambda: bk.blocked_mll_fwd_ref(kn, r), reps=5)
-    times["blocked_bwd"] = time_pair(lambda: bk.blocked_mll_bwd(L, z, gq, gl),
-                                     lambda: bk.blocked_mll_bwd_ref(L, z, gq, gl), reps=5)
-    library["blocked_fwd"] = statistics.median(median_ms(lambda: torch.linalg.cholesky_ex(kn), 5))
+    times["blocked_fwd"] = device_pair("blocked_fwd", lambda: bk.blocked_mll_fwd(kn, r),
+                                       lambda: bk.blocked_mll_fwd_ref(kn, r), walls)
+    times["blocked_bwd"] = device_pair("blocked_bwd", lambda: bk.blocked_mll_bwd(L, z, gq, gl),
+                                       lambda: bk.blocked_mll_bwd_ref(L, z, gq, gl), walls)
+    library["blocked_fwd"] = library_time("blocked_fwd", lambda: torch.linalg.cholesky_ex(kn))
     # the backward's yardstick: K^-1 alone from L, as the forward's is the factor alone
-    library["blocked_bwd"] = statistics.median(median_ms(lambda: torch.cholesky_inverse(L), 5))
+    library["blocked_bwd"] = library_time("blocked_bwd", lambda: torch.cholesky_inverse(L))
     # forward: one factorization (no system escalates here), the solve, quad
     # and logdet; in: the lower triangle of Kn (all it reads), r; out: L (the
     # square), z, quad, logdet. Backward: L^-1 (N^3/3) and the symmetric
@@ -1153,7 +1400,7 @@ def map_bign_escalation():
     return {"b9": k32, "b9_plain32": p32, "b9_level0": k64}
 
 
-def phase2_b5(errs, times, work, library):
+def phase2_b5(errs, times, work, library, walls):
     """B5 against its plain version at N in {32, 50, 64} and B in {1, 20, 200,
     257}, and on a batch with an indefinite matrix; timed at the MLAP eval's
     B=20, N=50 (and at B=200, the SVGD and VI evals')."""
@@ -1181,13 +1428,19 @@ def phase2_b5(errs, times, work, library):
     print("    (B=20, N=50, matrix 7 indefinite: all NaN, its neighbours factored)")
     for b in (20, 200):
         a = spd(b, 50, gen)
-        k_ms, p_ms = time_pair(lambda: chol_small_kernel.cholesky_small(a),
-                               lambda: chol_kernel.cholesky_ref(a))
-        lib_ms = statistics.median(median_ms(lambda: torch.linalg.cholesky_ex(a), 10))
-        print(f"  chol_small at B={b}, N=50: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, "
-              f"torch.linalg.cholesky_ex {lib_ms:.4f} ms (median)")
+        # a bound as a default: the B=20 calls are profiled after the loop
+        k_ms, p_ms = device_pair(f"chol_small at B={b}",
+                                 lambda a=a: chol_small_kernel.cholesky_small(a),
+                                 lambda a=a: chol_kernel.cholesky_ref(a), walls)
+        lib_fn = lambda a=a: torch.linalg.cholesky_ex(a)  # noqa: E731
+        lib_ms = library_time("chol_small", lib_fn) if b == 20 else device_ms(lib_fn)[0]
+        print(f"  chol_small at B={b}, N=50: kernel {k_ms:.5f} ms, plain {p_ms:.5f} ms, "
+              f"torch.linalg.cholesky_ex {lib_ms:.5f} ms (device)")
         if b == 20:  # the MLAP eval's predictive covariances
             times["chol_small"], library["chol_small"] = (k_ms, p_ms), lib_ms
+            note_unqueued("chol_small plain", UNQUEUED.get(f"chol_small at B={b} plain"),
+                          f"chol_small at B={b} plain" in UNQUEUED)
+            walls["chol_small"] = walls[f"chol_small at B={b}"]
             work["chol_small"] = (b * 50 ** 3 / 3, 4 * 2 * b * 50 * 50)
 
 
@@ -3118,6 +3371,8 @@ def main():
     for name, summary in bign_fused_summaries.items():
         print(f"slice {name}: " + json.dumps({"card": card, **summary}))
     print(f"all phases: {time.perf_counter() - t_start:.1f} s")
+    print("the plain versions and library calls that read back to the host, by torch.profiler:")
+    settle_kernel_sums(times, library)
 
     records = []
     for name, (src, tpu) in KERNELS.items():
@@ -3128,7 +3383,12 @@ def main():
                         "ms": times[name][0], "plain_ms": times[name][1],
                         "bound_ms": 1e3 * max(t_ops, t_bytes),
                         "bound_by": "operations" if t_ops > t_bytes else "bytes",
-                        "library_ms": library.get(name)})
+                        "library_ms": library.get(name),
+                        # "queued", "kernel sum": device time (settle_kernel_sums);
+                        # "one call": one synchronised call, host time included
+                        "timed_as": "queued" if f"{name} plain" in TIMED_AS else "one call",
+                        "plain_timed_as": TIMED_AS.get(f"{name} plain", "one call"),
+                        "library_timed_as": TIMED_AS.get(f"{name} library")})
     print(card)
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {

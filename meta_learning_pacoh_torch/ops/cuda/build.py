@@ -30,8 +30,10 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C entry point -> argument types (pointers, ints, floats; the last two are
 # the device index and the stream)
 SIGNATURES = {
-    "pacoh_svgd_phi": (_P, _P, _P, _I, _I, _F, _I, _P),
+    "pacoh_svgd_phi": (_P, _P, _P, _I, _I, _F, _I, _I, _I, _I, _P),
+    "pacoh_svgd_phi_usage": (_I, _P, _I, _P),
     "pacoh_mll_fwd": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
+    "pacoh_mll_fwd_usage": (_I, _P, _I, _P),
     "pacoh_mll_bwd": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
     "pacoh_chol": (_P, _P, _I, _I, _I, _P),
     "pacoh_chol_blocks_per_sm": (_I, _P, _I, _P),
@@ -142,3 +144,16 @@ def launch(name, tensor, *args):
     err = getattr(library(), name)(*args, dev.index, stream)
     if err != 0:
         raise RuntimeError(f"{name}: CUDA error {err}")
+
+
+def kernel_usage(entry, instance, device="cuda"):
+    """(registers, local-memory bytes a thread) of a kernel instance by
+    cudaFuncGetAttributes, through C entry point ``entry`` (``instance``
+    picks the template instance; see the source). Local memory holds a
+    kernel's spills and stack frame, so 0 means neither, whichever build
+    loaded the library."""
+    import torch
+
+    out = (ctypes.c_int * 2)()
+    launch(entry, torch.empty(0, device=device), instance, ctypes.addressof(out))
+    return out[0], out[1]

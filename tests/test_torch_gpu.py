@@ -69,27 +69,49 @@ def _escalating(n, lam_min, rs):
     return torch.tensor((q * lam) @ q.T, dtype=torch.float32)
 
 
-@pytest.mark.parametrize("k", [4, 10, 32])
-def test_svgd_kernel(dev, k):
+@pytest.mark.parametrize("k,p", [(4, 2372), (10, 2372), (32, 2372), (1, 2372), (2, 2372),
+                                 (10, 37), (10, 2371), (1, 37), (2, 2371), (32, 20000)])
+def test_svgd_kernel(dev, k, p):
+    """K1 over its cluster plan: K from 1 to 32, P of the slice, ragged,
+    smaller than one CTA's slice, and too wide for the slices to be staged
+    in shared memory. At K=1 the plain version takes the distances as the
+    kernel forms them (phi_exact_distances)."""
     gen = torch.Generator().manual_seed(k)
-    x = torch.randn(k, 2372, generator=gen).to(dev)
-    s = torch.randn(k, 2372, generator=gen).to(dev)
-    assert_close_per_system(svgd_kernel.svgd_phi_fused(x, s)[None],
-                            svgd_kernel.svgd_phi_ref(x, s)[None])
+    x = torch.randn(k, p, generator=gen).to(dev)
+    s = torch.randn(k, p, generator=gen).to(dev)
+    plain = phi_exact_distances if k == 1 else svgd_kernel.svgd_phi_ref
+    assert_close_per_system(svgd_kernel.svgd_phi_fused(x, s)[None], plain(x, s)[None])
 
 
-@pytest.mark.parametrize("n", [9, 20, 48])
-def test_mll_kernels_with_escalation(dev, n):
+@pytest.mark.parametrize("cluster", [None, 1, 2, 16])
+def test_svgd_kernel_two_calls_same_bits(dev, cluster):
+    """The cluster's Gram is summed in rank order, with no float atomics: two
+    calls give the same bits, at the plan's and at other cluster sizes."""
+    gen = torch.Generator().manual_seed(3)
+    x = torch.randn(10, 2372, generator=gen).to(dev)
+    s = torch.randn(10, 2372, generator=gen).to(dev)
+    first = svgd_kernel.svgd_phi_fused(x, s, cluster=cluster)
+    assert torch.equal(first, svgd_kernel.svgd_phi_fused(x, s, cluster=cluster))
+    assert_close_per_system(first[None], svgd_kernel.svgd_phi_ref(x, s)[None])
+
+
+@pytest.mark.parametrize("b", [1, 7, 12, 200])
+@pytest.mark.parametrize("n", [9, 20, 32, 33, 48, 64])
+def test_mll_kernels_with_escalation(dev, n, b):
+    """K2 (one warp a system, both register instances) and K3 against their
+    plain versions; where the batch has them, system 2 escalates to 1e-4 and
+    system 5 to 1e-2. Then the autograd Function's values and gradients."""
     rs = np.random.RandomState(n)
-    kn = _psd(12, n, seed=n)
-    kn[2] = _escalating(n, -5e-5, rs)
-    kn[5] = _escalating(n, -5e-3, rs)
-    kn, r = kn.to(dev), torch.tensor(rs.randn(12, n), dtype=torch.float32, device=dev)
+    kn = _psd(b, n, seed=n)
+    if b > 5:
+        kn[2] = _escalating(n, -5e-5, rs)
+        kn[5] = _escalating(n, -5e-3, rs)
+    kn, r = kn.to(dev), torch.tensor(rs.randn(b, n), dtype=torch.float32, device=dev)
     for got, want in zip(mll_kernel.mll_fwd(kn, r), mll_kernel.mll_fwd_ref(kn, r)):
-        assert_close_per_system(got.reshape(12, -1), want.reshape(12, -1))
+        assert_close_per_system(got.reshape(b, -1), want.reshape(b, -1))
     _, _, L, z = mll_kernel.mll_fwd_ref(kn, r)
-    gq = torch.tensor(rs.randn(12), dtype=torch.float32, device=dev)
-    gl = torch.tensor(rs.randn(12), dtype=torch.float32, device=dev)
+    gq = torch.tensor(rs.randn(b), dtype=torch.float32, device=dev)
+    gl = torch.tensor(rs.randn(b), dtype=torch.float32, device=dev)
     for got, want in zip(mll_kernel.mll_bwd(L, z, gq, gl), mll_kernel.mll_bwd_ref(L, z, gq, gl)):
         assert_close_per_system(got, want)
 
@@ -101,7 +123,43 @@ def test_mll_kernels_with_escalation(dev, n):
         torch.sum(gq * quad + gl * logdet).backward()
         grads.append((quad.detach(), logdet.detach(), kn_g.grad, r_g.grad))
     for got, want in zip(*grads):
-        assert_close_per_system(got.reshape(12, -1), want.reshape(12, -1))
+        assert_close_per_system(got.reshape(b, -1), want.reshape(b, -1))
+
+
+@pytest.mark.parametrize("n", [20, 33, 48])
+def test_mll_fwd_system_failing_every_level(dev, n):
+    """A system indefinite at every jitter level: K2's quad and logdet are
+    non-finite where the plain version's are, its six neighbours agree with
+    the plain version."""
+    rs = np.random.RandomState(n)
+    kn = _psd(7, n, seed=n)
+    kn[3] -= 10.0 * torch.eye(n)
+    kn, r = kn.to(dev), torch.tensor(rs.randn(7, n), dtype=torch.float32, device=dev)
+    got, want = mll_kernel.mll_fwd(kn, r), mll_kernel.mll_fwd_ref(kn, r)
+    for g, w in zip(got[:2], want[:2]):
+        assert torch.equal(torch.isfinite(g), torch.isfinite(w))
+        assert not bool(torch.isfinite(g[3]))
+    keep = torch.tensor([0, 1, 2, 4, 5, 6], device=dev)
+    for g, w in zip(got, want):
+        assert_close_per_system(g[keep].reshape(6, -1), w[keep].reshape(6, -1))
+
+
+@pytest.mark.parametrize("n", [20, 48])
+def test_mll_fwd_denormal_pivots_escalate(dev, n):
+    """A system scaled into float32's denormals: K2 takes its pivots below
+    2^-126 as failed, as the JAX kernel does, and escalates to the 1e-4
+    jitter, so its values are finite and agree with the plain version of
+    Kn + 1e-4 I; the other systems agree with the plain version."""
+    rs = np.random.RandomState(n)
+    kn = _psd(4, n, seed=n)
+    kn[1] = kn[1] * 1e-39
+    kn, r = kn.to(dev), torch.tensor(rs.randn(4, n), dtype=torch.float32, device=dev)
+    got = mll_kernel.mll_fwd(kn, r)
+    for g in got:
+        assert bool(torch.isfinite(g).all())
+    lifted = kn + 1e-4 * torch.eye(n, device=dev) * (torch.arange(4, device=dev) == 1)[:, None, None]
+    for g, w in zip(got, mll_kernel.mll_fwd_ref(lifted, r)):
+        assert_close_per_system(g.reshape(4, -1), w.reshape(4, -1))
 
 
 @pytest.mark.parametrize("n", [49, 200, 231, 232, 235, 236, 300, 306, 307, 308, 512])
