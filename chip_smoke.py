@@ -625,11 +625,12 @@ def phase2_general(param_dim, gen, errs, times, work, library, walls):
     (exact distances) and K=32 (also at P=20000, its slices read from device
     memory), at a ragged P and at P smaller than one CTA's slice, two calls
     bit for bit; K2 on escalating systems at N=20 (B=200, 1, 7 and 1000)
-    and at N in {32, 33, 48, 64}, each batch with a system that fails at
-    every jitter level (non-finite where the plain version is); K3 on the
-    plain version's L and z and on K2's own. Both kernels' registers and
-    local memory. Times at the slice's shapes as device time
-    (``device_pair``), with the library calls."""
+    and at N in {32, 33, 48 (B=50 and 200), 64}, each batch with a system
+    that fails at every jitter level (non-finite where the plain version
+    is); K3 on the plain version's L and z and on K2's own, its dKn exactly
+    symmetric. Every kernel instance's registers and local memory. Times at
+    the slice's shapes as device time (``device_pair``), with the library
+    calls."""
     import torch
 
     from meta_learning_pacoh_torch.ops.cuda import chol_kernel, mll_kernel, svgd_kernel
@@ -663,6 +664,8 @@ def phase2_general(param_dim, gen, errs, times, work, library, walls):
 
     report_usage("mll_fwd (N <= 32)", "mll_fwd_warp_kernelILi1", "pacoh_mll_fwd_usage", 0)
     report_usage("mll_fwd (33 <= N <= 64)", "mll_fwd_warp_kernelILi2", "pacoh_mll_fwd_usage", 1)
+    report_usage("mll_bwd (N <= 32)", "mll_bwd_warp_kernelILi1", "pacoh_mll_bwd_usage", 0)
+    report_usage("mll_bwd (33 <= N <= 64)", "mll_bwd_warp_kernelILi2", "pacoh_mll_bwd_usage", 1)
 
     def systems(b, n, esc, fail):
         """b SPD systems of size n; at esc (index, lam_min) pairs a system
@@ -679,6 +682,7 @@ def phase2_general(param_dim, gen, errs, times, work, library, walls):
     for b, n, esc, fail in ((200, 20, esc5, ()), (200, 20, esc5[:2], (11,)), (1, 20, (), ()),
                             (1000, 20, esc5, (999,)), (7, 20, ((2, -5e-5), (4, -5e-3)), (5,)),
                             (200, 32, esc5[:2], (11,)), (200, 33, esc5[:2], (11,)),
+                            (50, 48, ((3, -5e-5), (7, -5e-3)), (11,)),
                             (200, 48, esc5[:2], (11,)), (200, 64, esc5[:2], (11,))):
         kn, r = systems(b, n, esc, fail)
         eye = torch.eye(n, device="cuda")
@@ -705,10 +709,13 @@ def phase2_general(param_dim, gen, errs, times, work, library, walls):
         gl = torch.randn(b, generator=gen).cuda()
         for source, (_, _, L, z) in (("the plain version's", want), ("K2's own", got)):
             L, z = L[keep].contiguous(), z[keep].contiguous()
-            for label, g_, w_ in zip(("dkn", "dr"), mll_kernel.mll_bwd(L, z, gq[keep], gl[keep]),
+            got_bwd = mll_kernel.mll_bwd(L, z, gq[keep], gl[keep])
+            for label, g_, w_ in zip(("dkn", "dr"), got_bwd,
                                      mll_kernel.mll_bwd_ref(L, z, gq[keep], gl[keep])):
                 check("mll_bwd", g_, w_, errs)
                 print(f"    (K3 {label} on {source} L and z)")
+            if not torch.equal(got_bwd[0], got_bwd[0].mT):
+                raise AssertionError("mll_bwd: dKn is not exactly symmetric")
         if b == 200 and n == 20 and not fail:  # the slice's shape: timed
             timed = (kn, r, want[2], want[3], gq, gl)
     kn, r, L, z, gq, gl = timed
@@ -1402,12 +1409,18 @@ def map_bign_escalation():
 
 def phase2_b5(errs, times, work, library, walls):
     """B5 against its plain version at N in {32, 50, 64} and B in {1, 20, 200,
-    257}, and on a batch with an indefinite matrix; timed at the MLAP eval's
-    B=20, N=50 (and at B=200, the SVGD and VI evals')."""
+    257}, on a batch with an indefinite matrix, and on one with pivots
+    below float32's smallest normal (the NaN pattern of the plain version
+    on the card); both instances' registers and local memory; timed at the
+    MLAP eval's B=20, N=50 (and at B=1 and at B=200, the SVGD and VI
+    evals')."""
     import torch
 
     from meta_learning_pacoh_torch.ops.cuda import chol_kernel, chol_small_kernel
 
+    report_usage("chol_small (N <= 32)", "chol_small_warp_kernelILi1", "pacoh_chol_small_usage", 0)
+    report_usage("chol_small (33 <= N <= 64)", "chol_small_warp_kernelILi2",
+                 "pacoh_chol_small_usage", 1)
     gen = torch.Generator().manual_seed(5)
     for n in B5_NS:
         for b in B5_BS:
@@ -1426,7 +1439,20 @@ def phase2_b5(errs, times, work, library, walls):
         raise AssertionError("chol_small: NaN pattern differs from the plain version")
     check("chol_small", got[others.cuda()], want[others.cuda()], errs)
     print("    (B=20, N=50, matrix 7 indefinite: all NaN, its neighbours factored)")
-    for b in (20, 200):
+    a = spd(4, 50, gen)
+    for k in (0, 17):  # pivots 0 and 17 at 1e-39, their rows and columns zero elsewhere
+        a[2, k, :] = 0.0
+        a[2, :, k] = 0.0
+        a[2, k, k] = 1e-39
+    got, want = chol_small_kernel.cholesky_small(a), chol_kernel.cholesky_ref(a)
+    if not torch.equal(torch.isnan(got), torch.isnan(want)):
+        raise AssertionError("chol_small: NaN pattern differs from the plain version's on a "
+                             "denormal pivot")
+    factored = ~torch.isnan(want).reshape(4, -1).any(1)
+    print(f"  chol_small: pivots of 1e-39 in matrix 2, factored by the plain version on the card: "
+          f"{bool(factored[2])}; the kernel's NaN pattern is the plain version's")
+    check("chol_small", got[factored], want[factored], errs)
+    for b in (1, 20, 200):
         a = spd(b, 50, gen)
         # a bound as a default: the B=20 calls are profiled after the loop
         k_ms, p_ms = device_pair(f"chol_small at B={b}",
@@ -1441,7 +1467,8 @@ def phase2_b5(errs, times, work, library, walls):
             note_unqueued("chol_small plain", UNQUEUED.get(f"chol_small at B={b} plain"),
                           f"chol_small at B={b} plain" in UNQUEUED)
             walls["chol_small"] = walls[f"chol_small at B={b}"]
-            work["chol_small"] = (b * 50 ** 3 / 3, 4 * 2 * b * 50 * 50)
+            # in: the lower triangle of each matrix (all the kernel reads); out: the square
+            work["chol_small"] = (b * 50 ** 3 / 3, 4 * b * (50 * 51 // 2 + 50 * 50))
 
 
 def conditioned_tasks(rs, t, n, d=1, sizes=None):

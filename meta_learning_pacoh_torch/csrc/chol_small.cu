@@ -1,5 +1,5 @@
 // Batched Cholesky factorization of small matrices, 1 <= N <= 64 (the port
-// sends 32 <= N <= 64 here): one warp per matrix.
+// sends 32 <= N <= 64 here): one warp per matrix, its rows in registers.
 //
 // Replaces the Pallas TPU kernels of meta_learning_pacoh_tpu/ops/pallas/
 // chol_kernel.py (cholesky_pallas: _chol_single, one matrix in VMEM, and
@@ -11,79 +11,79 @@
 // for a matrix with a pivot that is not finite and positive.
 //
 // What bounds it on the card: a matrix is N^3/3 flops on 4 N^2 bytes in and
-// out; at the eval's B=200, N=50 that is 8.3 MFLOP against 4 MB, a few
-// microseconds of either at the card's peaks. What sets its time is the
-// serial chain of N pivots a matrix, each a shuffle-free broadcast read, a
-// column scale and a trailing update of (N - j) columns over a lane's rows.
-// The design: the lane-major TPU layout filled vector lanes with 128
-// matrices; here a warp owns one matrix, held in shared memory with an odd
-// leading dimension (N | 1), so the 32 lanes walking down a column hit 32
-// banks. Lane l owns rows l and l + 32. All lanes read the pivot and the
-// entries of column j at one address (a broadcast); __syncwarp orders the
-// column's writes before the update reads them. No block barrier: a block
-// holds several independent warps, as many as 48 KB of shared memory takes.
+// out; at the eval's B=20 to 200, N=50 that is at most 8.3 MFLOP against
+// 4 MB, a few microseconds of either at the card's peaks. What sets its time
+// is the serial chain of N pivots a matrix. The design is K2's (mll.cu), on
+// the same register factorization (warp_chol.cuh's factor_rows) without its
+// border row or jitter levels: one warp a matrix, a block of its own; the
+// lower triangle lands in a per-warp shared tile (odd leading dimension) by
+// cp.async, every row's copies in flight at once; lane l takes rows l and
+// l + 32 into registers; each column's pivot is shuffled from its owner,
+// the scaled column broadcast as float4 from a column buffer, one __syncwarp
+// a column. A pivot fails unless finite and positive (a denormal one is
+// factored, as by the plain version, through rsqrtf, which does not flush
+// it); the first failure sends the matrix out all NaN. L goes out through
+// the tile's upper triangle, coalesced, zeros above the diagonal. Two
+// instances: N <= 32 (R = 1) and 33 <= N <= 64 (R = 2).
 
 #include <cuda_runtime.h>
+#include <float.h>
 #include <math.h>
 
 namespace {
 
-constexpr int kMaxN = 64;
-constexpr int kMaxWarps = 8;
-constexpr int kSmemBytes = 48 * 1024;
+#include "warp_chol.cuh"
 
-__global__ void chol_small_kernel(const float* __restrict__ a, float* __restrict__ out, int b,
-                                  int n, int ld, int warps) {
-  extern __shared__ float smem[];
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const long long m = static_cast<long long>(blockIdx.x) * warps + warp;
-  if (m >= b) return;  // the block has no barrier, so a spare warp may leave
-  float* A = smem + static_cast<size_t>(warp) * n * ld;
+constexpr int kMaxN = 64;
+
+// No register cap and spans of 16 (N <= 32) or 32 columns: on the H100 at
+// N=32 the cap of 64 registers read 0.0096 ms against 0.0089 without, and
+// at N=50 spans of 16 read 0.0205-0.0206 against 0.0202-0.0204.
+template <int R>
+__global__ void __launch_bounds__(32)
+chol_small_warp_kernel(const float* __restrict__ a, float* __restrict__ out, int n) {
+  extern __shared__ __align__(16) float tile[];  // the matrix's tile, then its column buffers
+  const int lane = threadIdx.x;
+  const long long m = blockIdx.x;
+  const int ld = n | 1;  // odd: the lanes reading down a column hit 32 banks
+  float* colbuf = tile + (n * ld + 3) / 4 * 4;  // two column buffers, 16-byte aligned
   const size_t nn = static_cast<size_t>(n) * n;
   const float* src = a + m * nn;
-  float* dst = out + m * nn;
-
-  for (int e = lane; e < n * n; e += 32) {
-    const int i = e / n, j = e - i * n;
-    if (j <= i) A[i * ld + j] = src[e];
-  }
+  // the lower triangle's rows into the tile, coalesced, all in flight at once
+  for (int i = 0; i < n; ++i)
+#pragma unroll
+    for (int s = 0; s < R; ++s) {
+      const int c = lane + 32 * s;
+      if (c <= i) cp_async4(tile + i * ld + c, src + i * n + c);
+    }
+  cp_async_wait_all();
   __syncwarp();
 
-  const int r0 = lane, r1 = lane + 32;
-  bool ok = true;
-  for (int j = 0; j < n; ++j) {
-    const float d = A[j * ld + j];  // every lane reads the same pivot
-    if (!(d > 0.f && d < INFINITY)) {
-      ok = false;
-      break;
-    }
-    const float p = sqrtf(d);
-    const float inv = 1.f / p;
-    __syncwarp();  // the pivot is read before its owner overwrites it
-    float l0 = 0.f, l1 = 0.f;
-    if (r0 == j) A[j * ld + j] = p;
-    if (r1 == j) A[j * ld + j] = p;
-    if (r0 > j && r0 < n) {
-      l0 = A[r0 * ld + j] * inv;
-      A[r0 * ld + j] = l0;
-    }
-    if (r1 > j && r1 < n) {
-      l1 = A[r1 * ld + j] * inv;
-      A[r1 * ld + j] = l1;
-    }
-    __syncwarp();  // column j is final before the update reads it
-    for (int c = j + 1; c < n; ++c) {
-      const float lc = A[c * ld + j];
-      if (r0 >= c && r0 < n) A[r0 * ld + c] -= l0 * lc;
-      if (r1 >= c && r1 < n) A[r1 * ld + c] -= l1 * lc;
-    }
-    __syncwarp();
+  float rows[R][32 * R], w[R], dg[R];
+#pragma unroll
+  for (int s = 0; s < R; ++s) {
+    const int row = lane + 32 * s;
+#pragma unroll
+    for (int c = 0; c < 32 * (s + 1); ++c) rows[s][c] = row < n && c <= row ? tile[row * ld + c] : 0.f;
+    dg[s] = 1.f;
   }
-
-  for (int e = lane; e < n * n; e += 32) {
-    const int i = e / n, j = e - i * n;
-    dst[e] = !ok ? NAN : (j <= i ? A[i * ld + j] : 0.f);
+  const bool ok =
+      factor_rows<R, false, PositivePivots, 16 * R>(rows, w, dg, tile, colbuf, ld, n, lane, false);
+#pragma unroll
+  for (int s = 0; s < R; ++s) {
+    const int row = lane + 32 * s;
+    if (row < n) tile[row * ld + row] = dg[s];
   }
+  // L's rows out coalesced from the tile's upper triangle, zeros above
+  __syncwarp();
+  float* dst = out + m * nn;
+#pragma unroll 4
+  for (int i = 0; i < n; ++i)
+#pragma unroll
+    for (int s = 0; s < R; ++s) {
+      const int c = lane + 32 * s;
+      if (c < n) dst[i * n + c] = !ok ? NAN : (c <= i ? tile[c * ld + i] : 0.f);
+    }
 }
 
 }  // namespace
@@ -93,12 +93,26 @@ extern "C" int pacoh_chol_small(const float* a, float* out, int b, int n, int de
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (b < 1 || n < 1 || n > kMaxN) return static_cast<int>(cudaErrorInvalidValue);
-  const int ld = n | 1;  // odd: a warp down a column touches 32 banks
-  const int per_warp = n * ld * static_cast<int>(sizeof(float));
-  int warps = kSmemBytes / per_warp;
-  if (warps > kMaxWarps) warps = kMaxWarps;
-  const int blocks = (b + warps - 1) / warps;
-  chol_small_kernel<<<blocks, warps * 32, static_cast<size_t>(warps) * per_warp,
-                      static_cast<cudaStream_t>(stream)>>>(a, out, b, n, ld, warps);
+  const size_t bytes = static_cast<size_t>(warp_floats(n)) * sizeof(float);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (n <= 32)
+    chol_small_warp_kernel<1><<<b, 32, bytes, st>>>(a, out, n);
+  else
+    chol_small_warp_kernel<2><<<b, 32, bytes, st>>>(a, out, n);
   return static_cast<int>(cudaGetLastError());
+}
+
+// Registers and local-memory bytes a thread (where spills and stack frames
+// go) of the instance for N <= 32 (wide = 0) or 33 <= N <= 64.
+extern "C" int pacoh_chol_small_usage(int wide, int* out, int device, void* stream) {
+  (void)stream;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaFuncAttributes attr;
+  err = wide ? cudaFuncGetAttributes(&attr, chol_small_warp_kernel<2>)
+             : cudaFuncGetAttributes(&attr, chol_small_warp_kernel<1>);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  out[0] = attr.numRegs;
+  out[1] = static_cast<int>(attr.localSizeBytes);
+  return 0;
 }

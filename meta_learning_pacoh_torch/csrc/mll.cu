@@ -1,5 +1,5 @@
 // Batched GP marginal-likelihood core for B independent N x N systems,
-// forward (one warp per system) and backward (one block per system).
+// forward and backward, each one warp a system.
 //
 // Replaces the Pallas TPU kernels of meta_learning_pacoh_tpu/ops/pallas/
 // mll_kernel.py: _mll_fwd_kernel (launched by _mll_fwd_call) and
@@ -14,25 +14,33 @@
 //
 // What bounds it on the card: at the general step's B=200, N=20 a system is
 // 1.6 KB in and out and about 3e3 flops, so neither bytes nor flops do: the
-// chain of N pivots a system does. The TPU kernel put 128 systems in the
-// lanes of one vector op. The forward here gives each system one warp, a
-// block of its own, with no block barrier (several systems a block measured
-// no faster at B=200 or 1000 on the H100): Kn arrives coalesced in a
-// per-warp shared tile with an odd leading dimension, lane l
-// takes row l (and row l + 32 for N > 32) into registers, and the
-// right-looking factorization runs there: column j's pivot comes from its
-// owner lane by shuffle, each lane scales its entry, and the trailing update
-// reads the scaled column back from a per-warp buffer as float4 broadcasts
-// (factor_rows). r rides along as the border row: lane l carries r_l
-// through the same updates, so z_j falls out as column j completes and no
-// forward substitution follows. A failed pivot sends only its warp back to
-// the tile (still holding Kn in its lower triangle) for the next jitter
-// level. quad and logdet are warp sums; L goes out through the tile (its
-// columns collected in the upper triangle), lower with zeros above,
-// coalesced. The register arrays are indexed only by unrolled loop indices,
-// one instance for N <= 32 and one for 33 <= N <= 64. What holds it now is
-// that one warp's chain of N columns. The backward stays the first design:
-// one block a system in shared memory, its threads sharing each column.
+// chain of N columns a system does. The TPU kernels put 128 systems in the
+// lanes of one vector op. Here each system gets one warp, a block of its
+// own, with no block barrier (several systems a block measured no faster at
+// B=200 or 1000 on the H100).
+//
+// The forward runs warp_chol.cuh's register factorization: Kn arrives
+// coalesced in a per-warp shared tile with an odd leading dimension, lane l
+// takes row l (and row l + 32 for N > 32) into registers, each column's
+// pivot is shuffled from its owner lane and the scaled column broadcast as
+// float4 from a column buffer (factor_rows). r rides along as the border
+// row, so z_j falls out as column j completes and no forward substitution
+// follows. A pivot below FLT_MIN fails as 0 does; a failed pivot sends only
+// its warp back to the tile (still holding Kn in its lower triangle) for the
+// next jitter level. quad and logdet are warp sums; L goes out through the
+// tile (its columns collected in the upper triangle), lower with zeros
+// above, coalesced.
+//
+// The backward gives lane c the columns c and c + 32 of W = L^-1: L lands
+// transposed in shared memory (L^T, a column of L a row), and lane c solves
+// L w = e_c by the right-looking sweep in registers, L's column j read as
+// float4 broadcasts, with no exchange between lanes; the finished rows go to
+// a W^T tile. alpha = W^T z is each lane's dot with z; K^-1 = W^T W row by
+// row, each lane's own column against column a's float4 broadcasts, and
+// dKn's row a leaves across the lanes. The register arrays of both kernels
+// are indexed only by unrolled loop indices, one instance for N <= 32 and
+// one for 33 <= N <= 64. What holds each now is its warp's chain of N
+// columns.
 
 #include <cuda_runtime.h>
 #include <float.h>
@@ -40,119 +48,9 @@
 
 namespace {
 
+#include "warp_chol.cuh"
+
 constexpr int kMaxN = 64;
-constexpr int kThreads = 128;             // the backward's block
-constexpr unsigned kFull = 0xffffffffu;
-constexpr int kColBuf = 64;               // floats of a column buffer (N <= 64)
-
-// Shared floats of one forward system: its N x (N | 1) tile, rounded up to 16
-// bytes, and two column buffers.
-__host__ __device__ __forceinline__ int warp_floats(int n) {
-  return (n * (n | 1) + 3) / 4 * 4 + 2 * kColBuf;
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-  for (int off = 16; off > 0; off >>= 1) v += __shfl_down_sync(0xffffffffu, v, off);
-  return v;
-}
-
-// 1 / sqrt(d) by the hardware's approximation, off the pivot chain's
-// denormal rescaling: it flushes a pivot below FLT_MIN (2^-126) to 0, so
-// factor_rows takes such a pivot as failed, as it takes 0 (the GP systems
-// here carry a noise floor far above).
-__device__ __forceinline__ float rsqrt_approx(float d) {
-  float r;
-  asm("rsqrt.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(d));
-  return r;
-}
-
-// The factorization of one system in one warp's registers, r as its border
-// row. a[s][k] is row lane + 32 s, column j0 + k: a window that slides U
-// columns at the end of each pass of the column loop, so the arrays are
-// indexed only by unrolled loop indices while the loop over the columns
-// stays a loop, whose body stays in the instruction cache (fully unrolled,
-// the columns streamed as code once a system). Column j's entries below the
-// pivot go through a per-warp column buffer in shared memory (two,
-// alternating, so one __syncwarp a column orders them): every lane reads
-// them back as float4 broadcasts. The trailing update runs in groups of G
-// columns (8; 4 for N > 32, which keeps that instance's registers from
-// spilling) under one uniform guard a group. Each row also updates its own
-// next diagonal entry from its own L entry (dn: the value the group update
-// gives it, bit for bit), so the next pivot's shuffle does not wait on the
-// column buffer. Entries above the diagonal carry values that are never
-// read. w[s] is the row's entry of the border row. Column j of L also goes
-// to the tile transposed, into its upper triangle (L[row][j] at
-// tile[j][row]), which the reload of a later jitter level does not read.
-// Returns whether every pivot was finite and at least FLT_MIN; unless
-// `last`, it stops at the first that is not. On return w[s] holds z and
-// dg[s] the diagonal of the rows.
-template <int R>
-__device__ __forceinline__ bool factor_rows(float (&a)[R][32 * R], float (&w)[R], float (&dg)[R],
-                                            float* tile, float* colbuf, int ld, int n, int lane,
-                                            bool last) {
-  constexpr int U = 4;
-  constexpr int G = 8 / R;
-  float dn[R];
-#pragma unroll
-  for (int s = 0; s < R; ++s) dn[s] = a[s][0];
-#pragma unroll 1
-  for (int j0 = 0; j0 < n; j0 += U) {
-#pragma unroll
-    for (int u = 0; u < U; ++u) {
-      const int j = j0 + u;
-      if (j < n) {
-        const bool wide = R == 2 && j >= 32;  // column j's row is in the second set
-        const float d = __shfl_sync(kFull, wide ? dn[R - 1] : dn[0], j & 31);
-        if (!last && !(d >= FLT_MIN && d < INFINITY)) return false;
-        const float inv = rsqrt_approx(d);
-        const float zj = __shfl_sync(kFull, wide ? w[R - 1] : w[0], j & 31) * inv;
-        float* col = colbuf + (j & 1) * kColBuf;  // col[c] = L[j + c][j]
-        float lj[R];
-#pragma unroll
-        for (int s = 0; s < R; ++s) {
-          const int row = lane + 32 * s;
-          const float l = a[s][u] * inv;  // L[row][j] for the rows below j
-          if (row > j) {
-            col[row - j] = l;
-            if (row < n) tile[j * ld + row] = l;
-          }
-          dg[s] = row == j ? d * inv : dg[s];
-          w[s] = row == j ? zj : (row > j ? w[s] - l * zj : w[s]);
-          lj[s] = l;
-          dn[s] = a[s][u + 1] - l * l;
-        }
-        __syncwarp();
-#pragma unroll
-        for (int c0 = 0; c0 < 32 * R; c0 += G) {
-          if (j + (c0 > 0 ? c0 : 1) < n) {  // the group's first column is in the matrix
-            float lc[G];
-#pragma unroll
-            for (int v = 0; v < G / 4; ++v) {
-              const float4 q = reinterpret_cast<const float4*>(col)[c0 / 4 + v];
-              lc[4 * v] = q.x;
-              lc[4 * v + 1] = q.y;
-              lc[4 * v + 2] = q.z;
-              lc[4 * v + 3] = q.w;
-            }
-#pragma unroll
-            for (int e = 0; e < G; ++e) {
-#pragma unroll
-              for (int s = 0; s < R; ++s)
-                if (c0 + e > 0 && u + c0 + e < 32 * (s + 1) && (s > 0 || j < 32))
-                  a[s][u + c0 + e] -= lj[s] * lc[e];
-            }
-          }
-        }
-      }
-    }
-#pragma unroll
-    for (int s = 0; s < R; ++s) {
-#pragma unroll
-      for (int k = 0; k + U < 32 * (s + 1); ++k) a[s][k] = a[s][k + U];
-    }
-  }
-  return true;
-}
 
 // For N <= 32 at most 64 registers a thread (32 blocks an SM): with the
 // allocation left free (93 registers) the factorization measured 13% slower
@@ -198,7 +96,7 @@ mll_fwd_warp_kernel(const float* __restrict__ kn, const float* __restrict__ r,
       w[s] = row < n ? r[sys * n + row] : 0.f;
       dg[s] = 1.f;
     }
-    if (factor_rows<R>(a, w, dg, tile, colbuf, ld, n, lane, level == 2)) break;
+    if (factor_rows<R, true, NormalPivots>(a, w, dg, tile, colbuf, ld, n, lane, level == 2)) break;
   }
 
   float q = 0.f, ldet = 0.f;
@@ -230,53 +128,222 @@ mll_fwd_warp_kernel(const float* __restrict__ kn, const float* __restrict__ r,
     }
 }
 
-__global__ void __launch_bounds__(kThreads)
-mll_bwd_kernel(const float* __restrict__ l_in, const float* __restrict__ z_in,
-               const float* __restrict__ gq, const float* __restrict__ gl,
-               float* __restrict__ dkn, float* __restrict__ dr, int n) {
-  extern __shared__ float smem[];
-  float* l = smem;            // n * n
-  float* w = l + n * n;       // n * n, W = L^{-1} (lower)
-  float* alpha = w + n * n;   // n
+// The backward's tiles, L^T and W^T (one row a column of L or W): their
+// leading dimension is N rounded up to 4, made four times an odd number, so
+// a tile row's float4s are 16-byte aligned, and 8 lanes on 8 rows start on
+// 8 different multiples of 4 banks: a quarter warp's float4s of its own rows
+// of W^T, and a warp's 4 x 8 copies into L^T, hit 32 banks.
+__host__ __device__ __forceinline__ int bwd_ld(int n) { return 4 * (((n + 3) / 4) | 1); }
 
-  const int sys = blockIdx.x;
-  const int tid = threadIdx.x;
-  const float* ls = l_in + static_cast<size_t>(sys) * n * n;
-  const float* zs = z_in + static_cast<size_t>(sys) * n;
-  for (int idx = tid; idx < n * n; idx += blockDim.x) l[idx] = ls[idx];
-  __syncthreads();
+// Shared floats of one backward system: L^T and W^T, then z, 1 / diag L and
+// alpha (one leading dimension each).
+__host__ __device__ __forceinline__ int bwd_floats(int n) { return (2 * n + 3) * bwd_ld(n); }
 
-  // alpha = L^{-T} z by back substitution in warp 0.
-  if (tid < 32) {
-    for (int i = n - 1; i >= 0; --i) {
-      float part = 0.f;
-      for (int k = i + 1 + tid; k < n; k += 32) part += l[k * n + i] * alpha[k];
-      part = warp_sum(part);
-      if (tid == 0) alpha[i] = (zs[i] - part) / l[i * n + i];
-      __syncwarp();
+__device__ __forceinline__ float4 load4_or_zero(const float* p, bool take) {
+  return take ? *reinterpret_cast<const float4*>(p) : make_float4(0.f, 0.f, 0.f, 0.f);
+}
+
+// K3's loops read float4s in spans of Span rows under one uniform guard a
+// span: each group of four under a guard of its own waits for its load
+// behind its own branch, the loads of a step queued one after another; a
+// span's loads are predicated (0 where the group is outside the guard's
+// rows) and issue together before its FMAs.
+//
+// Lane c's C columns of W = L^-1 (c and c + 32) by the right-looking sweep
+// over L's columns j in [j_begin, j_end): w_j *= 1 / L_jj, then
+// w_k -= L_kj w_j for k > j. w[q][k] is row j0 + k of the q-th column: a
+// window that slides four rows a pass, as factor_rows' does, so the arrays
+// are indexed only by unrolled loop indices. L's column j comes from row j
+// of the L^T tile as float4 broadcasts (every lane the same address), zero
+// below row N; the lanes never talk to each other, so no __syncwarp. Each
+// pass's four finished rows go to the lane's row of the W^T tile as one
+// float4.
+template <int C, int S, int Span>
+__device__ __forceinline__ void sweep_columns(float (&w)[C][S], const float* lt, const float* dinv,
+                                              float* wt, int ld, int j_begin, int j_end, int n,
+                                              int lane) {
+#pragma unroll 1
+  for (int j0 = j_begin; j0 < j_end; j0 += 4) {
+    const float4 d4 = *reinterpret_cast<const float4*>(dinv + j0);
+    const float dv[4] = {d4.x, d4.y, d4.z, d4.w};
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      if (j0 + u < n) {
+        const float* lcol = lt + (j0 + u) * ld + j0;  // lcol[k] = L[j0 + k][j0 + u]
+#pragma unroll
+        for (int q = 0; q < C; ++q) w[q][u] *= dv[u];
+#pragma unroll
+        for (int k1 = 0; k1 < S; k1 += Span) {
+          if (k1 + Span - 1 > u && j0 + k1 < n) {  // the span holds rows below j, in the matrix
+            float4 l4[Span / 4];
+#pragma unroll
+            for (int g = 0; g < Span / 4; ++g)
+              l4[g] = load4_or_zero(lcol + k1 + 4 * g, k1 + 4 * g + 3 > u && j0 + k1 + 4 * g < n);
+#pragma unroll
+            for (int g = 0; g < Span / 4; ++g) {
+              const float lk[4] = {l4[g].x, l4[g].y, l4[g].z, l4[g].w};
+#pragma unroll
+              for (int e = 0; e < 4; ++e)
+                if (k1 + 4 * g + e > u)
+#pragma unroll
+                  for (int q = 0; q < C; ++q) w[q][k1 + 4 * g + e] -= lk[e] * w[q][u];
+            }
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int q = 0; q < C; ++q) {
+      const int row = lane + 32 * q;  // the lane's column of W, its row of W^T
+      if (row < n)
+        *reinterpret_cast<float4*>(wt + row * ld + j0) =
+            make_float4(w[q][0], w[q][1], w[q][2], w[q][3]);
+#pragma unroll
+      for (int k = 0; k < S; ++k) w[q][k] = k + 4 < S ? w[q][k + 4] : 0.f;
     }
   }
-  // W = L^{-1}: thread c solves L w = e_c for column c (zero above row c).
-  for (int c = tid; c < n; c += blockDim.x) {
-    for (int i = 0; i < c; ++i) w[i * n + c] = 0.f;
-    for (int i = c; i < n; ++i) {
-      float acc = (i == c) ? 1.f : 0.f;
-      for (int k = c; k < i; ++k) acc -= l[i * n + k] * w[k * n + c];
-      w[i * n + c] = acc / l[i * n + i];
-    }
-  }
-  __syncthreads();
+}
 
+// One system a warp, a block of its own, lane b owning columns b and b + 32
+// of W and of K^-1. L's lower triangle lands transposed in the L^T tile by
+// cp.async (lane (p, q) of a 4 x 8 pattern copies L[i0 + q][c0 + p]: 32-byte
+// runs of a row from device memory, 32 banks in shared memory), zeros above
+// and beyond row N; z beside it. W by columns (sweep_columns); alpha = W^T z,
+// the lane's column against z's float4 broadcasts; K^-1 = W^T W row by row:
+// for row a the lane dots its own column (in registers) with column a, read
+// from the W^T tile as float4 broadcasts from row a's first nonzero group
+// on, in four partial sums by k mod 4, so (a, b) and (b, a) sum the same
+// nonzero products in the same order and dKn comes out exactly symmetric.
+// Row a of dKn leaves across the lanes, coalesced.
+//
+// No register cap, spans of 16 rows (N <= 32) or 32: on the H100 at N=20
+// the cap of 64 registers spilled and read 0.0085 ms against 0.0078
+// without; spans of 32 read 0.0081 at N=20 and 0.0203 against 0.0210 at
+// N=48.
+template <int R>
+__global__ void __launch_bounds__(32)
+mll_bwd_warp_kernel(const float* __restrict__ l_in, const float* __restrict__ z_in,
+                    const float* __restrict__ gq, const float* __restrict__ gl,
+                    float* __restrict__ dkn, float* __restrict__ dr, int n) {
+  extern __shared__ __align__(16) float smem[];
+  const int lane = threadIdx.x;
+  const long long sys = blockIdx.x;
+  const int ld = bwd_ld(n), n4 = (n + 3) / 4 * 4;
+  float* lt = smem;             // lt[j * ld + k] = L[k][j]
+  float* wt = lt + n * ld;      // wt[c * ld + k] = W[k][c]
+  float* zs = wt + n * ld;      // z, zero beyond N
+  float* dinv = zs + ld;        // 1 / L_kk, zero beyond N
+  float* alpha = dinv + ld;
+  const size_t nn = static_cast<size_t>(n) * n;
+  const float* ls = l_in + sys * nn;
+  const float* zsrc = z_in + sys * n;
   const float g_q = gq[sys], g_l = gl[sys];
-  float* out = dkn + static_cast<size_t>(sys) * n * n;
-  for (int idx = tid; idx < n * n; idx += blockDim.x) {
-    const int a = idx / n, b = idx % n;
-    float kinv = 0.f;
-    for (int k = (a > b ? a : b); k < n; ++k) kinv += w[k * n + a] * w[k * n + b];
-    out[idx] = g_l * kinv - g_q * alpha[a] * alpha[b];
+  constexpr int Span = 16 * R;
+
+  const int p = lane >> 2, q4 = lane & 3;
+  for (int i0 = 0; i0 < n4; i0 += 4) {
+    const int i = i0 + q4;
+    for (int c0 = 0; c0 <= i0 + 3 && c0 < n; c0 += 8) {
+      const int c = c0 + p;
+      const bool take = i < n && c <= i;
+      if (c < n) cp_async4(lt + c * ld + i, take ? ls + i * n + c : ls, take);
+    }
   }
-  for (int i = tid; i < n; i += blockDim.x)
-    dr[static_cast<size_t>(sys) * n + i] = 2.f * g_q * alpha[i];
+  for (int k = lane; k < n4; k += 32) cp_async4(zs + k, zsrc + (k < n ? k : 0), k < n);
+  cp_async_wait_all();
+  __syncwarp();
+  for (int k = lane; k < n4; k += 32) dinv[k] = k < n ? 1.f / lt[k * ld + k] : 0.f;
+  __syncwarp();
+
+  if constexpr (R == 1) {
+    float w[1][32];
+#pragma unroll
+    for (int k = 0; k < 32; ++k) w[0][k] = k == lane ? 1.f : 0.f;
+    sweep_columns<1, 32, Span>(w, lt, dinv, wt, ld, 0, n, n, lane);
+  } else {
+    // columns 0-31 alone down to row 32, then with columns 32-63
+    float wa[1][64];
+#pragma unroll
+    for (int k = 0; k < 64; ++k) wa[0][k] = k == lane ? 1.f : 0.f;
+    sweep_columns<1, 64, Span>(wa, lt, dinv, wt, ld, 0, 32, n, lane);
+    float wb[2][32];
+#pragma unroll
+    for (int k = 0; k < 32; ++k) {
+      wb[0][k] = wa[0][k];
+      wb[1][k] = k == lane ? 1.f : 0.f;
+    }
+    sweep_columns<2, 32, Span>(wb, lt, dinv, wt, ld, 32, n, n, lane);
+  }
+  __syncwarp();
+
+  // own[q][k]: row k of the lane's column lane + 32 q (zero above it)
+  float own[R][32 * R], al[R];
+#pragma unroll
+  for (int q = 0; q < R; ++q) {
+    const int col = lane + 32 * q;
+    float part[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+    for (int k0 = 32 * q; k0 < 32 * R; k0 += 4) {
+      float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (k0 < n) {
+        if (col < n) v = *reinterpret_cast<const float4*>(wt + col * ld + k0);
+        const float4 zv = *reinterpret_cast<const float4*>(zs + k0);
+        part[0] += v.x * zv.x;
+        part[1] += v.y * zv.y;
+        part[2] += v.z * zv.z;
+        part[3] += v.w * zv.w;
+      }
+      own[q][k0] = v.x;
+      own[q][k0 + 1] = v.y;
+      own[q][k0 + 2] = v.z;
+      own[q][k0 + 3] = v.w;
+    }
+    al[q] = (part[0] + part[1]) + (part[2] + part[3]);  // alpha = W^T z
+    if (col < n) {
+      alpha[col] = al[q];
+      dr[sys * n + col] = 2.f * g_q * al[q];
+    }
+  }
+  __syncwarp();
+
+  float* out = dkn + sys * nn;
+#pragma unroll 1
+  for (int a = 0; a < n; ++a) {
+    const float* wa = wt + a * ld;  // column a of W, zero above row a
+    float part[R][4];
+#pragma unroll
+    for (int q = 0; q < R; ++q) part[q][0] = part[q][1] = part[q][2] = part[q][3] = 0.f;
+#pragma unroll
+    for (int k1 = 0; k1 < 32 * R; k1 += Span) {
+      if (k1 + Span - 1 >= a && k1 < n) {  // the span holds rows from a on, in the matrix
+        float4 v[Span / 4];
+#pragma unroll
+        for (int g = 0; g < Span / 4; ++g) {
+          const int k0 = k1 + 4 * g;
+          v[g] = load4_or_zero(wa + k0, k0 + 3 >= a && k0 < n);
+        }
+#pragma unroll
+        for (int g = 0; g < Span / 4; ++g) {
+          const int k0 = k1 + 4 * g;
+#pragma unroll
+          for (int q = 0; q < R; ++q)
+            if (k0 >= 32 * q) {
+              part[q][0] += v[g].x * own[q][k0];
+              part[q][1] += v[g].y * own[q][k0 + 1];
+              part[q][2] += v[g].z * own[q][k0 + 2];
+              part[q][3] += v[g].w * own[q][k0 + 3];
+            }
+        }
+      }
+    }
+    const float alpha_a = alpha[a];
+#pragma unroll
+    for (int q = 0; q < R; ++q) {
+      const int col = lane + 32 * q;
+      const float kinv = (part[q][0] + part[q][1]) + (part[q][2] + part[q][3]);
+      if (col < n) out[a * n + col] = g_l * kinv - g_q * (alpha_a * al[q]);
+    }
+  }
 }
 
 }  // namespace
@@ -316,8 +383,26 @@ extern "C" int pacoh_mll_bwd(const float* l, const float* z, const float* gq,
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (b < 1 || n < 1 || n > kMaxN) return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = static_cast<size_t>(2 * n * n + n) * sizeof(float);
-  mll_bwd_kernel<<<b, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      l, z, gq, gl, dkn, dr, n);
+  const size_t bytes = static_cast<size_t>(bwd_floats(n)) * sizeof(float);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (n <= 32)
+    mll_bwd_warp_kernel<1><<<b, 32, bytes, st>>>(l, z, gq, gl, dkn, dr, n);
+  else
+    mll_bwd_warp_kernel<2><<<b, 32, bytes, st>>>(l, z, gq, gl, dkn, dr, n);
   return static_cast<int>(cudaGetLastError());
+}
+
+// Registers and local-memory bytes a thread of the backward's instance for
+// N <= 32 (wide = 0) or 33 <= N <= 64.
+extern "C" int pacoh_mll_bwd_usage(int wide, int* out, int device, void* stream) {
+  (void)stream;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaFuncAttributes attr;
+  err = wide ? cudaFuncGetAttributes(&attr, mll_bwd_warp_kernel<2>)
+             : cudaFuncGetAttributes(&attr, mll_bwd_warp_kernel<1>);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  out[0] = attr.numRegs;
+  out[1] = static_cast<int>(attr.localSizeBytes);
+  return 0;
 }

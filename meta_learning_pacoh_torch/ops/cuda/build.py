@@ -35,9 +35,11 @@ SIGNATURES = {
     "pacoh_mll_fwd": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
     "pacoh_mll_fwd_usage": (_I, _P, _I, _P),
     "pacoh_mll_bwd": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
+    "pacoh_mll_bwd_usage": (_I, _P, _I, _P),
     "pacoh_chol": (_P, _P, _I, _I, _I, _P),
     "pacoh_chol_blocks_per_sm": (_I, _P, _I, _P),
     "pacoh_chol_small": (_P, _P, _I, _I, _I, _P),
+    "pacoh_chol_small_usage": (_I, _P, _I, _P),
     "pacoh_blocked_mll_fwd": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
     "pacoh_blocked_mll_fwd_blocks_per_sm": (_I, _P, _I, _P),
     "pacoh_blocked_mll_bwd": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _P),

@@ -13,7 +13,8 @@ matrix is the B = 1 case of the same kernel.
 The contract is K4's (ops/cuda/chol_kernel.py): input [B, N, N] float32, only
 the lower triangle read, no jitter, and a matrix whose factorization fails
 comes back all NaN, so ``ops.chol.safe_cholesky`` escalates around the call.
-On the card one warp factors one matrix in shared memory (see the source).
+On the card one warp factors one matrix, its rows in registers, on the MLL
+forward's register factorization (csrc/warp_chol.cuh; see the source).
 """
 
 import torch

@@ -9,9 +9,9 @@ residuals r [B, N]:
 
 with the factorization's jitter escalated per system through (0, 1e-4, 1e-2),
 and the closed-form backward dKn = gl W^T W - gq alpha alpha^T,
-dr = 2 gq alpha (W = L^{-1}, alpha = L^{-T} z). On the card the forward
-gives each system one warp, a block of its own, its rows in registers, and
-the backward one block (see the source).
+dr = 2 gq alpha (W = L^{-1}, alpha = L^{-T} z). On the card each kernel
+gives a system one warp, a block of its own: the forward its rows in
+registers, the backward a column of W a lane in registers (see the source).
 """
 
 import torch
@@ -22,7 +22,7 @@ from meta_learning_pacoh_torch.ops.cuda.chol_kernel import cholesky_ref, diag_ok
 
 MLL_KERNEL_MIN_N = 9  # below: the unrolled expressions (ops/chol.py)
 MLL_KERNEL_MAX_N = 48  # above: the blocked MLL kernels B4 for 49 <= N <= 512 (ops/gp.py)
-MAX_N = 64  # what the kernels take (the backward: two N x N matrices in shared memory)
+MAX_N = 64  # what the kernels take: at most two rows (or W columns) a lane
 JITTERS = (0.0, 1e-4, 1e-2)
 
 

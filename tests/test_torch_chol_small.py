@@ -4,9 +4,12 @@ interpret mode, as tests/test_chol.py runs it.
 
 The wrapper takes its plain version for a CPU tensor (the CUDA kernel is
 held against it on the card: tests/test_torch_gpu.py, chip_smoke.py phase
-2). Tolerance: per matrix, 2e-4 of its largest factor entry (two float32
-factorization orders). ``ops.chol`` sends 32 <= N <= 64 to B5 and
-65 <= N <= 512 to K4.
+2). The kernel's schedule, the register factorization it shares with K2
+(csrc/warp_chol.cuh) without border row or jitter, any finite positive
+pivot taken, is emulated in float32 (``factor_columns`` of
+tests/test_torch_mll_warp.py). Tolerance: per matrix, 2e-4 of its largest
+factor entry (two float32 factorization orders). ``ops.chol`` sends
+32 <= N <= 64 to B5 and 65 <= N <= 512 to K4.
 """
 
 import jax.numpy as jnp
@@ -17,6 +20,7 @@ import torch
 from meta_learning_pacoh_tpu.ops.pallas import chol_kernel as jax_chol
 from meta_learning_pacoh_torch.ops import chol
 from meta_learning_pacoh_torch.ops.cuda import chol_small_kernel
+from test_torch_mll_warp import factor_columns, normal_pivot, positive_pivot
 
 
 def _spd(b, n, seed):
@@ -38,6 +42,71 @@ def test_plain_version_matches_pallas_kernel(n, b):
     err = np.abs(got - want).reshape(b, -1).max(axis=1) / scale
     assert err.max() <= 2e-4, err.max()
     np.testing.assert_array_equal(np.triu(got, 1), 0.0)
+
+
+def emulate_chol_small(a):
+    """B5's schedule in float32, a matrix at a time: the lower factor, or
+    all NaN where a pivot is not finite and positive."""
+    out = np.empty_like(a)
+    for m in range(a.shape[0]):
+        L, _, ok = factor_columns(a[m], None, positive_pivot)
+        out[m] = L if ok else np.nan
+    return out
+
+
+def _per_matrix_err(got, want):
+    scale = np.abs(want).reshape(want.shape[0], -1).max(axis=1)
+    return (np.abs(got - want).reshape(got.shape[0], -1).max(axis=1) / scale).max()
+
+
+def _denormal_pivots(a, m):
+    """Matrix m with pivots 0 and 17 at 1e-39, below float32's smallest
+    normal, their rows and columns zero elsewhere."""
+    for k in (0, 17):
+        a[m, k, :] = 0.0
+        a[m, :, k] = 0.0
+        a[m, k, k] = np.float32(1e-39)
+    assert 0 < a[m, 17, 17] < np.finfo(np.float32).tiny
+    return a
+
+
+@pytest.mark.parametrize("n", [32, 50, 64])
+def test_warp_schedule_matches_pallas_kernel(n):
+    """B5's schedule against the lane-parallel Pallas kernel in interpret
+    mode on 5 matrices, 2e-4 per matrix, zeros above the diagonal."""
+    a = _spd(5, n, seed=200 + n)
+    got = emulate_chol_small(a)
+    want = np.asarray(jax_chol.cholesky_pallas(jnp.asarray(a)))
+    assert _per_matrix_err(got, want) <= 2e-4
+    np.testing.assert_array_equal(np.triu(got, 1), 0.0)
+
+
+@pytest.mark.parametrize("n", [32, 50, 64])
+def test_warp_schedule_factors_a_denormal_pivot(n):
+    """A pivot in (0, 2^-126) is factored, as the plain version (LAPACK's
+    cholesky_ex) factors it, to 2e-4 per matrix; K2's pivot rule (at least
+    the smallest normal) would have failed it. The Pallas kernel is no
+    reference here: the CPU backend flushes denormals to 0."""
+    a = _denormal_pivots(_spd(3, n, seed=300 + n), 1)
+    got = emulate_chol_small(a)
+    want = chol_small_kernel.cholesky_small(torch.from_numpy(a)).numpy()
+    assert np.all(np.isfinite(got)) and np.all(np.isfinite(want))
+    assert _per_matrix_err(got, want) <= 2e-4
+    np.testing.assert_allclose(got[1, 17, 17], np.sqrt(np.float64(a[1, 17, 17])), rtol=1e-6)
+    assert not factor_columns(a[1], None, normal_pivot)[2]
+
+
+def test_warp_schedule_indefinite_is_all_nan():
+    """An indefinite matrix among four: all NaN, as in the plain version;
+    its neighbours factored to 2e-4 per matrix."""
+    a = _spd(4, 40, seed=1)
+    lam = np.linalg.eigvalsh(a[2].astype(np.float64))
+    a[2] -= np.float32(lam[0] + 1e-2) * np.eye(40, dtype=np.float32)
+    got = emulate_chol_small(a)
+    want = chol_small_kernel.cholesky_small(torch.from_numpy(a)).numpy()
+    np.testing.assert_array_equal(np.isnan(got), np.isnan(want))
+    assert np.isnan(got[2]).all()
+    assert _per_matrix_err(got[[0, 1, 3]], want[[0, 1, 3]]) <= 2e-4
 
 
 def test_failed_factorization_is_all_nan():

@@ -162,6 +162,26 @@ def test_mll_fwd_denormal_pivots_escalate(dev, n):
         assert_close_per_system(g.reshape(4, -1), w.reshape(4, -1))
 
 
+@pytest.mark.parametrize("n, b", [(20, 200), (48, 50), (48, 200)])
+def test_mll_bwd_on_both_factors(dev, n, b):
+    """K3 (one warp a system) on the plain version's L and z and on K2's
+    own, with escalating systems, against its plain version; its dKn exactly
+    symmetric (both halves sum the same products in the same order)."""
+    rs = np.random.RandomState(n + b)
+    kn = _psd(b, n, seed=n + b)
+    kn[2] = _escalating(n, -5e-5, rs)
+    kn[5] = _escalating(n, -5e-3, rs)
+    kn, r = kn.to(dev), torch.tensor(rs.randn(b, n), dtype=torch.float32, device=dev)
+    gq = torch.tensor(rs.randn(b), dtype=torch.float32, device=dev)
+    gl = torch.tensor(rs.randn(b), dtype=torch.float32, device=dev)
+    for fwd in (mll_kernel.mll_fwd_ref, mll_kernel.mll_fwd):
+        _, _, L, z = fwd(kn, r)
+        got = mll_kernel.mll_bwd(L, z, gq, gl)
+        for g, w in zip(got, mll_kernel.mll_bwd_ref(L, z, gq, gl)):
+            assert_close_per_system(g, w)
+        assert torch.equal(got[0], got[0].mT)
+
+
 @pytest.mark.parametrize("n", [49, 200, 231, 232, 235, 236, 300, 306, 307, 308, 512])
 def test_blocked_mll_kernels_with_escalation(dev, n):
     """B4 forward and backward against their plain versions: the forward's
@@ -820,6 +840,25 @@ def test_chol_small_kernel_fails_one_matrix_to_nan(dev):
     assert torch.equal(torch.isnan(got), torch.isnan(want)) and bool(torch.isnan(got[7]).all())
     others = torch.arange(20, device=dev) != 7
     assert_close_per_system(got[others], want[others])
+
+
+@pytest.mark.parametrize("n", [32, 50, 64])
+def test_chol_small_kernel_denormal_pivot(dev, n):
+    """A matrix whose pivots 0 and 17 are 1e-39, below float32's smallest
+    normal (2^-126), their rows and columns zero elsewhere: B5 takes every
+    finite positive pivot, so its NaN pattern is its plain version's on the
+    card, and where the plain version factors, so does B5, to its values."""
+    a = _psd(4, n, seed=n).to(dev)
+    for k in (0, 17):
+        a[2, k, :] = 0.0
+        a[2, :, k] = 0.0
+        a[2, k, k] = 1e-39
+    assert 0.0 < float(a[2, 17, 17]) < torch.finfo(torch.float32).tiny
+    got, want = chol_small_kernel.cholesky_small(a), chol_kernel.cholesky_ref(a)
+    assert torch.equal(torch.isnan(got), torch.isnan(want))
+    factored = ~torch.isnan(want).reshape(4, -1).any(1)
+    assert bool(factored[[0, 1, 3]].all())
+    assert_close_per_system(got[factored], want[factored])
 
 
 # name -> (learner keywords, task batch, meta-test, (T, N, D), task sizes)

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Time the general step's kernels K1 (Stein transport), K2 and K3 (the
-small-N MLL forward and backward) and their plain versions as device time
-and as one synchronised call, on one CUDA card.
+small-N MLL forward and backward), and the small-N Cholesky B5, and their
+plain versions as device time and as one synchronised call, on one CUDA
+card.
 
     python3 tools/general_kernels_bench.py [--root DIR] [--out FILE]
 
@@ -11,7 +12,9 @@ run parent, change, change, parent. Shapes: K1 at [10, 2372] (the NN/NN
 width of ``cauchy_20``) and [10, 1188] (its ``covar_module="SE"`` learner,
 whose general step calls K1 every step); K2 and K3 at B=200, N=20 with
 systems that need the 1e-4 and the 1e-2 jitter and with none, and at B=50
-and 200 with N=48.
+and 200 with N=48; B5 at N in {32, 50, 64} (the evals' predictive
+covariances are N=50) and B in {1, 20, 200}, beside
+``torch.linalg.cholesky_ex``.
 
 Device time: ``chip_smoke.device_ms`` of this checkout: a device-side wait
 (``torch.cuda._sleep``) long enough for the host to enqueue the whole run,
@@ -82,7 +85,8 @@ def main():
 
     if not torch.cuda.is_available():
         sys.exit("general_kernels_bench: no CUDA device")
-    from meta_learning_pacoh_torch.ops.cuda import mll_kernel, svgd_kernel
+    from meta_learning_pacoh_torch.ops.cuda import (chol_kernel, chol_small_kernel, mll_kernel,
+                                                    svgd_kernel)
 
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, check=True, timeout=60).stdout.strip()
@@ -116,6 +120,14 @@ def main():
                 "kernel_ms": timings(lambda: mll_kernel.mll_bwd(L, z, gq, gl)),
                 "plain_ms": timings(lambda: mll_kernel.mll_bwd_ref(L, z, gq, gl)),
                 "cholesky_inverse_ms": timings(lambda: torch.cholesky_inverse(L))})
+    for n in (32, 50, 64):
+        for b in (1, 20, 200):
+            g = torch.randn(b, n, n + 3, generator=gen)
+            a = (g @ g.mT / n + 0.1 * torch.eye(n)).contiguous().cuda()
+            report({"kernel": "B5 chol_small", "shape": f"B={b}, N={n}",
+                    "kernel_ms": timings(lambda: chol_small_kernel.cholesky_small(a)),
+                    "plain_ms": timings(lambda: chol_kernel.cholesky_ref(a)),
+                    "cholesky_ex_ms": timings(lambda: torch.linalg.cholesky_ex(a))})
     result = {"root": os.path.abspath(args.root), "card": card, "run": TIMERS.QUEUED_RUN,
               "rows": rows}
     print(card)
