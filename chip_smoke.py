@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port of PACOH (SVGD, MAP, VI and MLAP) once on one NVIDIA GPU.
+"""Drive the PyTorch/CUDA port of PACOH (SVGD, MAP, VI, MLAP, GPR-MLL and GPR-PAC) once on one NVIDIA GPU.
 
     python3 chip_smoke.py                # all phases, one card
     python3 chip_smoke.py --profile DIR  # also trace fit steps and one eval of
@@ -66,7 +66,10 @@ batch, a sampled batch, across a staircase), at ``cauchy_20``'s (20 tasks of
 ragged tasks of up to 240 points, D=2, nets (16,16,16): the packed matrix in
 shared memory, the activations in device memory; the same tasks with nets
 (128,128): both in device memory; 26 ragged tasks of up to 20 points: two
-systems a block).
+systems a block), and the single-task paths' shapes at one system a launch
+(B4 forward and backward and K4 at N=200, K2 and K3 at N=20, each with a
+system failing at every level, timed beside ``cholesky_ex`` and
+``cholesky_inverse``).
 Phase 3 runs ``cauchy_20`` through the public entry points:
 ``provide_data("cauchy_20", seed=28)``,
 ``GPRegressionMetaLearnedSVGD(..., device="cuda")``, ``meta_fit`` and
@@ -143,6 +146,22 @@ initial particles held to its run (tools/svgd_bign_ref.json), and the
 faceoff of both learners' fused and general rates at the corners of the
 big-N window (N from 9 to 256, 50 to 1000 systems, and ``cauchy_20``),
 each of which must agree with the learners' default dispatch.
+Phase 10 runs the single-task learners and the custom modules on the paths
+of tools/single_task_ref.py, each learner built without a device at seed 30
+with its defaults: ``GPRegressionLearned`` on the first ``map_t5_n200`` test
+task's 200 context points (B4 at B=1) and on the first ``cauchy_20`` test
+task's 20 (K2/K3), ``GPRegressionLearnedPAC`` on the former (K4 three times a
+step), ``GPRegressionLearned(covar_module=CosineKernel(),
+mean_module=LinearMean())`` on it (B4), each 1,000 steps in chunks of 250 with
+the task's 200 test points as the validation set, and
+``GPRegressionMetaLearned(covar_module=MaternKernel(2.5),
+mean_module=LinearMean())`` on ``map_t5_n200``'s 5 tasks, 500 general steps
+(B4 at B=5). Each fit and eval must count exactly its kernels' launches; then
+the eval cold and warm, the steady rate, ``confidence_intervals``, 20 steps
+against the same learner with the kernels disabled (GPR-PAC: against its
+float64 plain run, within ``PAC_TWIN_F64``), 200 steps from the JAX learner's
+initial parameters against its CPU run (tools/single_task_ref.json), and for
+GPR-MLL and GPR-PAC seeds 30-32 in the band of tools/single_task_band.json.
 
 Any failure raises and exits non-zero. The line before the last is a JSON
 object with one record per kernel; the last line is
@@ -196,6 +215,8 @@ PROFILED_CALLS = 20  # calls of a plain version whose kernels torch.profiler sum
 # time ("host included" until then)
 TIMED_AS = {}
 UNQUEUED = {}
+# phase 2's times at one system a launch (phase 10's shapes), by kernel
+ONE_SYSTEM = {}
 FIT_STEPS = 500
 TWIN_STEPS = 20
 # particles after TWIN_STEPS Adam steps from one state: max difference a tenth
@@ -312,6 +333,35 @@ MLAP_TWIN_STEPS = 20  # B8 against the general step, from one state and one set 
 # sigma of the difference of a 3-seed mean and the 30-seed mean
 MLAP_BAND_FILE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tools",
                               "mlap_band.json")
+# phase 10: the single-task learners and the custom modules. The paths and
+# their learners (the learners' defaults: NN nets 32x32, feature_dim 2, lr
+# 1e-3) are tools/single_task_ref.py's; the single-task fits take
+# SINGLE_STEPS steps in chunks of SINGLE_LOG with the task's test points as
+# the validation set (the plateau scheduler stepped after every chunk)
+SINGLE_STEPS, SINGLE_LOG, CUSTOM_MAP_STEPS = 1000, 250, 500
+SINGLE_PATHS = ("gpr_mll_n200", "gpr_mll_n20", "gpr_pac_n200", "custom_n200",
+                "custom_map_t5_n200")
+SINGLE_BAND_PATHS = ("gpr_mll_n200", "gpr_pac_n200")
+SINGLE_SEEDS = (30, 31, 32)
+SINGLE_REF_FILE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tools",
+                               "single_task_ref.json")
+# the band of seeds 30-32: tools/single_task_band.json (written by
+# tools/single_task_band.py), the JAX learners on the CPU, seeds 30-59 fitted
+# as phase 10 fits; centre, margin = 3 sigma of the difference of a 3-seed
+# mean and the 30-seed mean
+SINGLE_BAND_FILE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tools",
+                                "single_task_band.json")
+# GPR-PAC's twin: its KL factors the prior Gram with no noise, singular to
+# float32 at N=200 (eigenvalues 1e-16 of the largest): there the float32
+# plain version's parameters lie 3.0e-2 to 4.0e-2 max, 5.9e-4 to 7.4e-4 mean
+# from its float64 run after 20 steps, its loss 1.3e-2 to 1.6e-2 off, and
+# the kernel path 3.0e-3 max from the float32 plain version (seeds 1-8 on an
+# H100 80GB HBM3 at 700 W, tools/single_task_twins.py into
+# tools/single_task_twins.json), so no float32 path meets the twins' limits.
+# The kernel path is held to the plain version in float64 with limits of its
+# own (max, mean, loss rtol): twice the largest kernel - float64 reading over
+# those seeds (4.02e-2, 7.40e-4, 1.59e-2), rounded up
+PAC_TWIN_F64 = (8.1e-2, 1.5e-3, 3.2e-2)
 
 
 def card_line():
@@ -447,7 +497,8 @@ def settle_kernel_sums(times, library):
     profiler session to slow."""
     for key, fn in UNQUEUED.items():
         name, what = key.rsplit(" ", 1)
-        if name not in times:  # a shape printed in phase 2, not recorded
+        b1 = name[:-len(" at B=1")] if name.endswith(" at B=1") else None
+        if name not in times and b1 not in ONE_SYSTEM:  # a shape printed, not recorded
             continue
         for _ in range(3):
             summed = profiled_ms(fn)
@@ -456,7 +507,9 @@ def settle_kernel_sums(times, library):
         if summed is None:
             print(f"  {key}: torch.profiler recorded no device time; host time stays included")
             continue
-        if what == "plain":
+        if b1 in ONE_SYSTEM:
+            ONE_SYSTEM[b1][f"{what}_ms"] = summed
+        elif what == "plain":
             times[name] = (times[name][0], summed)
         else:
             library[name] = summed
@@ -572,6 +625,7 @@ def phase2(param_dim):
     phase2_b8(errs, times, work)
     phase2_b10(errs, times, work)
     phase2_b11(errs, times, work)
+    phase2_b1(errs, walls)
     bign_escalation()
     for name, (k_ms, p_ms) in times.items():
         unit = "ms a step" if name.startswith("fused") else "ms"
@@ -3329,6 +3383,397 @@ def phase9(profile_dir):
     return launches, summaries
 
 
+def single_steps(name):
+    return CUSTOM_MAP_STEPS if name == "custom_map_t5_n200" else SINGLE_STEPS
+
+
+def single_expected(name, n_evals):
+    """The launches a phase-10 fit of ``name`` must count, by kernel: its
+    steps' kernels once (B4, K2/K3) or three times (GPR-PAC's K4) a step,
+    and K4 in each of its ``n_evals`` validation evals (the predictive's
+    factor at 200 context points, once or, GPR-PAC's safe_cholesky, three
+    times, and the four of mvn_log_prob's escalation at 200 test points)."""
+    steps = single_steps(name)
+    if name == "gpr_mll_n20":
+        want = {"mll_fwd": steps, "mll_bwd": steps}
+    elif name == "gpr_pac_n200":
+        want = {"chol": 3 * steps}
+    else:
+        want = {"blocked_fwd": steps, "blocked_bwd": steps}
+    if n_evals:
+        want["chol"] = want.get("chol", 0) + n_evals * single_eval_launches(name)
+    return want
+
+
+def single_eval_launches(name):
+    """K4's launches in one eval of ``name`` (custom_map_t5_n200: of
+    eval_datasets on its 20 test tasks, one batched factor and four levels)."""
+    return {"gpr_mll_n20": 4, "gpr_pac_n200": 7}.get(name, 5)
+
+
+def to_float64(model):
+    """A learner's state, data, masks and decays in float64, in place."""
+    import torch
+
+    for attr in ("params", "_mu", "_nu", "train_x", "train_t", "X", "Y", "mask", "_train_mask",
+                 "_decay"):
+        if isinstance(getattr(model, attr, None), torch.Tensor):
+            setattr(model, attr, getattr(model, attr).double())
+
+
+def single_fit(model, n_iter, log_period, valid=None):
+    """``fit`` (``meta_fit``) timed on the host clock, ending in a
+    synchronise; returns (seconds, last loss)."""
+    import torch
+
+    fit = getattr(model, "fit", None)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    if fit is None:
+        loss = model.meta_fit(n_iter=n_iter, log_period=log_period, verbose=False)
+    else:
+        valid_x, valid_t = valid if valid is not None else (None, None)
+        loss = fit(valid_x=valid_x, valid_t=valid_t, n_iter=n_iter, log_period=log_period,
+                   verbose=False)
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0, loss
+
+
+def single_eval(model, task, test):
+    """(seconds, (LL, RMSE, calib)) of the path's eval: ``eval`` on the
+    task's test points, or the meta-learner's ``eval_datasets``."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    metrics = model.eval(task[2], task[3]) if test is None else model.eval_datasets(test)
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0, metrics
+
+
+def jax_initial_single_state(model, record):
+    """The JAX learner's initial parameters of a tools/single_task_ref.json
+    record, with fresh Adam moments, for ``model.load_state_dict``."""
+    import numpy as np
+
+    flat = unpack_ref(record["init_params"], model.layout)
+    zeros = np.zeros_like(flat)
+    return {"params": flat, "opt_state": {"mu": zeros, "nu": zeros, "count": 0, "lr": 1e-3},
+            "step": 0}
+
+
+def unpack_ref(text, layout):
+    """A flat vector of tools/single_task_ref.json (the base64 of its float32
+    bytes, less q_chol's upper triangle, which is 0)."""
+    import base64
+
+    import numpy as np
+
+    from tools.single_task_ref import stored
+
+    keep = stored(layout)
+    full = np.zeros(keep.size, np.float32)
+    full[keep] = np.frombuffer(base64.b64decode(text), "<f4")
+    return full
+
+
+def single_twins(name, build_path, seed=30, check=True):
+    """TWIN_STEPS steps from the learner's initial state at ``seed`` with the
+    kernels, with them disabled (the plain versions on the card, float32)
+    and, for GPR-PAC, the plain versions in float64; raises (with
+    ``check``) where the gaps pass their limits. Returns the gaps."""
+    import numpy as np
+    import torch
+
+    from meta_learning_pacoh_torch.ops import cuda
+    from tools.single_task_ref import run, skipped
+
+    state = build_path(name, seed=seed).state_dict()
+    runs = {}
+    for label, disabled, wide in (("kernels", False, False), ("plain", True, False),
+                                  ("plain64", True, True)):
+        if wide and name != "gpr_pac_n200":
+            continue
+        if disabled:
+            os.environ["PACOH_TORCH_DISABLE_KERNELS"] = "1"
+        try:
+            model = build_path(name)
+            model.load_state_dict(state)
+            if wide:
+                to_float64(model)
+            cuda.reset_launch_counts()
+            losses = run(model, TWIN_STEPS, TWIN_STEPS)
+            launches = {k: v for k, v in cuda.LAUNCHES.items() if v}
+        finally:
+            os.environ.pop("PACOH_TORCH_DISABLE_KERNELS", None)
+        if disabled and launches:
+            raise AssertionError(f"{name}: kernels launched with PACOH_TORCH_DISABLE_KERNELS=1: "
+                                 f"{launches}")
+        runs[label] = (model.params.detach().cpu().double().numpy(), losses[-1])
+    skip = skipped(model.layout)
+
+    def gap(a, b):
+        d = np.abs(runs[a][0] - runs[b][0])[~skip]
+        return float(d.max()), float(d.mean()), abs(runs[a][1] - runs[b][1]) / abs(runs[b][1])
+
+    out = {"plain": gap("kernels", "plain")}
+    print(f"    twin, {TWIN_STEPS} steps from one state: kernels - plain (float32): |param diff| "
+          f"max {out['plain'][0]:.3e}, mean {out['plain'][1]:.3e}; loss rel diff "
+          f"{out['plain'][2]:.3e} (kernel_nn.b_out excluded)")
+    if name == "gpr_pac_n200":
+        out["plain64"], out["plain_vs_64"] = gap("kernels", "plain64"), gap("plain", "plain64")
+        print(f"    kernels - plain float64: max {out['plain64'][0]:.3e}, mean "
+              f"{out['plain64'][1]:.3e}, loss {out['plain64'][2]:.3e}; plain float32 - float64: "
+              f"{out['plain_vs_64'][0]:.3e}, {out['plain_vs_64'][1]:.3e}, "
+              f"{out['plain_vs_64'][2]:.3e} (limits {PAC_TWIN_F64})")
+        if check and not all(g <= lim for g, lim in zip(out["plain64"], PAC_TWIN_F64)):
+            raise AssertionError(f"{name}: the kernel path is further from the float64 run "
+                                 f"than PAC_TWIN_F64")
+    elif check and not (out["plain"][0] <= TWIN_ATOL and out["plain"][1] <= TWIN_MEAN_ATOL
+                        and out["plain"][2] <= B6_LOSS_RTOL):
+        raise AssertionError(f"{name}: the kernel path and its plain twin disagree")
+    return out
+
+
+def single_jax_parity(name, build_path, ref):
+    """The port's steps on the card from the JAX learner's initial state
+    against the JAX run of tools/single_task_ref.json, within its tolerance."""
+    import numpy as np
+
+    from tools.single_task_ref import run, skipped, stored
+
+    cfg = ref["config"]
+    model = build_path(name)
+    model.load_state_dict(jax_initial_single_state(model, ref[name]))
+    losses = run(model, cfg["steps"], cfg["log_every"])
+    rec, tol = ref[name], ref[name]["tolerance"]
+    loss_gap = max(abs(g - w) / abs(w) for g, w in zip(losses, rec["losses"]))
+    final = unpack_ref(rec["final_params"], model.layout)
+    keep = stored(model.layout) & ~skipped(model.layout)
+    d = np.abs(model.params.detach().cpu().numpy() - final)[keep]
+    print(f"    from the JAX initial parameters, {cfg['steps']} steps: losses "
+          f"{[round(v, 6) for v in losses]}; max rel gap to the JAX run {loss_gap:.3e} "
+          f"(tolerance {tol['loss_rtol']:.3e}); final |param diff| max {d.max():.3e} "
+          f"({tol['param_atol']:.3e}), mean {d.mean():.3e} ({tol['param_mean_atol']:.3e})")
+    if not (loss_gap <= tol["loss_rtol"] and d.max() <= tol["param_atol"]
+            and d.mean() <= tol["param_mean_atol"]):
+        raise AssertionError(f"{name}: the port's fit disagrees with the JAX learner's")
+    return {"jax_loss_gap": loss_gap, "jax_param_max": float(d.max()),
+            "jax_param_mean": float(d.mean())}
+
+
+def single_path(name, build_path, task, test, ref, profile_dir):
+    """One phase-10 path: the seed-30 fit on the card with its launches,
+    eval cold and warm with its launches, the steady rate,
+    confidence_intervals, the twins and the JAX parity."""
+    import numpy as np
+    import torch
+
+    from meta_learning_pacoh_torch.ops import cuda
+
+    model = build_path(name)  # no device: the card by default
+    meta = test is not None
+    if model.device.type != "cuda" or (meta and model._fused_path_ok()):
+        raise AssertionError(f"{name}: on {model.device}, or on a fused path")
+    steps = single_steps(name)
+    log_period = steps if meta else SINGLE_LOG
+    n_evals = 0 if meta else steps // log_period
+    cuda.reset_launch_counts()
+    fit_s, loss = single_fit(model, steps, log_period, None if meta else task[2:])
+    launches = {k: v for k, v in cuda.LAUNCHES.items() if v}
+    want = single_expected(name, n_evals)
+    print(f"  {name}: P={model.params.numel()}, {steps} steps in {fit_s:.3f} s "
+          f"({steps / fit_s:.1f} steps/s, first call, {n_evals} validation evals); last loss "
+          f"{loss:.6f}; launches {launches}")
+    if launches != want:
+        raise AssertionError(f"{name}: the fit's launches {launches}, expected {want}")
+    cuda.reset_launch_counts()
+    eval_s, (ll, rmse, calib) = single_eval(model, task, test)
+    eval_launches = {k: v for k, v in cuda.LAUNCHES.items() if v}
+    eval_warm_s, _ = single_eval(model, task, test)
+    print(f"    eval: {eval_s:.4f} s cold, {eval_warm_s:.4f} s warm; LL {ll:.6f}, RMSE "
+          f"{rmse:.6f}, calib {calib:.6f}; launches {eval_launches}")
+    if eval_launches != {"chol": single_eval_launches(name)}:
+        raise AssertionError(f"{name}: the eval's launches {eval_launches}")
+    if not all(math.isfinite(v) for v in (ll, rmse, calib, loss)) or not bool(
+            torch.isfinite(model.params).all()):
+        raise AssertionError(f"{name}: non-finite parameters, loss or metrics")
+    steady_n = SINGLE_LOG
+    steady_s, _ = single_fit(model, steady_n, steady_n)
+    print(f"    steady state: {steady_n} steps in {steady_s:.4f} s, "
+          f"{steady_n / steady_s:.1f} steps/s")
+    summary = dict(steps=steps, fit_s=fit_s, fit_steps_per_s=steps / fit_s,
+                   steady_steps_per_s=steady_n / steady_s, eval_s=eval_s,
+                   eval_warm_s=eval_warm_s, ll=ll, rmse=rmse, calib=calib, launches=launches,
+                   eval_launches=eval_launches)
+    for k, v in eval_launches.items():
+        launches[k] = launches.get(k, 0) + v
+    if not meta:
+        x_plot = np.linspace(float(task[0].min()), float(task[0].max()), 150)
+        if task[0].shape[1] > 1:
+            x_plot = np.stack([x_plot] * task[0].shape[1], axis=1)
+        ucb, lcb = model.confidence_intervals(x_plot, confidence=0.9)
+        print(f"    confidence_intervals at 150 points: ucb - lcb in "
+              f"[{float(np.min(ucb - lcb)):.4f}, {float(np.max(ucb - lcb)):.4f}]")
+        if not (ucb.shape == lcb.shape == (150,) and np.all(np.isfinite(ucb))
+                and np.all(np.isfinite(lcb)) and np.all(ucb > lcb)):
+            raise AssertionError(f"{name}: confidence intervals not finite with ucb > lcb")
+    if profile_dir:
+        summary["trace_20_steps"] = profile(
+            f"single_{name}", lambda: single_fit(model, 20, 20), profile_dir)
+        print(f"    trace: " + json.dumps(summary["trace_20_steps"]))
+    summary["twins"] = single_twins(name, build_path)
+    summary.update(single_jax_parity(name, build_path, ref))
+    return launches, summary
+
+
+def single_band(name, build_path, task):
+    """Seeds 30-32 fitted as the path's seed-30 fit: the mean test LL and
+    RMSE within the band of tools/single_task_band.json."""
+    with open(SINGLE_BAND_FILE) as f:
+        band = json.load(f)[name]
+    lls, rmses = [], []
+    for seed in SINGLE_SEEDS:
+        model = build_path(name, seed=seed)
+        model.fit(valid_x=task[2], valid_t=task[3], n_iter=SINGLE_STEPS, log_period=SINGLE_LOG,
+                  verbose=False)
+        ll, rmse, _ = model.eval(task[2], task[3])
+        lls.append(ll)
+        rmses.append(rmse)
+    mean_ll, mean_rmse = statistics.mean(lls), statistics.mean(rmses)
+    ll_band, rmse_band = band["ll_band"], band["rmse_band"]
+    print(f"    seeds {SINGLE_SEEDS}: LL {[round(v, 4) for v in lls]}, RMSE "
+          f"{[round(v, 4) for v in rmses]}; mean LL {mean_ll:.4f} (band {ll_band[0]:.4f} +- "
+          f"{ll_band[1]:.4f}), mean RMSE {mean_rmse:.4f} (band {rmse_band[0]:.4f} +- "
+          f"{rmse_band[1]:.4f})")
+    if not (abs(mean_ll - ll_band[0]) <= ll_band[1]
+            and abs(mean_rmse - rmse_band[0]) <= rmse_band[1]):
+        raise AssertionError(f"{name}: accuracy outside the JAX package's band")
+    return {"seed_ll": lls, "seed_rmse": rmses, "mean_ll": mean_ll, "mean_rmse": mean_rmse}
+
+
+def phase10(profile_dir):
+    """The single-task learners and the custom modules through their public
+    entry points (tools/single_task_ref.py's paths, learners built without a
+    device): each fit with its launches, eval, the steady rate, the twins,
+    the JAX parity; the bands of seeds 30-32. Returns the launch counts of
+    the paths' seed-30 fits and evals, summed, and a summary a path."""
+    import meta_learning_pacoh_torch as pkg
+    from tools.single_task_ref import build, path_data
+
+    _, task, cauchy_task = path_data()
+    _, test = bign_data()
+    with open(SINGLE_REF_FILE) as f:
+        ref = json.load(f)
+
+    def build_path(name, seed=30):
+        return build(pkg, name, seed=seed)
+
+    launches, summaries = {}, {}
+    for name in SINGLE_PATHS:
+        path_task = cauchy_task if name == "gpr_mll_n20" else task
+        path_test = test if name == "custom_map_t5_n200" else None
+        got, summaries[name] = single_path(name, build_path, path_task, path_test, ref,
+                                           profile_dir)
+        for k, v in got.items():
+            launches[k] = launches.get(k, 0) + v
+        if name in SINGLE_BAND_PATHS:
+            summaries[name].update(single_band(name, build_path, task))
+    return launches, summaries
+
+
+def phase2_b1(errs, walls):
+    """The single-task paths' shapes, one system a launch: the B4 forward
+    and backward and K4 at N=200 (GPR-MLL's and GPR-PAC's), K2 and K3 at
+    N=20 (the cauchy_20 task's), each against its plain version, a system
+    that fails at every jitter level NaN through each, and each timed as
+    device time (``device_pair``) beside its library call: the factor alone
+    (``cholesky_ex``) for the forwards and K4, K^-1 from L
+    (``cholesky_inverse``) for the backwards, into ONE_SYSTEM."""
+    import torch
+
+    from meta_learning_pacoh_torch.ops.cuda import blocked_mll_kernel as bk
+    from meta_learning_pacoh_torch.ops.cuda import chol_kernel, mll_kernel
+
+    gen = torch.Generator().manual_seed(10)
+    out = {}
+    for n, fwd, fwd_ref, bwd, bwd_ref, label in (
+            (200, bk.blocked_mll_fwd, bk.blocked_mll_fwd_ref, bk.blocked_mll_bwd,
+             bk.blocked_mll_bwd_ref, "blocked"),
+            (20, mll_kernel.mll_fwd, mll_kernel.mll_fwd_ref, mll_kernel.mll_bwd,
+             mll_kernel.mll_bwd_ref, "mll")):
+        kn = spd(1, n, gen, scale=0.5)
+        r = torch.randn(1, n, generator=gen).cuda()
+        gq, gl = torch.randn(1, generator=gen).cuda(), torch.randn(1, generator=gen).cuda()
+        print(f"  {label}_fwd/bwd at B=1, N={n}:")
+        got, want = fwd(kn, r), fwd_ref(kn, r)
+        for part, g_, w_ in zip(("quad", "logdet", "L", "z"), got, want):
+            check(f"{label}_fwd", g_.reshape(1, -1), w_.reshape(1, -1), errs)
+            print(f"    ({part})")
+        _, _, L, z = want
+        for part, g_, w_ in zip(("dkn", "dr"), bwd(L, z, gq, gl), bwd_ref(L, z, gq, gl)):
+            check(f"{label}_bwd", g_.reshape(1, -1), w_.reshape(1, -1), errs)
+            print(f"    ({part})")
+        failed = kn - 10.0 * torch.eye(n, device="cuda")
+        _, _, fL, fz = fwd(failed, r)
+        dkn, dr = bwd(fL, fz, gq, gl)
+        if not (bool((~torch.isfinite(fz)).all()) and bool((~torch.isfinite(dkn)).all())
+                and bool((~torch.isfinite(dr)).all())
+                and not bool(torch.isfinite(fwd_ref(failed, r)[3]).any())):
+            raise AssertionError(f"{label} at B=1, N={n}: a failed system is not non-finite "
+                                 f"through both directions")
+        print("    a system failing at every level: non-finite through the forward and the "
+              "backward, as in the plain version")
+        f_ms = device_pair(f"{label}_fwd at B=1", lambda: fwd(kn, r), lambda: fwd_ref(kn, r),
+                           walls)
+        b_ms = device_pair(f"{label}_bwd at B=1", lambda: bwd(L, z, gq, gl),
+                           lambda: bwd_ref(L, z, gq, gl), walls)
+        lib_f = library_time(f"{label}_fwd at B=1", lambda: torch.linalg.cholesky_ex(kn))
+        lib_b = library_time(f"{label}_bwd at B=1", lambda: torch.cholesky_inverse(L))
+        tri = n * (n + 1) // 2
+        # the forward: one factorization, the solve, quad and logdet; in the
+        # lower triangle of Kn and r, out L, z, quad, logdet. The backward:
+        # L^-1 and the symmetric W^T W; in the triangle of L, z, gq, gl; out dKn, dr
+        out[f"{label}_fwd"] = bound_record(f_ms, lib_f, n ** 3 / 3 + n * n + 3 * n,
+                                           4 * (tri + n + n * n + n + 2))
+        out[f"{label}_bwd"] = bound_record(b_ms, lib_b, 2 * n ** 3 / 3 + 3 * n * n,
+                                           4 * (tri + n + 2 + n * n + n))
+    a = spd(1, 200, gen)
+    check("chol", chol_kernel.cholesky_fused(a), chol_kernel.cholesky_ref(a), errs)
+    failed = a - 10.0 * torch.eye(200, device="cuda")
+    if not bool(torch.isnan(chol_kernel.cholesky_fused(failed)).all()):
+        raise AssertionError("chol at B=1: an indefinite matrix is not all NaN")
+    print("  chol at B=1, N=200: an indefinite matrix all NaN")
+    c_ms = device_pair("chol at B=1", lambda: chol_kernel.cholesky_fused(a),
+                       lambda: chol_kernel.cholesky_ref(a), walls)
+    lib_c = library_time("chol at B=1", lambda: torch.linalg.cholesky_ex(a))
+    out["chol"] = bound_record(c_ms, lib_c, 200 ** 3 / 3, 4 * (200 * 201 // 2 + 200 * 200))
+    ONE_SYSTEM.update(out)
+
+
+def report_one_system():
+    """Print phase 2's times at one system a launch, now that the calls that
+    read back to the host have their kernels' sums, and whether each kernel
+    loses to its library call."""
+    for name, rec in ONE_SYSTEM.items():
+        rec["plain_timed_as"] = TIMED_AS.get(f"{name} at B=1 plain")
+        rec["library_timed_as"] = TIMED_AS.get(f"{name} at B=1 library")
+        lose = " (slower than the library call)" if rec["ms"] > rec["library_ms"] else ""
+        print(f"  {name} at B=1: kernel {rec['ms']:.5f} ms, plain {rec['plain_ms']:.5f} ms "
+              f"({rec['plain_timed_as']}), library {rec['library_ms']:.5f} ms "
+              f"({rec['library_timed_as']}){lose}, bound {rec['bound_ms']:.6f} ms "
+              f"({rec['bound_by']})")
+
+
+def bound_record(pair_ms, library_ms, flops, n_bytes):
+    """A B=1 timing with its bound: the larger of the flops over the card's
+    float32 peak and the bytes over its memory rate."""
+    t_ops, t_bytes = flops / PEAK_FLOPS, n_bytes / PEAK_BYTES
+    return {"ms": pair_ms[0], "plain_ms": pair_ms[1], "library_ms": library_ms,
+            "bound_ms": 1e3 * max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops > t_bytes else "bytes"}
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--profile", metavar="DIR",
@@ -3397,9 +3842,19 @@ def main():
     launches.update(bign_fused_launches)
     for name, summary in bign_fused_summaries.items():
         print(f"slice {name}: " + json.dumps({"card": card, **summary}))
+
+    print("phase 10: the single-task learners and the custom modules (B4, K2/K3 and K4 at one "
+          "system a launch; the general MAP step's B4)")
+    single_launches, single_summaries = phase10(args.profile)
+    for name, count in single_launches.items():
+        launches[name] = launches.get(name, 0) + count
+    for name, summary in single_summaries.items():
+        print(f"slice {name}: " + json.dumps({"card": card, **summary}))
     print(f"all phases: {time.perf_counter() - t_start:.1f} s")
     print("the plain versions and library calls that read back to the host, by torch.profiler:")
     settle_kernel_sums(times, library)
+    report_one_system()
+    print("slice one system a launch: " + json.dumps({"card": card, **ONE_SYSTEM}))
 
     records = []
     for name, (src, tpu) in KERNELS.items():

@@ -72,10 +72,16 @@ class RegressionModelBase:
     def _normalize_y(self, Y):
         return ((Y - self.y_mean[None, :]) / self.y_std[None, :]).astype(np.float32)
 
-    def _prepare_data_per_task(self, x, y):
-        """(x [N, D], y [N]) normalised, as tensors on the device."""
+    def _prepare_data_per_task(self, x, y, flatten_y=True):
+        """(x [N, D], y [N]) normalised, as tensors on the device; y [N, 1]
+        with ``flatten_y=False``."""
         x, y = handle_input_dim(x, y)
-        return self._tensor(self._normalize_x(x)), self._tensor(self._normalize_y(y)[:, 0])
+        y = self._normalize_y(y)
+        if flatten_y:
+            if y.shape[1] != 1:
+                raise ValueError(f"y must have one output dimension, got {y.shape[1]}")
+            y = y[:, 0]
+        return self._tensor(self._normalize_x(x)), self._tensor(y)
 
     def _prepare_meta_data(self, meta_train_tuples):
         """Stack, normalise, pad -> (X [T, N, D], Y [T, N], mask [T, N]) on the device."""
@@ -168,6 +174,41 @@ class RegressionModelMetaLearned(RegressionModelBase):
         arguments go to ``predict``."""
         pred_dist = self._vectorize_pred_dist(
             self.predict(context_x, context_y, test_x, return_density=True, **kwargs))
+        alpha = (1.0 - confidence) / 2.0
+        n = handle_input_dim(test_x).shape[0]
+        q = torch.full((n,), 1.0 - alpha, dtype=torch.float32, device=self.device)
+        ucb = pred_dist.icdf(q)
+        lcb = pred_dist.icdf(torch.full_like(q, alpha))
+        return ucb.cpu().numpy(), lcb.cpu().numpy()
+
+
+class RegressionModel(RegressionModelBase):
+    """Base of the single-task learners: fit(...), then predict(test_x)."""
+
+    def predict(self, test_x, return_density=False):
+        raise NotImplementedError
+
+    def _vectorize_pred_dist(self, pred_dist):
+        """The per-point predictive whose ``icdf`` gives the confidence bounds."""
+        raise NotImplementedError
+
+    @torch.no_grad()
+    def eval(self, test_x, test_y):
+        """(avg_log_likelihood, rmse, calibration_error) at the test points:
+        the joint predictive log-density / n_test, in original y units."""
+        test_x, test_y = handle_input_dim(test_x, test_y)
+        y = self._tensor(test_y.flatten())
+        pred_dist = self.predict(test_x, return_density=True)
+        avg_ll = float(pred_dist.log_prob(y)) / y.shape[0]
+        rmse = float(torch.sqrt(torch.mean((pred_dist.mean - y) ** 2)))
+        calib = float(calib_error_from_cdf(self._vectorize_pred_dist(pred_dist).cdf(y)))
+        return avg_ll, rmse, calib
+
+    @torch.no_grad()
+    def confidence_intervals(self, test_x, confidence=0.9):
+        """(upper, lower) bounds of the central ``confidence`` interval of the
+        per-point predictive at test_x, in original y units."""
+        pred_dist = self._vectorize_pred_dist(self.predict(test_x, return_density=True))
         alpha = (1.0 - confidence) / 2.0
         n = handle_input_dim(test_x).shape[0]
         q = torch.full((n,), 1.0 - alpha, dtype=torch.float32, device=self.device)

@@ -47,6 +47,7 @@ from meta_learning_pacoh_torch.models.gp_base import (
     gp_prior_mll_batch,
     init_gp_params,
 )
+from meta_learning_pacoh_torch.models.modules import KernelModule, MeanModule
 from meta_learning_pacoh_torch.models.random_gp import flat_layout, ravel_flat, unravel_flat
 from meta_learning_pacoh_torch.ops import cuda, launch_sched
 from meta_learning_pacoh_torch.ops.cuda.fused_map_bign_kernel import (
@@ -69,12 +70,13 @@ from meta_learning_pacoh_torch.utils.input_handling import handle_input_dim
 
 def _trains(leaf, learning_mode):
     """Whether a top-level parameter leaf trains under ``learning_mode``
-    (the likelihood noise always does)."""
+    (the likelihood noise always does; a custom kernel's leaves train with
+    the kernel, a custom mean's with the mean)."""
     if leaf == "noise_raw":
         return True
-    if leaf in ("lengthscale_raw", "outputscale_raw", "kernel_nn"):
+    if leaf in ("lengthscale_raw", "outputscale_raw", "kernel_nn", "custom_kernel"):
         return learning_mode in ("learn_kernel", "both")
-    return learning_mode in ("learn_mean", "both")  # mean_nn, constant_mean
+    return learning_mode in ("learn_mean", "both")  # mean_nn, constant_mean, custom_mean
 
 
 class GPRegressionMetaLearned(RegressionModelMetaLearned):
@@ -90,8 +92,10 @@ class GPRegressionMetaLearned(RegressionModelMetaLearned):
         super().__init__(normalize_data, random_seed, device)
         check_choice("learning_mode", learning_mode,
                       ("learn_mean", "learn_kernel", "both", "vanilla"))
-        check_choice("mean_module", mean_module, ("NN", "constant", "zero"))
-        check_choice("covar_module", covar_module, ("NN", "SE"))
+        if not isinstance(mean_module, MeanModule):
+            check_choice("mean_module", mean_module, ("NN", "constant", "zero"))
+        if not isinstance(covar_module, KernelModule):
+            check_choice("covar_module", covar_module, ("NN", "SE"))
         check_choice("optimizer", optimizer, ("Adam", "SGD"))
         if covar_module == "NN" and learning_mode not in ("learn_kernel", "both"):
             raise ValueError("a kernel NN must be learned")

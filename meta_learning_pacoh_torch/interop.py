@@ -6,7 +6,9 @@ particles, the optax optimizer state, the step) into the port's state dict,
 optax's multi-transform AdamW state), and ``from_jax_vi_state`` a JAX
 PACOH-VI learner's (the posterior dict and optax's Adam or SGD state), and
 ``from_jax_mlap_state`` a JAX PACOH-MLAP learner's (the hyper-posterior,
-noise and per-task posteriors, and optax's two-group Adam or SGD state). With
+noise and per-task posteriors, and optax's two-group Adam or SGD state), and
+``from_jax_gpr_state`` / ``from_jax_gpr_pac_state`` a JAX single-task
+learner's (a parameter pytree and optax's grouped AdamW or SGD state). With
 the identical flat parameter layout (models/random_gp.py) the two packages
 can then continue from the same numbers. The JAX state is read by
 attribute, key and position only; nothing of JAX or optax is imported.
@@ -132,3 +134,36 @@ def from_jax_mlap_state(state):
         mu, nu, count = zeros(), zeros(), 0
     return {"params": params, "opt_state": {"mu": mu, "nu": nu, "count": count},
             "step": int(state.get("step", 0))}
+
+
+def from_jax_gpr_state(state):
+    """A JAX ``GPRegressionLearned.state_dict()`` -> the port's single-task
+    state: {'params' [P], 'opt_state': {'mu', 'nu', 'count', 'lr'}, 'step'}.
+
+    The optimizer state is optax's ``PartitionState(inner_states={'nn': ...,
+    'hyper': ..., 'freeze': ...})``, each trained group a
+    ``MaskedState(inner_state=InjectStatefulHyperparamsState(hyperparams,
+    inner_state=(ScaleByAdamState(count, mu, nu), ...)))`` whose leaves of the
+    other groups are placeholders. A coordinate's moments are those of its
+    group (zeros where frozen, and all of them under SGD); both groups share
+    the count and the injected learning rate (the plateau scheduler's).
+    """
+    params = state["params"]
+    flat = params_from_jax(params)
+    mu, nu = np.zeros_like(flat), np.zeros_like(flat)
+    count, lr = 0, None
+    for group in ("nn", "hyper"):
+        inject = state["opt_state"].inner_states[group].inner_state
+        lr = float(np.asarray(inject.hyperparams["learning_rate"]))
+        adam = inject.inner_state[0]
+        if hasattr(adam, "mu"):
+            mu += _flat_leaves(adam.mu, params)
+            nu += _flat_leaves(adam.nu, params)
+            count = max(count, int(np.asarray(adam.count)))
+    return {"params": flat, "opt_state": {"mu": mu, "nu": nu, "count": count, "lr": lr},
+            "step": int(state.get("step", 0))}
+
+
+# GPRegressionLearnedPAC's state is the same pytree with the GP's leaves under
+# 'gp' beside 'q_chol' and 'q_mean', in the same optax groups
+from_jax_gpr_pac_state = from_jax_gpr_state

@@ -11,8 +11,11 @@ every result keeps it. The two constraint flavours of the JAX package:
 
 PACOH-MAP has one parameter set, and carries K=1.
 
-``gp_noise`` is the observation-noise variance. The custom ``MeanModule`` /
-``KernelModule`` hooks of the JAX package are not ported yet.
+``gp_noise`` is the observation-noise variance. ``mean_module`` and
+``covar_module`` also take a ``models.modules.MeanModule`` /
+``KernelModule`` instance: its leaves sit under 'custom_mean' /
+'custom_kernel', and a custom kernel owns its hyperparameters (no
+lengthscale or outputscale; the noise stays the framework's).
 """
 
 import dataclasses
@@ -21,6 +24,7 @@ import torch
 from torch.nn.functional import softplus
 
 from meta_learning_pacoh_torch.models.mlp import init_mlp_params, mlp_apply
+from meta_learning_pacoh_torch.models.modules import KernelModule, MeanModule
 from meta_learning_pacoh_torch.ops import gp as gp_ops
 from meta_learning_pacoh_torch.ops.kernels import rbf_ard
 
@@ -29,8 +33,8 @@ from meta_learning_pacoh_torch.ops.kernels import rbf_ard
 class GPConfig:
     input_dim: int
     feature_dim: int = 2
-    mean_module: str = "NN"  # 'NN' | 'constant' | 'zero'
-    covar_module: str = "NN"  # 'NN' | 'SE'
+    mean_module: object = "NN"  # 'NN' | 'constant' | 'zero' | a MeanModule instance
+    covar_module: object = "NN"  # 'NN' | 'SE' | a KernelModule instance
     mean_nn_layers: tuple = (32, 32)
     kernel_nn_layers: tuple = (32, 32)
     has_outputscale: bool = True
@@ -45,13 +49,19 @@ class GPConfig:
 def init_gp_params(cfg: GPConfig, generator):
     """Unbatched parameter dict; raw hyperparameters start at 0."""
     params = {}
-    if cfg.mean_module == "NN":
+    if isinstance(cfg.mean_module, MeanModule):
+        params["custom_mean"] = cfg.mean_module.init_params(generator, cfg.input_dim)
+    elif cfg.mean_module == "NN":
         params["mean_nn"] = init_mlp_params(generator, cfg.input_dim, 1,
                                             cfg.mean_nn_layers, scheme=cfg.init_scheme)
     elif cfg.mean_module == "constant":
         params["constant_mean"] = torch.zeros(1)
     elif cfg.mean_module != "zero":
         raise ValueError(f"unknown mean_module {cfg.mean_module!r}")
+    if isinstance(cfg.covar_module, KernelModule):
+        params["custom_kernel"] = cfg.covar_module.init_params(generator, cfg.input_dim)
+        params["noise_raw"] = torch.zeros(())
+        return params
     if cfg.covar_module == "NN":
         params["kernel_nn"] = init_mlp_params(generator, cfg.input_dim, cfg.feature_dim,
                                               cfg.kernel_nn_layers, scheme=cfg.init_scheme)
@@ -72,6 +82,8 @@ def _per_particle(t, x):
 
 def gp_mean(cfg: GPConfig, params, x):
     """Prior mean at x [K, ..., N, D] -> [K, ..., N]."""
+    if isinstance(cfg.mean_module, MeanModule):
+        return cfg.mean_module.mean(params["custom_mean"], x)
     if cfg.mean_module == "NN":
         return mlp_apply(params["mean_nn"], x)[..., 0]
     if cfg.mean_module == "constant":
@@ -92,7 +104,10 @@ def gp_noise(cfg: GPConfig, params):
 
 
 def gp_hypers(cfg: GPConfig, params):
-    """(lengthscale [K, F], outputscale [K] or 1.0, noise [K])."""
+    """(lengthscale [K, F], outputscale [K] or 1.0, noise [K]); a custom
+    kernel owns its hyperparameters: (None, None, noise)."""
+    if isinstance(cfg.covar_module, KernelModule):
+        return None, None, gp_noise(cfg, params)
     ls = softplus(params["lengthscale_raw"])
     os_ = softplus(params["outputscale_raw"]) if cfg.has_outputscale else 1.0
     return ls, os_, gp_noise(cfg, params)
@@ -107,6 +122,8 @@ def _rbf(f1, f2, ls, os_):
 
 def gp_gram(cfg: GPConfig, params, x1, x2=None):
     """Kernel matrix: x1 [K, ..., N, D], x2 [K, ..., M, D] -> [K, ..., N, M]."""
+    if isinstance(cfg.covar_module, KernelModule):
+        return cfg.covar_module.gram(params["custom_kernel"], x1, x1 if x2 is None else x2)
     f1 = gp_features(cfg, params, x1)
     f2 = f1 if x2 is None else gp_features(cfg, params, x2)
     ls, os_, _ = gp_hypers(cfg, params)
@@ -147,12 +164,17 @@ def gp_predict(cfg: GPConfig, params, x_context, y_context, x_test, mask_c=None,
     observation noise when asked.
     """
     noise = gp_noise(cfg, params)
-    f_c = gp_features(cfg, params, x_context)
-    f_t = gp_features(cfg, params, x_test)
-    ls, os_, _ = gp_hypers(cfg, params)
-    K_cc = _rbf(f_c, f_c, ls, os_)
-    K_ct = _rbf(f_c, f_t, ls, os_)
-    K_tt = _rbf(f_t, f_t, ls, os_)
+    if isinstance(cfg.covar_module, KernelModule):
+        K_cc = gp_gram(cfg, params, x_context)
+        K_ct = gp_gram(cfg, params, x_context, x_test)
+        K_tt = gp_gram(cfg, params, x_test)
+    else:  # featurise once, reuse across the three Grams
+        f_c = gp_features(cfg, params, x_context)
+        f_t = gp_features(cfg, params, x_test)
+        ls, os_, _ = gp_hypers(cfg, params)
+        K_cc = _rbf(f_c, f_c, ls, os_)
+        K_ct = _rbf(f_c, f_t, ls, os_)
+        K_tt = _rbf(f_t, f_t, ls, os_)
     mean_c = gp_mean(cfg, params, x_context)
     mean_t = gp_mean(cfg, params, x_test)
     noise_b = _per_particle(noise, mean_c[..., 0])

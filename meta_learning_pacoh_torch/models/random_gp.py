@@ -45,7 +45,7 @@ def random_gp_config(input_dim, feature_dim=2, mean_module="NN", covar_module="N
                     has_outputscale=False, noise_floor=0.0, init_scheme="kaiming_tanh")
 
 
-def _flat_layout(tree):
+def tree_layout(tree):
     """((path, shape, offset, size), ...) of the leaves of ``tree``, dict keys
     in sorted order at every level (the order of ``ravel_pytree``)."""
     layout, offset = [], 0
@@ -67,7 +67,7 @@ def _flat_layout(tree):
 @functools.lru_cache(maxsize=None)
 def flat_layout(cfg: GPConfig):
     """The flat layout of ``cfg``'s parameter dict."""
-    return _flat_layout(init_gp_params(cfg, torch.Generator()))
+    return tree_layout(init_gp_params(cfg, torch.Generator()))
 
 
 def layout_dim(layout):

@@ -1144,3 +1144,108 @@ def test_bign_learners_on_card_match_plain_cpu_learners(dev):
         chunked.meta_fit(n_iter=12, log_period=5, verbose=False)
         for a, b in zip(state_of(chunked), state_of(on_card)):
             assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("n", [20, 200])
+def test_mll_kernels_at_one_system(dev, n):
+    """One system a launch, as the single-task learners call them: K2/K3 at
+    N=20, B4 at N=200, against their plain versions; a system failing at
+    every jitter level is non-finite through both directions."""
+    fwd, fwd_ref, bwd, bwd_ref = ((mll_kernel.mll_fwd, mll_kernel.mll_fwd_ref,
+                                   mll_kernel.mll_bwd, mll_kernel.mll_bwd_ref) if n <= 48 else
+                                  (bk.blocked_mll_fwd, bk.blocked_mll_fwd_ref,
+                                   bk.blocked_mll_bwd, bk.blocked_mll_bwd_ref))
+    kn = _psd(1, n, seed=n).to(dev)
+    r = torch.randn(1, n, generator=torch.Generator().manual_seed(n)).to(dev)
+    gq, gl = torch.tensor([0.7], device=dev), torch.tensor([-1.3], device=dev)
+    for g_, w_ in zip(fwd(kn, r), fwd_ref(kn, r)):
+        assert_close_per_system(g_.reshape(1, -1), w_.reshape(1, -1))
+    _, _, L, z = fwd_ref(kn, r)
+    for g_, w_ in zip(bwd(L, z, gq, gl), bwd_ref(L, z, gq, gl)):
+        assert_close_per_system(g_.reshape(1, -1), w_.reshape(1, -1))
+    failed = kn - 10.0 * torch.eye(n, device=dev)
+    _, _, fL, fz = fwd(failed, r)
+    dkn, dr = bwd(fL, fz, gq, gl)
+    assert not bool(torch.isfinite(fz).any()) and not bool(torch.isfinite(dkn).any())
+    assert not bool(torch.isfinite(dr).any())
+
+
+def test_cholesky_kernel_at_one_system(dev):
+    """K4 at B=1, N=200 (GPR-PAC's KL and the single-task predictives)
+    against its plain version; an indefinite matrix comes back all NaN."""
+    a = _psd(1, 200, seed=3).to(dev)
+    assert_close_per_system(chol_kernel.cholesky_fused(a), chol_kernel.cholesky_ref(a))
+    failed = a - 10.0 * torch.eye(200, device=dev)
+    assert bool(torch.isnan(chol_kernel.cholesky_fused(failed)).all())
+
+
+def _single_task(n, d=1, seed=5):
+    rs = np.random.RandomState(seed)
+    x = rs.uniform(-4.0, 4.0, (n, d))
+    y = np.sin(x).sum(1) + 0.1 * rs.randn(n)
+    return x, y
+
+
+@pytest.mark.parametrize("n,kernel", [(20, "mll_fwd"), (60, "blocked_fwd")])
+def test_gpr_learner_on_card_matches_plain_cpu_learner(dev, n, kernel):
+    """GPR-MLL with nets (16, 16), built without a device: 12 steps on the
+    card through K2/K3 (N=20) or B4 (N=60), one launch a step each way, land
+    within 1e-4 of the same steps on the CPU (plain versions); eval rtol
+    1e-3."""
+    from meta_learning_pacoh_torch import GPRegressionLearned
+
+    x, y = _single_task(n, d=2 if n == 20 else 1)
+    kw = dict(mean_nn_layers=(16, 16), kernel_nn_layers=(16, 16), random_seed=30)
+    on_card = GPRegressionLearned(x, y, **kw)
+    assert on_card.device.type == "cuda"
+    on_cpu = GPRegressionLearned(x, y, device="cpu", **kw)
+    cuda.reset_launch_counts()
+    on_card.fit(n_iter=12, log_period=12, verbose=False)
+    backward = kernel.replace("fwd", "bwd")
+    assert {k: v for k, v in cuda.LAUNCHES.items() if v} == {kernel: 12, backward: 12}
+    on_cpu.fit(n_iter=12, log_period=12, verbose=False)
+    keep = torch.ones(on_cpu.params.numel(), dtype=torch.bool)
+    keep[layout_slice(on_cpu.layout, ("kernel_nn", "b_out"))] = False
+    assert float((on_card.params.cpu() - on_cpu.params)[keep].abs().max()) <= 1e-4
+    np.testing.assert_allclose(on_card.eval(x, y), on_cpu.eval(x, y), rtol=1e-3, atol=1e-5)
+
+
+def test_pac_learner_on_card_runs_k4_three_times_a_step(dev):
+    """GPR-PAC at N=70 on the card: its KL's safe_cholesky runs K4 three
+    times a step (two trials and the final factor) and nothing else; the
+    first loss within 5e-2 of the CPU's (the prior Gram is singular to
+    float32, so the two float32 orders part at the percent level), the
+    parameters finite."""
+    from meta_learning_pacoh_torch import GPRegressionLearnedPAC
+
+    x, y = _single_task(70)
+    kw = dict(mean_nn_layers=(16, 16), kernel_nn_layers=(16, 16), random_seed=30)
+    on_card = GPRegressionLearnedPAC(x, y, **kw)
+    on_cpu = GPRegressionLearnedPAC(x, y, device="cpu", **kw)
+    cuda.reset_launch_counts()
+    first = on_card.fit(n_iter=1, log_period=1, verbose=False)
+    on_card.fit(n_iter=9, log_period=9, verbose=False)
+    assert {k: v for k, v in cuda.LAUNCHES.items() if v} == {"chol": 30}
+    assert first == pytest.approx(on_cpu.fit(n_iter=1, log_period=1, verbose=False), rel=5e-2)
+    assert bool(torch.isfinite(on_card.params).all())
+
+
+def test_custom_module_map_learner_on_card_takes_the_general_step(dev):
+    """PACOH-MAP with MaternKernel(2.5) and LinearMean on 5 tasks of 60
+    points: off the fused path, 10 general steps through B4 (one launch a
+    step each way, no fused kernel), within 1e-4 of the CPU's plain steps."""
+    from meta_learning_pacoh_torch import LinearMean, MaternKernel
+
+    env = SinusoidDataset(random_state=np.random.RandomState(5))
+    train = env.generate_meta_train_data(n_tasks=5, n_samples=60)
+    kw = dict(covar_module=MaternKernel(2.5), mean_module=LinearMean(), task_batch_size=-1,
+              random_seed=30)
+    on_card = GPRegressionMetaLearned(train, **kw)
+    assert not on_card._fused_path_ok()
+    cuda.reset_launch_counts()
+    on_card.meta_fit(n_iter=10, log_period=10, verbose=False)
+    assert {k: v for k, v in cuda.LAUNCHES.items() if v} == {"blocked_fwd": 10,
+                                                              "blocked_bwd": 10}
+    on_cpu = GPRegressionMetaLearned(train, device="cpu", **kw)
+    on_cpu.meta_fit(n_iter=10, log_period=10, verbose=False)
+    assert float((on_card.params.cpu() - on_cpu.params).abs().max()) <= 1e-4

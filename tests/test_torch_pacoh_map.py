@@ -21,7 +21,12 @@ from meta_learning_pacoh_tpu import GPRegressionMetaLearned as JaxMAP
 from meta_learning_pacoh_tpu import GPRegressionMetaLearnedSVGD as JaxSVGD
 from meta_learning_pacoh_tpu.ops.pallas import launch_sched as jax_sched
 from meta_learning_pacoh_tpu.utils import jit_cache
-from meta_learning_pacoh_torch import GPRegressionMetaLearned, GPRegressionMetaLearnedSVGD
+from meta_learning_pacoh_torch import (
+    GPRegressionLearned,
+    GPRegressionLearnedPAC,
+    GPRegressionMetaLearned,
+    GPRegressionMetaLearnedSVGD,
+)
 from meta_learning_pacoh_torch.datasets import SinusoidDataset
 from meta_learning_pacoh_torch.interop import from_jax_map_state, params_from_jax
 from meta_learning_pacoh_torch.models.random_gp import layout_slice
@@ -290,13 +295,16 @@ def test_confidence_intervals_match_jax(learner):
     np.testing.assert_allclose(lcb, lcb_j, rtol=1e-4, atol=1e-5)
 
 
-@pytest.mark.parametrize("learner", [GPRegressionMetaLearned, GPRegressionMetaLearnedSVGD])
+@pytest.mark.parametrize("learner", [GPRegressionMetaLearned, GPRegressionMetaLearnedSVGD,
+                                     GPRegressionLearned, GPRegressionLearnedPAC])
 def test_learners_default_to_the_card(monkeypatch, learner):
     """Built without a device, a learner lives on the card; with no card it
-    raises instead of carrying on on the CPU."""
+    raises instead of carrying on on the CPU. The single-task learners take
+    one task's (x, y)."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     train, _ = _sin(ragged=False)
+    data = train[0] if learner in (GPRegressionLearned, GPRegressionLearnedPAC) else (train,)
     with pytest.raises(RuntimeError, match="device='cpu'"):
-        learner(train, mean_nn_layers=(4,), kernel_nn_layers=(4,))
-    assert learner(train, mean_nn_layers=(4,), kernel_nn_layers=(4,),
+        learner(*data, mean_nn_layers=(4,), kernel_nn_layers=(4,))
+    assert learner(*data, mean_nn_layers=(4,), kernel_nn_layers=(4,),
                    device="cpu").device.type == "cpu"
