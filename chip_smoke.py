@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port of PACOH (SVGD, MAP, VI, MLAP, GPR-MLL and GPR-PAC) once on one NVIDIA GPU.
+"""Drive the PyTorch/CUDA port of PACOH (SVGD, MAP, VI, MLAP, GPR-MLL, GPR-PAC, MAML and NP) once on one NVIDIA GPU.
 
     python3 chip_smoke.py                # all phases, one card
     python3 chip_smoke.py --profile DIR  # also trace fit steps and one eval of
@@ -162,6 +162,22 @@ against the same learner with the kernels disabled (GPR-PAC: against its
 float64 plain run, within ``PAC_TWIN_F64``), 200 steps from the JAX learner's
 initial parameters against its CPU run (tools/single_task_ref.json), and for
 GPR-MLL and GPR-PAC seeds 30-32 in the band of tools/single_task_band.json.
+Phase 11 runs the reference paper's baselines, which reach no hand-written
+kernel: ``MAMLRegression`` and ``NPRegressionMetaLearned`` with their
+defaults on ``provide_data("sin_20", seed=28)``, as
+experiments/baselines/baseline_comparison.py runs them, each built without
+a device (on the card, TF32 off): a 10,000-step ``meta_fit`` at seed 30
+(its metrics read after 2,000 steps on the way), ``eval_datasets`` on the
+first 50 test tasks cold and warm, the steady rate of a further 500 steps,
+the NP's ``confidence_intervals``, 200 steps from the JAX learner's initial
+state with its draws against its CPU run (tools/maml_np_ref.json; the NP in
+float64 on both sides), the same steps in float32 on the card against the
+CPU (the twin), and seeds 30-32 at 2,000 steps in the band of
+tools/maml_np_band.json; then ``NeuralProcessImg`` with its defaults trained
+by its trainer for 2 epochs through ``mnist_image_batches`` on 64 synthetic
+images of 28 x 28 (a gzipped IDX3 file in a temporary directory), its loss
+on a held batch with fixed masks and latents lower after, and ``inpaint``.
+No kernel may launch in phase 11.
 
 Any failure raises and exits non-zero. The line before the last is a JSON
 object with one record per kernel; the last line is
@@ -362,6 +378,23 @@ SINGLE_BAND_FILE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "too
 # own (max, mean, loss rtol): twice the largest kernel - float64 reading over
 # those seeds (4.02e-2, 7.40e-4, 1.59e-2), rounded up
 PAC_TWIN_F64 = (8.1e-2, 1.5e-3, 3.2e-2)
+# phase 11: MAML and the Neural Process on sin_20, as
+# experiments/baselines/baseline_comparison.py runs them (the learners'
+# defaults, 10,000 steps, eval on 50 test tasks); tools/maml_np_ref.py's
+# learners. The band seeds take MAML_NP_BAND_STEPS steps (seed 30's metric
+# read at that step of its full fit): the full fits of three seeds would take
+# the phase past its share of the smoke's time
+MAML_NP_STEPS, MAML_NP_STEADY, MAML_NP_TRACE = 10000, 500, 100
+MAML_NP_BAND_STEPS = 2000
+MAML_NP_SEEDS = (30, 31, 32)
+MAML_NP_REF_FILE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tools",
+                                "maml_np_ref.json")
+# written by tools/maml_np_band.py: the JAX learners on the CPU, seeds 30-59
+MAML_NP_BAND_FILE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tools",
+                                 "maml_np_band.json")
+# the image NP: synthetic 28 x 28 images in a gzipped IDX3 file, trained
+# through mnist_image_batches with the defaults (r = z = h = 128)
+NP_IMG_IMAGES, NP_IMG_BATCH, NP_IMG_EPOCHS = 64, 16, 2
 
 
 def card_line():
@@ -3682,6 +3715,235 @@ def phase10(profile_dir):
     return launches, summaries
 
 
+def synthetic_idx_images(path, n, seed=0):
+    """n smooth 28 x 28 uint8 images (random intensity ramps) in a gzipped IDX3 file."""
+    import gzip
+    import struct
+
+    import numpy as np
+
+    rs = np.random.RandomState(seed)
+    grid = np.linspace(0.0, 1.0, 28)
+    a, b, c = rs.uniform(-1.0, 1.0, (3, n, 1, 1))
+    img = a * grid[None, :, None] + b * grid[None, None, :] + c * grid[None, :, None] ** 2
+    img = (img - img.min(axis=(1, 2), keepdims=True)) / np.ptp(img, axis=(1, 2), keepdims=True)
+    img = np.round(255 * img).astype(np.uint8)
+    with gzip.open(path, "wb") as f:
+        f.write(struct.pack(">IIII", 2051, *img.shape) + img.tobytes())
+
+
+def on_card(model):
+    """Whether a learner built with no device put its parameters on the card."""
+    return model.device.type == "cuda" and model.params.is_cuda
+
+
+def maml_np_metrics(learner, model, test):
+    """{'rmse'} (MAML) or {'ll', 'rmse', 'calib'} (the NP) of eval_datasets."""
+    metrics = model.eval_datasets(test)
+    return {"rmse": metrics} if learner == "maml" else dict(zip(("ll", "rmse", "calib"),
+                                                                 metrics))
+
+
+def maml_np_band(learner, band, seed30, build_seed, test):
+    """Seeds 30-32 at MAML_NP_BAND_STEPS steps (seed 30's metrics from its full
+    fit): the mean of each banded metric within tools/maml_np_band.json's band
+    at that length."""
+    import statistics
+
+    per_seed = [seed30]
+    for seed in MAML_NP_SEEDS[1:]:
+        model = build_seed(seed)
+        model.meta_fit(n_iter=MAML_NP_BAND_STEPS, log_period=MAML_NP_BAND_STEPS, verbose=False)
+        per_seed.append(maml_np_metrics(learner, model, test))
+    out = {}
+    for metric, rec in band[learner][str(MAML_NP_BAND_STEPS)].items():
+        values = [m[metric] for m in per_seed]
+        mean = statistics.mean(values)
+        centre, margin = rec["band"]
+        print(f"    seeds {MAML_NP_SEEDS} at {MAML_NP_BAND_STEPS} steps: {metric} "
+              f"{[round(v, 4) for v in values]}, mean {mean:.4f} (band {centre:.4f} +- "
+              f"{margin:.4f})")
+        if abs(mean - centre) > margin:
+            raise AssertionError(f"{learner}: seeds {MAML_NP_SEEDS}' {metric} outside the JAX "
+                                 f"package's band")
+        out[f"seed_{metric}"], out[f"mean_{metric}"] = values, mean
+    return out
+
+
+def maml_np_parity(learner, ref):
+    """The port's steps on the card from the JAX learner's initial state with
+    its draws against the JAX run of tools/maml_np_ref.json (the NP in float64
+    on both sides), within its tolerance; then the same steps in float32 on the
+    card and on the CPU (the twin), within the twins' limits."""
+    import numpy as np
+
+    import meta_learning_pacoh_torch as pkg
+    from tools.maml_np_ref import build, gaps, run, start
+
+    cfg, rec = ref["config"], ref[learner]
+    tol = rec["tolerance"]
+    model = build(pkg, learner)
+    start(model, learner, rec)
+    losses = run(model, cfg["steps"], cfg["log_every"])
+    loss_gap, gap_max, gap_mean = gaps(model, rec, losses)
+    precision = "float64" if rec["float64"] else "float32"
+    print(f"    from the JAX initial parameters with its draws, {cfg['steps']} steps in "
+          f"{precision}: losses {[round(v, 6) for v in losses]}; max rel gap to the JAX run "
+          f"{loss_gap:.3e} (tolerance {tol['loss_rtol']:.3e}); final |param diff| max "
+          f"{gap_max:.3e} ({tol['param_atol']:.3e}), mean {gap_mean:.3e} "
+          f"({tol['param_mean_atol']:.3e})")
+    if not (loss_gap <= tol["loss_rtol"] and gap_max <= tol["param_atol"]
+            and gap_mean <= tol["param_mean_atol"]):
+        raise AssertionError(f"{learner}: the port's fit disagrees with the JAX learner's")
+    twins = {}
+    for device in ("card", "cpu"):
+        twin = build(pkg, learner, **({} if device == "card" else {"device": "cpu"}))
+        start(twin, learner, rec, wide=False)
+        twins[device] = (run(twin, cfg["steps"], cfg["steps"])[-1],
+                         twin.params.detach().cpu().numpy())
+    d = np.abs(twins["card"][1] - twins["cpu"][1])
+    twin_loss = abs(twins["card"][0] - twins["cpu"][0]) / abs(twins["cpu"][0])
+    print(f"    twin, the same {cfg['steps']} steps in float32 on the card and on the CPU: "
+          f"|param diff| max {d.max():.3e}, mean {d.mean():.3e}; loss rel diff "
+          f"{twin_loss:.3e}")
+    if not (d.max() <= TWIN_ATOL and d.mean() <= TWIN_MEAN_ATOL and twin_loss <= B6_LOSS_RTOL):
+        raise AssertionError(f"{learner}: the card's steps and the CPU's disagree")
+    return {"jax_loss_gap": loss_gap, "jax_param_max": gap_max, "jax_param_mean": gap_mean,
+            "jax_precision": precision, "twin_param_max": float(d.max()),
+            "twin_param_mean": float(d.mean()), "twin_loss_rel": twin_loss}
+
+
+def maml_np_path(learner, ref, band, profile_dir):
+    """One learner's sin_20 path: built with no device, the full fit (its
+    metrics read at MAML_NP_BAND_STEPS on the way), eval cold and warm, the
+    steady rate, the trace, the JAX parity and the twin, the band."""
+    import torch
+
+    import meta_learning_pacoh_torch as pkg
+    from tools.maml_np_ref import build, sin20
+
+    _, test = sin20()
+    model = build(pkg, learner)  # no device: the card by default
+    if not (on_card(model) and model.X.device.type == model.device.type):
+        raise AssertionError(f"{learner}: built with no device, not on the card")
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError(f"{learner}: TF32 products are on")
+    fit_s, loss = single_fit(model, MAML_NP_BAND_STEPS, MAML_NP_BAND_STEPS)
+    seed30 = maml_np_metrics(learner, model, test)
+    rest_s, loss = single_fit(model, MAML_NP_STEPS - MAML_NP_BAND_STEPS,
+                              MAML_NP_STEPS - MAML_NP_BAND_STEPS)
+    fit_s += rest_s
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    metrics = maml_np_metrics(learner, model, test)
+    torch.cuda.synchronize()
+    eval_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    maml_np_metrics(learner, model, test)
+    torch.cuda.synchronize()
+    eval_warm_s = time.perf_counter() - t0
+    steady_s, _ = single_fit(model, MAML_NP_STEADY, MAML_NP_STEADY)
+    print(f"  {learner}: P={model.params.numel()}, {MAML_NP_STEPS} steps in {fit_s:.3f} s "
+          f"({MAML_NP_STEPS / fit_s:.1f} steps/s, first call); last loss {loss:.6f}; steady "
+          f"{MAML_NP_STEADY / steady_s:.1f} steps/s; eval on {len(test)} tasks {eval_s:.4f} s "
+          f"cold, {eval_warm_s:.4f} s warm: {json.dumps(metrics)}")
+    if not (math.isfinite(loss) and all(math.isfinite(v) for v in metrics.values())
+            and bool(torch.isfinite(model.params).all())):
+        raise AssertionError(f"{learner}: non-finite parameters, loss or metrics")
+    summary = dict(steps=MAML_NP_STEPS, fit_s=fit_s, fit_steps_per_s=MAML_NP_STEPS / fit_s,
+                   steady_steps_per_s=MAML_NP_STEADY / steady_s, eval_s=eval_s,
+                   eval_warm_s=eval_warm_s, **metrics)
+    if learner == "np":
+        ucb, lcb = model.confidence_intervals(*test[0][:2], test[0][2], confidence=0.9)
+        print(f"    confidence_intervals at {len(ucb)} points: ucb - lcb in "
+              f"[{float((ucb - lcb).min()):.4f}, {float((ucb - lcb).max()):.4f}]")
+        if not (ucb.shape == lcb.shape and (ucb > lcb).all()):
+            raise AssertionError("np: confidence intervals not ordered")
+    if profile_dir:
+        summary["trace_100_steps"] = profile(
+            f"{learner}_sin_20", lambda: single_fit(model, MAML_NP_TRACE, MAML_NP_TRACE),
+            profile_dir)
+        print("    trace: " + json.dumps(summary["trace_100_steps"]))
+    summary.update(maml_np_parity(learner, ref))
+    summary.update(maml_np_band(learner, band, seed30,
+                                lambda seed: build(pkg, learner, seed=seed), test))
+    return summary
+
+
+def np_img_path():
+    """The image NP through mnist_image_batches and its trainer, built with no
+    device, on synthetic images: the epoch losses finite, the loss of one held
+    batch on fixed masks and latents lower after training, and inpaint's
+    [1, 28, 28] mean and positive sigma."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from meta_learning_pacoh_torch.datasets.np_image_data import mnist_image_batches
+    from meta_learning_pacoh_torch.models.neural_process_img import (
+        NeuralProcessImg,
+        NeuralProcessImgTrainer,
+        batch_context_target_mask,
+    )
+
+    with tempfile.TemporaryDirectory() as tmp:
+        synthetic_idx_images(os.path.join(tmp, "train-images-idx3-ubyte.gz"), NP_IMG_IMAGES)
+        batches = mnist_image_batches(batch_size=NP_IMG_BATCH, size=28, path_to_data=tmp,
+                                      random_state=np.random.RandomState(0))
+    model = NeuralProcessImg((1, 28, 28), random_seed=0)
+    if not on_card(model):
+        raise AssertionError("np_img: built with no device, not on the card")
+    held = batches.images[:NP_IMG_BATCH]
+    cm, tm = batch_context_target_mask((1, 28, 28), 50, 100, NP_IMG_BATCH,
+                                       random_state=np.random.RandomState(1))
+    noise = model._generator.get_state()
+
+    def held_loss():
+        model._generator.set_state(noise)
+        return model.forward_loss(held, cm, tm)
+
+    before = held_loss()
+    trainer = NeuralProcessImgTrainer(model)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    history = trainer.train(batches, epochs=NP_IMG_EPOCHS)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    after = held_loss()
+    mean, sigma = model.inpaint(held[0], cm[0])
+    print(f"  np_img: P={model.params.numel()}, {trainer.steps} steps ({NP_IMG_EPOCHS} epochs of "
+          f"{len(batches)} batches of {NP_IMG_BATCH}) in {train_s:.3f} s; epoch losses "
+          f"{[round(v, 3) for v in history]}; held batch {before:.3f} -> {after:.3f}; inpaint "
+          f"{mean.shape}, sigma in [{sigma.min():.4f}, {sigma.max():.4f}]")
+    if not (all(math.isfinite(v) for v in history) and math.isfinite(after) and after < before):
+        raise AssertionError("np_img: the loss is not finite or does not fall")
+    if not (mean.shape == sigma.shape == (1, 28, 28) and np.isfinite(mean).all()
+            and (sigma > 0).all()):
+        raise AssertionError("np_img: inpaint's mean or sigma is malformed")
+    return {"steps": trainer.steps, "train_s": train_s, "epoch_losses": history,
+            "held_loss_before": before, "held_loss_after": after}
+
+
+def phase11(profile_dir):
+    """MAML and the Neural Process on sin_20 and the image NP, from learners
+    built with no device; no kernel may launch. Returns a summary a slice."""
+    from meta_learning_pacoh_torch.ops import cuda
+
+    with open(MAML_NP_REF_FILE) as f:
+        ref = json.load(f)
+    with open(MAML_NP_BAND_FILE) as f:
+        band = json.load(f)
+    cuda.reset_launch_counts()
+    summaries = {f"{learner}_sin_20": maml_np_path(learner, ref, band, profile_dir)
+                 for learner in ("maml", "np")}
+    summaries["np_img"] = np_img_path()
+    launched = {k: v for k, v in cuda.LAUNCHES.items() if v}
+    if launched:
+        raise AssertionError(f"phase 11 launched kernels: {launched}")
+    return summaries
+
+
 def phase2_b1(errs, walls):
     """The single-task paths' shapes, one system a launch: the B4 forward
     and backward and K4 at N=200 (GPR-MLL's and GPR-PAC's), K2 and K3 at
@@ -3850,6 +4112,13 @@ def main():
         launches[name] = launches.get(name, 0) + count
     for name, summary in single_summaries.items():
         print(f"slice {name}: " + json.dumps({"card": card, **summary}))
+
+    print("phase 11: MAML and the Neural Process on sin_20, the image NP (no hand-written "
+          "kernel)")
+    t0 = time.perf_counter()
+    for name, summary in phase11(args.profile).items():
+        print(f"slice {name}: " + json.dumps({"card": card, **summary}))
+    print(f"phase 11: {time.perf_counter() - t0:.1f} s")
     print(f"all phases: {time.perf_counter() - t_start:.1f} s")
     print("the plain versions and library calls that read back to the host, by torch.profiler:")
     settle_kernel_sums(times, library)

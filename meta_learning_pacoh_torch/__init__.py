@@ -9,12 +9,19 @@ PACOH-SVGD, PACOH-VI and PACOH-MLAP) expose the same constructor keywords plus
 predict / eval / eval_datasets / confidence_intervals / state_dict /
 load_state_dict``; the single-task learners (GPR-MLL, GPR-PAC) ``fit /
 predict / eval / confidence_intervals / state_dict / load_state_dict``. The
-custom mean and kernel modules plug into GPR-MLL and PACOH-MAP.
+custom mean and kernel modules plug into GPR-MLL and PACOH-MAP. The
+reference paper's baselines MAML and the Neural Process learner (with the
+image NP of ``models/neural_process_img.py`` and its data in
+``datasets/np_image_data.py``) run no hand-written kernel: MAML's
+``eval`` and ``eval_datasets`` return one RMSE, and its ``predict`` the
+(adapted, initial) means.
 """
 
 from meta_learning_pacoh_torch import config  # noqa: F401  (pins float32 precision)
 from meta_learning_pacoh_torch.algos.gpr_mll import GPRegressionLearned
 from meta_learning_pacoh_torch.algos.gpr_pac import GPRegressionLearnedPAC
+from meta_learning_pacoh_torch.algos.maml import MAMLRegression
+from meta_learning_pacoh_torch.algos.npr import NPRegressionMetaLearned
 from meta_learning_pacoh_torch.algos.pacoh_map import GPRegressionMetaLearned
 from meta_learning_pacoh_torch.algos.pacoh_mlap import GPRegressionMetaLearnedPAC
 from meta_learning_pacoh_torch.algos.pacoh_svgd import GPRegressionMetaLearnedSVGD
@@ -31,4 +38,5 @@ __version__ = "0.1.0"
 
 __all__ = ["CosineKernel", "KernelModule", "LinearMean", "MaternKernel", "MeanModule",
            "GPRegressionMetaLearned", "GPRegressionMetaLearnedPAC", "GPRegressionMetaLearnedSVGD",
-           "GPRegressionMetaLearnedVI", "GPRegressionLearned", "GPRegressionLearnedPAC"]
+           "GPRegressionMetaLearnedVI", "GPRegressionLearned", "GPRegressionLearnedPAC",
+           "MAMLRegression", "NPRegressionMetaLearned"]

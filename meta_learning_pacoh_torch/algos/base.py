@@ -14,6 +14,8 @@ from ``random_seed``, so a seed draws the same numbers on every device.
 import numpy as np
 import torch
 
+from meta_learning_pacoh_torch.models.random_gp import ravel_flat, tree_layout, unravel_flat
+from meta_learning_pacoh_torch.ops import cuda, launch_sched
 from meta_learning_pacoh_torch.ops.metrics import calib_error_from_cdf
 from meta_learning_pacoh_torch.utils.input_handling import handle_input_dim, stack_task_tuples
 from meta_learning_pacoh_torch.utils.logging import get_logger
@@ -180,6 +182,74 @@ class RegressionModelMetaLearned(RegressionModelBase):
         ucb = pred_dist.icdf(q)
         lcb = pred_dist.icdf(torch.full_like(q, alpha))
         return ucb.cpu().numpy(), lcb.cpu().numpy()
+
+
+class FlatParamsMetaLearned(RegressionModelMetaLearned):
+    """Base of the meta-learners whose parameters are one dict of leaves (MAML's
+    net, the Neural Process), held as a flat float32 vector [P] in the
+    ``ravel_pytree`` order of the JAX package's dict (``layout``), beside the
+    Adam(W) moments; SGD or optax's Adam(W) with the staircase lr schedule.
+    The draws of global step s come from a CPU generator seeded with
+    (train seed, s), the same numbers on every device and under any chunking.
+    ``from_jax_state`` converts a JAX learner's ``state_dict()``."""
+
+    from_jax_state = None
+
+    def _init_flat_params(self, params, optimizer, lr, lr_decay, weight_decay=0.0):
+        check_choice("optimizer", optimizer, ("Adam", "SGD"))
+        self._optimizer_name, self._lr, self._lr_decay = optimizer, lr, lr_decay
+        self.weight_decay = weight_decay
+        self.layout = tree_layout(params)
+        self.params = ravel_flat(self.layout, params).to(self.device)
+        self._train_seed = int(torch.randint(0, 2 ** 31, (1,), generator=self._generator))
+        self._mu = torch.zeros_like(self.params)
+        self._nu = torch.zeros_like(self.params)
+        self._adam_count = 0
+        self._step_count = 0
+
+    def _step_generator(self, step):
+        """The CPU generator of global step ``step``'s draws."""
+        seed = int(np.random.SeedSequence([self._train_seed, step]).generate_state(1)[0])
+        return torch.Generator().manual_seed(seed)
+
+    def _param_tree(self, flat):
+        return unravel_flat(self.layout, flat)
+
+    @torch.no_grad()
+    def _apply_update(self, grad):
+        """One optax-equivalent SGD or Adam(W) step at the staircase lr, in place."""
+        lr = launch_sched.staircase_lr(self._lr, self._lr_decay, self._step_count)
+        if self._optimizer_name == "SGD":
+            self.params.sub_(lr * grad)
+            return
+        self._adam_count += 1
+        cuda.adam_step_(self.params, self._mu, self._nu, grad, self._adam_count, lr,
+                        self.weight_decay)
+
+    def state_dict(self):
+        def tree(flat):  # copies: the fit updates the vectors in place
+            return {k: v.detach().cpu().numpy().copy() for k, v in self._param_tree(flat).items()}
+
+        return {"params": tree(self.params),
+                "opt_state": {"mu": tree(self._mu), "nu": tree(self._nu),
+                              "count": self._adam_count},
+                "step": self._step_count}
+
+    def load_state_dict(self, state_dict):
+        """Restore a state of this class or a JAX learner's ``state_dict()``."""
+        opt = state_dict["opt_state"]
+        if not (isinstance(opt, dict) and "mu" in opt):
+            state_dict = type(self).from_jax_state(state_dict)
+            opt = state_dict["opt_state"]
+
+        def flat(tree):
+            return ravel_flat(self.layout, {k: torch.as_tensor(np.asarray(v, dtype=np.float32))
+                                            for k, v in tree.items()}).to(self.device)
+
+        self.params = flat(state_dict["params"])
+        self._mu, self._nu = flat(opt["mu"]), flat(opt["nu"])
+        self._adam_count = int(opt["count"])
+        self._step_count = int(state_dict.get("step", 0))
 
 
 class RegressionModel(RegressionModelBase):

@@ -8,7 +8,10 @@ PACOH-VI learner's (the posterior dict and optax's Adam or SGD state), and
 ``from_jax_mlap_state`` a JAX PACOH-MLAP learner's (the hyper-posterior,
 noise and per-task posteriors, and optax's two-group Adam or SGD state), and
 ``from_jax_gpr_state`` / ``from_jax_gpr_pac_state`` a JAX single-task
-learner's (a parameter pytree and optax's grouped AdamW or SGD state). With
+learner's (a parameter pytree and optax's grouped AdamW or SGD state), and
+``from_jax_maml_state`` / ``from_jax_np_state`` a JAX MAML or Neural
+Process learner's (a flat dict of leaves and optax's Adam(W) or SGD
+state); ``np_params_from_jax`` copies a JAX ``NeuralProcessImg.params``. With
 the identical flat parameter layout (models/random_gp.py) the two packages
 can then continue from the same numbers. The JAX state is read by
 attribute, key and position only; nothing of JAX or optax is imported.
@@ -167,3 +170,36 @@ def from_jax_gpr_state(state):
 # GPRegressionLearnedPAC's state is the same pytree with the GP's leaves under
 # 'gp' beside 'q_chol' and 'q_mean', in the same optax groups
 from_jax_gpr_pac_state = from_jax_gpr_state
+
+
+def np_params_from_jax(params):
+    """A flat JAX parameter dict (numpy or JAX leaves, e.g. a JAX
+    ``NeuralProcessImg.params``) -> {name: float32 numpy array}."""
+    return {k: np.array(v, dtype=np.float32) for k, v in params.items()}
+
+
+def from_jax_np_state(state):
+    """A JAX ``NPRegressionMetaLearned.state_dict()`` -> the port's state:
+    {'params': {name: array}, 'opt_state': {'mu', 'nu' (same keys), 'count'},
+    'step'}.
+
+    The optimizer state is optax's ``(ScaleByAdamState(count, mu, nu), ...)``
+    for AdamW (and MAML's Adam); SGD's first entry keeps no moments, which
+    become zeros.
+    """
+    params = np_params_from_jax(state["params"])
+    adam = state["opt_state"][0]
+    if hasattr(adam, "mu"):
+        mu, nu = np_params_from_jax(adam.mu), np_params_from_jax(adam.nu)
+        count = int(np.asarray(adam.count))
+    else:
+        mu = {k: np.zeros_like(v) for k, v in params.items()}
+        nu = {k: np.zeros_like(v) for k, v in params.items()}
+        count = 0
+    return {"params": params, "opt_state": {"mu": mu, "nu": nu, "count": count},
+            "step": int(state.get("step", 0))}
+
+
+# MAMLRegression's state is the same: its net's dict of leaves, and optax's
+# Adam or SGD state
+from_jax_maml_state = from_jax_np_state

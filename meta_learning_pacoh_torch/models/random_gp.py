@@ -84,14 +84,16 @@ def layout_slice(layout, path):
 
 
 def unravel_flat(layout, flat):
-    """flat [..., P] -> nested dict of views, leaves [..., *shape]."""
+    """flat [..., P] -> nested dict of views, leaves [..., *shape]. One split,
+    so autograd takes one node for all the leaves' gradients."""
     lead = flat.shape[:-1]
     params = {}
-    for path, shape, offset, size in layout:
+    leaves = torch.split(flat, [size for _, _, _, size in layout], dim=-1)
+    for (path, shape, _, _), leaf in zip(layout, leaves):
         node = params
         for key in path[:-1]:
             node = node.setdefault(key, {})
-        node[path[-1]] = flat[..., offset:offset + size].reshape(tuple(lead) + tuple(shape))
+        node[path[-1]] = leaf.reshape(tuple(lead) + tuple(shape))
     return params
 
 

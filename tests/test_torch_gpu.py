@@ -1249,3 +1249,39 @@ def test_custom_module_map_learner_on_card_takes_the_general_step(dev):
     on_cpu = GPRegressionMetaLearned(train, device="cpu", **kw)
     on_cpu.meta_fit(n_iter=10, log_period=10, verbose=False)
     assert float((on_card.params.cpu() - on_cpu.params).abs().max()) <= 1e-4
+
+
+@pytest.mark.parametrize("learner", ["maml", "np"])
+def test_maml_and_np_on_card_match_the_cpu(dev, learner):
+    """MAML (nets (32, 32, 32, 32), second order, one inner step) and the NP
+    (r = z = h = 50) on sin_20-like tasks, built without a device: on the
+    card, with their tensors there and TF32 off; 20 steps from one state
+    with the same draws (the step's draws come from a CPU generator, so
+    both devices draw the same numbers) within 1e-4 max and 2e-6 mean of
+    the same steps on the CPU, the last loss rtol 1e-5, no kernel launched;
+    MAML's eval RMSE and the NP's eval metrics, with one set of latents fed
+    to both, rtol 1e-4."""
+    from meta_learning_pacoh_torch import MAMLRegression, NPRegressionMetaLearned
+
+    env = SinusoidDataset(random_state=np.random.RandomState(26))
+    train = env.generate_meta_train_data(n_tasks=20, n_samples=5)
+    test = env.generate_meta_test_data(n_tasks=10, n_samples_context=5, n_samples_test=50)
+    cls = MAMLRegression if learner == "maml" else NPRegressionMetaLearned
+    on_card = cls(train, random_seed=30)
+    assert on_card.device.type == "cuda" and on_card.params.is_cuda and on_card.X.is_cuda
+    assert not torch.backends.cuda.matmul.allow_tf32
+    on_cpu = cls(train, random_seed=30, device="cpu")
+    on_cpu.load_state_dict(on_card.state_dict())
+    cuda.reset_launch_counts()
+    card_loss = on_card.meta_fit(n_iter=20, log_period=20, verbose=False)
+    assert not any(cuda.LAUNCHES.values())
+    cpu_loss = on_cpu.meta_fit(n_iter=20, log_period=20, verbose=False)
+    d = (on_card.params.cpu() - on_cpu.params).abs()
+    assert float(d.max()) <= 1e-4 and float(d.mean()) <= 2e-6
+    assert card_loss == pytest.approx(cpu_loss, rel=1e-5)
+    if learner == "np":
+        eps = torch.randn(len(test), on_cpu.z_dim, generator=torch.Generator().manual_seed(0))
+        on_card._eval_eps = lambda n: eps.to(dev)
+        on_cpu._eval_eps = lambda n: eps
+    np.testing.assert_allclose(on_card.eval_datasets(test), on_cpu.eval_datasets(test),
+                               rtol=1e-4)

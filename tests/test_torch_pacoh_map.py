@@ -26,6 +26,8 @@ from meta_learning_pacoh_torch import (
     GPRegressionLearnedPAC,
     GPRegressionMetaLearned,
     GPRegressionMetaLearnedSVGD,
+    MAMLRegression,
+    NPRegressionMetaLearned,
 )
 from meta_learning_pacoh_torch.datasets import SinusoidDataset
 from meta_learning_pacoh_torch.interop import from_jax_map_state, params_from_jax
@@ -296,15 +298,18 @@ def test_confidence_intervals_match_jax(learner):
 
 
 @pytest.mark.parametrize("learner", [GPRegressionMetaLearned, GPRegressionMetaLearnedSVGD,
-                                     GPRegressionLearned, GPRegressionLearnedPAC])
+                                     GPRegressionLearned, GPRegressionLearnedPAC,
+                                     MAMLRegression, NPRegressionMetaLearned])
 def test_learners_default_to_the_card(monkeypatch, learner):
     """Built without a device, a learner lives on the card; with no card it
     raises instead of carrying on on the CPU. The single-task learners take
-    one task's (x, y)."""
+    one task's (x, y); MAML and the NP their own net widths."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     train, _ = _sin(ragged=False)
     data = train[0] if learner in (GPRegressionLearned, GPRegressionLearnedPAC) else (train,)
+    kw = {MAMLRegression: dict(layer_sizes=(4,)),
+          NPRegressionMetaLearned: dict(r_dim=4, z_dim=4, h_dim=4)}.get(
+        learner, dict(mean_nn_layers=(4,), kernel_nn_layers=(4,)))
     with pytest.raises(RuntimeError, match="device='cpu'"):
-        learner(*data, mean_nn_layers=(4,), kernel_nn_layers=(4,))
-    assert learner(*data, mean_nn_layers=(4,), kernel_nn_layers=(4,),
-                   device="cpu").device.type == "cpu"
+        learner(*data, **kw)
+    assert learner(*data, device="cpu", **kw).device.type == "cpu"
