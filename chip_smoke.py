@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port of PACOH (SVGD, MAP, VI, MLAP, GPR-MLL, GPR-PAC, MAML and NP) once on one NVIDIA GPU.
+"""Drive the PyTorch/CUDA port of PACOH (SVGD, MAP, VI, MLAP, GPR-MLL, GPR-PAC, MAML and NP, alone and stacked) once on one NVIDIA GPU.
 
     python3 chip_smoke.py                # all phases, one card
     python3 chip_smoke.py --profile DIR  # also trace fit steps and one eval of
@@ -15,7 +15,9 @@ beside it: K1 at ``cauchy_20``'s [10, 2372] and at its SE learner's [10,
 1188] (the cluster plans printed), at K=1 (against exact distances) and
 K=32 (also at P=20000, past the staged slices), at a ragged P=2371, at
 P=37 and P=3 (smaller than one CTA's slice), two calls giving the same
-bits; K2 on escalating systems at B=200, N=20
+bits, on a seed axis (one launch of S clusters) at [1, 10, 2372] (the bits
+of the [K, P] call) and at phase 12's [5, 10, 2372] and [4, 10, 2308]
+(rows of their own in the kernels line); K2 on escalating systems at B=200, N=20
 (timed beside ``cholesky_ex``), at B=1, at B=1000 and B=7 (no multiple of
 the systems a block) and at N in {32, 33, 48, 64}, each batch but the timed
 one with a system that fails at every jitter level (non-finite where the
@@ -178,6 +180,30 @@ by its trainer for 2 epochs through ``mnist_image_batches`` on 64 synthetic
 images of 28 x 28 (a gzipped IDX3 file in a temporary directory), its loss
 on a held batch with fixed masks and latents lower after, and ``inpaint``.
 No kernel may launch in phase 11.
+Phase 12 runs the stacked fits (``parallel.fit_models_parallel``,
+``utils.tuning_parallel``, ``utils.tuning.tune_run``), each learner built
+without a device. 12a: the meta-overfitting sweep's seeds 22-26
+(experiments/meta_overfitting/run_overfitting_sweep.py:25) as one stacked
+PACOH-SVGD fit on cauchy_20, each seed its own ``provide_data("cauchy_20",
+seed)``, K=10, full batch, ``prefer="vmap"``, 500 steps: exactly 500
+launches each of K1 (at [5, 10, 2372]), K2 and K3 (1,000 systems of N=20);
+each seed's eval (20 test tasks, K4) within rtol 1e-3 of its own
+sequential general-step fit; 20 steps from the fitted states, stacked
+against the stack with the kernels off (the twins' limits) and each float32
+run (stacked, each seed alone, kernels off) against the plain stack in
+float64 (twice the JAX float32 step's drift, tools/c1_drift.json); the
+stacked rate beside one fit's general step (``--profile``: both traced).
+12b: the sweep's PACOH-MAP cell on sin_32 (run_overfitting_sweep.py:41-80:
+weight decay 0.1, 50 test tasks), seeds 22-26, through 'vmap' (1,000
+stacked steps, no kernel at N=5) and 'sequential_fused' (10,000 B6 steps
+each), both evaluated as the sweep does; the faster route a fit-step must
+be the one ``prefer="auto"`` takes. 12c: ``run_trial_batch`` on phase 4's
+sin_20 data: SVGD trials (lr x prior_factor, median bandwidth: exactly 500
+K1 launches at [4, 10, 2308]), VI trials (the same grid) and MAP trials (lr
+x weight decay), 4 each, 500 steps, each trial within the twins' limits of
+its own general-step fit after 20 steps; then ``tune_run`` with TPE,
+``batch_size=4``, ``batch_trial_fn=run_trial_batch``, two rounds of MAP
+trials of 300 steps, none falling back to a sequential trial.
 
 Any failure raises and exits non-zero. The line before the last is a JSON
 object with one record per kernel; the last line is
@@ -217,6 +243,10 @@ KERNELS = {  # launch-counter name -> (source, TPU kernel it replaces)
 # the tensor cores, and device memory
 PEAK_FLOPS, PEAK_BYTES = 67e12, 3.35e12
 GENERAL_STEP_KERNELS = ("svgd_phi", "mll_fwd", "mll_bwd", "chol")
+# K1 on a seed axis, rows of the kernels line of their own: (S, K, P) of
+# phase 12a's five cauchy_20 seeds and phase 12c's four sin_20 SVGD trials
+K1_SEED_ROWS = {"svgd_phi seeds [5, 10, 2372]": (5, 10, 2372),
+                "svgd_phi trials [4, 10, 2308]": (4, 10, 2308)}
 # per-system error, normalised by the system's largest |plain| value
 KERNEL_RTOL = 2e-4
 # the pure kernels' device time: calls queued behind a device-side wait of
@@ -395,6 +425,15 @@ MAML_NP_BAND_FILE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "to
 # the image NP: synthetic 28 x 28 images in a gzipped IDX3 file, trained
 # through mnist_image_batches with the defaults (r = z = h = 128)
 NP_IMG_IMAGES, NP_IMG_BATCH, NP_IMG_EPOCHS = 64, 16, 2
+# phase 12: the stacked fits. The meta-overfitting sweep's seeds
+# (experiments/meta_overfitting/run_overfitting_sweep.py:25); 12a's stacked
+# PACOH-SVGD fit of cauchy_20; 12b's PACOH-MAP cell on sin_32 through the
+# 'vmap' route (its first SWEEP_VMAP_STEPS steps) and the 'sequential_fused'
+# route (the sweep's SWEEP_FUSED_STEPS); 12c's trial groups and tune_run
+SWEEP_SEEDS = (22, 23, 24, 25, 26)
+SWEEP_STEPS = 500
+SWEEP_VMAP_STEPS, SWEEP_FUSED_STEPS, SWEEP_TEST_TASKS = 1000, 10000, 50
+TRIAL_STEPS, TUNE_STEPS, TUNE_BATCH = 500, 300, 4
 
 
 def card_line():
@@ -748,6 +787,7 @@ def phase2_general(param_dim, gen, errs, times, work, library, walls):
                                     lambda: svgd_kernel.svgd_phi_ref(x_main, s_main), walls)
     # distances, the kernel row sums and two K x K by K x P products
     work["svgd_phi"] = (7 * 10 * 10 * param_dim, 4 * 3 * 10 * param_dim)
+    phase2_k1_seeds(x_main, s_main, gen, errs, times, work, walls)
 
     report_usage("mll_fwd (N <= 32)", "mll_fwd_warp_kernelILi1", "pacoh_mll_fwd_usage", 0)
     report_usage("mll_fwd (33 <= N <= 64)", "mll_fwd_warp_kernelILi2", "pacoh_mll_fwd_usage", 1)
@@ -824,6 +864,35 @@ def phase2_general(param_dim, gen, errs, times, work, library, walls):
     mll_bytes = 4 * (2 * b * n * n + 2 * b * n + 2 * b)
     work["mll_fwd"] = (n_fact * n ** 3 / 3 + b * (n * n + 3 * n), mll_bytes)
     work["mll_bwd"] = (b * (2 * n ** 3 / 3 + 3 * n * n), mll_bytes)
+
+
+def phase2_k1_seeds(x_main, s_main, gen, errs, times, work, walls):
+    """K1's seed axis: at S=1 the bits of the [K, P] call; at the stacked
+    fits' shapes of phase 12 (K1_SEED_ROWS) against the batched plain
+    version, each system its own median, one launch a call, and timed as
+    device time."""
+    import torch
+
+    from meta_learning_pacoh_torch.ops import cuda
+    from meta_learning_pacoh_torch.ops.cuda import svgd_kernel
+
+    one = svgd_kernel.svgd_phi_fused(x_main[None].contiguous(), s_main[None].contiguous())
+    if not torch.equal(one[0], svgd_kernel.svgd_phi_fused(x_main, s_main)):
+        raise AssertionError("svgd_phi: [1, K, P] differs from the [K, P] call")
+    print(f"  svgd_phi at [1, {x_main.shape[0]}, {x_main.shape[1]}]: the bits of the [K, P] call")
+    for name, (n_sys, k, p) in K1_SEED_ROWS.items():
+        x = torch.randn(n_sys, k, p, generator=gen).cuda()
+        s = 10.0 * torch.randn(n_sys, k, p, generator=gen).cuda()
+        x[-1] *= 3.0  # a system of another scale: its own median
+        before = cuda.LAUNCHES["svgd_phi"]
+        got = svgd_kernel.svgd_phi_fused(x, s)
+        if cuda.LAUNCHES["svgd_phi"] != before + 1:
+            raise AssertionError(f"{name}: not one launch a call")
+        print(f"  {name}, one launch of {n_sys} clusters of {svgd_kernel.svgd_plan(k, p).cluster}:")
+        check(name, got, svgd_kernel.svgd_phi_ref(x, s), errs)
+        times[name] = device_pair(name, lambda x=x, s=s: svgd_kernel.svgd_phi_fused(x, s),
+                                  lambda x=x, s=s: svgd_kernel.svgd_phi_ref(x, s), walls)
+        work[name] = (7 * n_sys * k * k * p, 4 * 3 * n_sys * k * p)
 
 
 def sin20():
@@ -3445,13 +3514,20 @@ def single_eval_launches(name):
 
 
 def to_float64(model):
-    """A learner's state, data, masks and decays in float64, in place."""
+    """A learner's state (a tensor or a dict of them), data, masks, decays
+    and hyper-prior in float64, in place."""
     import torch
 
-    for attr in ("params", "_mu", "_nu", "train_x", "train_t", "X", "Y", "mask", "_train_mask",
-                 "_decay"):
-        if isinstance(getattr(model, attr, None), torch.Tensor):
-            setattr(model, attr, getattr(model, attr).double())
+    for attr in ("params", "particles", "posterior", "_mu", "_nu", "train_x", "train_t", "X",
+                 "Y", "mask", "_train_mask", "_decay"):
+        value = getattr(model, attr, None)
+        if isinstance(value, torch.Tensor):
+            setattr(model, attr, value.double())
+        elif isinstance(value, dict):
+            setattr(model, attr, {k: v.double() for k, v in value.items()})
+    if hasattr(model, "hyper_prior"):
+        model.hyper_prior.loc = model.hyper_prior.loc.double()
+        model.hyper_prior.scale = model.hyper_prior.scale.double()
 
 
 def single_fit(model, n_iter, log_period, valid=None):
@@ -4013,6 +4089,407 @@ def phase2_b1(errs, walls):
     ONE_SYSTEM.update(out)
 
 
+def twin_state(model):
+    """The trained state of a GP learner as one flat CPU vector (SVGD's
+    particles, VI's posterior, MAP's parameters), the kernel net's output
+    bias left out: its MLL gradient is exactly 0 (pairwise feature distances
+    are shift-invariant), so Adam random-walks float noise there."""
+    import torch
+
+    from meta_learning_pacoh_torch.models.random_gp import layout_slice
+
+    if hasattr(model, "particles"):
+        skip, leaves = model.hyper_prior.slice_of(("kernel_nn", "b_out")), [model.particles]
+    elif hasattr(model, "posterior"):
+        skip = model.hyper_prior.slice_of(("kernel_nn", "b_out"))
+        leaves = [model.posterior[k] for k in sorted(model.posterior)]
+    else:
+        skip, leaves = layout_slice(model.layout, ("kernel_nn", "b_out")), [model.params]
+    keep = torch.ones(leaves[0].shape[-1], dtype=torch.bool)
+    keep[skip] = False
+    return torch.cat([leaf.detach().cpu()[..., keep].reshape(-1) for leaf in leaves])
+
+
+def general_twins(build, n_iter):
+    """Each of ``build``'s learners fitted alone by its general step
+    (``PACOH_TORCH_DISABLE_FUSED=1``) for ``n_iter`` steps."""
+    os.environ["PACOH_TORCH_DISABLE_FUSED"] = "1"
+    try:
+        models = build()
+        for m in models:
+            m.meta_fit(n_iter=n_iter, log_period=n_iter, verbose=False)
+        return models
+    finally:
+        os.environ.pop("PACOH_TORCH_DISABLE_FUSED")
+
+
+def twin_gaps(label, got, want, limits=None):
+    """The largest (max, mean) |diff| of ``twin_state`` between each fit of
+    ``got`` and its other run in ``want``; with ``limits`` (max, mean), raise
+    beyond them."""
+    worst = (0.0, 0.0)
+    for a, b in zip(got, want):
+        d = (twin_state(a).double() - twin_state(b).double()).abs()
+        worst = (max(worst[0], float(d.max())), max(worst[1], float(d.mean())))
+    held = "" if limits is None else f" (limits {limits[0]:.3e}, {limits[1]:.3e})"
+    print(f"  {label}: |diff| max {worst[0]:.3e}, mean {worst[1]:.3e} over {len(got)} fits"
+          f"{held}; kernel_nn.b_out left out")
+    if limits is not None and not (worst[0] <= limits[0] and worst[1] <= limits[1]):
+        raise AssertionError(f"{label}: beyond the limits")
+    return worst
+
+
+def launched():
+    from meta_learning_pacoh_torch.ops import cuda
+
+    return {k: v for k, v in cuda.LAUNCHES.items() if v}
+
+
+def phase12a(profile_dir):
+    """The meta-overfitting sweep's seeds as one stacked PACOH-SVGD fit on
+    cauchy_20 (each seed its own data), through ``fit_models_parallel``."""
+    import numpy as np
+    import torch
+
+    from meta_learning_pacoh_torch import GPRegressionMetaLearnedSVGD
+    from meta_learning_pacoh_torch.datasets import provide_data
+    from meta_learning_pacoh_torch.ops import cuda
+    from meta_learning_pacoh_torch.parallel import fit_models_parallel
+
+    data = {seed: provide_data("cauchy_20", seed=seed) for seed in SWEEP_SEEDS}
+
+    def build(seeds=SWEEP_SEEDS):
+        return [GPRegressionMetaLearnedSVGD(data[seed][0], num_particles=10, random_seed=seed,
+                                            task_batch_size=-1) for seed in seeds]
+
+    models = build()
+    m0 = models[0]
+    (t, n, d), k, p = m0.X.shape, m0.num_particles, m0.hyper_prior.dim
+    if [len(models), k, p] != list(K1_SEED_ROWS["svgd_phi seeds [5, 10, 2372]"]):
+        raise AssertionError(f"12a: K1 at {[len(models), k, p]}")
+    print(f"  12a seed_cauchy_20: seeds {SWEEP_SEEDS}, each {t} tasks x {n} points (D={d}) of "
+          f"its own provide_data('cauchy_20', seed), K={k}, P={p}; {len(models) * k * t} "
+          f"systems of N={n} a step")
+    torch.cuda.synchronize()
+    cuda.reset_launch_counts()
+    t0 = time.perf_counter()
+    fit_models_parallel(models, n_iter=SWEEP_STEPS, prefer="vmap")
+    torch.cuda.synchronize()
+    stacked_s = time.perf_counter() - t0
+    fit_launches = launched()
+    want = {"svgd_phi": SWEEP_STEPS, "mll_fwd": SWEEP_STEPS, "mll_bwd": SWEEP_STEPS}
+    print(f"  stacked fit: {SWEEP_STEPS} steps of {len(models)} fits in {stacked_s:.3f} s "
+          f"({SWEEP_STEPS / stacked_s:.1f} steps/s, first call); launches {fit_launches}")
+    if fit_launches != want:
+        raise AssertionError(f"12a: launches {fit_launches}, want {want}: K1 one launch of "
+                             f"[{len(models)}, {k}, {p}] a step, K2 and K3 one of "
+                             f"{len(models) * k * t} systems a step")
+    seq_t0 = time.perf_counter()
+    seq = general_twins(build, SWEEP_STEPS)
+    torch.cuda.synchronize()
+    seq_s = time.perf_counter() - seq_t0
+    print(f"  the {len(seq)} sequential general-step fits: {SWEEP_STEPS} steps each in "
+          f"{seq_s:.3f} s ({len(seq) * SWEEP_STEPS / seq_s:.1f} steps/s)")
+    skip = m0.hyper_prior.slice_of(("kernel_nn", "b_out"))
+    gaps_500 = [diff_excluding(a.particles.cpu(), b.particles.cpu(), skip)
+                for a, b in zip(models, seq)]
+    print(f"  after {SWEEP_STEPS} steps, stacked - sequential |particle diff| (max, mean) a "
+          f"seed: {[(f'{a:.3e}', f'{b:.3e}') for a, b in gaps_500]}")
+    metrics = {}
+    for seed, a, b in zip(SWEEP_SEEDS, models, seq):
+        test = data[seed][2][:EVAL_TWIN_TASKS]
+        cuda.reset_launch_counts()
+        got = np.asarray(a.eval_datasets(test))
+        if not launched().get("chol"):
+            raise AssertionError("12a: the eval ran no K4")
+        ref = np.asarray(b.eval_datasets(test))
+        metrics[seed] = got.tolist()
+        print(f"  seed {seed} eval ({EVAL_TWIN_TASKS} test tasks) stacked {got.tolist()}, "
+              f"sequential {ref.tolist()}")
+        if not (np.all(np.isfinite(got)) and np.allclose(got, ref, rtol=EVAL_TWIN_TOL,
+                                                         atol=EVAL_TWIN_TOL)):
+            raise AssertionError(f"12a: seed {seed}'s stacked metrics disagree with its own fit")
+
+    # twins: TWIN_STEPS from the states after the fit, stacked against each
+    # seed alone and against the stack with the kernels off
+    later = [m.state_dict() for m in models]
+
+    def from_later():
+        group = build()
+        for m, state in zip(group, later):
+            m.load_state_dict(state)
+        return group
+
+    stacked = from_later()
+    fit_models_parallel(stacked, n_iter=TWIN_STEPS, prefer="vmap")
+    alone = general_twins(from_later, TWIN_STEPS)
+    os.environ["PACOH_TORCH_DISABLE_KERNELS"] = "1"
+    try:
+        plain, wide = from_later(), from_later()
+        for m in wide:
+            to_float64(m)
+        cuda.reset_launch_counts()
+        fit_models_parallel(plain, n_iter=TWIN_STEPS, prefer="vmap")
+        fit_models_parallel(wide, n_iter=TWIN_STEPS, prefer="vmap")
+        if launched():
+            raise AssertionError(f"12a: kernels launched with the kernels off: {launched()}")
+    finally:
+        os.environ.pop("PACOH_TORCH_DISABLE_KERNELS")
+    # stacked and alone part by cuBLAS's float order at other batch sizes
+    # (1.6e-4 max measured, beyond the twins' 1e-4; the run alone was the
+    # farther from float64): each float32 run is held to the float64 run
+    # within twice the JAX float32 step's own drift from its float64 run at
+    # cauchy_20's later state (tools/c1_drift.json, as phase 3's later twins)
+    twin_seq = twin_gaps(f"twins ({TWIN_STEPS} steps from the fitted states), stacked - each "
+                         f"seed's own general step", stacked, alone)
+    twin_plain = twin_gaps("twins, stacked - stacked with the kernels off", stacked, plain,
+                           (TWIN_ATOL, TWIN_MEAN_ATOL))
+    lim = later_limits()
+    twin_f64 = {label: twin_gaps(f"twins, {label} - the plain stacked step in float64", runs,
+                                 wide, lim)
+                for label, runs in (("stacked", stacked), ("each seed alone", alone),
+                                    ("stacked with the kernels off", plain))}
+    # rates: the stack's steps/s beside one fit's general step
+    steady = 100 / timed_stacked(stacked, 100)
+    os.environ["PACOH_TORCH_DISABLE_FUSED"] = "1"
+    try:
+        one_rate = 100 / timed_fit(alone[0], 100, 100)
+    finally:
+        os.environ.pop("PACOH_TORCH_DISABLE_FUSED")
+    print(f"  steady state: stacked {steady:.1f} steps/s ({len(models)} fits a step: "
+          f"{len(models) * steady:.1f} fit-steps/s); one fit's general step {one_rate:.1f} "
+          f"steps/s; stacked / one {steady / one_rate:.3f}")
+    traces = {}
+    if profile_dir:
+        traces["seed_stack_20_steps"] = profile(
+            "seed_stack", lambda: fit_models_parallel(stacked, n_iter=20, prefer="vmap"),
+            profile_dir)
+        os.environ["PACOH_TORCH_DISABLE_FUSED"] = "1"
+        try:
+            traces["one_seed_20_steps"] = profile(
+                "one_seed", lambda: alone[0].meta_fit(n_iter=20, log_period=20, verbose=False),
+                profile_dir)
+        finally:
+            os.environ.pop("PACOH_TORCH_DISABLE_FUSED")
+    for label, summary in traces.items():
+        print(f"  trace {label}: " + json.dumps(summary))
+    return fit_launches["svgd_phi"], dict(
+        seeds=list(SWEEP_SEEDS), shape=[len(models), k, p], stacked_fit_s=stacked_s,
+        sequential_fits_s=seq_s, stacked_steps_per_s=steady, one_fit_steps_per_s=one_rate,
+        launches=fit_launches, metrics=metrics, gaps_after_fit=gaps_500,
+        twin_sequential=twin_seq, twin_plain=twin_plain, twin_f64=twin_f64, traces=traces)
+
+
+def timed_stacked(models, n_iter):
+    """Seconds of ``n_iter`` stacked steps of ``models``."""
+    import torch
+
+    from meta_learning_pacoh_torch.parallel import fit_models_parallel
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fit_models_parallel(models, n_iter=n_iter, prefer="vmap")
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+def sweep_map_cell(seed):
+    """run_overfitting_sweep.py's PACOH-MAP cell (build_one, :41-66): sin_32's
+    first 32 validation tasks' contexts train, their held-out points and 50
+    test tasks evaluate."""
+    from meta_learning_pacoh_torch import GPRegressionMetaLearned
+    from meta_learning_pacoh_torch.datasets import provide_data
+
+    _, valid, test = provide_data("sin_32", seed=seed)
+    meta_train = valid[:32]
+    train = [(cx, cy) for cx, cy, _, _ in meta_train]
+    model = GPRegressionMetaLearned(train, weight_decay=0.1, num_iter_fit=SWEEP_FUSED_STEPS,
+                                    random_seed=seed)
+    return model, meta_train, test[:SWEEP_TEST_TASKS]
+
+
+def sweep_eval(model, meta_train, test):
+    """eval_one of run_overfitting_sweep.py (:68-80)."""
+    ll_tr, rmse_tr, _ = model.eval_datasets(meta_train)
+    ll_te, rmse_te, calib = model.eval_datasets(test)
+    return {"test_rmse_meta_train": rmse_tr, "test_rmse_meta_test": rmse_te,
+            "test_ll_meta_train": ll_tr, "test_ll_meta_test": ll_te, "calib_err": calib}
+
+
+def phase12b():
+    """The sweep's PACOH-MAP cell on sin_32, seeds 22-26, through both routes
+    of ``fit_models_parallel``: 'vmap' (the stacked general step) and
+    'sequential_fused' (each seed's own B6 fit). Their times decide 'auto'."""
+    import torch
+
+    from meta_learning_pacoh_torch.ops import cuda
+    from meta_learning_pacoh_torch.parallel import fit_models_parallel, seed_parallel
+
+    cells = {seed: sweep_map_cell(seed) for seed in SWEEP_SEEDS}
+    stacked = [cells[seed][0] for seed in SWEEP_SEEDS]
+    m0 = stacked[0]
+    print(f"  12b seed_map_sin_32: seeds {SWEEP_SEEDS}, {m0.n_tasks} tasks x "
+          f"{m0.X.shape[1]} points, task batch {m0.task_batch_size}, weight decay 0.1, "
+          f"P={m0.params.numel()}; every seed in B6's window: "
+          f"{all(m._fused_path_ok() for m in stacked)}")
+    torch.cuda.synchronize()
+    cuda.reset_launch_counts()
+    t0 = time.perf_counter()
+    fit_models_parallel(stacked, n_iter=SWEEP_VMAP_STEPS, prefer="vmap")
+    torch.cuda.synchronize()
+    vmap_s = time.perf_counter() - t0
+    if launched():
+        raise AssertionError(f"12b: the stacked MAP step at N=5 launched {launched()}")
+    fused = [sweep_map_cell(seed)[0] for seed in SWEEP_SEEDS]
+    torch.cuda.synchronize()
+    cuda.reset_launch_counts()
+    t0 = time.perf_counter()
+    fit_models_parallel(fused, n_iter=SWEEP_FUSED_STEPS, prefer="sequential_fused")
+    torch.cuda.synchronize()
+    fused_s = time.perf_counter() - t0
+    if set(launched()) != {"fused_map"}:
+        raise AssertionError(f"12b: 'sequential_fused' did not run on B6 alone: {launched()}")
+    # the time a fit-step on each route, and 'vmap' at the fused fits' length
+    vmap_fit_step = vmap_s / (SWEEP_VMAP_STEPS * len(stacked))
+    fused_fit_step = fused_s / (SWEEP_FUSED_STEPS * len(fused))
+    ratio = vmap_fit_step / fused_fit_step
+    print(f"  'vmap': {SWEEP_VMAP_STEPS} stacked steps in {vmap_s:.3f} s "
+          f"({1e3 * vmap_fit_step:.5f} ms a fit-step); 'sequential_fused': "
+          f"{len(fused)} x {SWEEP_FUSED_STEPS} B6 steps in {fused_s:.3f} s "
+          f"({1e3 * fused_fit_step:.5f} ms a fit-step, {launched()['fused_map']} launches); "
+          f"'sequential_fused' {ratio:.1f}x faster a fit-step")
+    auto = "sequential_fused" if seed_parallel._all_fused(stacked) else "vmap"
+    winner = "sequential_fused" if ratio > 1.0 else "vmap"
+    print(f"  'auto' takes {auto!r} for this group; the faster route here: {winner!r} "
+          f"(the docstring's claim: 'sequential_fused' wherever every model is in a fused "
+          f"window)")
+    if auto != winner:
+        raise AssertionError("12b: 'auto' disagrees with the measured faceoff")
+    metrics = {}
+    for seed, model in zip(SWEEP_SEEDS, fused):
+        _, meta_train, test = cells[seed]
+        metrics[seed] = {"sequential_fused": sweep_eval(model, meta_train, test),
+                         "vmap_1000": sweep_eval(cells[seed][0], meta_train, test)}
+        values = [v for route in metrics[seed].values() for v in route.values()]
+        if not all(math.isfinite(v) for v in values):
+            raise AssertionError(f"12b: seed {seed}: non-finite metrics {metrics[seed]}")
+    for seed, m in metrics.items():
+        print(f"  seed {seed}: " + json.dumps(m))
+    return dict(seeds=list(SWEEP_SEEDS), vmap_steps=SWEEP_VMAP_STEPS, vmap_s=vmap_s,
+                fused_steps=SWEEP_FUSED_STEPS, fused_s=fused_s,
+                vmap_ms_per_fit_step=1e3 * vmap_fit_step,
+                fused_ms_per_fit_step=1e3 * fused_fit_step, fused_over_vmap=ratio,
+                auto=auto, metrics=metrics)
+
+
+def trial_families(train):
+    """phase 12c's trial groups on sin_20: (configs, build) of SVGD, VI, MAP."""
+    from meta_learning_pacoh_torch import (
+        GPRegressionMetaLearned,
+        GPRegressionMetaLearnedSVGD,
+        GPRegressionMetaLearnedVI,
+    )
+
+    svgd_vi = [{"lr": lr, "prior_factor": pf} for lr in (1e-3, 3e-3) for pf in (0.01, 0.1)]
+    return {
+        "svgd": (svgd_vi, lambda c: GPRegressionMetaLearnedSVGD(
+            train, num_iter_fit=TRIAL_STEPS, num_particles=10, random_seed=30,
+            task_batch_size=-1, lr=c["lr"], prior_factor=c["prior_factor"])),
+        "vi": (svgd_vi, lambda c: GPRegressionMetaLearnedVI(
+            train, num_iter_fit=TRIAL_STEPS, random_seed=30, lr=c["lr"],
+            prior_factor=c["prior_factor"])),
+        "map": ([{"lr_params": lr, "weight_decay": wd} for lr in (1e-3, 3e-3)
+                 for wd in (0.1, 0.2)], lambda c: GPRegressionMetaLearned(
+            train, num_iter_fit=TRIAL_STEPS, random_seed=30, lr_params=c["lr_params"],
+            weight_decay=c["weight_decay"])),
+    }
+
+
+def phase12c():
+    """Hyper-parallel trials on phase 4's sin_20 data: ``run_trial_batch``
+    for SVGD, VI and MAP groups of four, each trial held to its own
+    general-step fit; then a batched ``tune_run`` with TPE."""
+    import tempfile
+
+    import torch
+
+    from meta_learning_pacoh_torch.ops import cuda
+    from meta_learning_pacoh_torch.utils.tuning import LogUniform, Uniform, tune_run
+    from meta_learning_pacoh_torch.utils.tuning_parallel import (
+        fit_hyper_parallel,
+        run_trial_batch,
+    )
+
+    train, test = sin20()
+
+    def evaluate(model):
+        return dict(zip(("test_ll", "test_rmse", "calib_err"), model.eval_datasets(test)))
+
+    summary = {}
+    for family, (configs, build) in trial_families(train).items():
+        torch.cuda.synchronize()
+        cuda.reset_launch_counts()
+        t0 = time.perf_counter()
+        results = run_trial_batch(configs, build, evaluate, n_iter=TRIAL_STEPS, static_keys=())
+        torch.cuda.synchronize()
+        batch_s = time.perf_counter() - t0
+        counts = launched()
+        in_fit = {k: v for k, v in counts.items() if k != "chol_small"}  # the evals' B5
+        want = {"svgd_phi": TRIAL_STEPS} if family == "svgd" else {}
+        print(f"  12c {family}: {len(configs)} trials x {TRIAL_STEPS} steps stacked, with "
+              f"their evals, in {batch_s:.3f} s; launches {counts}")
+        if in_fit != want:
+            raise AssertionError(f"12c {family}: launches {counts}, want {want} and the "
+                                 f"evals' B5")
+        if family == "svgd":
+            k1, shape = counts["svgd_phi"], [len(configs), 10, build(configs[0]).hyper_prior.dim]
+            print(f"  K1 at {shape}: {k1} launches, one a step for the {len(configs)} trials")
+            if shape != list(K1_SEED_ROWS["svgd_phi trials [4, 10, 2308]"]):
+                raise AssertionError(f"12c: K1 at {shape}")
+        for c, r in zip(configs, results):
+            print(f"    {c}: {r}")
+            if not all(math.isfinite(v) for v in r.values()):
+                raise AssertionError(f"12c {family}: non-finite metrics")
+        group = [build(c) for c in configs]
+        fit_hyper_parallel(group, n_iter=TWIN_STEPS)
+        twins = general_twins(lambda: [build(c) for c in configs], TWIN_STEPS)
+        gap = twin_gaps(f"{family} trials ({TWIN_STEPS} steps), stacked - each trial alone",
+                        group, twins, (TWIN_ATOL, TWIN_MEAN_ATOL))
+        summary[family] = dict(trials=configs, results=results, seconds=batch_s,
+                               launches=counts, twin=gap)
+
+    # tune_run with TPE, two batches of MAP trials through run_trial_batch
+    configs, build = trial_families(train)["map"]
+    space = {"lr_params": LogUniform(1e-4, 1e-2), "weight_decay": Uniform(0.0, 0.5)}
+
+    def trial_alone(config):
+        raise AssertionError("12c: tune_run fell back to a sequential trial")
+
+    def batch(cfgs):
+        return run_trial_batch(cfgs, build, evaluate, n_iter=TUNE_STEPS, static_keys=())
+
+    with tempfile.TemporaryDirectory() as local_dir:
+        t0 = time.perf_counter()
+        analysis = tune_run(trial_alone, space, num_samples=2 * TUNE_BATCH, metric="test_ll",
+                            mode="max", search_alg="tpe", seed=0, local_dir=local_dir,
+                            name="trials_sin_20", verbose=False, batch_size=TUNE_BATCH,
+                            batch_trial_fn=batch)
+        tune_s = time.perf_counter() - t0
+    trials = analysis.trials
+    durations = [t["duration"] for t in trials]
+    rounds = [durations[i:i + TUNE_BATCH] for i in range(0, len(trials), TUNE_BATCH)]
+    print(f"  tune_run (TPE, batch_size={TUNE_BATCH}, {TUNE_STEPS} steps a trial): "
+          f"{len(trials)} trials in {tune_s:.3f} s, statuses "
+          f"{sorted({t['status'] for t in trials})}, s/trial by round "
+          f"{[r[0] for r in rounds]}")
+    if not (len(trials) == 2 * TUNE_BATCH and all(t["status"] == "DONE" for t in trials)
+            and all(len(set(r)) == 1 for r in rounds)):
+        raise AssertionError("12c: tune_run did not take its batch path for every trial")
+    summary["tune_run"] = dict(seconds=tune_s, rounds=[r[0] for r in rounds],
+                               best=max(t["last_result"]["test_ll"] for t in trials))
+    return k1, summary
+
+
 def report_one_system():
     """Print phase 2's times at one system a launch, now that the calls that
     read back to the host have their kernels' sums, and whether each kernel
@@ -4119,6 +4596,15 @@ def main():
     for name, summary in phase11(args.profile).items():
         print(f"slice {name}: " + json.dumps({"card": card, **summary}))
     print(f"phase 11: {time.perf_counter() - t0:.1f} s")
+    print("phase 12: stacked fits (seed-parallel cauchy_20 and sin_32, hyper-parallel "
+          "trials and tune_run on sin_20; K1 on a seed axis)")
+    t0 = time.perf_counter()
+    launches["svgd_phi seeds [5, 10, 2372]"], seed_summary = phase12a(args.profile)
+    print("slice seed_cauchy_20: " + json.dumps({"card": card, **seed_summary}))
+    print("slice seed_map_sin_32: " + json.dumps({"card": card, **phase12b()}))
+    launches["svgd_phi trials [4, 10, 2308]"], trial_summary = phase12c()
+    print("slice trials_sin_20: " + json.dumps({"card": card, **trial_summary}))
+    print(f"phase 12: {time.perf_counter() - t0:.1f} s")
     print(f"all phases: {time.perf_counter() - t_start:.1f} s")
     print("the plain versions and library calls that read back to the host, by torch.profiler:")
     settle_kernel_sums(times, library)
@@ -4126,7 +4612,8 @@ def main():
     print("slice one system a launch: " + json.dumps({"card": card, **ONE_SYSTEM}))
 
     records = []
-    for name, (src, tpu) in KERNELS.items():
+    rows = {**KERNELS, **{name: KERNELS["svgd_phi"] for name in K1_SEED_ROWS}}
+    for name, (src, tpu) in rows.items():
         flops, n_bytes = work[name]
         t_ops, t_bytes = flops / PEAK_FLOPS, n_bytes / PEAK_BYTES
         records.append({"name": name, "route": "cuda", "source": src, "replaces": tpu,

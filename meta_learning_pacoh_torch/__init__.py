@@ -14,7 +14,11 @@ reference paper's baselines MAML and the Neural Process learner (with the
 image NP of ``models/neural_process_img.py`` and its data in
 ``datasets/np_image_data.py``) run no hand-written kernel: MAML's
 ``eval`` and ``eval_datasets`` return one RMSE, and its ``predict`` the
-(adapted, initial) means.
+(adapted, initial) means. ``parallel.fit_models_parallel`` fits S learners
+of one configuration at once (seeds, stacked on a leading axis);
+``utils.tuning_parallel`` fits tuning trials that way, ``utils.tuning``
+suggests and runs them, ``utils.experiment`` keeps the runs' files and
+``utils.profiling`` traces and times them.
 """
 
 from meta_learning_pacoh_torch import config  # noqa: F401  (pins float32 precision)

@@ -191,7 +191,8 @@ class FlatParamsMetaLearned(RegressionModelMetaLearned):
     Adam(W) moments; SGD or optax's Adam(W) with the staircase lr schedule.
     The draws of global step s come from a CPU generator seeded with
     (train seed, s), the same numbers on every device and under any chunking.
-    ``from_jax_state`` converts a JAX learner's ``state_dict()``."""
+    ``from_jax_state`` converts a JAX learner's ``state_dict()``. Stacked
+    fits (``parallel.fit_models_parallel``) hold the vectors as [S, P]."""
 
     from_jax_state = None
 
@@ -216,15 +217,33 @@ class FlatParamsMetaLearned(RegressionModelMetaLearned):
         return unravel_flat(self.layout, flat)
 
     @torch.no_grad()
+    def _update(self, params, mu, nu, grad, lr, weight_decay, adam_count):
+        """One optax-equivalent SGD or Adam(W) (at step ``adam_count``) step
+        on params [..., P], in place; lr and weight_decay numbers or per
+        stacked fit [S, 1]."""
+        if self._optimizer_name == "SGD":
+            params.sub_(lr * grad)
+        else:
+            cuda.adam_step_(params, mu, nu, grad, adam_count, lr, weight_decay)
+
     def _apply_update(self, grad):
         """One optax-equivalent SGD or Adam(W) step at the staircase lr, in place."""
         lr = launch_sched.staircase_lr(self._lr, self._lr_decay, self._step_count)
-        if self._optimizer_name == "SGD":
-            self.params.sub_(lr * grad)
-            return
-        self._adam_count += 1
-        cuda.adam_step_(self.params, self._mu, self._nu, grad, self._adam_count, lr,
-                        self.weight_decay)
+        if self._optimizer_name == "Adam":
+            self._adam_count += 1
+        self._update(self.params, self._mu, self._nu, grad, lr, self.weight_decay,
+                     self._adam_count)
+
+    def _stacked_update(self, stack, grad):
+        """The update of S stacked fits' flat parameters [S, P]
+        (``parallel.seed_parallel.SeedStack``), each at its own lr and weight
+        decay; advances the stack's step."""
+        if self._optimizer_name == "Adam":
+            stack.adam_count += 1
+        self._update(stack.state["params"], stack.state["_mu"], stack.state["_nu"], grad,
+                     stack.staircase("_lr")[:, None], stack.per_seed("weight_decay")[:, None],
+                     stack.adam_count)
+        stack.step += 1
 
     def state_dict(self):
         def tree(flat):  # copies: the fit updates the vectors in place

@@ -102,13 +102,27 @@ class MAMLRegression(FlatParamsMetaLearned):
 
     def _meta_loss(self, flat, X, Y, w_inner, w_outer):
         """The mean over the batch of each task's outer-half MSE after its
-        inner steps on the inner half, differentiable through the unroll."""
-        adapted = flat.expand(X.shape[0], -1)
+        inner steps on the inner half, differentiable through the unroll.
+        Stacked: flat [S, P], the data [S, B, ...] -> [S], all S B tasks
+        adapted in one pass."""
+        lead, b = flat.shape[:-1], X.shape[-3]
+        adapted = flat[..., None, :].expand(*lead, b, flat.shape[-1]).reshape(
+            -1, flat.shape[-1])
+        X, Y = X.reshape(-1, *X.shape[-2:]), Y.reshape(-1, *Y.shape[-2:])
+        w_inner, w_outer = (w.reshape(-1, *w.shape[-2:]) for w in (w_inner, w_outer))
         for _ in range(self.num_inner_steps):
             inner = torch.sum(masked_mse(self._param_tree(adapted), X, Y, w_inner))
             (grad,) = torch.autograd.grad(inner, adapted, create_graph=True)
             adapted = adapted - self.lr_inner * grad
-        return torch.mean(masked_mse(self._param_tree(adapted), X, Y, w_outer))
+        outer = masked_mse(self._param_tree(adapted), X, Y, w_outer)
+        return torch.mean(outer.reshape(*lead, b), dim=-1)
+
+    def _grad(self, params, data):
+        """(loss, its gradient) at params [..., P], the loss summed over the fits."""
+        flat = params.detach().requires_grad_(True)
+        loss = self._meta_loss(flat, *data)
+        (grad,) = torch.autograd.grad(loss.sum(), flat)
+        return loss.detach(), grad
 
     def _step(self):
         """One meta-step; returns its loss (a device scalar)."""
@@ -116,12 +130,21 @@ class MAMLRegression(FlatParamsMetaLearned):
         if self.task_batch_size != self.n_tasks:
             idx = self._task_draw(self._step_count).to(self.device)
             data = tuple(a[idx] for a in data)
-        flat = self.params.detach().requires_grad_(True)
-        loss = self._meta_loss(flat, *data)
-        (grad,) = torch.autograd.grad(loss, flat)
+        loss, grad = self._grad(self.params, data)
         self._apply_update(grad)
         self._step_count += 1
-        return loss.detach()
+        return loss
+
+    def _stacked_step(self, stack):
+        """One meta-step of S stacked fits (``parallel.seed_parallel.SeedStack``:
+        params [S, P], each fit with its own data, task draws and lr), in
+        place; returns the losses [S]."""
+        data = stack.data
+        if self.task_batch_size != self.n_tasks:
+            data = stack.gather(data, [m._task_draw(stack.step) for m in stack.models])
+        loss, grad = self._grad(stack.state["params"], data)
+        self._stacked_update(stack, grad)
+        return loss
 
     def meta_fit(self, valid_tuples=None, verbose=True, log_period=500, n_iter=None):
         """Meta-learns the initialisation. Returns the last step's loss."""

@@ -85,21 +85,39 @@ class NPRegressionMetaLearned(FlatParamsMetaLearned):
         eps = torch.randn(self.task_batch_size, self.z_dim, generator=gen)
         return idx, u, eps
 
+    def _grad(self, params, u, eps, data):
+        """(loss, its gradient) at params [..., P]: the loss the sum of the
+        batch's ELBO losses, [S] stacked (the data and draws [S, B, ...]),
+        summed over the fits for the gradient."""
+        flat = params.detach().requires_grad_(True)
+        X, Y, M, nc = data
+        loss = torch.sum(np_elbo_loss(self._param_tree(flat), u.to(self.device),
+                                      eps.to(self.device), X, Y, nc, mask=M), dim=-1)
+        (grad,) = torch.autograd.grad(loss.sum(), flat)
+        return loss.detach(), grad
+
     def _step(self):
         """One step; returns its loss, the sum of the batch's ELBO losses (a
         device scalar)."""
         idx, u, eps = self._step_draws(self._step_count)
-        X, Y, M, nc = self.X, self.Y, self.mask, self._num_context
+        data = (self.X, self.Y, self.mask, self._num_context)
         if idx is not None:
             idx = idx.to(self.device)
-            X, Y, M, nc = X[idx], Y[idx], M[idx], nc[idx]
-        flat = self.params.detach().requires_grad_(True)
-        loss = torch.sum(np_elbo_loss(self._param_tree(flat), u.to(self.device),
-                                      eps.to(self.device), X, Y, nc, mask=M))
-        (grad,) = torch.autograd.grad(loss, flat)
+            data = tuple(a[idx] for a in data)
+        loss, grad = self._grad(self.params, u, eps, data)
         self._apply_update(grad)
         self._step_count += 1
-        return loss.detach()
+        return loss
+
+    def _stacked_step(self, stack):
+        """One step of S stacked fits (``parallel.seed_parallel.SeedStack``:
+        params [S, P], each fit with its own data, draws, lr and weight
+        decay), in place; returns the losses [S]."""
+        idx, u, eps = zip(*(m._step_draws(stack.step) for m in stack.models))
+        data = stack.data if idx[0] is None else stack.gather(stack.data, idx)
+        loss, grad = self._grad(stack.state["params"], torch.stack(u), torch.stack(eps), data)
+        self._stacked_update(stack, grad)
+        return loss
 
     def meta_fit(self, valid_tuples=None, verbose=True, log_period=500, n_iter=None):
         """Meta-learns the NP's parameters. Returns the last step's loss."""

@@ -30,7 +30,10 @@ A sampled task batch draws the tasks of step s from a generator seeded with
 (train seed, s), on both paths, and weights every task's MLL by its draw
 count (the JAX learner's count-weighted mode, ``PACOH_TPU_MAP_WEIGHTED=1``:
 the same estimator as gathering the drawn tasks), which lets the fused
-kernels carry the fit. The JAX learner's mesh path is not ported.
+kernels carry the fit. ``_stacked_step`` is the general step of S fits
+stacked on a leading axis (``parallel.fit_models_parallel``,
+``utils.tuning_parallel``), each with its own draws. The JAX learner's
+mesh path is not ported.
 """
 
 import time
@@ -139,37 +142,77 @@ class GPRegressionMetaLearned(RegressionModelMetaLearned):
         gen = torch.Generator().manual_seed(seed)
         return torch.randint(0, self.n_tasks, (self.task_batch_size,), generator=gen)
 
-    def _loss(self, params):
-        """-sum of the step's per-task MLL / n at flat ``params`` [P]; a sampled
-        batch weights each task's MLL by its draw count."""
-        lls = gp_prior_mll_batch(self.cfg, unravel_flat(self.layout, params[None]), self.X,
-                                 self.Y, self.mask)[0]
-        if self.task_batch_size != self.n_tasks:
-            idx = self._task_draw(self._step_count)
-            counts = torch.bincount(idx, minlength=self.n_tasks).float().to(self.device)
+    def _counts(self, step):
+        """[T] draw counts of global step ``step``'s sampled batch (on the
+        device), None for the full batch."""
+        if self.task_batch_size == self.n_tasks:
+            return None
+        idx = self._task_draw(step)
+        return torch.bincount(idx, minlength=self.n_tasks).float().to(self.device)
+
+    def _loss(self, params, data, counts):
+        """-sum of the step's per-task MLL / n at flat ``params`` [P] on the
+        tasks ``data`` (X, Y, mask); counts [T] (None: the full batch)
+        weights each task's MLL by its draw count. Stacked: params [S, P],
+        data and counts per fit -> [S]."""
+        lls = gp_prior_mll_batch(self.cfg, unravel_flat(self.layout, params[..., None, :]),
+                                 *data)[..., 0, :]
+        if counts is not None:
             # a never-drawn task's MLL (maybe NaN) is replaced, not multiplied by 0
             lls = torch.where(counts > 0, counts * torch.where(counts > 0, lls, 0.0), 0.0)
-        return -torch.sum(lls)
+        return -torch.sum(lls, dim=-1)
+
+    def _update(self, params, mu, nu, grad, lr, weight_decay, adam_count):
+        """One optax-equivalent AdamW (at step ``adam_count``) or SGD step on
+        the trained leaves of params [..., P], in place; lr and weight_decay
+        numbers or per fit [S, 1]."""
+        if self._optimizer_name == "SGD":
+            params.sub_(lr * self._train_mask * grad)
+        else:
+            cuda.adam_step_(params, mu, nu, grad, adam_count, lr, weight_decay,
+                            mask=self._train_mask)
 
     def _apply_update(self, grad):
         """One optax-equivalent AdamW or SGD step on the trained leaves, in place."""
         lr = launch_sched.staircase_lr(self.lr_params, self._lr_decay, self._step_count)
-        if self._optimizer_name == "SGD":
-            self.params.sub_(lr * self._train_mask * grad)
-            return
-        self._adam_count += 1
-        cuda.adam_step_(self.params, self._mu, self._nu, grad, self._adam_count, lr,
-                        self.weight_decay, mask=self._train_mask)
+        if self._optimizer_name == "Adam":
+            self._adam_count += 1
+        self._update(self.params, self._mu, self._nu, grad, lr, self.weight_decay,
+                     self._adam_count)
+
+    def _grad(self, params, data, counts):
+        """(loss, its gradient) at params [..., P], the loss summed over the fits."""
+        params = params.detach().requires_grad_(True)
+        loss = self._loss(params, data, counts)
+        (grad,) = torch.autograd.grad(loss.sum(), params)
+        return loss.detach(), grad
 
     def _step(self):
         """One general step; returns its loss (a device scalar)."""
-        params = self.params.detach().requires_grad_(True)
-        loss = self._loss(params)
-        (grad,) = torch.autograd.grad(loss, params)
+        loss, grad = self._grad(self.params, (self.X, self.Y, self.mask),
+                                self._counts(self._step_count))
         with torch.no_grad():
             self._apply_update(grad)
         self._step_count += 1
-        return loss.detach()
+        return loss
+
+    def _stacked_step(self, stack):
+        """One general step of S stacked fits (``parallel.seed_parallel.SeedStack``:
+        params [S, P], each fit with its own data, task draws, lr and weight
+        decay), in place; returns the losses [S]."""
+        counts = None
+        if self.task_batch_size != self.n_tasks:
+            counts = torch.stack([m._counts(stack.step) for m in stack.models])
+        params = stack.state["params"]
+        loss, grad = self._grad(params, stack.data, counts)
+        if self._optimizer_name == "Adam":
+            stack.adam_count += 1
+        with torch.no_grad():
+            self._update(params, stack.state["_mu"], stack.state["_nu"], grad,
+                         stack.staircase("lr_params")[:, None],
+                         stack.per_seed("weight_decay")[:, None], stack.adam_count)
+        stack.step += 1
+        return loss
 
     # ------------------------------------------------------------ fused path
     def _fused_path_ok(self):

@@ -40,7 +40,9 @@ learner's device from a generator seeded with (train seed, s), and the task
 draws of step s come from a CPU generator seeded the same way; both paths
 take the same draws, so they follow one random trajectory and do not depend
 on how the steps are chunked. A meta-test call draws its noise in blocks of
-512 steps from a seed of its own. The JAX learner's mesh path is not ported.
+512 steps from a seed of its own. ``_stacked_step`` is the general step of S
+fits stacked on a leading axis (``parallel.fit_models_parallel``), each with
+its own draws. The JAX learner's mesh path is not ported.
 """
 
 import math
@@ -55,7 +57,7 @@ from meta_learning_pacoh_torch.algos.base import (
     check_choice,
 )
 from meta_learning_pacoh_torch.interop import from_jax_mlap_state
-from meta_learning_pacoh_torch.models.gp_base import gp_gram, gp_mean
+from meta_learning_pacoh_torch.models.gp_base import broadcast_data, gp_gram, gp_mean
 from meta_learning_pacoh_torch.models.random_gp import (
     init_posterior,
     make_hyper_prior,
@@ -76,7 +78,7 @@ from meta_learning_pacoh_torch.ops.distributions import (
     MultivariateNormal,
     Normal,
 )
-from meta_learning_pacoh_torch.ops.kernels import inv_softplus, softplus
+from meta_learning_pacoh_torch.ops.kernels import inv_softplus, per_seed, softplus
 from meta_learning_pacoh_torch.ops.metrics import gp_eval_metrics
 from meta_learning_pacoh_torch.ops.variational import (
     expected_log_prob_gaussian,
@@ -198,7 +200,9 @@ class GPRegressionMetaLearnedPAC(RegressionModelMetaLearned):
         return self._init_q(posterior_rsample(post, self._agg_eps(s_theta)), eps, X, mask)
 
     def _task_bound(self, q_means, q_trils, X, Y, theta, noise_var, kl_outer, n_tasks, mask):
-        """Every task's PAC bound term, [T] each of (bound, avg_ll, kl_inner).
+        """Every task's PAC bound term, [T] each of (bound, avg_ll, kl_inner);
+        stacked (leading axis S on the state, the data, theta [S, M, P],
+        noise_var and kl_outer [S]) [S, T] each.
 
         A padded point pins q to N(0, 1) and the prior to the identity there,
         so it adds exactly 0 to the expected log-likelihood and the inner KL."""
@@ -207,25 +211,29 @@ class GPRegressionMetaLearnedPAC(RegressionModelMetaLearned):
         q_mean_eff = q_means * mask
         f_var = torch.sum(L * L, dim=-1)
         n_eff = torch.sum(mask, dim=-1)
-        lp = expected_log_prob_gaussian(Y, q_mean_eff, f_var, noise_var)
+        lp = expected_log_prob_gaussian(Y, q_mean_eff, f_var, per_seed(noise_var, 3))
         avg_ll = torch.sum(lp * mask, dim=-1) / n_eff
 
-        s = theta.shape[0]
-        p = self.hyper_prior.unravel(theta)
-        xs = X.expand(s, *X.shape)
-        prior_mean = gp_mean(self.cfg, p, xs) * mask
-        prior_cov = gp_gram(self.cfg, p, xs) * m2 + torch.diag_embed(1.0 - mask)
-        kl = gaussian_kl_chol(q_mean_eff, L, prior_mean, prior_cov)  # [S, T]
-        kl_inner = self.task_kl_weight * torch.mean(kl, dim=0)
+        lead = theta.shape[:-1]  # (M,) samples, or (S, M)
+        t, n = X.shape[-3], X.shape[-2]
+        p = self.hyper_prior.unravel(theta.reshape(-1, theta.shape[-1]))
+        xs = broadcast_data(X, lead, 3).reshape(-1, *X.shape[-3:])
+        prior_mean = gp_mean(self.cfg, p, xs).reshape(*lead, t, n) * mask.unsqueeze(-3)
+        prior_cov = (gp_gram(self.cfg, p, xs).reshape(*lead, t, n, n) * m2.unsqueeze(-4)
+                     + torch.diag_embed(1.0 - mask).unsqueeze(-4))
+        kl = gaussian_kl_chol(q_mean_eff.unsqueeze(-3), L.unsqueeze(-4), prior_mean,
+                              prior_cov)  # [..., M, T]
+        kl_inner = self.task_kl_weight * torch.mean(kl, dim=-2)
         complexity = torch.sqrt(
-            (kl_outer + kl_inner + math.log(2.0) + torch.log(n_eff) + math.log(n_tasks)
-             - math.log(self.delta)) / (2.0 * (n_eff - 1.0)))
+            (per_seed(kl_outer, 2) + kl_inner + math.log(2.0) + torch.log(n_eff)
+             + math.log(n_tasks) - math.log(self.delta)) / (2.0 * (n_eff - 1.0)))
         return -avg_ll + complexity, avg_ll, kl_inner
 
     def _loss(self, params, eps, counts, X, Y, mask, meta_test=False):
         """(loss, diag) of one step: the count-weighted bound plus the
         meta-complexity, or in meta-test mode the sum of the bounds. The
-        bound's task count is always the meta-train one."""
+        bound's task count is always the meta-train one. Stacked (leading
+        axis S on the state, eps [S, M, P], counts [S, T]): [S] each."""
         post = self._post(params)
         theta = posterior_rsample(post, eps)
         kl_outer = self.meta_kl_weight * posterior_kl_to_prior(post, self.hyper_prior)
@@ -235,15 +243,15 @@ class GPRegressionMetaLearnedPAC(RegressionModelMetaLearned):
             float(self.n_tasks), mask)
         if meta_test:
             return torch.sum(bounds), {}
-        u = counts / torch.sum(counts)
+        u = counts / torch.sum(counts, dim=-1, keepdim=True)
         drawn = counts > 0  # a never-drawn task adds exactly 0, even if its bound is not finite
         meta_complexity = torch.sqrt(
             (kl_outer + math.log(2.0) + math.log(float(self.n_tasks)) - math.log(self.delta))
             / (2.0 * (self.n_tasks - 1.0)))
-        loss = torch.sum(torch.where(drawn, u * bounds, 0.0)) + meta_complexity
-        diag = {"avg_ll": torch.sum(torch.where(drawn, u * avg_lls, 0.0)),
+        loss = torch.sum(torch.where(drawn, u * bounds, 0.0), dim=-1) + meta_complexity
+        diag = {"avg_ll": torch.sum(torch.where(drawn, u * avg_lls, 0.0), dim=-1),
                 "kl_outer_weighted": kl_outer,
-                "kl_inner_weighted": torch.sum(torch.where(drawn, u * kl_inners, 0.0))}
+                "kl_inner_weighted": torch.sum(torch.where(drawn, u * kl_inners, 0.0), dim=-1)}
         return loss, diag
 
     # ------------------------------------------------------------ train step
@@ -261,34 +269,64 @@ class GPRegressionMetaLearnedPAC(RegressionModelMetaLearned):
 
     def _update(self, params, grads, keys, lr_main, lr_post, mu, nu, count):
         """The two-group update: lr_main on the hyper-posterior and the noise,
-        lr_post on the per-task posteriors; Adam at step ``count`` or SGD."""
+        lr_post on the per-task posteriors; Adam at step ``count`` or SGD.
+        The lrs are numbers, or [S] (one value a stacked fit)."""
         with torch.no_grad():
             for k, g in zip(keys, grads):
-                lr = lr_post if k in Q_KEYS else lr_main
+                lr = per_seed(lr_post if k in Q_KEYS else lr_main, params[k].dim())
                 if self._optimizer_name == "SGD":
                     params[k].sub_(lr * g)
                 else:
                     cuda.adam_step_(params[k], mu[k], nu[k], g, count, lr)
 
-    def _step(self):
-        """One general step; returns (loss, diag) as device scalars."""
-        counts = torch.bincount(self._task_draw(self._step_count),
+    def _post_lr(self):
+        """The per-task posteriors' initial lr."""
+        return self.lr * self._posterior_lr_multiplier
+
+    def _draws(self, step):
+        """(counts [T] on the device, eps [S, P]) of global step ``step``."""
+        counts = torch.bincount(self._task_draw(step),
                                 minlength=self.n_tasks).float().to(self.device)
         eps = torch.empty(self.svi_batch_size, self.hyper_prior.dim, device=self.device)
-        self._draw_eps(self._step_count, eps)
-        keys = list(self.params)
-        params = {k: v.detach().requires_grad_(True) for k, v in self.params.items()}
-        loss, diag = self._loss(params, eps, counts, self.X, self.Y, self.mask)
-        grads = torch.autograd.grad(loss, [params[k] for k in keys])
+        self._draw_eps(step, eps)
+        return counts, eps
+
+    def _grads(self, state, eps, counts, data):
+        """(loss, diag, the gradients in ``state``'s key order) at state."""
+        params = {k: v.detach().requires_grad_(True) for k, v in state.items()}
+        loss, diag = self._loss(params, eps, counts, *data)
+        grads = torch.autograd.grad(loss.sum(), list(params.values()))
+        return loss.detach(), {k: v.detach() for k, v in diag.items()}, grads
+
+    def _step(self):
+        """One general step; returns (loss, diag) as device scalars."""
+        counts, eps = self._draws(self._step_count)
+        loss, diag, grads = self._grads(self.params, eps, counts, (self.X, self.Y, self.mask))
         if self._optimizer_name == "Adam":
             self._adam_count += 1
-        self._update(self.params, grads, keys,
+        self._update(self.params, grads, list(self.params),
                      launch_sched.staircase_lr(self.lr, self._lr_decay, self._step_count),
-                     launch_sched.staircase_lr(self.lr * self._posterior_lr_multiplier,
-                                               self._lr_decay, self._step_count),
+                     launch_sched.staircase_lr(self._post_lr(), self._lr_decay,
+                                               self._step_count),
                      self._mu, self._nu, self._adam_count)
         self._step_count += 1
-        return loss.detach(), {k: v.detach() for k, v in diag.items()}
+        return loss, diag
+
+    def _stacked_step(self, stack):
+        """One general step of S stacked fits (``parallel.seed_parallel.SeedStack``:
+        each state leaf with a leading axis S, each fit with its own data,
+        task draws and noise), in place; returns (losses [S], diag)."""
+        counts, eps = zip(*(m._draws(stack.step) for m in stack.models))
+        state = stack.state["params"]
+        loss, diag, grads = self._grads(state, torch.stack(eps), torch.stack(counts),
+                                        stack.data)
+        if self._optimizer_name == "Adam":
+            stack.adam_count += 1
+        self._update(state, grads, list(state), stack.staircase("lr"),
+                     stack.staircase(GPRegressionMetaLearnedPAC._post_lr),
+                     stack.state["_mu"], stack.state["_nu"], stack.adam_count)
+        stack.step += 1
+        return loss, diag
 
     # ------------------------------------------------------------ fused path
     def _fused_window_ok(self, n_points):

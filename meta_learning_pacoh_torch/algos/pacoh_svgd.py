@@ -24,8 +24,10 @@ Two paths, as in the JAX package:
 
 A sampled task batch draws the tasks of step s from a generator seeded with
 (train seed, s), on both paths, so they follow one random trajectory and do
-not depend on how the steps are chunked. The mesh-sharded path is not
-ported yet.
+not depend on how the steps are chunked. ``_stacked_step`` is the general
+step of S fits stacked on a leading axis (``parallel.fit_models_parallel``,
+``utils.tuning_parallel``), each with its own draws. The mesh-sharded path
+is not ported yet.
 """
 
 import time
@@ -123,25 +125,54 @@ class GPRegressionMetaLearnedSVGD(RegressionModelMetaLearned):
         idx = self._task_draw(self._step_count).to(self.device)
         return self.X[idx], self.Y[idx], self.mask[idx]
 
+    def _update(self, particles, mu, nu, grad, lr, adam_count):
+        """One optax-equivalent Adam (at step ``adam_count``) or SGD step on
+        particles [..., K, P], in place; lr a number or per fit [S, 1, 1]."""
+        if self._optimizer_name == "SGD":
+            particles.sub_(lr * grad)
+        else:
+            cuda.adam_step_(particles, mu, nu, grad, adam_count, lr)
+
     def _apply_update(self, grad):
         """One optax-equivalent Adam or SGD step on the particles, in place."""
         lr = launch_sched.staircase_lr(self._lr, self._lr_decay, self._step_count)
-        if self._optimizer_name == "SGD":
-            self.particles.sub_(lr * grad)
-            return
-        self._adam_count += 1
-        cuda.adam_step_(self.particles, self._mu, self._nu, grad, self._adam_count, lr)
+        if self._optimizer_name == "Adam":
+            self._adam_count += 1
+        self._update(self.particles, self._mu, self._nu, grad, lr, self._adam_count)
+
+    def _transport(self, particles, data, prior_factor, bandwidth):
+        """-phi, the update direction of particles [..., K, P] on the task
+        batch ``data`` (X, Y, mask): the score by autograd, then the Stein
+        transport (one K1 launch for all fits of a stack)."""
+        part = particles.detach().requires_grad_(True)
+        log_prob = meta_log_prob(self.hyper_prior, prior_factor, part, *data)
+        (score,) = torch.autograd.grad(log_prob.sum(), part)
+        with torch.no_grad():
+            return -svgd_phi(particles, score, kernel=self.svgd_kernel, bandwidth=bandwidth)
 
     def _step(self):
-        X, Y, M = self._task_batch()
-        particles = self.particles.detach().requires_grad_(True)
-        log_prob = meta_log_prob(self.hyper_prior, self.prior_factor, particles, X, Y, M)
-        (score,) = torch.autograd.grad(log_prob.sum(), particles)
+        grad = self._transport(self.particles, self._task_batch(), self.prior_factor,
+                               self.bandwidth)
         with torch.no_grad():
-            phi = svgd_phi(self.particles, score, kernel=self.svgd_kernel,
-                           bandwidth=self.bandwidth)
-            self._apply_update(-phi)
+            self._apply_update(grad)
         self._step_count += 1
+
+    def _stacked_step(self, stack):
+        """One general step of S stacked fits (``parallel.seed_parallel.SeedStack``:
+        particles [S, K, P], each fit with its own data, task draws,
+        prior_factor, bandwidth and lr), in place."""
+        data = stack.data
+        if self.task_batch_size != self.n_tasks:
+            data = stack.gather(data, [m._task_draw(stack.step) for m in stack.models])
+        bandwidth = None if self.bandwidth is None else stack.per_seed("bandwidth")
+        particles = stack.state["particles"]
+        grad = self._transport(particles, data, stack.per_seed("prior_factor"), bandwidth)
+        if self._optimizer_name == "Adam":
+            stack.adam_count += 1
+        with torch.no_grad():
+            self._update(particles, stack.state["_mu"], stack.state["_nu"], grad,
+                         stack.staircase("_lr")[:, None, None], stack.adam_count)
+        stack.step += 1
 
     # ------------------------------------------------------------ fused path
     def _fused_path_ok(self):

@@ -30,7 +30,10 @@ task batch draws its tasks from a CPU generator seeded the same way,
 weighting each task's MLL by its draw count (the JAX learner's
 count-weighted mode, ``PACOH_TPU_VI_WEIGHTED=1``). Both paths take the same
 draws, so they follow one random trajectory and do not depend on how the
-steps are chunked. The JAX learner's mesh path is not ported yet.
+steps are chunked. ``_stacked_step`` is the general step of S fits stacked
+on a leading axis (``parallel.fit_models_parallel``,
+``utils.tuning_parallel``), each with its own draws. The JAX learner's mesh
+path is not ported yet.
 """
 
 import time
@@ -59,6 +62,7 @@ from meta_learning_pacoh_torch.ops.distributions import (
     MultivariateNormal,
     Normal,
 )
+from meta_learning_pacoh_torch.ops.kernels import per_seed
 from meta_learning_pacoh_torch.ops.metrics import mixture_eval_metrics
 from meta_learning_pacoh_torch.utils.input_handling import handle_input_dim
 
@@ -125,29 +129,61 @@ class GPRegressionMetaLearnedVI(RegressionModelMetaLearned):
         seed = int(np.random.SeedSequence([self._train_seed, step]).generate_state(2)[1])
         out.normal_(generator=self._eps_gen.manual_seed(seed))
 
-    def _step(self):
-        """One general step; returns its loss (a device scalar)."""
+    def _draws(self, step):
+        """(counts [T] on the device or None for the full batch, eps [S, P])
+        of global step ``step``."""
         counts = None
         if self.task_batch_size != self.n_tasks:
-            idx = self._task_draw(self._step_count)
+            idx = self._task_draw(step)
             counts = torch.bincount(idx, minlength=self.n_tasks).float().to(self.device)
         eps = torch.empty(self.svi_batch_size, self.hyper_prior.dim, device=self.device)
-        self._draw_eps(self._step_count, eps)
-        post = {k: v.detach().requires_grad_(True) for k, v in self.posterior.items()}
-        loss = neg_elbo(self.hyper_prior, self.prior_factor, post, eps, self.X, self.Y,
-                        self.mask, counts=counts)
-        grads = torch.autograd.grad(loss, list(post.values()))
-        lr = launch_sched.staircase_lr(self._lr, self._lr_decay, self._step_count)
+        self._draw_eps(step, eps)
+        return counts, eps
+
+    def _update_posterior(self, posterior, mu, nu, data, counts, eps, prior_factor, lr,
+                          adam_count):
+        """One general step on the posterior's leaves [..., P] (or [..., P, P])
+        and their Adam moments, in place: the negative ELBO at noise eps, its
+        gradient by autograd, then Adam (at step ``adam_count``) or SGD at
+        lr, a number or [S] (one value a stacked fit). Returns the loss."""
+        post = {k: v.detach().requires_grad_(True) for k, v in posterior.items()}
+        loss = neg_elbo(self.hyper_prior, prior_factor, post, eps, *data, counts=counts)
+        grads = torch.autograd.grad(loss.sum(), list(post.values()))
         with torch.no_grad():
-            if self._optimizer_name == "SGD":
-                for v, g in zip(self.posterior.values(), grads):
-                    v.sub_(lr * g)
-            else:
-                self._adam_count += 1
-                for (k, v), g in zip(self.posterior.items(), grads):
-                    cuda.adam_step_(v, self._mu[k], self._nu[k], g, self._adam_count, lr)
-        self._step_count += 1
+            for (k, v), g in zip(posterior.items(), grads):
+                lr_k = per_seed(lr, v.dim())
+                if self._optimizer_name == "SGD":
+                    v.sub_(lr_k * g)
+                else:
+                    cuda.adam_step_(v, mu[k], nu[k], g, adam_count, lr_k)
         return loss.detach()
+
+    def _step(self):
+        """One general step; returns its loss (a device scalar)."""
+        counts, eps = self._draws(self._step_count)
+        lr = launch_sched.staircase_lr(self._lr, self._lr_decay, self._step_count)
+        if self._optimizer_name == "Adam":
+            self._adam_count += 1
+        loss = self._update_posterior(self.posterior, self._mu, self._nu,
+                                      (self.X, self.Y, self.mask), counts, eps,
+                                      self.prior_factor, lr, self._adam_count)
+        self._step_count += 1
+        return loss
+
+    def _stacked_step(self, stack):
+        """One general step of S stacked fits (``parallel.seed_parallel.SeedStack``:
+        leaves [S, P], each fit with its own data, task draws, noise,
+        prior_factor and lr), in place; returns the losses [S]."""
+        counts, eps = zip(*(m._draws(stack.step) for m in stack.models))
+        counts = None if counts[0] is None else torch.stack(counts)
+        if self._optimizer_name == "Adam":
+            stack.adam_count += 1
+        loss = self._update_posterior(
+            stack.state["posterior"], stack.state["_mu"], stack.state["_nu"], stack.data,
+            counts, torch.stack(eps), stack.per_seed("prior_factor"), stack.staircase("_lr"),
+            stack.adam_count)
+        stack.step += 1
+        return loss
 
     # ------------------------------------------------------------ fused path
     def _fused_path_ok(self):

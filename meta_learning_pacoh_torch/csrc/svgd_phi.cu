@@ -1,5 +1,7 @@
 // Stein variational transport with the RBF kernel and the median-heuristic
-// bandwidth, for K particles of P parameters, over one thread-block cluster.
+// bandwidth, for K particles of P parameters, over one thread-block cluster;
+// S such systems (stacked fits: seeds or trials, x [S, K, P]) in one launch,
+// one cluster a system.
 //
 // Replaces the Pallas TPU kernel meta_learning_pacoh_tpu/ops/pallas/
 // svgd_kernel.py (_svgd_kernel, launched by _svgd_phi_call):
@@ -34,6 +36,12 @@
 // X and S does not fit in shared memory (K P in the hundreds of thousands),
 // the CTAs read their slices from device memory instead (the plan's
 // `staged` = 0), with the same arithmetic.
+//
+// A seed axis (the counterpart of the Pallas call under jax.vmap, whose
+// batching rule adds a grid axis): the grid is (C, S) with clusters of
+// (C, 1, 1), so cluster y = blockIdx.y owns system y, offsets x, s and phi
+// by y K P and takes its own median. Each cluster's arithmetic is the
+// single system's, so S = 1 gives the same bits as a [K, P] call.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -108,6 +116,10 @@ svgd_phi_cluster_kernel(const float* __restrict__ x, const float* __restrict__ s
   __shared__ float slot;
 
   cg::cluster_group cluster = cg::this_cluster();
+  const size_t system = static_cast<size_t>(blockIdx.y) * k * p;  // this cluster's [K, P]
+  x += system;
+  s += system;
+  phi += system;
   const int rank = static_cast<int>(cluster.block_rank());
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, n_warps = blockDim.x >> 5;
   const int lo = min(rank * slice, p);
@@ -255,15 +267,16 @@ svgd_phi_cluster_kernel(const float* __restrict__ x, const float* __restrict__ s
 
 }  // namespace
 
-extern "C" int pacoh_svgd_phi(const float* x, const float* s, float* phi, int k, int p,
-                              float log_kp1, int cluster, int slice, int staged, int device,
-                              void* stream) {
+extern "C" int pacoh_svgd_phi(const float* x, const float* s, float* phi, int batch, int k,
+                              int p, float log_kp1, int cluster, int slice, int staged,
+                              int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   // the X and S slices where the plan stages them (svgd_kernel.py's svgd_plan)
   const long long bytes = staged ? 2LL * k * slice * static_cast<long long>(sizeof(float)) : 0;
-  if (k < 1 || k > kMaxK || p < 1 || cluster < 1 || cluster > kMaxCluster || slice < 4 ||
-      slice % 4 != 0 || static_cast<long long>(slice) * cluster < p || bytes > kMaxStagedBytes)
+  if (batch < 1 || batch > 65535 || k < 1 || k > kMaxK || p < 1 || cluster < 1 ||
+      cluster > kMaxCluster || slice < 4 || slice % 4 != 0 ||
+      static_cast<long long>(slice) * cluster < p || bytes > kMaxStagedBytes)
     return static_cast<int>(cudaErrorInvalidValue);
   auto kernel = staged ? svgd_phi_cluster_kernel<true> : svgd_phi_cluster_kernel<false>;
   // once an instance: room for the largest staged plan, clusters of up to 16
@@ -277,7 +290,7 @@ extern "C" int pacoh_svgd_phi(const float* x, const float* s, float* phi, int k,
     configured[staged ? 1 : 0] = true;
   }
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(cluster);
+  cfg.gridDim = dim3(cluster, batch);  // one cluster (cluster, 1, 1) a system
   cfg.blockDim = dim3(kThreads);
   cfg.dynamicSmemBytes = static_cast<size_t>(bytes);
   cfg.stream = static_cast<cudaStream_t>(stream);

@@ -74,6 +74,11 @@ def init_gp_params(cfg: GPConfig, generator):
     return params
 
 
+def tree_map(fn, tree):
+    """fn applied to every leaf of a nested dict of tensors."""
+    return {k: tree_map(fn, v) if isinstance(v, dict) else fn(v) for k, v in tree.items()}
+
+
 def _per_particle(t, x):
     """Reshape t [K, *rest] to broadcast against x [K, ..., *rest]."""
     mid = x.dim() - t.dim()
@@ -130,23 +135,37 @@ def gp_gram(cfg: GPConfig, params, x1, x2=None):
     return _rbf(f1, f2, ls, os_)
 
 
+def broadcast_data(a, lead, event_dims):
+    """Data a [*seeds, *event] (seeds a prefix of ``lead``, maybe empty)
+    broadcast to [*lead, *event]."""
+    seeds, event = a.shape[:a.dim() - event_dims], a.shape[a.dim() - event_dims:]
+    return a.reshape(*seeds, *(1,) * (len(lead) - len(seeds)), *event).expand(*lead, *event)
+
+
 def gp_prior_mll_batch(cfg: GPConfig, params, X, Y, mask=None):
     """Exact MLL / n of T tasks under each of K parameter sets.
 
-    X [T, N, D], Y [T, N], mask [T, N] or None, shared by the K sets -> [K, T].
-    The O(N^3) cores of all K*T systems go through one ``gp_mll_batch`` call.
+    Leaves [K, ...], X [T, N, D], Y [T, N], mask [T, N] or None, shared by
+    the K sets -> [K, T]. Stacked fits give the leaves a leading seed axis,
+    [S, K, ...], and the data [S, T, ...] (per seed) or [T, ...] (shared)
+    -> [S, K, T]. The O(N^3) cores of all systems go through one
+    ``gp_mll_batch`` call.
     """
-    k, t, n = params["noise_raw"].shape[0], X.shape[0], Y.shape[-1]
+    lead = params["noise_raw"].shape
+    t, n = X.shape[-3], Y.shape[-1]
     if mask is None:
         mask = torch.ones_like(Y)
-    x = X.expand(k, *X.shape)
+    if len(lead) > 1:  # one particle axis of all S * K parameter sets
+        params = tree_map(lambda a: a.reshape(-1, *a.shape[len(lead):]), params)
+    x = broadcast_data(X, lead, 3).reshape(-1, *X.shape[-3:])
+    k = x.shape[0]
     means = gp_mean(cfg, params, x)  # [K, T, N]
     grams = gp_gram(cfg, params, x)  # [K, T, N, N]
     noise = gp_noise(cfg, params)  # [K]
     lls = gp_ops.gp_mll_batch(
-        means.reshape(-1, n), grams.reshape(-1, n, n), Y.expand(k, t, n).reshape(-1, n),
-        noise[:, None].expand(k, t).reshape(-1), mask.expand(k, t, n).reshape(-1, n))
-    return lls.reshape(k, t)
+        means.reshape(-1, n), grams.reshape(-1, n, n), broadcast_data(Y, lead, 2).reshape(-1, n),
+        noise[:, None].expand(k, t).reshape(-1), broadcast_data(mask, lead, 2).reshape(-1, n))
+    return lls.reshape(*lead, t)
 
 
 def gp_prior_mll(cfg: GPConfig, params, x, y, mask=None):

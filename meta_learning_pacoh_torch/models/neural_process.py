@@ -9,9 +9,10 @@ Parameters {'w_enc_0', 'b_enc_0', ..., 'w_dsig', 'b_dsig'} carry the JAX
 package's names and shapes (weights input-major: x @ w + b), so a JAX
 parameter dict copies across without renaming. Every function takes any
 leading batch axes on its data (a task or image batch) and shares the
-parameters across them. The random draws are arguments: the shuffle
-scores and the latent noise come from the caller, which decides where they
-are drawn.
+parameters across them, or with a leading axis S on the parameters (S
+stacked fits) takes data [S, ...], each fit its own. The random draws are
+arguments: the shuffle scores and the latent noise come from the caller,
+which decides where they are drawn.
 """
 
 import math
@@ -24,7 +25,13 @@ _LOG_2PI = math.log(2.0 * math.pi)
 
 
 def _linear(params, name, x):
-    return x @ params[f"w_{name}"] + params[f"b_{name}"]
+    """x @ w + b; stacked fits' parameters [S, in, out] and [S, out] take x
+    [S, ..., in], each fit its own."""
+    w, b = params[f"w_{name}"], params[f"b_{name}"]
+    if w.dim() == 2:
+        return x @ w + b
+    h = torch.baddbmm(b[:, None, :], x.reshape(x.shape[0], -1, x.shape[-1]), w)
+    return h.reshape(*x.shape[:-1], w.shape[-1])
 
 
 def _init_linear(generator, fan_in, fan_out):

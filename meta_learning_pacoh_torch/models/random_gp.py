@@ -21,6 +21,11 @@ divided by its task size.
 The Gaussian hyper-posterior of PACOH-VI (and MLAP) and its helpers follow:
 sampling takes its standard normals as an argument, so the fused path, the
 general step and the tests can feed one set of noise.
+
+Stacked fits (seeds or trials, ``parallel/seed_parallel.py``) give every
+state tensor a leading axis S: particles [S, K, P], a posterior's leaves
+[S, P]; the data [S, T, ...] (per seed) or [T, ...] (shared); a
+hyperparameter such as prior_factor a number or a tensor [S].
 """
 
 import dataclasses
@@ -30,6 +35,7 @@ import math
 import torch
 
 from meta_learning_pacoh_torch.models.gp_base import GPConfig, gp_prior_mll_batch, init_gp_params
+from meta_learning_pacoh_torch.ops.kernels import per_seed
 
 _LOG_2PI = math.log(2.0 * math.pi)
 
@@ -161,11 +167,13 @@ def meta_log_prob(hyper_prior: HyperPrior, prior_factor, flat_particles, X, Y, m
     """PACOH generalised-Bayes score of K particles on a task batch.
 
     flat_particles [K, P]; X [T, N, D]; Y [T, N]; mask [T, N] or None.
-    Returns [K]; the task MLLs [K, T] come from ``task_mll``, a function of
+    Returns [K]; stacked, particles [S, K, P], data [S, T, ...] or shared,
+    prior_factor a number or [S], counts [S, T] -> [S, K]. The task MLLs
+    [..., K, T] come from ``task_mll``, a function of
     the arguments of ``gp_prior_mll_batch`` (the big-N fused kernels' plain
     versions pass their own jitter rule).
 
-    counts [T] (optional): the count-weighted estimator of a sampled task
+    counts [..., T] (optional): the count-weighted estimator of a sampled task
     batch. X, Y, mask are the full task set and counts holds each task's
     multiplicity in the sample (summing to the batch size). It equals
     gathering the sampled batch: the harmonic mean is taken over the sampled
@@ -173,22 +181,25 @@ def meta_log_prob(hyper_prior: HyperPrior, prior_factor, flat_particles, X, Y, m
     """
     if mask is None:
         mask = torch.ones_like(Y)
-    t = X.shape[0]
+    t = X.shape[-3]
     per_task = task_mll(hyper_prior.cfg, hyper_prior.unravel(flat_particles),
-                        X, Y, mask)  # [K, T]
+                        X, Y, mask)  # [..., K, T]
 
     sizes = torch.sum(mask, dim=-1)
     if counts is None:
-        harmonic_mean = 1.0 / torch.mean(1.0 / sizes)
+        harmonic_mean = 1.0 / torch.mean(1.0 / sizes, dim=-1)
         pre_factor = harmonic_mean / (harmonic_mean + t)
         task_sum = per_task.sum(-1)
     else:
-        batch_n = torch.sum(counts)
-        harmonic_mean = batch_n / torch.sum(counts / sizes)
+        batch_n = torch.sum(counts, dim=-1)
+        harmonic_mean = batch_n / torch.sum(counts / sizes, dim=-1)
         pre_factor = harmonic_mean / (harmonic_mean + batch_n)
         # a never-drawn task's MLL (maybe NaN) is replaced, not multiplied by 0
+        counts = counts.unsqueeze(-2)
         task_sum = (counts * torch.where(counts > 0, per_task, 0.0)).sum(-1)
-    return prior_factor * hyper_prior.log_prob(flat_particles) + pre_factor * task_sum
+    return (per_seed(prior_factor, 2) * hyper_prior.log_prob(flat_particles)
+            + per_seed(pre_factor, 2) * task_sum)
+
 
 
 # --------------------------------------------------------------------------
@@ -214,15 +225,15 @@ def init_posterior(generator, dim, cov_type="diag", init_std=0.1, device=None):
 
 def posterior_scale_tril(post):
     if "log_scale" in post:
-        return torch.diag(torch.exp(post["log_scale"]))
+        return torch.diag_embed(torch.exp(post["log_scale"]))
     raw = post["tril_raw"]
-    return torch.tril(raw, -1) + torch.diag(torch.exp(torch.diagonal(raw)))
+    return torch.tril(raw, -1) + torch.diag_embed(torch.exp(torch.diagonal(raw, dim1=-2, dim2=-1)))
 
 
 def posterior_log_diag(post):
     if "log_scale" in post:
         return post["log_scale"]
-    return torch.diagonal(post["tril_raw"])
+    return torch.diagonal(post["tril_raw"], dim1=-2, dim2=-1)
 
 
 def posterior_stddev(post):
@@ -233,10 +244,12 @@ def posterior_stddev(post):
 
 
 def posterior_rsample(post, eps):
-    """Reparameterised samples [S, P] from standard normals ``eps`` [S, P]."""
+    """Reparameterised samples [M, P] from standard normals ``eps`` [M, P];
+    stacked, leaves [S, P] and eps [S, M, P] -> [S, M, P]."""
+    loc = post["loc"][..., None, :]
     if "log_scale" in post:
-        return post["loc"] + torch.exp(post["log_scale"]) * eps
-    return post["loc"] + eps @ posterior_scale_tril(post).T
+        return loc + torch.exp(post["log_scale"])[..., None, :] * eps
+    return loc + eps @ posterior_scale_tril(post).mT
 
 
 def posterior_log_prob(post, value):
@@ -254,21 +267,23 @@ def posterior_log_prob(post, value):
 
 
 def posterior_entropy(post):
-    dim = post["loc"].shape[0]
-    return 0.5 * dim * (1.0 + _LOG_2PI) + torch.sum(posterior_log_diag(post))
+    """H(q), [] or [S] stacked."""
+    dim = post["loc"].shape[-1]
+    return 0.5 * dim * (1.0 + _LOG_2PI) + torch.sum(posterior_log_diag(post), dim=-1)
 
 
 def posterior_kl_to_prior(post, hyper_prior: HyperPrior):
-    """Closed-form KL(posterior || hyper_prior): both Gaussian, the prior factorised."""
+    """Closed-form KL(posterior || hyper_prior): both Gaussian, the prior
+    factorised; [] or [S] stacked."""
     mu_p, sig_p = hyper_prior.loc, hyper_prior.scale
-    quad = torch.sum(((post["loc"] - mu_p) / sig_p) ** 2)
+    quad = torch.sum(((post["loc"] - mu_p) / sig_p) ** 2, dim=-1)
     logdet_p = 2.0 * torch.sum(torch.log(sig_p))
-    logdet_q = 2.0 * torch.sum(posterior_log_diag(post))
-    dim = post["loc"].shape[0]
+    logdet_q = 2.0 * torch.sum(posterior_log_diag(post), dim=-1)
+    dim = post["loc"].shape[-1]
     if "log_scale" in post:
-        trace = torch.sum((torch.exp(post["log_scale"]) / sig_p) ** 2)
+        trace = torch.sum((torch.exp(post["log_scale"]) / sig_p) ** 2, dim=-1)
     else:
-        trace = torch.sum((posterior_scale_tril(post) / sig_p[:, None]) ** 2)
+        trace = torch.sum((posterior_scale_tril(post) / sig_p[:, None]) ** 2, dim=(-2, -1))
     return 0.5 * (trace + quad - dim + logdet_p - logdet_q)
 
 
@@ -276,8 +291,10 @@ def neg_elbo(hyper_prior: HyperPrior, prior_factor, post, eps, X, Y, mask=None, 
              task_mll=gp_prior_mll_batch):
     """PACOH-VI's loss: -(mean_s meta_log_prob(sample_s) + prior_factor * H(q)),
     the samples ``posterior_rsample(post, eps)``. E_q[log q] is the exact
-    -H(q) of a Gaussian, not a sample estimate (as in the JAX package)."""
+    -H(q) of a Gaussian, not a sample estimate (as in the JAX package).
+    Stacked (leaves [S, P], eps [S, M, P], prior_factor a number or [S]):
+    one loss a fit, [S]."""
     samples = posterior_rsample(post, eps)
     lp = meta_log_prob(hyper_prior, prior_factor, samples, X, Y, mask, counts=counts,
                        task_mll=task_mll)
-    return -(torch.mean(lp) + prior_factor * posterior_entropy(post))
+    return -(torch.mean(lp, dim=-1) + per_seed(prior_factor, 1) * posterior_entropy(post))

@@ -30,7 +30,7 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C entry point -> argument types (pointers, ints, floats; the last two are
 # the device index and the stream)
 SIGNATURES = {
-    "pacoh_svgd_phi": (_P, _P, _P, _I, _I, _F, _I, _I, _I, _I, _P),
+    "pacoh_svgd_phi": (_P, _P, _P, _I, _I, _I, _F, _I, _I, _I, _I, _P),
     "pacoh_svgd_phi_usage": (_I, _P, _I, _P),
     "pacoh_mll_fwd": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
     "pacoh_mll_fwd_usage": (_I, _P, _I, _P),

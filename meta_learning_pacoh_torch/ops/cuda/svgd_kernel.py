@@ -6,7 +6,9 @@ distances is the order statistic at 0-based rank K*K//2, the upper middle
 for an even count, which is what the TPU kernel's bisection converges to.
 Neither ``torch.median`` (lower middle) nor ``jnp.median`` (mean of the
 two) gives it. On the card the kernel runs over one thread-block cluster
-whose CTAs split P (``svgd_plan``; see the source).
+whose CTAs split P (``svgd_plan``; see the source). Stacked fits (seeds or
+trials) pass x and s of [S, K, P]: one launch of S clusters, each system
+with its own median, as the Pallas call under ``jax.vmap``.
 """
 
 import functools
@@ -20,6 +22,7 @@ from meta_learning_pacoh_torch.ops.cuda.build import launch
 from meta_learning_pacoh_torch.ops.kernels import sq_dists
 
 MAX_K = 32  # the kernel keeps K x K intermediates in shared memory
+MAX_SYSTEMS = 65535  # S, the clusters of one launch (the grid's y extent)
 CLUSTER_SIZES = (1, 2, 4, 8, 16)  # 16 with the non-portable cluster attribute
 SLICE_TARGET = 160  # the plan's columns a CTA, at most, where 16 CTAs allow it
 MAX_STAGED_BYTES = 200 * 1024  # a CTA's X and S slices in shared memory (csrc kMaxStagedBytes)
@@ -60,37 +63,44 @@ def svgd_plan(k, p, cluster=None):
 
 
 def median_upper(d2):
-    """Order statistic of all entries of d2 [K, K] at 0-based rank K*K//2."""
-    flat = d2.reshape(-1)
-    return torch.kthvalue(flat, flat.numel() // 2 + 1).values
+    """Order statistic of all entries of each d2 [..., K, K] at 0-based rank K*K//2 -> [...]."""
+    flat = d2.reshape(*d2.shape[:-2], -1)
+    return torch.kthvalue(flat, flat.shape[-1] // 2 + 1, dim=-1).values
 
 
 def svgd_phi_ref(x, s):
-    """Plain PyTorch version: phi [K, P] for particles x and scores s [K, P]."""
-    k = x.shape[0]
+    """Plain PyTorch version: phi [..., K, P] for particles x and scores s
+    [..., K, P], each system with its own median."""
+    k = x.shape[-2]
     d2 = sq_dists(x, x)
-    h = median_upper(d2) / (2.0 * math.log(k + 1))
+    h = median_upper(d2)[..., None, None] / (2.0 * math.log(k + 1))
     gamma = 1.0 / (1e-8 + 2.0 * h)
     k_xx = torch.exp(-gamma * d2)
-    row_sum = torch.sum(k_xx, dim=1, keepdim=True)
+    row_sum = torch.sum(k_xx, dim=-1, keepdim=True)
     return (k_xx @ s + 2.0 * gamma * (x * row_sum - k_xx @ x)) / k
 
 
 def svgd_phi_fused(x, s, cluster=None):
-    """phi for the RBF kernel with the median-heuristic bandwidth; ``cluster``
-    forces the plan's CTAs (tests and tools)."""
+    """phi for the RBF kernel with the median-heuristic bandwidth, x and s
+    [K, P] or [S, K, P] (one launch either way); ``cluster`` forces the
+    plan's CTAs (tests and tools)."""
     if x.device.type == "cpu":
         return svgd_phi_ref(x, s)
-    cuda.check_operand("svgd_phi x", x, 2)
-    cuda.check_operand("svgd_phi s", s, 2)
-    k, p = x.shape
+    if x.dim() not in (2, 3):
+        raise ValueError(f"svgd_phi: expected [K, P] or [S, K, P], got {tuple(x.shape)}")
+    cuda.check_operand("svgd_phi x", x, x.dim())
+    cuda.check_operand("svgd_phi s", s, x.dim())
+    k, p = x.shape[-2:]
+    systems = x.shape[0] if x.dim() == 3 else 1
     if s.shape != x.shape or s.device != x.device:
         raise ValueError(f"svgd_phi: s {tuple(s.shape)} does not match x {tuple(x.shape)}")
     if not 1 <= k <= MAX_K:
         raise ValueError(f"svgd_phi: the kernel takes 1 <= K <= {MAX_K}, got {k}")
+    if not 1 <= systems <= MAX_SYSTEMS:
+        raise ValueError(f"svgd_phi: the kernel takes 1 <= S <= {MAX_SYSTEMS}, got {systems}")
     plan = svgd_plan(k, p, cluster)
     phi = torch.empty_like(x)
-    launch("pacoh_svgd_phi", x, x.data_ptr(), s.data_ptr(), phi.data_ptr(), k, p,
+    launch("pacoh_svgd_phi", x, x.data_ptr(), s.data_ptr(), phi.data_ptr(), systems, k, p,
            math.log(k + 1), plan.cluster, plan.slice, int(plan.staged))
     cuda.LAUNCHES["svgd_phi"] += 1
     return phi

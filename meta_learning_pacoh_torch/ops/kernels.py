@@ -38,3 +38,12 @@ def rbf_ard(x1, x2, lengthscale, outputscale=1.0):
     """
     ls = lengthscale[..., None, :]
     return outputscale * torch.exp(-0.5 * sq_dists(x1 / ls, x2 / ls))
+
+
+def per_seed(value, ndim):
+    """A number, or a tensor [S] (one value a stacked fit: a seed or a trial)
+    shaped to broadcast against [S, ...] of ``ndim`` dims; a 0-dim tensor
+    stays as it is."""
+    if isinstance(value, torch.Tensor) and value.dim() == 1:
+        return value.reshape(-1, *(1,) * (ndim - 1))
+    return value

@@ -95,6 +95,55 @@ def test_svgd_kernel_two_calls_same_bits(dev, cluster):
     assert_close_per_system(first[None], svgd_kernel.svgd_phi_ref(x, s)[None])
 
 
+@pytest.mark.parametrize("n_sys", [1, 4, 5, 7])
+def test_svgd_kernel_seed_axis(dev, n_sys):
+    """K1 on [S, K, P] (stacked fits: one launch of S clusters, each system
+    with its own median) against its batched plain version; S=1 gives the
+    bits of the [K, P] call; one launch counted a call, whatever S."""
+    gen = torch.Generator().manual_seed(n_sys)
+    x = torch.randn(n_sys, 10, 2372, generator=gen).to(dev)
+    s = (10.0 * torch.randn(n_sys, 10, 2372, generator=gen)).to(dev)
+    x[-1] *= 3.0  # systems of other scales: each its own median
+    cuda.reset_launch_counts()
+    got = svgd_kernel.svgd_phi_fused(x, s)
+    assert cuda.LAUNCHES["svgd_phi"] == 1
+    assert_close_per_system(got, svgd_kernel.svgd_phi_ref(x, s))
+    for i in range(n_sys):
+        single = svgd_kernel.svgd_phi_fused(x[i].contiguous(), s[i].contiguous())
+        if n_sys == 1:
+            assert torch.equal(got[0], single)
+        assert_close_per_system(got[i][None], single[None])
+
+
+def test_stacked_svgd_step_matches_single_steps(dev, monkeypatch):
+    """One stacked general step of three SVGD fits (K1 at [3, 4, P], K2/K3
+    at 3 x 4 x 4 systems of N=12) against each fit's own general step from
+    the same state, after three warm-up steps (non-zero Adam moments):
+    particles within 1e-5, the kernel net's output bias left out."""
+    from meta_learning_pacoh_torch.parallel import fit_models_parallel
+
+    monkeypatch.setenv("PACOH_TORCH_DISABLE_FUSED", "1")
+    env = CauchyDataset(random_state=np.random.RandomState(5))
+    train = env.generate_meta_train_data(n_tasks=4, n_samples=12)
+    kw = dict(num_particles=4, mean_nn_layers=(8, 8), kernel_nn_layers=(8, 8), device=dev)
+    singles = [GPRegressionMetaLearnedSVGD(train, random_seed=s, **kw) for s in (1, 2, 3)]
+    for m in singles:
+        m.meta_fit(n_iter=3, verbose=False)
+    stacked = [GPRegressionMetaLearnedSVGD(train, random_seed=s, **kw) for s in (1, 2, 3)]
+    for m, single in zip(stacked, singles):
+        m.load_state_dict(single.state_dict())
+    cuda.reset_launch_counts()
+    fit_models_parallel(stacked, n_iter=1, prefer="vmap")
+    assert cuda.LAUNCHES["svgd_phi"] == 1 and cuda.LAUNCHES["mll_fwd"] == 1, cuda.LAUNCHES
+    for m in singles:
+        m.meta_fit(n_iter=1, verbose=False)
+    keep = torch.ones(singles[0].hyper_prior.dim, dtype=torch.bool, device=dev)
+    keep[singles[0].hyper_prior.slice_of(("kernel_nn", "b_out"))] = False
+    for m, single in zip(stacked, singles):
+        assert m._step_count == single._step_count == 4
+        assert float((m.particles - single.particles)[:, keep].abs().max()) <= 1e-5
+
+
 @pytest.mark.parametrize("b", [1, 7, 12, 200])
 @pytest.mark.parametrize("n", [9, 20, 32, 33, 48, 64])
 def test_mll_kernels_with_escalation(dev, n, b):
