@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port of PACOH (SVGD, MAP, VI, MLAP, GPR-MLL, GPR-PAC, MAML and NP, alone and stacked) once on one NVIDIA GPU.
+"""Drive the PyTorch/CUDA port of PACOH (SVGD, MAP, VI, MLAP, GPR-MLL, GPR-PAC, MAML and NP, alone, stacked and on a device mesh) once on one NVIDIA GPU.
 
     python3 chip_smoke.py                # all phases, one card
     python3 chip_smoke.py --profile DIR  # also trace fit steps and one eval of
@@ -204,6 +204,30 @@ x weight decay), 4 each, 500 steps, each trial within the twins' limits of
 its own general-step fit after 20 steps; then ``tune_run`` with TPE,
 ``batch_size=4``, ``batch_trial_fn=run_trial_batch``, two rounds of MAP
 trials of 300 steps, none falling back to a sequential trial.
+Phase 13 runs the multi-device layer in this process over ``make_mesh()``,
+a one-rank NCCL mesh on the card (the backend and world size printed), each
+path against its run without a mesh. 13a: ``distributed_cholesky`` at N in
+{520, 1000 (the identity tail), 1024, 2048, 4096}, blocks of 128 (K4 one
+launch a block), against ``cholesky_ex`` (the factor within 1e-4 of its
+largest entry, ||LL^T - A|| / ||A|| below 1e-5), its device time beside
+``cholesky_ex``'s (calls queued behind a device-side wait), its kernels'
+sum and its single-call wall; ``distributed_gp_mll``'s value and gradient
+at N=1024 against a float64 plain run (1e-4), the single-device path's gap
+beside. 13b: PACOH-MAP at its default widths on 5 sinusoid tasks of 1,024
+points with ``mesh=``, 20 steps through the tier (K4 launched, B9 not)
+against the learner without a mesh (``torch.linalg`` above 512 points)
+within the twins' limits, and one ``eval_datasets``. 13c: GPR-MLL on one
+task of 2,048 points, 20 steps, the same way. 13d: ``cauchy_20``'s SVGD as
+phase 3 builds it with ``mesh=``, 50 general steps (K1-K3 launched, B10
+not) against the learner without a mesh under ``PACOH_TORCH_DISABLE_FUSED=1``.
+13e: ``map_t5_n200`` with ``mesh=``, 20 steps (B4) against its general step.
+13f: ``build_svgd_parallel_step`` for 20 steps against the learner's
+general step; ``fit_models_parallel`` of five ``cauchy_20`` seeds on
+``make_seed_mesh()`` and ``fit_svgd_hyper_parallel`` of three ``sin_20``
+trials with ``mesh=``, against the same calls without; MLAP's meta-test of
+20 tasks sharded over the mesh against the learner without one. Whether
+each path's bits agree with its run without a mesh is printed; phase 13's
+launches enter the kernels line's counts.
 
 Any failure raises and exits non-zero. The line before the last is a JSON
 object with one record per kernel; the last line is
@@ -4490,6 +4514,339 @@ def phase12c():
     return k1, summary
 
 
+# phase 13: the multi-device layer on a one-rank NCCL mesh of this process
+MESH_CHOL_NS = (520, 1000, 1024, 2048, 4096)  # 1000: the identity tail
+# launches queued a device time of the distributed Cholesky (about a dozen
+# a block of 128): more overflow the CUDA runtime's launch queue behind the
+# device-side wait, and the host then waits on the card
+MESH_CHOL_LAUNCHES = 600
+MESH_CHOL_RTOL, MESH_RESID_TOL = 1e-4, 1e-5  # |L - L_ex| / max|L_ex|; ||LL^T - A|| / ||A||
+MESH_MLL_N = 1024
+MESH_MLL_RTOL = 1e-4  # value and gradients, of the float64 plain run's largest entry
+MESH_MAP_TASKS, MESH_MAP_POINTS, MESH_MAP_STEPS = 5, 1024, 20
+MESH_GPR_POINTS, MESH_GPR_STEPS = 2048, 20
+MESH_SVGD_STEPS, MESH_STEPS = 50, 20
+MESH_MLAP_TASKS, MESH_MLAP_META_TEST = 20, 300
+
+
+def mesh_fit(model, n_iter):
+    """Seconds of ``n_iter`` steps of a meta-learner (or a single-task one)."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fit = model.fit if hasattr(model, "fit") else model.meta_fit
+    fit(n_iter=n_iter, log_period=n_iter, verbose=False)
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+def mesh_twin(label, model, build_twin, n_iter, summary, limits=(TWIN_ATOL, TWIN_MEAN_ATOL)):
+    """``n_iter`` steps of ``model`` (built with mesh=) and of its twin without
+    a mesh from the same state; their launches, seconds, the twins' gaps
+    (within ``limits``) and whether the bits agree, into summary[label]."""
+    import torch
+
+    from meta_learning_pacoh_torch.ops import cuda
+
+    twin = build_twin()
+    twin.load_state_dict(model.state_dict())
+    cuda.reset_launch_counts()
+    mesh_s = mesh_fit(model, n_iter)
+    mesh_launches = launched()
+    cuda.reset_launch_counts()
+    twin_s = mesh_fit(twin, n_iter)
+    twin_launches = launched()
+    gap = twin_gaps(f"13 {label}: mesh against no mesh", [model], [twin], limits)
+    same = bool(torch.equal(twin_state(model), twin_state(twin)))
+    print(f"  13 {label}: {n_iter} steps {mesh_s:.3f} s with the mesh (launches "
+          f"{mesh_launches}), {twin_s:.3f} s without ({twin_launches}); the bits "
+          f"{'agree' if same else 'differ'}")
+    summary[label] = {"steps": n_iter, "mesh_s": mesh_s, "no_mesh_s": twin_s,
+                      "launches": mesh_launches, "no_mesh_launches": twin_launches,
+                      "gap_max": gap[0], "gap_mean": gap[1], "same_bits": same}
+    return mesh_launches
+
+
+def require_launches(label, counts, positive, zero=()):
+    """Raise unless every kernel of ``positive`` launched and none of ``zero``."""
+    missing = [k for k in positive if not counts.get(k)]
+    extra = [k for k in zero if counts.get(k)]
+    if missing or extra:
+        raise AssertionError(f"13 {label}: not launched {missing}, launched {extra}")
+
+
+def phase13a(mesh, summary):
+    """``distributed_cholesky`` alone against ``cholesky_ex``, its device time
+    beside it; ``distributed_gp_mll`` at N=1024 against the single-device
+    path, a float64 plain run the yardstick."""
+    import torch
+
+    from meta_learning_pacoh_torch.ops import cuda
+    from meta_learning_pacoh_torch.parallel import distributed_cholesky, distributed_gp_mll
+
+    gen = torch.Generator().manual_seed(13)
+    launches, rows = {}, {}
+    for n in MESH_CHOL_NS:
+        a = spd(1, n, gen)[0]
+        cuda.reset_launch_counts()
+        L = distributed_cholesky(a, mesh)
+        torch.cuda.synchronize()
+        k4 = cuda.LAUNCHES["chol"]
+        if k4 != -(-n // 128):
+            raise AssertionError(f"13a N={n}: {k4} K4 launches, want {-(-n // 128)}")
+        for k, v in launched().items():
+            launches[k] = launches.get(k, 0) + v
+        ref, info = torch.linalg.cholesky_ex(a)
+        err = float((L - ref).abs().max() / ref.abs().max())
+        resid = float(torch.linalg.norm(L @ L.T - a) / torch.linalg.norm(a))
+        if int(info) or not (err <= MESH_CHOL_RTOL and resid <= MESH_RESID_TOL):
+            raise AssertionError(f"13a N={n}: |L - L_ex| {err:.3e}, residual {resid:.3e}")
+        # device time: calls queued behind a device-side wait (device_ms), in
+        # turns with cholesky_ex; the sum of its kernels' device times beside
+        run = max(2, MESH_CHOL_LAUNCHES // (12 * k4))
+        ex1, ex_host = device_ms(lambda: torch.linalg.cholesky_ex(a), run)
+        d1, d_host = device_ms(lambda: distributed_cholesky(a, mesh), run)
+        d2, _ = device_ms(lambda: distributed_cholesky(a, mesh), run)
+        ex2, _ = device_ms(lambda: torch.linalg.cholesky_ex(a), run)
+        summed = profiled_ms(lambda: distributed_cholesky(a, mesh), calls=3)
+        wall = statistics.median(median_ms(lambda: distributed_cholesky(a, mesh), 5))
+        rows[n] = {"k4_launches": k4, "rel_err": err, "residual": resid,
+                   "ms": 0.5 * (d1 + d2), "cholesky_ex_ms": 0.5 * (ex1 + ex2),
+                   "host_included": bool(d_host or ex_host), "kernel_sum_ms": summed,
+                   "wall_ms": wall}
+        print(f"  13a N={n}: {k4} K4 launches (blocks of 128), |L - L_ex| / max|L_ex| "
+              f"{err:.3e}, ||LL^T - A|| / ||A|| {resid:.3e}; device {d1:.4f} / {d2:.4f} ms a "
+              f"call, cholesky_ex {ex1:.4f} / {ex2:.4f} ms ({run} queued calls"
+              f"{', host time included' if d_host or ex_host else ''}); its kernels' sum "
+              f"{'not measured' if summed is None else '%.4f ms' % summed}, single-call wall "
+              f"{wall:.4f} ms")
+    summary["distributed_cholesky"] = rows
+
+    n = MESH_MLL_N
+    a = spd(1, n, gen)[0]
+    y, mean = torch.randn(n, generator=gen).cuda(), torch.randn(n, generator=gen).cuda()
+
+    def plain(m, k, yy):
+        L = torch.linalg.cholesky(k)
+        z = torch.linalg.solve_triangular(L, (yy - m)[:, None], upper=False)[:, 0]
+        return -0.5 * (z @ z + 2 * torch.log(torch.diagonal(L)).sum() + n * math.log(2 * math.pi))
+
+    def value_and_grads(fn, dtype):
+        args = [t.to(dtype).requires_grad_(True) for t in (mean, a, y)]
+        v = fn(*args)
+        return [v.detach()] + list(torch.autograd.grad(v, args))
+
+    cuda.reset_launch_counts()
+    got = value_and_grads(lambda m, k, yy: distributed_gp_mll(m, k, yy, mesh), torch.float32)
+    for k, v in launched().items():
+        launches[k] = launches.get(k, 0) + v
+    f32, f64 = value_and_grads(plain, torch.float32), value_and_grads(plain, torch.float64)
+    gaps = {}
+    for name, g, p, w in zip(("value", "d_mean", "d_K", "d_y"), got, f32, f64):
+        scale = float(w.abs().max())
+        gaps[name] = (float((g.double() - w).abs().max()) / scale,
+                      float((p.double() - w).abs().max()) / scale)
+        if not gaps[name][0] <= MESH_MLL_RTOL:
+            raise AssertionError(f"13a distributed_gp_mll {name}: {gaps[name][0]:.3e} of the "
+                                 "float64 run")
+    print("  13a distributed_gp_mll N=%d: |dist - f64| / max|f64| %s; the single-device "
+          "float32 path's %s" % (n, {k: "%.2e" % v[0] for k, v in gaps.items()},
+                                 {k: "%.2e" % v[1] for k, v in gaps.items()}))
+    summary["distributed_gp_mll"] = {"n": n, "rel_to_f64": {k: v[0] for k, v in gaps.items()},
+                                     "single_device_rel_to_f64": {k: v[1]
+                                                                  for k, v in gaps.items()}}
+    return launches
+
+
+def phase13():
+    """The multi-device layer on a one-rank NCCL mesh of this process: the
+    distributed tier alone and in PACOH-MAP and GPR-MLL, the mesh'd general
+    steps of cauchy_20's SVGD and map_t5_n200's MAP, and the fan-out (the
+    parallel SVGD step, the seed stack and the trials on a seed mesh, MLAP's
+    meta-test) each against its run without a mesh."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from meta_learning_pacoh_torch import (
+        GPRegressionLearned,
+        GPRegressionMetaLearned,
+        GPRegressionMetaLearnedSVGD,
+    )
+    from meta_learning_pacoh_torch.datasets import SinusoidDataset, provide_data
+    from meta_learning_pacoh_torch.ops import cuda
+    from meta_learning_pacoh_torch.parallel import (
+        build_svgd_parallel_step,
+        fit_models_parallel,
+        make_mesh,
+        make_seed_mesh,
+    )
+    from meta_learning_pacoh_torch.utils.tuning_parallel import fit_svgd_hyper_parallel
+
+    mesh = make_mesh()
+    print(f"  13: mesh {mesh.mesh_dim_names} {tuple(mesh.shape)} on {mesh.device_type}, "
+          f"backend {dist.get_backend()}, world size {dist.get_world_size()}")
+    summary = {"backend": dist.get_backend(), "world_size": dist.get_world_size()}
+    launches = {}
+
+    def add(counts):
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+
+    t0 = time.perf_counter()
+    add(phase13a(mesh, summary))
+    print(f"  13a: {time.perf_counter() - t0:.1f} s")
+
+    # 13b: PACOH-MAP at its default widths on 5 tasks of 1,024 points
+    env = SinusoidDataset(random_state=np.random.RandomState(13))
+    train = env.generate_meta_train_data(n_tasks=MESH_MAP_TASKS, n_samples=MESH_MAP_POINTS)
+    test = env.generate_meta_test_data(n_tasks=EVAL_TWIN_TASKS, n_samples_context=200,
+                                       n_samples_test=200)
+
+    def map_learner(**kw):
+        return GPRegressionMetaLearned(train, task_batch_size=-1, random_seed=30, **kw)
+
+    model = map_learner(mesh=mesh)
+    if model._dist_linalg is None or model._fused_path_ok():
+        raise AssertionError("13b: the N=1024 learner must take the distributed tier")
+    counts = mesh_twin("map_n1024", model, map_learner, MESH_MAP_STEPS, summary)
+    require_launches("map_n1024", counts, ("chol",), ("fused_map_bign", "fused_map"))
+    add(counts)
+    got = model.eval_datasets(test)
+    twin = map_learner()
+    twin.load_state_dict(model.state_dict())
+    want = twin.eval_datasets(test)
+    if not np.allclose(got, want, rtol=EVAL_TWIN_TOL, atol=EVAL_TWIN_TOL):
+        raise AssertionError(f"13b eval: {got} against {want}")
+    summary["map_n1024"]["eval"] = {"mesh": got, "no_mesh": want}
+    print(f"  13b eval (LL, RMSE, calib) with the mesh {got}, without {want}")
+
+    # 13c: GPR-MLL on one task of 2,048 points
+    (x, y), = SinusoidDataset(random_state=np.random.RandomState(14)).generate_meta_train_data(
+        n_tasks=1, n_samples=MESH_GPR_POINTS)
+    gpr = GPRegressionLearned(x, y, random_seed=30, mesh=mesh)
+    if gpr._dist_linalg is None:
+        raise AssertionError("13c: the 2,048-point GPR-MLL must take the distributed tier")
+    counts = mesh_twin("gpr_mll_n2048", gpr, lambda: GPRegressionLearned(x, y, random_seed=30),
+                       MESH_GPR_STEPS, summary)
+    require_launches("gpr_mll_n2048", counts, ("chol",))
+    add(counts)
+
+    # 13d: cauchy_20 PACOH-SVGD on the mesh: the general step (K1-K3)
+    c_train, _ = cauchy20()
+    model = cauchy_model(c_train, mesh=mesh)
+    os.environ["PACOH_TORCH_DISABLE_FUSED"] = "1"
+    try:
+        counts = mesh_twin("cauchy_20", model, lambda: cauchy_model(c_train), MESH_SVGD_STEPS,
+                           summary)
+    finally:
+        os.environ.pop("PACOH_TORCH_DISABLE_FUSED")
+    require_launches("cauchy_20", counts, ("svgd_phi", "mll_fwd", "mll_bwd"),
+                     ("fused_svgd_bign", "fused_svgd"))
+    add(counts)
+
+    # 13e: map_t5_n200 on the mesh: the tasks sharded over one rank (B4)
+    b_train, _ = bign_data()
+    model = bign_model(b_train, mesh=mesh)
+    os.environ["PACOH_TORCH_DISABLE_FUSED"] = "1"
+    try:
+        counts = mesh_twin("map_t5_n200", model, lambda: bign_model(b_train), MESH_STEPS,
+                           summary)
+    finally:
+        os.environ.pop("PACOH_TORCH_DISABLE_FUSED")
+    require_launches("map_t5_n200", counts, ("blocked_fwd", "blocked_bwd"), ("fused_map_bign",))
+    add(counts)
+
+    # 13f: the fan-out on the mesh
+    learner = cauchy_model(c_train)
+    step, place = build_svgd_parallel_step(learner.hyper_prior, learner.prior_factor,
+                                           learner._lr, mesh)
+    particles, opt_state, X, Y, M = place(learner.particles.clone(), None, learner.X,
+                                          learner.Y, learner.mask)
+    cuda.reset_launch_counts()
+    for _ in range(MESH_STEPS):
+        particles, opt_state = step(particles, opt_state, X, Y, M)
+    torch.cuda.synchronize()
+    counts = launched()
+    require_launches("parallel step", counts, ("svgd_phi", "mll_fwd", "mll_bwd"))
+    add(counts)
+    os.environ["PACOH_TORCH_DISABLE_FUSED"] = "1"
+    try:
+        learner.meta_fit(n_iter=MESH_STEPS, log_period=MESH_STEPS, verbose=False)
+    finally:
+        os.environ.pop("PACOH_TORCH_DISABLE_FUSED")
+    d = (particles - learner.particles).abs()
+    same = bool(torch.equal(particles, learner.particles))
+    if not (float(d.max()) <= TWIN_ATOL and float(d.mean()) <= TWIN_MEAN_ATOL):
+        raise AssertionError(f"13f parallel step: |diff| {float(d.max()):.3e}")
+    print(f"  13f build_svgd_parallel_step: {MESH_STEPS} steps against the learner's general "
+          f"step, |diff| max {float(d.max()):.3e}, mean {float(d.mean()):.3e}; the bits "
+          f"{'agree' if same else 'differ'} (launches {counts})")
+    summary["parallel_step"] = {"steps": MESH_STEPS, "gap_max": float(d.max()),
+                                "same_bits": same, "launches": counts}
+
+    seed_mesh = make_seed_mesh()
+    data = {seed: provide_data("cauchy_20", seed=seed) for seed in SWEEP_SEEDS}
+
+    def seeds():
+        return [GPRegressionMetaLearnedSVGD(data[seed][0], num_particles=10, random_seed=seed,
+                                            task_batch_size=-1) for seed in SWEEP_SEEDS]
+
+    meshed, plain = seeds(), seeds()
+    cuda.reset_launch_counts()
+    fit_models_parallel(meshed, n_iter=MESH_STEPS, mesh=seed_mesh)  # a mesh takes 'vmap'
+    counts = launched()
+    require_launches("seed stack", counts, ("svgd_phi", "mll_fwd", "mll_bwd"))
+    add(counts)
+    fit_models_parallel(plain, n_iter=MESH_STEPS, prefer="vmap")
+    gap = twin_gaps("13f seed stack on a seed mesh against no mesh", meshed, plain,
+                    (TWIN_ATOL, TWIN_MEAN_ATOL))
+    same = all(torch.equal(twin_state(a), twin_state(b)) for a, b in zip(meshed, plain))
+    summary["seed_stack"] = {"seeds": len(SWEEP_SEEDS), "steps": MESH_STEPS, "gap_max": gap[0],
+                             "same_bits": same, "launches": counts}
+
+    trials_train = sin20()[0]
+
+    def trials():
+        return [GPRegressionMetaLearnedSVGD(trials_train, num_particles=10, random_seed=30,
+                                            task_batch_size=-1, lr=lr, prior_factor=pf)
+                for lr, pf in ((1e-3, 0.01), (3e-3, 0.1), (1e-3, 0.1))]
+
+    meshed, plain = trials(), trials()
+    cuda.reset_launch_counts()
+    fit_svgd_hyper_parallel(meshed, n_iter=MESH_STEPS, mesh=seed_mesh)
+    counts = launched()
+    add(counts)
+    fit_svgd_hyper_parallel(plain, n_iter=MESH_STEPS)
+    gap = twin_gaps("13f trials on a seed mesh against no mesh", meshed, plain,
+                    (TWIN_ATOL, TWIN_MEAN_ATOL))
+    same = all(torch.equal(twin_state(a), twin_state(b)) for a, b in zip(meshed, plain))
+    summary["trials"] = {"trials": len(meshed), "steps": MESH_STEPS, "gap_max": gap[0],
+                         "same_bits": same, "launches": counts}
+
+    s_train, s_test = sin20()
+    meshed = mlap_model(s_train, mesh=mesh)
+    plain = mlap_model(s_train)
+    plain.load_state_dict(meshed.state_dict())
+    tasks = s_test[:MESH_MLAP_TASKS]
+    cuda.reset_launch_counts()
+    got = meshed.eval_datasets(tasks, n_iter_meta_test=MESH_MLAP_META_TEST)
+    counts = launched()
+    add(counts)
+    want = plain.eval_datasets(tasks, n_iter_meta_test=MESH_MLAP_META_TEST)
+    if not np.allclose(got, want, rtol=EVAL_TWIN_TOL, atol=EVAL_TWIN_TOL):
+        raise AssertionError(f"13f MLAP meta-test: {got} against {want}")
+    print(f"  13f MLAP meta-test of {len(tasks)} tasks sharded over the mesh "
+          f"({MESH_MLAP_META_TEST} steps): eval {got}, without the mesh {want} "
+          f"(launches {counts})")
+    summary["mlap_meta_test"] = {"tasks": len(tasks), "steps": MESH_MLAP_META_TEST,
+                                 "mesh": got, "no_mesh": want, "same": got == want,
+                                 "launches": counts}
+    dist.destroy_process_group()  # make_mesh's one-rank group
+    return launches, summary
+
+
 def report_one_system():
     """Print phase 2's times at one system a launch, now that the calls that
     read back to the host have their kernels' sums, and whether each kernel
@@ -4605,6 +4962,14 @@ def main():
     launches["svgd_phi trials [4, 10, 2308]"], trial_summary = phase12c()
     print("slice trials_sin_20: " + json.dumps({"card": card, **trial_summary}))
     print(f"phase 12: {time.perf_counter() - t0:.1f} s")
+    print("phase 13: the multi-device layer on a one-rank NCCL mesh (the distributed tier "
+          "through K4; the mesh'd general steps through K1-K3 and B4; the fan-out)")
+    t0 = time.perf_counter()
+    mesh_launches, mesh_summary = phase13()
+    for name, count in mesh_launches.items():
+        launches[name] = launches.get(name, 0) + count
+    print("slice mesh: " + json.dumps({"card": card, **mesh_summary}))
+    print(f"phase 13: {time.perf_counter() - t0:.1f} s")
     print(f"all phases: {time.perf_counter() - t_start:.1f} s")
     print("the plain versions and library calls that read back to the host, by torch.profiler:")
     settle_kernel_sums(times, library)

@@ -11,12 +11,16 @@ learner's ``device``, the card unless the caller names another
 from ``random_seed``, so a seed draws the same numbers on every device.
 """
 
+import contextlib
+
 import numpy as np
 import torch
 
 from meta_learning_pacoh_torch.models.random_gp import ravel_flat, tree_layout, unravel_flat
-from meta_learning_pacoh_torch.ops import cuda, launch_sched
+from meta_learning_pacoh_torch.ops import cuda, gp as gp_ops, launch_sched
+from meta_learning_pacoh_torch.ops.cuda.blocked_mll_kernel import BLOCKED_MAX_N
 from meta_learning_pacoh_torch.ops.metrics import calib_error_from_cdf
+from meta_learning_pacoh_torch.parallel import mesh as mesh_ops
 from meta_learning_pacoh_torch.utils.input_handling import handle_input_dim, stack_task_tuples
 from meta_learning_pacoh_torch.utils.logging import get_logger
 
@@ -31,10 +35,59 @@ def resolve_device(device):
     return torch.device(device)
 
 
+def tier_mesh(mesh, n):
+    """``mesh`` where a learner's Gram matrices of ``n`` points go through
+    the distributed tier (its "task" axis factors each matrix together:
+    ``ops.gp.distributed_linalg``), else None: more than BLOCKED_MAX_N
+    points and a "task" axis, as the JAX learners decide."""
+    if mesh is not None and "task" in mesh.mesh_dim_names and n > BLOCKED_MAX_N:
+        return mesh
+    return None
+
+
+def tier_ctx(mesh):
+    """The distributed tier on ``mesh`` (a ``tier_mesh``), or no context for None."""
+    return contextlib.nullcontext() if mesh is None else gp_ops.distributed_linalg(mesh)
+
+
 def check_choice(name, value, choices):
     """Raise a ValueError unless a constructor argument is one of ``choices``."""
     if value not in choices:
         raise ValueError(f"{name} must be one of {choices}, got {value!r}")
+
+
+class TaskShard:
+    """A rank's share of the task axis of a learner built with ``mesh=``
+    (the JAX learners' ``shard_task_batch``): the contiguous slice ``rows``
+    of the T meta-train tasks, the process group of the mesh's task axis,
+    and ``lead``, whether this rank is the axis's first.
+
+    Each rank computes the data term of the loss on its own tasks, scaled
+    by the whole batch's normalisers (its task count, its harmonic mean);
+    the terms that are no sum over tasks (a hyper-prior, an entropy, a
+    meta-complexity) enter on the lead rank only. ``all_reduce_`` then sums
+    the gradients of the replicated state, and the losses, over the axis in
+    one collective, so every rank applies the same update to the same bits.
+    """
+
+    def __init__(self, mesh, mask):
+        self.group = mesh_ops.axis_group(mesh, "task")
+        self.rows = mesh_ops.shard_rows(mesh, mask.shape[0])
+        self.lead = mesh_ops.axis_rank(mesh, "task") == 0
+        self.sizes = torch.sum(mask, dim=-1)  # [T] real points of every task
+
+    def take(self, *tensors):
+        """This rank's rows of tensors [T, ...]."""
+        return tuple(t[self.rows] for t in tensors)
+
+    def all_reduce_(self, *tensors):
+        """Sum tensors over the task axis in place (one collective)."""
+        mesh_ops.all_reduce_(list(tensors), self.group)
+
+    def gather(self, t):
+        """All ranks' rows of t [T / D, ...] -> [T, ...]."""
+        parts = mesh_ops.all_gather(t, self.group)
+        return parts.reshape(-1, *t.shape[1:])
 
 
 class RegressionModelBase:
@@ -97,6 +150,34 @@ class RegressionModelBase:
 
 class RegressionModelMetaLearned(RegressionModelBase):
     """Base of the meta-learners: predict(context_x, context_y, test_x)."""
+
+    def _shard_tasks(self, mesh, full_batch, replicate=False):
+        """``mesh=`` of the constructor: keep this rank's share of the
+        meta-train tasks (``self._shard``, a ``TaskShard``, None without a
+        mesh, or with ``replicate``: every rank then keeps every task). Needs
+        the full batch (task_batch_size=-1), a "task" axis and a mesh of the
+        learner's device type, as the JAX learners do."""
+        self._mesh, self._shard = mesh, None
+        if mesh is None:
+            return
+        if not full_batch:
+            raise ValueError("mesh-sharded training requires task_batch_size=-1 (full batch)")
+        self._check_mesh(mesh)
+        if replicate:
+            return
+        self._shard = TaskShard(mesh, self.mask)
+        self.X, self.Y, self.mask = self._shard.take(self.X, self.Y, self.mask)
+
+    def _check_mesh(self, mesh):
+        if "task" not in mesh.mesh_dim_names:
+            raise ValueError(f"the mesh needs a 'task' axis, got {mesh.mesh_dim_names}")
+        mesh_ops.check_mesh_device(mesh, self.device)
+
+    def _shard_terms(self):
+        """meta_log_prob's keywords of this rank's share of the score."""
+        if self._shard is None:
+            return {}
+        return {"task_sizes": self._shard.sizes, "with_prior": self._shard.lead}
 
     def _check_and_set_dims(self, meta_train_data):
         shapes = [handle_input_dim(x, y) for x, y in meta_train_data]

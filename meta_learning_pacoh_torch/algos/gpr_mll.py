@@ -16,15 +16,18 @@ axis of 1. A step is the loss under autograd and ``ops/cuda.adam_step_``,
 one Python iteration: the MLL of one system (``gp_prior_mll``, B = 1) takes
 the MLL kernels K2/K3 for 9 <= N <= 48 and the blocked ones (B4) for
 49 <= N <= 512; ``predict`` and ``eval`` factor through ``ops/chol.py``
-(B5 for 32-64 points, K4 for 65-512). The JAX learner's mesh path is not
-ported.
+(B5 for 32-64 points, K4 for 65-512). GPR-MLL's ``mesh=`` (as the JAX
+learner's) routes the training MLL of more than BLOCKED_MAX_N points
+through the distributed tier (``ops.gp.distributed_linalg``: the Gram
+matrix factored across the ranks of the mesh's "task" axis, every rank
+holding the task whole); a smaller task ignores the mesh.
 """
 
 import time
 
 import torch
 
-from meta_learning_pacoh_torch.algos.base import RegressionModel, check_choice
+from meta_learning_pacoh_torch.algos.base import RegressionModel, check_choice, tier_ctx, tier_mesh
 from meta_learning_pacoh_torch.interop import from_jax_gpr_state
 from meta_learning_pacoh_torch.models.gp_base import (
     GPConfig,
@@ -40,6 +43,7 @@ from meta_learning_pacoh_torch.ops.distributions import (
     MultivariateNormal,
     Normal,
 )
+from meta_learning_pacoh_torch.parallel import mesh as mesh_ops
 from meta_learning_pacoh_torch.utils.input_handling import handle_input_dim
 
 HYPER_WEIGHT_DECAY = 0.01  # torch AdamW's default, which the hyperparameter groups keep
@@ -229,11 +233,15 @@ class GPRegressionLearned(SingleTaskLearner):
     def __init__(self, train_x, train_t, learning_mode="both", lr=1e-3, weight_decay=0.0,
                  feature_dim=2, num_iter_fit=1000, covar_module="NN", mean_module="NN",
                  mean_nn_layers=(32, 32), kernel_nn_layers=(32, 32), optimizer="Adam",
-                 normalize_data=True, lr_scheduler=True, random_seed=None, device=None):
-        """device: where the parameters, the data and the computation live
-        ('cuda', 'cpu', a torch.device); None means the card, and raises
-        without one. ``mean_module`` / ``covar_module`` take a
-        ``MeanModule`` / ``KernelModule`` instance too."""
+                 normalize_data=True, lr_scheduler=True, random_seed=None, mesh=None,
+                 device=None):
+        """mesh: a ``parallel.make_mesh`` mesh of the learner's device type;
+        with a "task" axis and more than BLOCKED_MAX_N training points, the
+        training MLL's factorization is spread over it. device: where the
+        parameters, the data and the computation live ('cuda', 'cpu', a
+        torch.device); None means the card, and raises without one.
+        ``mean_module`` / ``covar_module`` take a ``MeanModule`` /
+        ``KernelModule`` instance too."""
         super().__init__(train_x, train_t, learning_mode, lr, weight_decay, num_iter_fit,
                          optimizer, normalize_data, lr_scheduler, random_seed, device)
         if not isinstance(mean_module, MeanModule):
@@ -256,12 +264,17 @@ class GPRegressionLearned(SingleTaskLearner):
             self.device)
         self._setup_optimizer([param_group(path[0], learning_mode)
                                for path, _, _, _ in self.layout])
+        if mesh is not None:
+            mesh_ops.check_mesh_device(mesh, self.device)
+        self._dist_linalg = tier_mesh(mesh, self.n_train_samples)
 
     def _gp_params(self, params):
         return unravel_flat(self.layout, params[None])
 
     def _loss(self, params):
-        return -gp_prior_mll(self.cfg, self._gp_params(params), self.train_x, self.train_t)[0]
+        with tier_ctx(self._dist_linalg):
+            return -gp_prior_mll(self.cfg, self._gp_params(params), self.train_x,
+                                 self.train_t)[0]
 
     def _predict_moments(self, test_xn):
         mean, cov = gp_predict(self.cfg, self._gp_params(self.params), self.train_x[None],

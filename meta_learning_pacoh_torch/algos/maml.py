@@ -18,7 +18,12 @@ Adam moments are flat vectors (``FlatParamsMetaLearned``); a sampled task
 batch of global step s is drawn from a CPU generator seeded with (train
 seed, s). The step runs no hand-written kernel: its products are small
 batched MLPs, as in the JAX package, where they run outside any Pallas
-kernel. The JAX learner's mesh path is not ported.
+kernel.
+
+``mesh=`` (a ``parallel.make_mesh`` mesh, full batch only) shards the tasks
+over the mesh's "task" axis, as the JAX learner's: each rank's loss is its
+tasks' outer MSEs summed over the whole batch's task count, and an
+all_reduce sums the meta-gradients, so every rank applies the same update.
 """
 
 import time
@@ -54,8 +59,10 @@ class MAMLRegression(FlatParamsMetaLearned):
     def __init__(self, meta_train_data, layer_sizes=(32, 32, 32, 32), num_iter_fit=20000,
                  lr_inner=0.05, num_inner_steps=1, task_batch_size=5, lr_meta=1e-3,
                  lr_decay=1.0, optimizer="Adam", normalize_data=True, random_seed=None,
-                 device=None):
-        """device: where the parameters, the data and the computation live
+                 mesh=None, device=None):
+        """mesh: a ``parallel.make_mesh`` mesh with a "task" axis, of the
+        learner's device type; requires task_batch_size=-1 (full batch).
+        device: where the parameters, the data and the computation live
         ('cuda', 'cpu', a torch.device); None means the card, and raises
         without one."""
         super().__init__(normalize_data, random_seed, device)
@@ -64,6 +71,7 @@ class MAMLRegression(FlatParamsMetaLearned):
         self.X, self.Y, self.mask = self._prepare_meta_data(meta_train_data)
         self.n_tasks = self.X.shape[0]
         self.task_batch_size = self.n_tasks if task_batch_size < 1 else task_batch_size
+        self._shard_tasks(mesh, self.task_batch_size == self.n_tasks)
         self.lr_inner = lr_inner
         self.num_inner_steps = num_inner_steps
         self.num_iter_fit = num_iter_fit
@@ -114,8 +122,10 @@ class MAMLRegression(FlatParamsMetaLearned):
             inner = torch.sum(masked_mse(self._param_tree(adapted), X, Y, w_inner))
             (grad,) = torch.autograd.grad(inner, adapted, create_graph=True)
             adapted = adapted - self.lr_inner * grad
-        outer = masked_mse(self._param_tree(adapted), X, Y, w_outer)
-        return torch.mean(outer.reshape(*lead, b), dim=-1)
+        outer = masked_mse(self._param_tree(adapted), X, Y, w_outer).reshape(*lead, b)
+        if self._shard is not None:  # this rank's share of the whole batch's mean
+            return torch.sum(outer, dim=-1) / self.n_tasks
+        return torch.mean(outer, dim=-1)
 
     def _grad(self, params, data):
         """(loss, its gradient) at params [..., P], the loss summed over the fits."""
@@ -131,6 +141,8 @@ class MAMLRegression(FlatParamsMetaLearned):
             idx = self._task_draw(self._step_count).to(self.device)
             data = tuple(a[idx] for a in data)
         loss, grad = self._grad(self.params, data)
+        if self._shard is not None:
+            self._shard.all_reduce_(loss, grad)
         self._apply_update(grad)
         self._step_count += 1
         return loss

@@ -14,8 +14,13 @@ latent noise a task) come from a CPU generator seeded with (train seed,
 s), so a step draws the same numbers on every device and the trajectory
 does not depend on how the steps are chunked. The step runs no
 hand-written kernel: its products are small MLPs, as in the JAX package,
-where they run outside any Pallas kernel. The JAX learner's mesh path is
-not ported.
+where they run outside any Pallas kernel.
+
+``mesh=`` (a ``parallel.make_mesh`` mesh, full batch only) shards the tasks
+over the mesh's "task" axis, as the JAX learner's: every rank draws the
+whole batch's numbers and keeps its tasks' rows, its loss is its tasks'
+ELBO losses, and an all_reduce sums the gradients, so every rank applies
+the same update.
 """
 
 import math
@@ -45,8 +50,10 @@ class NPRegressionMetaLearned(FlatParamsMetaLearned):
     def __init__(self, meta_train_data, context_split_ratio=0.5, lr_params=1e-3,
                  r_dim=50, z_dim=50, h_dim=50, num_iter_fit=10000, weight_decay=1e-2,
                  task_batch_size=5, normalize_data=True, optimizer="Adam",
-                 lr_decay=1.0, random_seed=None, device=None):
-        """device: where the parameters, the data and the computation live
+                 lr_decay=1.0, random_seed=None, mesh=None, device=None):
+        """mesh: a ``parallel.make_mesh`` mesh with a "task" axis, of the
+        learner's device type; requires task_batch_size=-1 (full batch).
+        device: where the parameters, the data and the computation live
         ('cuda', 'cpu', a torch.device); None means the card, and raises
         without one."""
         super().__init__(normalize_data, random_seed, device)
@@ -67,6 +74,9 @@ class NPRegressionMetaLearned(FlatParamsMetaLearned):
         self.num_context = int(self.num_context_per_task[0])
         self._num_context = torch.as_tensor(self.num_context_per_task, dtype=torch.int64,
                                             device=self.device)
+        self._shard_tasks(mesh, self.task_batch_size == self.n_tasks)
+        if self._shard is not None:
+            (self._num_context,) = self._shard.take(self._num_context)
 
         params = init_np_params(self._generator, self.input_dim, self.output_dim,
                                 r_dim=r_dim, z_dim=z_dim, h_dim=h_dim)
@@ -104,7 +114,11 @@ class NPRegressionMetaLearned(FlatParamsMetaLearned):
         if idx is not None:
             idx = idx.to(self.device)
             data = tuple(a[idx] for a in data)
+        if self._shard is not None:
+            u, eps = self._shard.take(u, eps)
         loss, grad = self._grad(self.params, u, eps, data)
+        if self._shard is not None:
+            self._shard.all_reduce_(loss, grad)
         self._apply_update(grad)
         self._step_count += 1
         return loss

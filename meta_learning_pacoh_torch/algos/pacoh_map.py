@@ -32,8 +32,16 @@ count (the JAX learner's count-weighted mode, ``PACOH_TPU_MAP_WEIGHTED=1``:
 the same estimator as gathering the drawn tasks), which lets the fused
 kernels carry the fit. ``_stacked_step`` is the general step of S fits
 stacked on a leading axis (``parallel.fit_models_parallel``,
-``utils.tuning_parallel``), each with its own draws. The JAX learner's
-mesh path is not ported.
+``utils.tuning_parallel``), each with its own draws.
+
+``mesh=`` (a ``parallel.make_mesh`` mesh, full batch only) runs the
+general step on every rank of the mesh, as the JAX learner's: tasks of up
+to BLOCKED_MAX_N points are sharded over the "task" axis (each rank's
+share of the loss, the gradient summed by an all_reduce); above it the
+tasks stay whole on every rank and each Gram matrix is factored across the
+ranks by the distributed tier (``ops.gp.distributed_linalg``), whose
+closed-form backward already gives the whole gradient. The fused kernels
+are off under a mesh.
 """
 
 import time
@@ -42,7 +50,12 @@ import numpy as np
 import torch
 
 from meta_learning_pacoh_torch import config
-from meta_learning_pacoh_torch.algos.base import RegressionModelMetaLearned, check_choice
+from meta_learning_pacoh_torch.algos.base import (
+    RegressionModelMetaLearned,
+    check_choice,
+    tier_ctx,
+    tier_mesh,
+)
 from meta_learning_pacoh_torch.interop import from_jax_map_state
 from meta_learning_pacoh_torch.models.gp_base import (
     GPConfig,
@@ -88,8 +101,10 @@ class GPRegressionMetaLearned(RegressionModelMetaLearned):
                  weight_decay=0.0, feature_dim=2, num_iter_fit=10000,
                  covar_module="NN", mean_module="NN", mean_nn_layers=(32, 32),
                  kernel_nn_layers=(32, 32), task_batch_size=5, normalize_data=True,
-                 optimizer="Adam", lr_decay=1.0, random_seed=None, device=None):
-        """device: where the parameters, the data and the computation live
+                 optimizer="Adam", lr_decay=1.0, random_seed=None, mesh=None, device=None):
+        """mesh: a ``parallel.make_mesh`` mesh with a "task" axis, of the
+        learner's device type; requires task_batch_size=-1 (full batch).
+        device: where the parameters, the data and the computation live
         ('cuda', 'cpu', a torch.device); None means the card, and raises
         without one."""
         super().__init__(normalize_data, random_seed, device)
@@ -115,6 +130,11 @@ class GPRegressionMetaLearned(RegressionModelMetaLearned):
         self.X, self.Y, self.mask = self._prepare_meta_data(meta_train_data)
         self.n_tasks = self.X.shape[0]
         self.task_batch_size = self.n_tasks if task_batch_size < 0 else task_batch_size
+        # large N: every rank holds every task, and the ranks factor each
+        # Gram matrix together (block rows over the task axis)
+        self._dist_linalg = tier_mesh(mesh, self.X.shape[1])
+        self._shard_tasks(mesh, self.task_batch_size == self.n_tasks,
+                          replicate=self._dist_linalg is not None)
 
         self.cfg = GPConfig(input_dim=self.input_dim, feature_dim=feature_dim,
                             mean_module=mean_module, covar_module=covar_module,
@@ -189,8 +209,11 @@ class GPRegressionMetaLearned(RegressionModelMetaLearned):
 
     def _step(self):
         """One general step; returns its loss (a device scalar)."""
-        loss, grad = self._grad(self.params, (self.X, self.Y, self.mask),
-                                self._counts(self._step_count))
+        with tier_ctx(self._dist_linalg):
+            loss, grad = self._grad(self.params, (self.X, self.Y, self.mask),
+                                    self._counts(self._step_count))
+        if self._shard is not None:
+            self._shard.all_reduce_(loss, grad)
         with torch.no_grad():
             self._apply_update(grad)
         self._step_count += 1
@@ -224,6 +247,7 @@ class GPRegressionMetaLearned(RegressionModelMetaLearned):
         fits = fused_map_fits if n <= FUSED_MAX_N else bign_fits
         return (
             config.fused_enabled()
+            and self._mesh is None
             and self.learning_mode == "both"
             and self._optimizer_name == "Adam"
             and cfg.mean_module == "NN" and cfg.covar_module == "NN"

@@ -42,7 +42,17 @@ take the same draws, so they follow one random trajectory and do not depend
 on how the steps are chunked. A meta-test call draws its noise in blocks of
 512 steps from a seed of its own. ``_stacked_step`` is the general step of S
 fits stacked on a leading axis (``parallel.fit_models_parallel``), each with
-its own draws. The JAX learner's mesh path is not ported.
+its own draws.
+
+``mesh=`` (a ``parallel.make_mesh`` mesh, full batch only) shards the tasks
+over the mesh's "task" axis, as the JAX learner's: each rank holds its
+tasks' data and per-task posteriors (q_means, q_trils and their moments),
+the hyper-posterior and the noise stay whole on every rank. A rank's loss
+is its tasks' share of the bound (the weights u_t of the whole draw; the
+meta-complexity on the axis's first rank only), and an all_reduce sums the
+gradients of the replicated leaves. The meta-test's tasks are sharded too
+where their count divides the axis, and gathered afterwards; ``state_dict``
+gathers the sharded leaves. The fused kernel's fit is off under a mesh.
 """
 
 import math
@@ -54,6 +64,7 @@ import torch
 from meta_learning_pacoh_torch import config
 from meta_learning_pacoh_torch.algos.base import (
     RegressionModelMetaLearned,
+    TaskShard,
     check_choice,
 )
 from meta_learning_pacoh_torch.interop import from_jax_mlap_state
@@ -85,6 +96,7 @@ from meta_learning_pacoh_torch.ops.variational import (
     gaussian_kl_chol,
     svgp_predict,
 )
+from meta_learning_pacoh_torch.parallel import mesh as mesh_ops
 from meta_learning_pacoh_torch.utils.input_handling import handle_input_dim
 
 N_AGG_SAMPLES = 20  # hyper-posterior samples of the aggregated prior
@@ -105,8 +117,10 @@ class GPRegressionMetaLearnedPAC(RegressionModelMetaLearned):
                  mean_module="zero", mean_nn_layers=(32, 32), kernel_nn_layers=(32, 32),
                  optimizer="Adam", lr=1e-3, lr_decay=1.0, svi_batch_size=5, cov_type="diag",
                  task_batch_size=-1, likelihood_noise_init=0.01, normalize_data=True,
-                 random_seed=None, device=None):
-        """device: where the state, the data and the computation live ('cuda',
+                 random_seed=None, mesh=None, device=None):
+        """mesh: a ``parallel.make_mesh`` mesh with a "task" axis, of the
+        learner's device type; requires task_batch_size=-1 (full batch).
+        device: where the state, the data and the computation live ('cuda',
         'cpu', a torch.device); None means the card, and raises without one."""
         super().__init__(normalize_data, random_seed, device)
         # the RandomGP flavour has NN or constant means; 'zero' is a constant
@@ -148,6 +162,12 @@ class GPRegressionMetaLearnedPAC(RegressionModelMetaLearned):
         # the state: the hyper-posterior's leaves, the noise and the posteriors
         self.params = {**post, "raw_noise": inv_softplus(likelihood_noise_init - 1e-4).to(
             self.device), "q_means": q_means, "q_trils": q_trils}
+        # the per-task posteriors start from the whole task set's draws, then
+        # ride their tasks' shard
+        self._shard_tasks(mesh, self.task_batch_size == self.n_tasks)
+        if self._shard is not None:
+            for k in Q_KEYS:
+                (self.params[k],) = self._shard.take(self.params[k])
         self._train_seed = self._next_seed() % 2 ** 31
         self._eps_gen = torch.Generator(device=self.device)
         self._mu = {k: torch.zeros_like(v) for k, v in self.params.items()}
@@ -245,10 +265,14 @@ class GPRegressionMetaLearnedPAC(RegressionModelMetaLearned):
             return torch.sum(bounds), {}
         u = counts / torch.sum(counts, dim=-1, keepdim=True)
         drawn = counts > 0  # a never-drawn task adds exactly 0, even if its bound is not finite
+        if self._shard is not None:  # this rank's tasks of the whole draw
+            u, drawn = self._shard.take(u, drawn)
         meta_complexity = torch.sqrt(
             (kl_outer + math.log(2.0) + math.log(float(self.n_tasks)) - math.log(self.delta))
             / (2.0 * (self.n_tasks - 1.0)))
-        loss = torch.sum(torch.where(drawn, u * bounds, 0.0), dim=-1) + meta_complexity
+        loss = torch.sum(torch.where(drawn, u * bounds, 0.0), dim=-1)
+        if self._shard is None or self._shard.lead:
+            loss = loss + meta_complexity
         diag = {"avg_ll": torch.sum(torch.where(drawn, u * avg_lls, 0.0), dim=-1),
                 "kl_outer_weighted": kl_outer,
                 "kl_inner_weighted": torch.sum(torch.where(drawn, u * kl_inners, 0.0), dim=-1)}
@@ -302,6 +326,9 @@ class GPRegressionMetaLearnedPAC(RegressionModelMetaLearned):
         """One general step; returns (loss, diag) as device scalars."""
         counts, eps = self._draws(self._step_count)
         loss, diag, grads = self._grads(self.params, eps, counts, (self.X, self.Y, self.mask))
+        if self._shard is not None:
+            self._shard.all_reduce_(loss, diag["avg_ll"], diag["kl_inner_weighted"],
+                                    *[g for k, g in zip(self.params, grads) if k not in Q_KEYS])
         if self._optimizer_name == "Adam":
             self._adam_count += 1
         self._update(self.params, grads, list(self.params),
@@ -350,6 +377,7 @@ class GPRegressionMetaLearnedPAC(RegressionModelMetaLearned):
         (Adam in the window) and a configuration the kernel takes."""
         t, n, d = self.X.shape
         return (self._fused_window_ok(n) and self._optimizer_name == "Adam"
+                and self._mesh is None
                 and fused_mlap_fits(self.svi_batch_size, t, n, d, self.cfg.mean_nn_layers))
 
     def _fused_run_chunk(self, chunk):
@@ -452,6 +480,13 @@ class GPRegressionMetaLearnedPAC(RegressionModelMetaLearned):
         post = self._post(self.params)
         theta_agg = posterior_rsample(post, self._agg_eps(s_theta))
         q_means, q_trils = self._init_task_posteriors(post, Xc, Mc, s_init)
+        shard, data = None, (Xc, Yc, Mc)
+        if self._mesh is not None and t % mesh_ops.axis_size(self._mesh, "task") == 0:
+            # the tasks' inferences are independent: each rank runs its share
+            shard = TaskShard(self._mesh, Mc)
+            data = shard.take(Xc, Yc, Mc)
+            q_means, q_trils = shard.take(q_means, q_trils)
+            t = t // mesh_ops.axis_size(self._mesh, "task")
         params = {**post, "raw_noise": self.params["raw_noise"], "q_means": q_means,
                   "q_trils": q_trils}
 
@@ -461,12 +496,15 @@ class GPRegressionMetaLearnedPAC(RegressionModelMetaLearned):
         if self._fused_window_ok(n) and fused_mlap_fits(self.svi_batch_size, t, n, d,
                                                         self.cfg.mean_nn_layers):
             FusedMLAPMetaTest(
-                Xc, Yc, Mc, hidden=tuple(self.cfg.mean_nn_layers), lr=lr,
+                *data, hidden=tuple(self.cfg.mean_nn_layers), lr=lr,
                 task_kl_weight=self.task_kl_weight, meta_kl_weight=self.meta_kl_weight,
                 delta=self.delta, n_tasks=self.n_tasks, weight_prior_std=self._weight_prior_std,
                 bias_prior_std=self._bias_prior_std).run(params, n_iter, eps_block)
         else:
-            self._meta_test_general(params, Xc, Yc, Mc, n_iter, lr, eps_block)
+            self._meta_test_general(params, *data, n_iter, lr, eps_block)
+        if shard is not None:
+            for k in Q_KEYS:
+                params[k] = shard.gather(params[k])
         return {"Xc": Xc, "Mc": Mc, "q_means": params["q_means"], "q_trils": params["q_trils"],
                 "theta_agg": theta_agg}
 
@@ -557,8 +595,11 @@ class GPRegressionMetaLearnedPAC(RegressionModelMetaLearned):
     def state_dict(self):
         """{'params', 'opt_state': {'mu', 'nu', 'count'}, 'step'}, the params and
         moments nested as the JAX learner's: {'hyper_post': {...}, 'raw_noise',
-        'q_means', 'q_trils'}."""
+        'q_means', 'q_trils'}. Under a mesh, every rank gathers the sharded
+        leaves (a collective: all ranks call it)."""
         def nest(tree):  # copies: the fit updates the state in place
+            tree = {k: (self._shard.gather(v) if self._shard is not None and k in Q_KEYS else v)
+                    for k, v in tree.items()}
             flat = {k: v.detach().cpu().numpy().copy() for k, v in tree.items()}
             return {"hyper_post": {k: flat.pop(k) for k in _HYPER_KEYS if k in flat}, **flat}
 
@@ -568,14 +609,19 @@ class GPRegressionMetaLearnedPAC(RegressionModelMetaLearned):
                 "step": self._step_count}
 
     def load_state_dict(self, state_dict):
-        """Restore a state of this class or a JAX learner's ``state_dict()``."""
+        """Restore a state of this class or a JAX learner's ``state_dict()``
+        (all tasks' posteriors; under a mesh each rank keeps its shard)."""
         if not isinstance(state_dict["opt_state"], dict):
             state_dict = from_jax_mlap_state(state_dict)
 
         def flat(tree):
             leaves = {**tree["hyper_post"], **{k: v for k, v in tree.items()
                                                if k != "hyper_post"}}
-            return {k: self._tensor(v) for k, v in leaves.items()}
+            leaves = {k: self._tensor(v) for k, v in leaves.items()}
+            if self._shard is not None:
+                for k in Q_KEYS:
+                    (leaves[k],) = self._shard.take(leaves[k])
+            return leaves
 
         self.params = flat(state_dict["params"])
         opt = state_dict["opt_state"]

@@ -26,8 +26,14 @@ A sampled task batch draws the tasks of step s from a generator seeded with
 (train seed, s), on both paths, so they follow one random trajectory and do
 not depend on how the steps are chunked. ``_stacked_step`` is the general
 step of S fits stacked on a leading axis (``parallel.fit_models_parallel``,
-``utils.tuning_parallel``), each with its own draws. The mesh-sharded path
-is not ported yet.
+``utils.tuning_parallel``), each with its own draws.
+
+``mesh=`` (a ``parallel.make_mesh`` mesh, full batch only) shards the tasks
+over the mesh's "task" axis, as the JAX learner's: each rank takes the
+score of the particles on its own tasks (the hyper-prior term on the
+axis's first rank only), an all_reduce sums the scores, and every rank
+applies the same transport (K1) and update to its copy of the particles.
+The fused kernels are off under a mesh; the general step runs K1-K3 or B4.
 """
 
 import time
@@ -72,8 +78,10 @@ class GPRegressionMetaLearnedSVGD(RegressionModelMetaLearned):
                  covar_module="NN", mean_module="NN", mean_nn_layers=(32, 32),
                  kernel_nn_layers=(32, 32), optimizer="Adam", lr=1e-3, lr_decay=1.0,
                  kernel="RBF", bandwidth=None, num_particles=10, task_batch_size=-1,
-                 normalize_data=True, random_seed=None, device=None):
-        """device: where the particles, the data and the computation live
+                 normalize_data=True, random_seed=None, mesh=None, device=None):
+        """mesh: a ``parallel.make_mesh`` mesh with a "task" axis, of the
+        learner's device type; requires task_batch_size=-1 (full batch).
+        device: where the particles, the data and the computation live
         ('cuda', 'cpu', a torch.device); None means the card, and raises
         without one."""
         super().__init__(normalize_data, random_seed, device)
@@ -95,6 +103,7 @@ class GPRegressionMetaLearnedSVGD(RegressionModelMetaLearned):
         self.n_tasks = self.X.shape[0]
         self.task_batch_size = (self.n_tasks if task_batch_size < 1
                                 else min(task_batch_size, self.n_tasks))
+        self._shard_tasks(mesh, self.task_batch_size == self.n_tasks)
 
         self.cfg = random_gp_config(
             self.input_dim, feature_dim=feature_dim, mean_module=mean_module,
@@ -145,8 +154,11 @@ class GPRegressionMetaLearnedSVGD(RegressionModelMetaLearned):
         batch ``data`` (X, Y, mask): the score by autograd, then the Stein
         transport (one K1 launch for all fits of a stack)."""
         part = particles.detach().requires_grad_(True)
-        log_prob = meta_log_prob(self.hyper_prior, prior_factor, part, *data)
+        log_prob = meta_log_prob(self.hyper_prior, prior_factor, part, *data,
+                                 **self._shard_terms())
         (score,) = torch.autograd.grad(log_prob.sum(), part)
+        if self._shard is not None:
+            self._shard.all_reduce_(score)
         with torch.no_grad():
             return -svgd_phi(particles, score, kernel=self.svgd_kernel, bandwidth=bandwidth)
 
@@ -187,6 +199,7 @@ class GPRegressionMetaLearnedSVGD(RegressionModelMetaLearned):
         t, n, d = self.X.shape
         return (
             config.fused_enabled()
+            and self._mesh is None
             # full batch, or sampled batches as count pages of uniform task sizes
             and (self.task_batch_size == self.n_tasks or bool(torch.all(sizes == sizes[0])))
             and self.svgd_kernel == "RBF" and self.bandwidth is None

@@ -32,8 +32,15 @@ count-weighted mode, ``PACOH_TPU_VI_WEIGHTED=1``). Both paths take the same
 draws, so they follow one random trajectory and do not depend on how the
 steps are chunked. ``_stacked_step`` is the general step of S fits stacked
 on a leading axis (``parallel.fit_models_parallel``,
-``utils.tuning_parallel``), each with its own draws. The JAX learner's mesh
-path is not ported yet.
+``utils.tuning_parallel``), each with its own draws.
+
+``mesh=`` (a ``parallel.make_mesh`` mesh, full batch only) shards the tasks
+over the mesh's "task" axis, as the JAX learner's: each rank takes its
+tasks' share of the negative ELBO (the hyper-prior and entropy terms on
+the axis's first rank only), an all_reduce sums the gradients, and every
+rank applies the same update to its copy of the posterior. Every rank
+draws the same noise (the generator of (train seed, s) on its device).
+The fused kernels are off under a mesh.
 """
 
 import time
@@ -74,8 +81,10 @@ class GPRegressionMetaLearnedVI(RegressionModelMetaLearned):
                  covar_module="NN", mean_module="NN", mean_nn_layers=(32, 32),
                  kernel_nn_layers=(32, 32), optimizer="Adam", lr=1e-3, lr_decay=1.0,
                  svi_batch_size=10, cov_type="diag", task_batch_size=-1,
-                 normalize_data=True, random_seed=None, device=None):
-        """device: where the posterior, the data and the computation live
+                 normalize_data=True, random_seed=None, mesh=None, device=None):
+        """mesh: a ``parallel.make_mesh`` mesh with a "task" axis, of the
+        learner's device type; requires task_batch_size=-1 (full batch).
+        device: where the posterior, the data and the computation live
         ('cuda', 'cpu', a torch.device); None means the card, and raises
         without one."""
         super().__init__(normalize_data, random_seed, device)
@@ -97,6 +106,7 @@ class GPRegressionMetaLearnedVI(RegressionModelMetaLearned):
         self.n_tasks = self.X.shape[0]
         self.task_batch_size = (self.n_tasks if task_batch_size < 1
                                 else min(task_batch_size, self.n_tasks))
+        self._shard_tasks(mesh, self.task_batch_size == self.n_tasks)
 
         self.cfg = random_gp_config(
             self.input_dim, feature_dim=feature_dim, mean_module=mean_module,
@@ -147,8 +157,12 @@ class GPRegressionMetaLearnedVI(RegressionModelMetaLearned):
         gradient by autograd, then Adam (at step ``adam_count``) or SGD at
         lr, a number or [S] (one value a stacked fit). Returns the loss."""
         post = {k: v.detach().requires_grad_(True) for k, v in posterior.items()}
-        loss = neg_elbo(self.hyper_prior, prior_factor, post, eps, *data, counts=counts)
+        loss = neg_elbo(self.hyper_prior, prior_factor, post, eps, *data, counts=counts,
+                        **self._shard_terms())
         grads = torch.autograd.grad(loss.sum(), list(post.values()))
+        loss = loss.detach()
+        if self._shard is not None:
+            self._shard.all_reduce_(loss, *grads)
         with torch.no_grad():
             for (k, v), g in zip(posterior.items(), grads):
                 lr_k = per_seed(lr, v.dim())
@@ -156,7 +170,7 @@ class GPRegressionMetaLearnedVI(RegressionModelMetaLearned):
                     v.sub_(lr_k * g)
                 else:
                     cuda.adam_step_(v, mu[k], nu[k], g, adam_count, lr_k)
-        return loss.detach()
+        return loss
 
     def _step(self):
         """One general step; returns its loss (a device scalar)."""
@@ -198,6 +212,7 @@ class GPRegressionMetaLearnedVI(RegressionModelMetaLearned):
         t, n, d = self.X.shape
         return (
             config.fused_enabled()
+            and self._mesh is None
             and self._cov_type == "diag"
             # full batch, or sampled batches as count pages of uniform task sizes
             and (self.task_batch_size == self.n_tasks or bool(torch.all(sizes == sizes[0])))

@@ -163,7 +163,7 @@ def make_hyper_prior(cfg: GPConfig, weight_prior_std=1.0, bias_prior_std=3.0, de
 
 
 def meta_log_prob(hyper_prior: HyperPrior, prior_factor, flat_particles, X, Y, mask=None,
-                  counts=None, task_mll=gp_prior_mll_batch):
+                  counts=None, task_mll=gp_prior_mll_batch, task_sizes=None, with_prior=True):
     """PACOH generalised-Bayes score of K particles on a task batch.
 
     flat_particles [K, P]; X [T, N, D]; Y [T, N]; mask [T, N] or None.
@@ -178,6 +178,12 @@ def meta_log_prob(hyper_prior: HyperPrior, prior_factor, flat_particles, X, Y, m
     multiplicity in the sample (summing to the batch size). It equals
     gathering the sampled batch: the harmonic mean is taken over the sampled
     multiset, and a never-drawn task adds exactly 0 even if its MLL is NaN.
+
+    A rank of a task-sharded mesh passes the full batch's shard of the
+    tasks: ``task_sizes`` [T] the real-point counts of all T tasks (the
+    harmonic mean and the task count are the whole batch's), and
+    ``with_prior`` True on one rank only, so that the hyper-prior term is
+    added once when the ranks' scores are summed.
     """
     if mask is None:
         mask = torch.ones_like(Y)
@@ -186,6 +192,8 @@ def meta_log_prob(hyper_prior: HyperPrior, prior_factor, flat_particles, X, Y, m
                         X, Y, mask)  # [..., K, T]
 
     sizes = torch.sum(mask, dim=-1)
+    if task_sizes is not None:
+        sizes, t = task_sizes, task_sizes.shape[-1]
     if counts is None:
         harmonic_mean = 1.0 / torch.mean(1.0 / sizes, dim=-1)
         pre_factor = harmonic_mean / (harmonic_mean + t)
@@ -197,8 +205,10 @@ def meta_log_prob(hyper_prior: HyperPrior, prior_factor, flat_particles, X, Y, m
         # a never-drawn task's MLL (maybe NaN) is replaced, not multiplied by 0
         counts = counts.unsqueeze(-2)
         task_sum = (counts * torch.where(counts > 0, per_task, 0.0)).sum(-1)
-    return (per_seed(prior_factor, 2) * hyper_prior.log_prob(flat_particles)
-            + per_seed(pre_factor, 2) * task_sum)
+    data_term = per_seed(pre_factor, 2) * task_sum
+    if not with_prior:
+        return data_term
+    return per_seed(prior_factor, 2) * hyper_prior.log_prob(flat_particles) + data_term
 
 
 
@@ -288,13 +298,17 @@ def posterior_kl_to_prior(post, hyper_prior: HyperPrior):
 
 
 def neg_elbo(hyper_prior: HyperPrior, prior_factor, post, eps, X, Y, mask=None, counts=None,
-             task_mll=gp_prior_mll_batch):
+             task_mll=gp_prior_mll_batch, task_sizes=None, with_prior=True):
     """PACOH-VI's loss: -(mean_s meta_log_prob(sample_s) + prior_factor * H(q)),
     the samples ``posterior_rsample(post, eps)``. E_q[log q] is the exact
     -H(q) of a Gaussian, not a sample estimate (as in the JAX package).
     Stacked (leaves [S, P], eps [S, M, P], prior_factor a number or [S]):
-    one loss a fit, [S]."""
+    one loss a fit, [S]. ``task_sizes`` and ``with_prior`` as in
+    ``meta_log_prob``: without the prior, neither the hyper-prior nor the
+    entropy term (a task shard's share of the loss)."""
     samples = posterior_rsample(post, eps)
     lp = meta_log_prob(hyper_prior, prior_factor, samples, X, Y, mask, counts=counts,
-                       task_mll=task_mll)
+                       task_mll=task_mll, task_sizes=task_sizes, with_prior=with_prior)
+    if not with_prior:
+        return -torch.mean(lp, dim=-1)
     return -(torch.mean(lp, dim=-1) + per_seed(prior_factor, 1) * posterior_entropy(post))

@@ -4,10 +4,20 @@ Plain functions of (mean vector, Gram matrix, targets) over any leading batch
 dimensions. A padded point's Gram row and column become an identity row and
 its residual zero, so it adds exactly 0 to the quadratic form and the
 log-determinant. ``gp_mll`` returns the joint log-density divided by the
-number of real points; ``noise_var`` is a variance. The distributed tier of
-the JAX package is not ported.
+number of real points; ``noise_var`` is a variance.
+
+The last tier, above the blocked kernels' window: inside a
+``distributed_linalg`` context, systems of N >= min_n go through
+parallel/dist_chol.py, each Gram matrix's block rows factored across the
+ranks of a mesh axis. The context is an explicit, scoped opt-in (the
+learners built with ``mesh=`` and large-N data open it around their loss).
+It takes only a single task axis: ``gp_mll`` one [N, N] system and
+``gp_mll_batch`` [B, N, N]. An operand with a particle or seed axis in
+front keeps the single-device path, as the JAX package's refuses vmapped
+operands (there shard_map cannot nest under vmap).
 """
 
+import contextlib
 import math
 
 import torch
@@ -36,6 +46,36 @@ from meta_learning_pacoh_torch.ops.cuda.mll_kernel import (
 )
 
 _LOG_2PI = math.log(2.0 * math.pi)
+
+_DIST_LINALG = None
+
+
+@contextlib.contextmanager
+def distributed_linalg(mesh, axis_name="task", block_size=128, min_n=None):
+    """Route large-N Gram factorizations through the distributed tier.
+
+    min_n: the smallest N to distribute (default BLOCKED_MAX_N + 1, just
+    past the blocked kernels' window; tests pass smaller values). The
+    context must be open while the loss is computed; the backward needs it
+    no more (it keeps the mesh of its forward).
+    """
+    global _DIST_LINALG
+    if min_n is None:
+        min_n = BLOCKED_MAX_N + 1
+    prev = _DIST_LINALG
+    _DIST_LINALG = (mesh, axis_name, block_size, int(min_n))
+    try:
+        yield
+    finally:
+        _DIST_LINALG = prev
+
+
+def _dispatch_ctx(K, system_dims):
+    """The open distributed-linalg context if the Gram operand K, of
+    ``system_dims`` dimensions where one task axis is allowed, takes it."""
+    if _DIST_LINALG is None or K.shape[-1] < _DIST_LINALG[3] or K.dim() != system_dims:
+        return None
+    return _DIST_LINALG
 
 
 def add_noise_masked(K, noise_var, mask=None, jitter=1e-6):
@@ -74,6 +114,13 @@ def gp_mll(mean, K, y, noise_var, mask=None, jitter=1e-6):
     Kn = add_noise_masked(K, noise_var, mask, jitter)
     r, n_eff = _residual(mean, y, mask)
     n = y.shape[-1]
+    dist = _dispatch_ctx(K, 2)
+    if dist is not None:
+        from meta_learning_pacoh_torch.parallel.dist_chol import distributed_gp_mll
+
+        d_mesh, d_axis, d_block, _ = dist
+        return distributed_gp_mll(torch.zeros_like(r), Kn, r, d_mesh, d_axis, d_block,
+                                  n_eff=n_eff) / n_eff
     if n <= UNROLL_MAX_N:
         Kn_nd = Kn.detach()
         eye = torch.eye(n, dtype=Kn.dtype, device=Kn.device)
@@ -98,10 +145,22 @@ def gp_mll_batch(mean, K, y, noise_var, mask=None, jitter=1e-6):
     Dispatch, with the kernels on and float32: N <= 8 unrolled expressions;
     MLL_KERNEL_MIN_N <= N <= MLL_KERNEL_MAX_N the MLL kernels K2/K3,
     BLOCKED_MIN_N <= N <= BLOCKED_MAX_N the blocked MLL kernels B4 (each a
-    launch per direction for the whole batch); otherwise ``gp_mll``.
+    launch per direction for the whole batch); otherwise ``gp_mll``. In a
+    ``distributed_linalg`` context, [B, N, N] systems of N >= min_n go
+    through the distributed tier, one task after another.
     """
     n = y.shape[-1]
     noise_b = torch.as_tensor(noise_var, dtype=y.dtype, device=y.device).expand(y.shape[:-1])
+    dist = _dispatch_ctx(K, 3)
+    if dist is not None:
+        from meta_learning_pacoh_torch.parallel.dist_chol import distributed_gp_mll_batch
+
+        d_mesh, d_axis, d_block, _ = dist
+        Kn = add_noise_masked(K, noise_b, mask, jitter)
+        r, n_eff = _residual(mean, y, mask)
+        mlls = distributed_gp_mll_batch(torch.zeros_like(r), Kn, r, d_mesh, d_axis, d_block,
+                                        n_eff=n_eff)
+        return mlls / n_eff
     quad_logdet = None
     if config.kernels_enabled() and y.dtype == torch.float32:
         if MLL_KERNEL_MIN_N <= n <= MLL_KERNEL_MAX_N:

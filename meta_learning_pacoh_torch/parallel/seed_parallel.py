@@ -23,8 +23,11 @@ Usage:
     models = [GPRegressionMetaLearned(data, random_seed=s) for s in seeds]
     fit_models_parallel(models, n_iter=10000)   # all S fitted in place
 
-The JAX package's ``mesh`` argument (the stack sharded over a device mesh)
-is not ported.
+With ``mesh=`` (``make_seed_mesh``) the seed axis is split over the ranks
+of the mesh: each rank stacks its contiguous share of the fits (a count
+that does not divide the mesh is padded with the last model, whose extra
+fits are discarded), no rank talks to another while they train, and an
+all_gather at the end hands every rank every model's state.
 """
 
 import time
@@ -32,6 +35,7 @@ import time
 import torch
 
 from meta_learning_pacoh_torch.ops import launch_sched
+from meta_learning_pacoh_torch.parallel import mesh as mesh_ops
 
 _GP_DATA = ("X", "Y", "mask")
 _GP_PRIOR = ("cfg", "_weight_prior_std", "_bias_prior_std")
@@ -161,11 +165,22 @@ def check_group(models, free=()):
         raise ValueError("all models must be at the same training step")
 
 
-def fit_stacked(models, n_iter, log_period=5000, verbose=False):
+def fit_stacked(models, n_iter, log_period=5000, verbose=False, mesh=None, axis=None):
     """``n_iter`` general steps of the checked group ``models``, stacked;
-    each model's state, counts and ``fitted`` written back at the end."""
-    m0 = models[0]
-    stack = SeedStack(models)
+    each model's state, counts and ``fitted`` written back at the end.
+    With a mesh, each rank stacks its contiguous share of ``models`` on the
+    mesh axis ``axis`` (a count that does not divide the axis is padded with
+    the last model, whose extra fits are discarded), and the stacked states
+    are gathered over the axis into every model, on every rank."""
+    local = list(models)
+    if mesh is not None:
+        for m in models:
+            mesh_ops.check_mesh_device(mesh, m.device)
+        d = mesh_ops.axis_size(mesh, axis)
+        padded = local + [local[-1]] * ((-len(local)) % d)
+        local = padded[mesh_ops.shard_rows(mesh, len(padded), axis)]
+    m0 = local[0]
+    stack = SeedStack(local)
     t, done = time.time(), 0
     while done < n_iter:
         chunk = int(min(log_period, n_iter - done))
@@ -176,8 +191,18 @@ def fit_stacked(models, n_iter, log_period=5000, verbose=False):
             if stack.device.type == "cuda":
                 torch.cuda.synchronize(stack.device)
             m0.logger.info("seed-parallel (%d models): iter %d/%d - %.2f sec"
-                           % (len(models), done, n_iter, time.time() - t))
+                           % (len(local), done, n_iter, time.time() - t))
             t = time.time()
+    if mesh is not None:
+        group = mesh_ops.axis_group(mesh, axis)
+
+        def gather(stacked):
+            if isinstance(stacked, dict):
+                return {k: gather(v) for k, v in stacked.items()}
+            return mesh_ops.all_gather(stacked, group).reshape(-1, *stacked.shape[1:])
+
+        stack.state = {attr: gather(stacked) for attr, stacked in stack.state.items()}
+        stack.models = list(models)
     stack.unstack()
     return models
 
@@ -186,7 +211,8 @@ def _all_fused(models):
     return all(getattr(m, "_fused_path_ok", lambda: False)() for m in models)
 
 
-def fit_models_parallel(models, n_iter=None, log_period=5000, verbose=False, prefer="auto"):
+def fit_models_parallel(models, n_iter=None, log_period=5000, mesh=None, verbose=False,
+                        prefer="auto"):
     """Meta-fit S same-config learners at once.
 
     models:     learners of one class in ``_SPECS`` and one static
@@ -196,6 +222,11 @@ def fit_models_parallel(models, n_iter=None, log_period=5000, verbose=False, pre
     log_period: steps between log lines with ``verbose`` (the stacked fit
                 is one step a loop iteration: chunking never changes
                 results).
+    mesh:       optional mesh with a 'seed' axis (``make_seed_mesh``): the
+                stacked seed axis is split over its ranks, any S on any
+                mesh (see the module's docstring); every rank builds the
+                same models and calls this. The learners themselves carry
+                no mesh.
     prefer:     'vmap' | 'sequential_fused' | 'auto'.
                 'vmap' stacks the S fits into one general step a step (the
                 name of the JAX package's vmapped route). 'sequential_fused'
@@ -203,7 +234,8 @@ def fit_models_parallel(models, n_iter=None, log_period=5000, verbose=False, pre
                 fused window rides its single-launch training kernel (B2,
                 B6, B7, B8, B9, B10, B11), exactly as per-model fits.
                 'auto' takes 'sequential_fused' where every model is in a
-                fused window and 'vmap' elsewhere. MEASURED on one NVIDIA
+                fused window and no mesh is given, and 'vmap' elsewhere;
+                'sequential_fused' with a mesh raises. MEASURED on one NVIDIA
                 H100 80GB HBM3 at a 700 W power limit (chip_smoke.py phase
                 12b, two calls: the meta-overfitting sweep's PACOH-MAP cell
                 on sin_32, seeds 22-26, sampled task batches of 5): 'vmap'
@@ -227,12 +259,21 @@ def fit_models_parallel(models, n_iter=None, log_period=5000, verbose=False, pre
     if n_iter is None:
         n_iter = models[0].num_iter_fit
     if prefer == "auto":
-        prefer = "sequential_fused" if _all_fused(models) else "vmap"
+        prefer = "vmap" if mesh is not None or not _all_fused(models) else "sequential_fused"
     if prefer == "sequential_fused":
+        if mesh is not None:
+            raise ValueError("sequential_fused runs every fit on every rank; with a mesh "
+                             "use prefer='vmap' (or 'auto'), which splits the seed axis")
         if not _all_fused(models):
             raise ValueError("sequential_fused requires every model in a fused window")
         for m in models:
             m.meta_fit(verbose=verbose, log_period=log_period, n_iter=n_iter)
         return models
     check_group(models)
-    return fit_stacked(models, n_iter, log_period=log_period, verbose=verbose)
+    if not all(getattr(m, "_mesh", None) is None for m in models):
+        raise ValueError("seed-parallel fit shards the seed axis itself; construct the "
+                         "learners with mesh=None")
+    if mesh is not None and "seed" not in mesh.mesh_dim_names:
+        raise ValueError("the mesh needs a 'seed' axis")
+    return fit_stacked(models, n_iter, log_period=log_period, verbose=verbose, mesh=mesh,
+                       axis="seed")

@@ -16,8 +16,10 @@ num_particles) cannot ride a stack: callers group suggestions by static
 configuration and stack within each group (the ``batch_trial_fn`` contract
 of ``utils/tuning.tune_run``). The JAX package memoizes one compiled step a
 group (``jit_cache.shared``); here a group's shared static configuration
-is checked by equality. The ``mesh`` argument (the trial axis sharded over
-a device mesh) is not ported.
+is checked by equality. With ``mesh=``, the trial axis is padded to the
+mesh axis's size (the last trial again) and split over its ranks, as
+``parallel.fit_models_parallel`` splits seeds; the axis is "trial" where
+the mesh has one, else its first.
 """
 
 from meta_learning_pacoh_torch.parallel.seed_parallel import check_group, fit_stacked
@@ -36,13 +38,17 @@ def _assert_common(models, free):
     return m0
 
 
-def _fit(models, n_iter, log_period, free):
+def _fit(models, n_iter, log_period, free, mesh):
     m0 = _assert_common(models, free)
+    axis = None
+    if mesh is not None:
+        names = mesh.mesh_dim_names
+        axis = "trial" if "trial" in names else names[0]
     return fit_stacked(models, m0.num_iter_fit if n_iter is None else n_iter,
-                       log_period=log_period)
+                       log_period=log_period, mesh=mesh, axis=axis)
 
 
-def fit_map_hyper_parallel(models, n_iter=None, log_period=5000):
+def fit_map_hyper_parallel(models, n_iter=None, log_period=5000, mesh=None):
     """Meta-fit K GPRegressionMetaLearned models that differ only in
     lr_params / weight_decay, in one stacked fit.
 
@@ -54,10 +60,10 @@ def fit_map_hyper_parallel(models, n_iter=None, log_period=5000):
     """
     assert type(models[0]).__name__ == "GPRegressionMetaLearned", (
         "fit_map_hyper_parallel takes PACOH-MAP learners")
-    return _fit(models, n_iter, log_period, ("lr_params", "weight_decay"))
+    return _fit(models, n_iter, log_period, ("lr_params", "weight_decay"), mesh)
 
 
-def fit_svgd_hyper_parallel(models, n_iter=None, log_period=5000):
+def fit_svgd_hyper_parallel(models, n_iter=None, log_period=5000, mesh=None):
     """Meta-fit K GPRegressionMetaLearnedSVGD models that differ only in
     lr / prior_factor / bandwidth, in one stacked fit.
 
@@ -71,17 +77,17 @@ def fit_svgd_hyper_parallel(models, n_iter=None, log_period=5000):
     if any(m.bandwidth is None for m in models):
         assert all(m.bandwidth is None for m in models), (
             "mixed None/numeric bandwidths cannot share one stacked step")
-    return _fit(models, n_iter, log_period, ("_lr", "prior_factor", "bandwidth"))
+    return _fit(models, n_iter, log_period, ("_lr", "prior_factor", "bandwidth"), mesh)
 
 
-def fit_vi_hyper_parallel(models, n_iter=None, log_period=5000):
+def fit_vi_hyper_parallel(models, n_iter=None, log_period=5000, mesh=None):
     """Meta-fit K GPRegressionMetaLearnedVI models that differ only in
     lr / prior_factor, in one stacked fit."""
     assert type(models[0]).__name__ == "GPRegressionMetaLearnedVI"
-    return _fit(models, n_iter, log_period, ("_lr", "prior_factor"))
+    return _fit(models, n_iter, log_period, ("_lr", "prior_factor"), mesh)
 
 
-def fit_hyper_parallel(models, n_iter=None, log_period=5000):
+def fit_hyper_parallel(models, n_iter=None, log_period=5000, mesh=None):
     """Dispatch a homogeneous trial batch to the learner's hyper-parallel
     fit. Raises for learner families without one (callers fall back to
     sequential trials)."""
@@ -93,11 +99,12 @@ def fit_hyper_parallel(models, n_iter=None, log_period=5000):
     }
     if name not in fits:
         raise NotImplementedError(f"hyper-parallel trials cover MAP/SVGD/VI; got {name}")
-    return fits[name](models, n_iter=n_iter, log_period=log_period)
+    return fits[name](models, n_iter=n_iter, log_period=log_period, mesh=mesh)
 
 
 def run_trial_batch(configs, build_model_fn, eval_fn, n_iter,
-                    static_keys=("feature_dim", "task_batch_size"), log_period=5000):
+                    static_keys=("feature_dim", "task_batch_size"), mesh=None,
+                    log_period=5000):
     """Execute a batch of tuning trials (MAP / SVGD / VI): group configs by
     their static (shape-changing) keys, hyper-parallel-fit each group of
     size >= 2, run singletons sequentially, and return results in input
@@ -112,7 +119,7 @@ def run_trial_batch(configs, build_model_fn, eval_fn, n_iter,
     for idx in groups.values():
         models = [build_model_fn(configs[i]) for i in idx]
         if len(models) >= 2:
-            fit_hyper_parallel(models, n_iter=n_iter, log_period=log_period)
+            fit_hyper_parallel(models, n_iter=n_iter, mesh=mesh, log_period=log_period)
         else:
             models[0].meta_fit(verbose=False, log_period=n_iter, n_iter=n_iter)
         for i, m in zip(idx, models):

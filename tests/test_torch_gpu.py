@@ -1334,3 +1334,61 @@ def test_maml_and_np_on_card_match_the_cpu(dev, learner):
         on_cpu._eval_eps = lambda n: eps
     np.testing.assert_allclose(on_card.eval_datasets(test), on_cpu.eval_datasets(test),
                                rtol=1e-4)
+
+
+# ------------------------------------------------- the distributed tier (one NCCL rank)
+@pytest.fixture
+def nccl_mesh(dev):
+    """A one-rank NCCL mesh of this process on the card (``make_mesh``'s
+    single-process path)."""
+    from meta_learning_pacoh_torch.parallel import make_mesh
+
+    return make_mesh()
+
+
+@pytest.mark.parametrize("n", [520, 1000, 2048])
+def test_distributed_cholesky_one_rank(nccl_mesh, n):
+    """distributed_cholesky over one NCCL rank (1000: the identity tail)
+    against cholesky_ex: the factor within 1e-4 of L's largest entry,
+    ||L L^T - A|| / ||A|| below 1e-5, and the diagonal blocks through K4."""
+    from meta_learning_pacoh_torch.parallel import distributed_cholesky
+
+    a = _psd(1, n, seed=n)[0].cuda()
+    cuda.reset_launch_counts()
+    L = distributed_cholesky(a, nccl_mesh)
+    assert cuda.LAUNCHES["chol"] == -(-n // 128)
+    ref, info = torch.linalg.cholesky_ex(a)
+    assert int(info) == 0
+    assert_close_per_system(L[None], ref[None])
+    assert float(torch.linalg.norm(L @ L.T - a) / torch.linalg.norm(a)) < 1e-5
+
+
+def test_distributed_gp_mll_one_rank(nccl_mesh):
+    """distributed_gp_mll's value and closed-form gradient at N=1024 over one
+    NCCL rank against the plain path's autograd (torch.linalg), both within
+    1e-4 of a float64 plain run's largest entry."""
+    from meta_learning_pacoh_torch.parallel import distributed_gp_mll
+
+    n = 1024
+    a = _psd(1, n, seed=3)[0].cuda()
+    rs = np.random.RandomState(1)
+    y = torch.tensor(rs.randn(n), dtype=torch.float32, device="cuda")
+    mean = torch.tensor(rs.randn(n), dtype=torch.float32, device="cuda")
+
+    def plain(m, k, yy):
+        L = torch.linalg.cholesky(k)
+        z = torch.linalg.solve_triangular(L, (yy - m)[:, None], upper=False)[:, 0]
+        return -0.5 * (z @ z + 2 * torch.log(torch.diagonal(L)).sum() + n * math.log(2 * math.pi))
+
+    def value_and_grads(fn, dtype):
+        args = [t.to(dtype).requires_grad_(True) for t in (mean, a, y)]
+        v = fn(*args)
+        return [v.detach()] + list(torch.autograd.grad(v, args))
+
+    got = value_and_grads(lambda m, k, yy: distributed_gp_mll(m, k, yy, nccl_mesh), torch.float32)
+    f32 = value_and_grads(plain, torch.float32)
+    f64 = value_and_grads(plain, torch.float64)
+    for g, p, w in zip(got, f32, f64):
+        scale = float(w.abs().max())
+        assert float((g.double() - w).abs().max()) <= 1e-4 * scale
+        assert float((p.double() - w).abs().max()) <= 1e-4 * scale
