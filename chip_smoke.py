@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port of PACOH (SVGD, MAP, VI, MLAP, GPR-MLL, GPR-PAC, MAML and NP, alone, stacked and on a device mesh) once on one NVIDIA GPU.
+"""Drive the PyTorch/CUDA port of PACOH (SVGD, MAP, VI, MLAP, GPR-MLL, GPR-PAC, MAML and NP, alone, stacked and on a device mesh, and through the experiment CLIs) once on one NVIDIA GPU.
 
     python3 chip_smoke.py                # all phases, one card
     python3 chip_smoke.py --profile DIR  # also trace fit steps and one eval of
@@ -228,6 +228,31 @@ trials with ``mesh=``, against the same calls without; MLAP's meta-test of
 20 tasks sharded over the mesh against the learner without one. Whether
 each path's bits agree with its run without a mesh is printed; phase 13's
 launches enter the kernels line's counts.
+Phase 14 runs the experiment CLIs of ``meta_learning_pacoh_torch.experiments``
+and the demo in this process through their ``main(argv)``, on the card by
+default, into a temporary directory, at the default nets (32, 32) and
+sin_20's 20 tasks of 5 points, only the steps cut; each run's launches are
+printed. The six per-algorithm CLIs at ``--n_iter_fit 500`` (SVGD, VI and
+MLAP with ``--feature_dim 1``, the learners' default, which their fused
+kernels take): MAP through B6, SVGD B2, VI B7, MLAP B8, MAML and the NP no
+kernel; each results.json finite, its run directory ``hash_dict`` of its
+flags, and its metrics the bits of the learner built here with the same
+keywords and fitted the same way. The baseline comparison on sin_20 (five
+algorithms, seed 22, 300 steps, 10 test tasks: 5 rows, none failed), its
+n-tasks variant on sin_5 (PACOH-MAP, seeds 22 and 23) and the summary of
+the first CSV. The meta-overfitting sweep (PACOH-MAP, 4 and 8 tasks, weight
+decay 0.1, seeds 22-24, 300 steps) with and without ``--seed_parallel``: 6
+rows each, no fallback, B6 in both, the metric columns the same bits. The
+hyperparameter search: PACOH-SVGD trials in stacked pairs with the
+re-evaluation seeds fitted together (the space's numeric bandwidth takes the
+plain RBF transport, not K1; K4 in the evals), PACOH-MAP trials in stacked
+pairs (B6 in the re-evaluation); each
+writes its CSV with no trial failed and no batch fallen back. The
+launcher's commands, each parsed by the search's parser. The image NP
+driver on synthetic IDX images (1 epoch of 64): finite losses, model.pkl
+loaded into a fresh model predicts the bits of the same training run driven
+directly. The demo in full: its LL, RMSE and calibration the bits of phase
+5's demo fit.
 
 Any failure raises and exits non-zero. The line before the last is a JSON
 object with one record per kernel; the last line is
@@ -458,6 +483,17 @@ SWEEP_SEEDS = (22, 23, 24, 25, 26)
 SWEEP_STEPS = 500
 SWEEP_VMAP_STEPS, SWEEP_FUSED_STEPS, SWEEP_TEST_TASKS = 1000, 10000, 50
 TRIAL_STEPS, TUNE_STEPS, TUNE_BATCH = 500, 300, 4
+# phase 14: the experiment CLIs at full width, their steps cut
+CLI_STEPS, CLI_MLAP_META_TEST = 500, 100
+CLI_SWEEP_STEPS, CLI_SEARCH_STEPS = 300, 200
+CLI_KERNELS = {  # per-algorithm CLI -> (experiment name, the kernels its run must launch)
+    "meta_gpr_mll_base_exp": ("meta_gpr_mll", ("fused_map",)),
+    "meta_gpr_svgd_base_exp": ("meta_gpr_svgd", ("fused_svgd",)),
+    "meta_gpr_vi_base_exp": ("meta_gpr_vi", ("fused_vi",)),
+    "meta_mlap_base_exp": ("meta_mlap", ("fused_mlap",)),
+    "maml_base_exp": ("maml", ()),
+    "npr_base_exp": ("npr", ()),
+}
 
 
 def card_line():
@@ -4847,6 +4883,333 @@ def phase13():
     return launches, summary
 
 
+def cli_launches(label, run, expect=(), none=False):
+    """Run ``run()`` with every launch count at 0 before; print and return its
+    result, its launches and its seconds. Each kernel of ``expect`` must have
+    launched; with ``none``, no kernel may have."""
+    import torch
+
+    from meta_learning_pacoh_torch.ops import cuda
+
+    cuda.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = run()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = launched()
+    print(f"  {label}: {seconds:.2f} s, launches {launches}")
+    missing = [k for k in expect if not launches.get(k)]
+    if missing or (none and launches):
+        raise AssertionError(f"{label}: launches {launches}, expected {list(expect)}"
+                             + (" and no other" if none else ""))
+    return out, launches, seconds
+
+
+def cli_direct(name, train, valid, test):
+    """The learner a per-algorithm CLI builds for ``cli_argv(name)``, built here
+    with its keywords written out, fitted and evaluated as run_experiment
+    (maml_base_exp.main) does; returns its metrics."""
+    from meta_learning_pacoh_torch import (
+        GPRegressionMetaLearned,
+        GPRegressionMetaLearnedPAC,
+        GPRegressionMetaLearnedSVGD,
+        GPRegressionMetaLearnedVI,
+        MAMLRegression,
+        NPRegressionMetaLearned,
+    )
+
+    nets = dict(mean_nn_layers=(32, 32), kernel_nn_layers=(32, 32), covar_module="NN",
+                mean_module="NN", task_batch_size=5, normalize_data=True, lr_decay=1.0,
+                random_seed=28, num_iter_fit=CLI_STEPS)
+    prior = dict(prior_factor=0.01, weight_prior_std=0.5, bias_prior_std=3.0)
+    if name == "maml_base_exp":
+        model = MAMLRegression(train, layer_sizes=(32, 32), num_iter_fit=CLI_STEPS,
+                               lr_inner=0.05, num_inner_steps=1, task_batch_size=5,
+                               lr_meta=1e-3, lr_decay=1.0, random_seed=28)
+        model.meta_fit(valid_tuples=valid[:10], log_period=1000)
+        return {"test_rmse": model.eval_datasets(test)}
+    if name == "npr_base_exp":
+        model = NPRegressionMetaLearned(train, lr_params=1e-3, r_dim=50, z_dim=50, h_dim=50,
+                                        num_iter_fit=CLI_STEPS, weight_decay=1e-2,
+                                        task_batch_size=5, normalize_data=True, lr_decay=1.0,
+                                        random_seed=28)
+    elif name == "meta_gpr_mll_base_exp":
+        model = GPRegressionMetaLearned(train, learning_mode="both", lr_params=1e-3,
+                                        weight_decay=0.0, feature_dim=2, **nets)
+    elif name == "meta_gpr_svgd_base_exp":
+        model = GPRegressionMetaLearnedSVGD(train, feature_dim=1, lr=1e-3, kernel="RBF",
+                                            bandwidth=None, num_particles=10, **prior, **nets)
+    elif name == "meta_gpr_vi_base_exp":
+        model = GPRegressionMetaLearnedVI(train, feature_dim=1, lr=1e-3, svi_batch_size=10,
+                                          cov_type="diag", **prior, **nets)
+    else:
+        model = GPRegressionMetaLearnedPAC(train, feature_dim=1, task_kl_weight=1.0,
+                                           meta_kl_weight=1e-5, posterior_lr_multiplier=5.0,
+                                           lr=1e-3, svi_batch_size=5, cov_type="diag", **nets)
+    model.meta_fit(valid_tuples=valid[:10], log_period=1000, n_iter=CLI_STEPS)
+    return dict(zip(("test_ll", "test_rmse", "calib_err"), model.eval_datasets(test)))
+
+
+def cli_argv(name, data_dir):
+    """A per-algorithm CLI's command line: the defaults (nets (32, 32),
+    sin_20) with CLI_STEPS steps; SVGD, VI and MLAP with --feature_dim 1,
+    the learners' own default, which their fused kernels take (the CLI's
+    default of 2 sends them to the general step)."""
+    argv = ["--n_iter_fit", str(CLI_STEPS), "--data_dir", data_dir]
+    if name in ("meta_gpr_svgd_base_exp", "meta_gpr_vi_base_exp", "meta_mlap_base_exp"):
+        argv += ["--feature_dim", "1"]
+    if name == "meta_mlap_base_exp":
+        argv += ["--n_iter_meta_test", str(CLI_MLAP_META_TEST)]
+    return argv
+
+
+def phase14_algos(tmp, summary):
+    """The six per-algorithm CLIs: results.json finite, the run directory
+    named by hash_dict of config.json's flags, the expected kernels launched,
+    and the metrics the bits of the learner built directly."""
+    import importlib
+
+    from meta_learning_pacoh_torch.datasets import provide_data
+    from meta_learning_pacoh_torch.utils.experiment import hash_dict
+
+    train, valid, test = provide_data("sin_20", seed=28)
+    for name, (exp_name, expect) in CLI_KERNELS.items():
+        cli = importlib.import_module(f"meta_learning_pacoh_torch.experiments.{name}")
+        data_dir = os.path.join(tmp, "exp_results")
+        results, launches, seconds = cli_launches(
+            name, lambda: cli.main(cli_argv(name, data_dir)), expect, none=not expect)
+        (run_dir,) = os.listdir(os.path.join(data_dir, exp_name))
+        with open(os.path.join(data_dir, exp_name, run_dir, "config.json")) as f:
+            config = json.load(f)
+        with open(os.path.join(data_dir, exp_name, run_dir, "results.json")) as f:
+            written = json.load(f)
+        config.pop("timestamp")
+        if run_dir != hash_dict(config):
+            raise AssertionError(f"{name}: run directory {run_dir} is not hash_dict of its flags")
+        if written != results or not all(math.isfinite(v) for v in written.values()):
+            raise AssertionError(f"{name}: results.json {written} is not finite or not returned")
+        direct = cli_direct(name, train, valid, test)
+        same = all(written[k] == v for k, v in direct.items())
+        print(f"    results {json.dumps(written)}; the learner built directly: "
+              f"{json.dumps(direct)}; the same bits: {same}")
+        if not same:
+            raise AssertionError(f"{name}: the CLI's metrics differ from the direct learner's")
+        summary[name] = {"seconds": seconds, "launches": launches, **written}
+
+
+def phase14_sweeps(tmp, summary):
+    """The baseline comparison (and its n-tasks variant and summary) and the
+    meta-overfitting sweep with and without --seed_parallel."""
+    from meta_learning_pacoh_torch.experiments._cli import read_csv
+    from meta_learning_pacoh_torch.experiments.baselines import (
+        baseline_comparison,
+        baseline_comparison_n_tasks,
+        summarize_baselines,
+    )
+    from meta_learning_pacoh_torch.experiments.meta_overfitting import run_overfitting_sweep
+
+    csv_path = os.path.join(tmp, "baseline_comparison.csv")
+    out, launches, seconds = cli_launches(
+        "baseline_comparison", lambda: baseline_comparison.main(
+            ["--datasets", "sin_20", "--seeds", "22", "--n_iter_fit", str(CLI_SWEEP_STEPS),
+             "--n_test_tasks", "10", "--output_csv", csv_path]),
+        ("fused_map", "fused_svgd", "fused_vi"))
+    metric_keys = ("test_ll", "test_rmse", "calib_err", "fit_time")
+    for row in out.rows:  # MAML's row has no LL or calibration, as the original writes it
+        keys = ("test_rmse", "fit_time") if row["algo"] == "maml" else metric_keys
+        if not all(math.isfinite(row[k]) for k in keys):
+            raise AssertionError(f"baseline_comparison: a row is not finite: {row}")
+    if out.failed or len(out.rows) != 5 or len(read_csv(csv_path)) != 5:
+        raise AssertionError(f"baseline_comparison: {len(out.rows)} rows, {out.failed} failed")
+    summary["baseline_comparison"] = {"seconds": seconds, "launches": launches,
+                                      "rows": len(out.rows), "failed": out.failed}
+
+    n_csv = os.path.join(tmp, "baseline_comparison_n_tasks.csv")
+    out, launches, seconds = cli_launches(
+        "baseline_comparison_n_tasks", lambda: baseline_comparison_n_tasks.main(
+            ["--base_datasets", "sin", "--n_tasks_grid", "5", "--algos", "pacoh_map",
+             "--seeds", "22,23", "--n_iter_fit", str(CLI_SWEEP_STEPS), "--n_test_tasks", "10",
+             "--output_csv", n_csv]), ("fused_map",))
+    if out.failed or [r["dataset"] for r in out.rows] != ["sin_5", "sin_5"] or not all(
+            math.isfinite(r[k]) for r in out.rows for k in metric_keys):
+        raise AssertionError(f"baseline_comparison_n_tasks: {out}")
+    summary["baseline_comparison_n_tasks"] = {"seconds": seconds, "launches": launches,
+                                              "rows": len(out.rows), "failed": out.failed}
+
+    stats, launches, _ = cli_launches(
+        "summarize_baselines", lambda: summarize_baselines.main(["--csv", csv_path]), none=True)
+    by_algo = {key[1]: vals for key, vals in stats}
+    rows = {r["algo"]: r for r in read_csv(csv_path)}
+    if sorted(by_algo) != sorted(rows) or any(
+            v["n_seeds"] != 1 or v["rmse_mean"] != rows[a]["test_rmse"]
+            for a, v in by_algo.items()):
+        raise AssertionError("summarize_baselines: the summary does not match the CSV")
+
+    runs = {}
+    for label, extra in (("seed_parallel", ["--seed_parallel"]), ("sequential", [])):
+        out, launches, seconds = cli_launches(
+            f"run_overfitting_sweep {label}", lambda: run_overfitting_sweep.main(
+                ["--algo", "pacoh_map", "--n_tasks_grid", "4,8", "--weight_decay_grid", "0.1",
+                 "--seeds", "22,23,24", "--n_iter_fit", str(CLI_SWEEP_STEPS),
+                 "--output_csv", os.path.join(tmp, f"meta_overfitting_{label}.csv")] + extra),
+            ("fused_map",))
+        if out.failed or out.fell_back or len(out.rows) != 6:
+            raise AssertionError(f"run_overfitting_sweep {label}: {len(out.rows)} rows, "
+                                 f"{out.failed} failed, {out.fell_back} fell back")
+        runs[label] = out.rows
+        summary[f"run_overfitting_sweep {label}"] = {
+            "seconds": seconds, "launches": launches, "rows": len(out.rows),
+            "failed": out.failed, "fell_back": out.fell_back}
+    metrics = [k for k in runs["sequential"][0] if k.startswith(("test_", "calib"))]
+    same = all(a[k] == b[k] for a, b in zip(runs["seed_parallel"], runs["sequential"])
+               for k in metrics)
+    print(f"    the sweep's metric columns with and without --seed_parallel: the same bits: "
+          f"{same}")
+    if not same or not all(math.isfinite(r[k]) for r in runs["sequential"] for k in metrics):
+        raise AssertionError("run_overfitting_sweep: --seed_parallel changes the metrics")
+
+
+def phase14_search(tmp, summary):
+    """The hyperparameter search (SVGD trials stacked, the re-evaluation
+    seeds fitted together; MAP trials stacked) and the launcher's commands."""
+    import shlex
+
+    from meta_learning_pacoh_torch.experiments.hyperparam_search import (
+        launch_hyperparam_sweeps,
+        meta_hyperparam_search,
+    )
+
+    small = ["--num_samples", "4", "--trial_batch_size", "2", "--n_iter_fit",
+             str(CLI_SEARCH_STEPS), "--n_eval_tasks", "10", "--top_n", "1", "--n_test_seeds", "2",
+             "--local_dir", os.path.join(tmp, "tune_out")]
+    # the SVGD space draws a numeric bandwidth, whose transport is the plain RBF
+    # one (K1 is the median heuristic's): its trials and seeds launch K4 in the evals
+    for algo, extra, expect in (("pacoh_svgd", ["--seed_parallel"], ("chol",)),
+                                ("pacoh_map", [], ("fused_map",))):
+        out, launches, seconds = cli_launches(
+            f"meta_hyperparam_search {algo}",
+            lambda: meta_hyperparam_search.main(["--algo", algo] + small + extra), expect)
+        path = os.path.join(tmp, "tune_out", f"best_configs_{algo}_sin_20.csv")
+        if out.failed or out.fell_back or len(out.rows) != 2 or not os.path.exists(path):
+            raise AssertionError(f"meta_hyperparam_search {algo}: {len(out.rows)} rows, "
+                                 f"{out.failed} trials failed, {out.fell_back} batches fell "
+                                 f"back")
+        summary[f"meta_hyperparam_search {algo}"] = {
+            "seconds": seconds, "launches": launches, "rows": len(out.rows),
+            "failed": out.failed, "fell_back": out.fell_back}
+
+    commands = launch_hyperparam_sweeps.main([])
+    grid = set()
+    for cmd in commands:
+        words = shlex.split(cmd)
+        if words[1:3] != ["-m", launch_hyperparam_sweeps.SEARCH_MODULE]:
+            raise AssertionError(f"launcher: {cmd!r} does not run the port's search")
+        args = meta_hyperparam_search.parser().parse(words[3:])
+        grid.add((args.dataset, args.algo))
+    if len(commands) != 6 or len(grid) != 6:
+        raise AssertionError(f"launcher: {commands}")
+    print(f"    launcher: {len(commands)} commands, each parsed by the search's parser")
+
+
+def phase14_np_img(tmp, summary):
+    """The image NP driver on synthetic IDX images: finite losses, and
+    model.pkl loads into a fresh model with the same predictions as the same
+    training run driven directly."""
+    import pickle
+
+    import numpy as np
+
+    from meta_learning_pacoh_torch.datasets.np_image_data import mnist_image_batches
+    from meta_learning_pacoh_torch.experiments import np_image_experiment
+    from meta_learning_pacoh_torch.models.neural_process_img import (
+        NeuralProcessImg,
+        NeuralProcessImgTrainer,
+        batch_context_target_mask,
+    )
+
+    synthetic_idx_images(os.path.join(tmp, "train-images-idx3-ubyte.gz"), NP_IMG_IMAGES)
+    config = {"dataset": "mnist", "img_size": [1, 28, 28], "batch_size": NP_IMG_BATCH,
+              "r_dim": 128, "h_dim": 128, "z_dim": 128, "num_context_range": [3, 50],
+              "num_extra_target_range": [5, 50], "epochs": 1, "lr": 1e-3,
+              "path_to_data": tmp, "limit": NP_IMG_IMAGES, "seed": 0}
+    config_path = os.path.join(tmp, "np_config.json")
+    with open(config_path, "w") as f:
+        json.dump({**config, "results_dir": os.path.join(tmp, "np_results")}, f)
+    (losses, results_dir), launches, seconds = cli_launches(
+        "np_image_experiment", lambda: np_image_experiment.main([config_path]), none=True)
+    with open(os.path.join(results_dir, "losses.json")) as f:
+        written = json.load(f)
+    with open(os.path.join(results_dir, "model.pkl"), "rb") as f:
+        saved = pickle.load(f)
+    if written != losses or not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"np_image_experiment: losses {losses}, losses.json {written}")
+
+    rs = np.random.RandomState(0)
+    batches = mnist_image_batches(batch_size=NP_IMG_BATCH, size=28, path_to_data=tmp,
+                                  random_state=rs, limit=NP_IMG_IMAGES)
+    direct = NeuralProcessImg((1, 28, 28), r_dim=128, z_dim=128, h_dim=128, random_seed=0)
+    NeuralProcessImgTrainer(direct, lr=1e-3, num_context_range=(3, 50),
+                            num_extra_target_range=(5, 50)).train(batches, 1)
+    loaded = NeuralProcessImg((1, 28, 28), r_dim=128, z_dim=128, h_dim=128, random_seed=0)
+    loaded.load_params(saved["params"])
+    loaded._generator.set_state(direct._generator.get_state())
+    img = batches.images[0]
+    cm, _ = batch_context_target_mask((1, 28, 28), 50, 100, 1,
+                                      random_state=np.random.RandomState(1))
+    want = direct.inpaint(img, cm[0])
+    got = loaded.inpaint(img, cm[0])
+    same = all(np.array_equal(a, b) for a, b in zip(got, want)) and saved["config"] == {
+        **config, "results_dir": os.path.join(tmp, "np_results")}
+    print(f"    losses {losses}; model.pkl ({len(saved['params'])} arrays) in a fresh model "
+          f"predicts the directly trained model's bits: {same}")
+    if not same:
+        raise AssertionError("np_image_experiment: model.pkl does not give the trained model")
+    summary["np_image_experiment"] = {"seconds": seconds, "launches": launches,
+                                      "losses": losses}
+
+
+def phase14_demo(tmp, summary, reference):
+    """The demo in full (in ``tmp``, where it may write its plot): its LL, RMSE
+    and calibration the bits of ``reference`` (phase 5's demo fit)."""
+    from meta_learning_pacoh_torch import demo
+
+    cwd = os.getcwd()
+    os.chdir(tmp)
+    try:
+        got, launches, seconds = cli_launches("demo", lambda: demo.main([]), ("fused_map",))
+    finally:
+        os.chdir(cwd)
+    same = tuple(got) == tuple(reference)
+    print(f"    demo LL, RMSE, calibration {got}; phase 5's demo fit {tuple(reference)}; "
+          f"the same bits: {same}")
+    if not same:
+        raise AssertionError("demo: its metrics differ from phase 5's demo fit")
+    summary["demo"] = {"seconds": seconds, "launches": launches,
+                       **dict(zip(("ll", "rmse", "calib"), got))}
+
+
+def phase14(demo_reference=None):
+    """The experiment CLIs in this process through their main(argv), on the
+    card by default, into a temporary directory. ``demo_reference``: phase
+    5's (LL, RMSE, calibration); None fits phase 5's demo learner here."""
+    import tempfile
+
+    if demo_reference is None:
+        train, test = sin20()
+        model = demo_model(train)
+        model.meta_fit(n_iter=MAP_STEPS, log_period=MAP_STEPS, verbose=False)
+        demo_reference = model.eval_datasets(test)
+    summary = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        phase14_algos(tmp, summary)
+        phase14_sweeps(tmp, summary)
+        phase14_search(tmp, summary)
+        phase14_np_img(tmp, summary)
+        phase14_demo(tmp, summary, demo_reference)
+    return summary
+
+
 def report_one_system():
     """Print phase 2's times at one system a launch, now that the calls that
     read back to the host have their kernels' sums, and whether each kernel
@@ -4970,6 +5333,12 @@ def main():
         launches[name] = launches.get(name, 0) + count
     print("slice mesh: " + json.dumps({"card": card, **mesh_summary}))
     print(f"phase 13: {time.perf_counter() - t0:.1f} s")
+    print("phase 14: the experiment CLIs and the demo through their main(argv) (per-algorithm "
+          "runs, baseline comparison, meta-overfitting sweep, hyperparameter search, image NP)")
+    t0 = time.perf_counter()
+    cli_summary = phase14((map_summary["ll"], map_summary["rmse"], map_summary["calib"]))
+    print("slice experiments: " + json.dumps({"card": card, **cli_summary}))
+    print(f"phase 14: {time.perf_counter() - t0:.1f} s")
     print(f"all phases: {time.perf_counter() - t_start:.1f} s")
     print("the plain versions and library calls that read back to the host, by torch.profiler:")
     settle_kernel_sums(times, library)
