@@ -71,7 +71,12 @@ shared memory, the activations in device memory; the same tasks with nets
 systems a block), and the single-task paths' shapes at one system a launch
 (B4 forward and backward and K4 at N=200, K2 and K3 at N=20, each with a
 system failing at every level, timed beside ``cholesky_ex`` and
-``cholesky_inverse``).
+``cholesky_inverse``); last, after those cases and their draws, B2 and B7
+at T=320 and 512 (``sin_20``'s learners, N=5) and B8's fit at T=160 and 512
+and its meta-test mode at T=200 and 512 (mlap's learner from
+``conditioned_state``), each against its plain version with the same
+limits, its plan (tiled where a CTA's tasks do not fit), its time a step and
+its bound (``phase2_many_tasks``).
 Phase 3 runs ``cauchy_20`` through the public entry points:
 ``provide_data("cauchy_20", seed=28)``,
 ``GPRegressionMetaLearnedSVGD(..., device="cuda")``, ``meta_fit`` and
@@ -253,6 +258,23 @@ driver on synthetic IDX images (1 epoch of 64): finite losses, model.pkl
 loaded into a fresh model predicts the bits of the same training run driven
 directly. The demo in full: its LL, RMSE and calibration the bits of phase
 5's demo fit.
+Phase 15 drives many tasks through the learners' entry points, the fits'
+steps cut to ``MANY_STEPS``: ``baseline_comparison_n_tasks``'s ``sin_160``
+and ``sin_320`` PACOH-SVGD and PACOH-VI learners (its ``build_cell``, seed
+22), each fit carried by B2 or B7 alone (one launch, no kernel of the general
+step), its twin with ``PACOH_TORCH_DISABLE_FUSED=1`` fitted as long (both
+walls printed), and 20 steps of each from the fused fit's state within the
+twin limits, their evals on 20 test tasks too; a PACOH-MLAP fit on
+``sin_160`` (mlap's learner) carried by B8 alone and its general twin's
+wall, and B8 against the general step for 20 steps from
+``conditioned_state`` at 160 tasks, as phase 8 holds it; the MLAP CLI's
+eval of 200 test tasks of sin_20's environment, after bench.py's 2,000-step
+fit at seeds 30-32, through B8's meta-test mode (one launch a 512-step
+block of the 3,000-step meta-test, no general loop), the seeds' mean LL and
+RMSE in the band of ``tools/mlap_band.json``, the walls of a 300-step eval
+with the kernel and with ``PACOH_TORCH_DISABLE_FUSED=1``, and the meta-test
+of 200 conditioned context sets through B8 against the general loop, 20
+steps from one state and one set of draws, within the twin limits.
 
 Any failure raises and exits non-zero. The line before the last is a JSON
 object with one record per kernel; the last line is
@@ -284,7 +306,7 @@ KERNELS = {  # launch-counter name -> (source, TPU kernel it replaces)
     "fused_map_bign": (SOURCE + "fused_map_bign.cu", TPU + "fused_map_bign_kernel.py:391"),
     "chol_small": (SOURCE + "chol_small.cu",
                    TPU + "chol_kernel.py:64 and " + TPU + "chol_kernel.py:115"),
-    "fused_mlap": (SOURCE + "fused_mlap.cu", TPU + "fused_mlap_kernel.py:553"),
+    "fused_mlap": (SOURCE + "fused_mlap.cuh", TPU + "fused_mlap_kernel.py:553"),
     "fused_svgd_bign": (SOURCE + "fused_svgd_bign.cu", TPU + "fused_svgd_bign_kernel.py:452"),
     "fused_vi_bign": (SOURCE + "fused_vi_bign.cu", TPU + "fused_vi_bign_kernel.py:258"),
 }
@@ -423,6 +445,14 @@ MLAP_CHUNK = 700  # the second chunking
 MLAP_META_TEST = 3000  # the meta-test's steps (bench.py:225-240)
 MLAP_CI_META_TEST = 300
 MLAP_TWIN_STEPS = 20  # B8 against the general step, from one state and one set of draws
+# phase 2's many-task cases: B2 and B7 at these T (N=5, sin_20's nets), B8's
+# fit and meta-test mode at these (mlap's shapes, a conditioned state)
+MANY_B2_TASKS, MANY_B8_FIT_TASKS, MANY_B8_TEST_TASKS = (320, 512), (160, 512), (200, 512)
+MANY_TIMED_STEPS = 200  # a timed launch of the many-task cases
+# phase 15: many tasks through the learners' entry points, the fits' steps cut
+# (from baseline_comparison_n_tasks' 10,000 and bench.py's mlap 2,000)
+MANY_STEPS = 500
+MANY_EVAL_TASKS = 200  # the MLAP CLI's test tasks
 # the band of seeds 30-32: tools/mlap_band.json (written by tools/mlap_band.py),
 # the JAX learner on the CPU, seeds 30-59 at 2,000 steps; centre, margin = 3
 # sigma of the difference of a 3-seed mean and the 30-seed mean
@@ -759,6 +789,7 @@ def phase2(param_dim):
     phase2_b11(errs, times, work)
     phase2_b1(errs, walls)
     bign_escalation()
+    phase2_many_tasks(errs)
     for name, (k_ms, p_ms) in times.items():
         unit = "ms a step" if name.startswith("fused") else "ms"
         call = ("torch.cholesky_inverse" if name in ("blocked_bwd", "mll_bwd")
@@ -1016,7 +1047,10 @@ def cluster_report(kernel, count, t, n, d, hidden):
         plan = module.cluster_plan(count, t, n, d, hidden)
         resident = module.resident_clusters(t, n, d, hidden, plan)
     c, sms = plan[0], torch.cuda.get_device_properties(0).multi_processor_count
-    usage = ptxas_usage(f"{kernel}_kernelILi{n}E")  # the kernel instance of N
+    entry = f"{kernel}_kernelILi{n}E"  # the kernel instance of N
+    if kernel == "fused_mlap":  # and, of B8, untiled or tiled
+        entry += f"Lb{int(plan[-1] < -(-t // c))}E"
+    usage = ptxas_usage(entry)
     ptxas = ("not in this run's build log" if usage is None else
              f"{usage[0]} registers a thread, spill stores/loads {usage[1]} bytes")
     print(f"  {kernel} at {'K' if kernel == 'fused_svgd' else 'S'}={count}, T={t}, N={n}, D={d}, "
@@ -1944,6 +1978,161 @@ def phase2_b8(errs, times, work):
     work["fused_mlap"] = (step_flops,
                           4 * (s * p + t + (6 * (2 * p + q_size + 1) + t * n * (d + 2))
                                / n_launch))
+
+
+def many_sin(n_tasks):
+    """n_tasks sinusoid tasks of 5 points (sin_20's environment, another seed)."""
+    import numpy as np
+
+    from meta_learning_pacoh_torch.datasets import SinusoidDataset
+
+    env = SinusoidDataset(random_state=np.random.RandomState(n_tasks))
+    return env.generate_meta_train_data(n_tasks=n_tasks, n_samples=5)
+
+
+def step_bound_ms(step_flops, step_bytes):
+    """The least time of a step on the card, PERF.md's rule: the larger of its
+    operations over the float32 peak and its bytes over the memory rate."""
+    t_ops, t_bytes = step_flops / PEAK_FLOPS, step_bytes / PEAK_BYTES
+    return 1e3 * max(t_ops, t_bytes), "operations" if t_ops > t_bytes else "bytes"
+
+
+def phase2_many_tasks(errs):
+    """B2, B7 and B8 at task counts beyond the window of the one-block
+    kernel: B2 and B7 at T in MANY_B2_TASKS (sin_20's learners, 5 points a
+    task), B8's fit and meta-test mode at MANY_B8_FIT_TASKS and
+    MANY_B8_TEST_TASKS (mlap's learner, a well-conditioned state), each
+    against its plain version with phase 2's limits, from the learner's
+    initial state; the plan (tiled where tile < ceil(T / C)), the time a
+    step of a launch of MANY_TIMED_STEPS steps and its bound."""
+    import numpy as np
+    import torch
+
+    from meta_learning_pacoh_torch.ops.cuda import fused_mlap_kernel as mk
+    from meta_learning_pacoh_torch.ops.cuda import fused_svgd_kernel as fk
+    from meta_learning_pacoh_torch.ops.cuda import fused_vi_kernel as vk
+
+    hidden, n_timed = (32, 32), MANY_TIMED_STEPS
+    for t in MANY_B2_TASKS:
+        train = many_sin(t)
+        # B2: the full batch, B2_STEPS steps
+        model = sin20_model(train)
+        if not model._fused_path_ok():
+            raise AssertionError(f"fused_svgd at T={t}: the learner is off the fused path")
+        trainer = fk.FusedSVGDTrainer(
+            model.X, model.Y, model.mask, hidden=hidden, lr=1e-3, prior_factor=0.01,
+            weight_prior_std=0.5, bias_prior_std=3.0, task_batch_size=model.task_batch_size,
+            task_draw=model._task_draw)
+        got = [model.particles.clone(), torch.zeros_like(model.particles),
+               torch.zeros_like(model.particles)]
+        want = [a.clone() for a in got]
+        trainer.run(*got, B2_STEPS, 0)
+        fk.fused_svgd_train_ref(*want, model.X, model.Y, model.mask, trainer.w_t, 0, 1e-3, 0.01,
+                                hidden=hidden, wps=0.5, bps=3.0, n_steps=B2_STEPS)
+        torch.cuda.synchronize()
+        skip = model.hyper_prior.slice_of(("kernel_nn", "b_out"))
+        d_max, d_mean = diff_excluding(got[0].cpu(), want[0].cpu(), skip)
+        rel = [diff_excluding(g.cpu(), w.cpu(), skip)[0] / float(w.abs().max())
+               for g, w in zip(got[1:], want[1:])]
+        k, p, (_, n, d) = 10, model.hyper_prior.dim, model.X.shape
+        plan = cluster_report("fused_svgd", k, t, n, d, hidden)
+        timed = [model.particles.clone(), torch.zeros_like(model.particles),
+                 torch.zeros_like(model.particles)]
+        ms = statistics.median(median_ms(lambda: fk.fused_svgd_train(
+            *timed, model.X, model.Y, model.mask, trainer.w_t, 0, 1e-3, 0.01, hidden=hidden,
+            wps=0.5, bps=3.0, n_steps=n_timed), 3)) / n_timed
+        bound, by = step_bound_ms(
+            k * (2 * mlp_flops(t * n, d, hidden, 1) + t * gp_task_flops(n, 1)) + 7 * k * k * p
+            + 12 * k * p, 4 * (6 * k * p + t * n * (d + 2) + t) / n_timed)
+        print(f"  fused_svgd at T={t}, N={n} (plan {plan}, tiled {plan[3] < -(-t // plan[0])}), "
+              f"{B2_STEPS} steps: |particle diff| max {d_max:.3e}, mean {d_mean:.3e}; Adam m, v "
+              f"max diff / max |plain| {rel[0]:.3e}, {rel[1]:.3e}; {ms:.5f} ms a step "
+              f"(launches of {n_timed}), bound {bound:.6f} ms ({by})")
+        if not (d_max <= TWIN_ATOL and d_mean <= TWIN_MEAN_ATOL and max(rel) <= B2_MOMENT_RTOL):
+            raise AssertionError(f"fused_svgd at T={t}: kernel disagrees with its plain version")
+        errs["fused_svgd"] = max(errs.get("fused_svgd", 0.0), d_max)
+
+        # B7: the full batch, B7_STEPS steps with the learner's own noise
+        model = vi_model(train)
+        if not model._fused_path_ok():
+            raise AssertionError(f"fused_vi at T={t}: the learner is off the fused path")
+        trainer = vi_trainer(model)
+        got = vi_state(model)
+        want = [a.clone() for a in got]
+        got_loss, _ = trainer.run(*got, B7_STEPS, 0)
+        want_loss, _ = vk.fused_vi_train_ref(
+            *want, model.X, model.Y, model.mask, trainer.w_t, trainer.eps_pages(0, B7_STEPS), 0,
+            1e-3, 0.01, hidden=trainer.hidden, wps=0.5, bps=3.0, mll_const=trainer.mll_const,
+            n_steps=B7_STEPS)
+        torch.cuda.synchronize()
+        diffs = [diff_excluding(g.cpu(), w.cpu(), skip) for g, w in zip(got[:2], want[:2])]
+        d_max, d_mean = max(x[0] for x in diffs), max(x[1] for x in diffs)
+        rel = [diff_excluding(g.cpu(), w.cpu(), skip)[0] / float(w.abs().max())
+               for g, w in zip(got[2:], want[2:])]
+        loss_rel = abs(float(got_loss) - float(want_loss)) / abs(float(want_loss))
+        s_ = model.svi_batch_size
+        plan = cluster_report("fused_vi", s_, t, n, d, hidden)
+        pages, timed = trainer.eps_pages(0, n_timed), vi_state(model)
+        ms = statistics.median(median_ms(lambda: vk.fused_vi_train(
+            *timed, model.X, model.Y, model.mask, trainer.w_t, pages, 0, 1e-3, 0.01,
+            hidden=hidden, wps=0.5, bps=3.0, mll_const=trainer.mll_const, n_steps=n_timed),
+            3)) / n_timed
+        bound, by = step_bound_ms(
+            s_ * (2 * mlp_flops(t * n, d, hidden, 1) + t * gp_task_flops(n, 1) + 10 * p)
+            + 3 * s_ * p + 24 * p, 4 * (s_ * p + (12 * p + t * n * (d + 2) + t) / n_timed))
+        print(f"  fused_vi at T={t}, N={n} (plan {plan}, tiled {plan[2] < -(-t // plan[0])}), "
+              f"{B7_STEPS} steps: |loc, log_scale diff| max {d_max:.3e}, mean {d_mean:.3e}; "
+              f"Adam m, v max diff / max |plain| {max(rel):.3e}; last loss rel diff "
+              f"{loss_rel:.3e}; {ms:.5f} ms a step (launches of {n_timed}), bound "
+              f"{bound:.6f} ms ({by})")
+        if not (d_max <= TWIN_ATOL and d_mean <= TWIN_MEAN_ATOL
+                and max(rel) <= B2_MOMENT_RTOL and loss_rel <= B6_LOSS_RTOL):
+            raise AssertionError(f"fused_vi at T={t}: kernel disagrees with its plain version")
+        errs["fused_vi"] = max(errs.get("fused_vi", 0.0), d_max)
+
+    # B8 from a well-conditioned state: its fit (the full batch) and its
+    # meta-test mode, B8_STEPS steps
+    rs = np.random.RandomState(21)
+    cases = ([(t, False) for t in MANY_B8_FIT_TASKS]
+             + [(t, True) for t in MANY_B8_TEST_TASKS])
+    for t, meta_test in cases:
+        model = mlap_model(conditioned_tasks(rs, t, 5))
+        model.load_state_dict(conditioned_state(model, rs))
+        if not model._fused_path_ok():
+            raise AssertionError(f"fused_mlap at T={t}: the learner is off the fused path")
+        s_, p, (_, n, d) = model.svi_batch_size, model.hyper_prior.dim, model.X.shape
+        lrs = (0.0, 1e-2) if meta_test else (1e-3, 1e-3)
+        eps = torch.randn(B8_STEPS, s_, p, generator=torch.Generator().manual_seed(t)).cuda()
+        kw8 = dict(hidden=hidden, wps=0.5, bps=3.0, task_kl_weight=1.0, meta_kl_weight=1e-3,
+                   delta=0.1, n_tasks=t, meta_test=meta_test)
+        got, want = mlap_state(model), mlap_state(model)
+        got_loss, _, _ = mk.fused_mlap_train(*got, model.X, model.Y, model.mask, eps, None, 0,
+                                             *lrs, n_steps=B8_STEPS, **kw8)
+        want_loss, _, _ = mk.fused_mlap_train_ref(*want, model.X, model.Y, model.mask, eps, None,
+                                                  0, *lrs, n_steps=B8_STEPS, **kw8)
+        torch.cuda.synchronize()
+        plan = cluster_report("fused_mlap", s_, t, n, d, hidden)
+        label = (f"{'meta-test mode' if meta_test else 'fit'} at T={t}, N={n} (plan {plan}, "
+                 f"tiled {plan[2] < -(-t // plan[0])}), {B8_STEPS} steps")
+        d_max = compare_mlap(label, got, want, got_loss, want_loss,
+                             model.hyper_prior.slice_of(("kernel_nn", "b_out")), meta_test)
+        errs["fused_mlap"] = max(errs.get("fused_mlap", 0.0), d_max)
+        pages = torch.randn(n_timed, s_, p, generator=torch.Generator().manual_seed(t)).cuda()
+        timed = mlap_state(model)
+        ms = statistics.median(median_ms(lambda: mk.fused_mlap_train(
+            *timed, model.X, model.Y, model.mask, pages, None, 0, *lrs, n_steps=n_timed, **kw8),
+            3)) / n_timed
+        # as phase2_b8's step; in meta-test mode both nets forward only and no
+        # reduction over the samples or Adam of the hyper-posterior
+        q_size, sizes = t * n * (n + 1), (d, *hidden, 1)
+        nets = (4 * t * n * sum(a * b for a, b in zip(sizes[:-1], sizes[1:])) if meta_test
+                else 2 * mlp_flops(t * n, d, hidden, 1))
+        bound, by = step_bound_ms(
+            s_ * (nets + t * (4 * n ** 3 + 12 * n * n) + 8 * p)
+            + (0 if meta_test else 3 * s_ * p + 24 * p) + 20 * q_size,
+            4 * (s_ * p + (6 * (2 * p + q_size + 1) + t * n * (d + 2)) / n_timed))
+        print(f"  fused_mlap {'meta-test mode' if meta_test else 'fit'} at T={t}: {ms:.5f} ms "
+              f"a step (launches of {n_timed}), bound {bound:.6f} ms ({by})")
 
 
 def bign_svgd_model(tasks, seed=1, **kw):
@@ -5210,6 +5399,187 @@ def phase14(demo_reference=None):
     return summary
 
 
+def phase15_fit(label, build, kernel, general, summary):
+    """A learner of ``build()`` fitted MANY_STEPS steps by its fused kernel
+    alone, then by its general step (``PACOH_TORCH_DISABLE_FUSED=1``, the
+    wall only); returns the fused learner."""
+    model = build()
+    if model.device.type != "cuda" or not model._fused_path_ok():
+        raise AssertionError(f"{label}: on {model.device}, or off the fused path")
+    _, launches, fit_s = cli_launches(
+        f"{label}: {MANY_STEPS}-step fit", lambda: model.meta_fit(
+            n_iter=MANY_STEPS, log_period=MANY_STEPS, verbose=False), (kernel,))
+    want = len(list(model._fused.launches(0, MANY_STEPS)))
+    if launches != {kernel: want}:
+        raise AssertionError(f"{label}: the fit was not carried by {kernel} alone in {want} "
+                             f"launches: {launches}")
+    os.environ["PACOH_TORCH_DISABLE_FUSED"] = "1"
+    try:
+        twin = build()
+        _, general_launches, general_s = cli_launches(
+            f"{label}: the same fit, PACOH_TORCH_DISABLE_FUSED=1", lambda: twin.meta_fit(
+                n_iter=MANY_STEPS, log_period=MANY_STEPS, verbose=False), general)
+    finally:
+        os.environ.pop("PACOH_TORCH_DISABLE_FUSED")
+    if general_launches.get(kernel):
+        raise AssertionError(f"{label}: the general step launched {kernel}")
+    print(f"  {label}: walls {fit_s:.3f} s ({kernel}), {general_s:.3f} s (the general step), "
+          f"{general_s / fit_s:.1f}x")
+    summary[label] = {"fit_s": fit_s, "general_fit_s": general_s, "launches": launches}
+    return model
+
+
+def phase15_twins(label, build, state, test, summary):
+    """TWIN_STEPS steps from ``state`` by the fused kernel and by the general
+    step, held to the twin limits, and their evals to EVAL_TWIN_TOL."""
+    import numpy as np
+
+    twins = []
+    for disabled in ("0", "1"):
+        os.environ["PACOH_TORCH_DISABLE_FUSED"] = disabled
+        try:
+            twin = build()
+            twin.load_state_dict(state)
+            if twin._fused_path_ok() != (disabled == "0"):
+                raise AssertionError(f"{label}: PACOH_TORCH_DISABLE_FUSED={disabled}: wrong path")
+            twin.meta_fit(n_iter=TWIN_STEPS, log_period=TWIN_STEPS, verbose=False)
+            twins.append((twin, np.asarray(twin.eval_datasets(test[:EVAL_TWIN_TASKS]))))
+        finally:
+            os.environ.pop("PACOH_TORCH_DISABLE_FUSED")
+    gap = twin_gaps(f"{label}: {TWIN_STEPS} steps from the fit's state, fused - general",
+                    [twins[0][0]], [twins[1][0]], (TWIN_ATOL, TWIN_MEAN_ATOL))
+    print(f"    evals ({EVAL_TWIN_TASKS} tasks): fused {twins[0][1].tolist()}, general "
+          f"{twins[1][1].tolist()}")
+    if not np.allclose(twins[0][1], twins[1][1], rtol=EVAL_TWIN_TOL, atol=EVAL_TWIN_TOL):
+        raise AssertionError(f"{label}: the fused and general twins' evals disagree")
+    summary[label]["twin_max"], summary[label]["twin_mean"] = gap
+
+
+def phase15():
+    """Many tasks through the learners' entry points (see the top of this
+    file); returns (launches of the fused kernels, summary)."""
+    import numpy as np
+    import torch
+
+    from meta_learning_pacoh_torch.datasets import SinusoidDataset, provide_data
+    from meta_learning_pacoh_torch.experiments.baselines.baseline_comparison import build_cell
+    from meta_learning_pacoh_torch.ops import cuda
+
+    summary, total = {}, {}
+    for dataset in ("sin_160", "sin_320"):
+        train, _, test = provide_data(dataset, seed=22)
+        for algo, kernel, general in (("pacoh_svgd", "fused_svgd", ("svgd_phi",)),
+                                      ("pacoh_vi", "fused_vi", ())):
+            label = f"{dataset} {algo}"
+
+            def build(algo=algo, train=train):
+                return build_cell(algo, train, 22, MANY_STEPS)
+
+            model = phase15_fit(label, build, kernel, general, summary)
+            total[kernel] = total.get(kernel, 0) + summary[label]["launches"][kernel]
+            phase15_twins(label, build, model.state_dict(), test, summary)
+
+    # PACOH-MLAP: the fit on sin_160, held on a conditioned state as phase 8
+    train, _, _ = provide_data("sin_160", seed=22)
+    phase15_fit("sin_160 pacoh_mlap", lambda: mlap_model(train), "fused_mlap", (), summary)
+    total["fused_mlap"] = summary["sin_160 pacoh_mlap"]["launches"]["fused_mlap"]
+    rs = np.random.RandomState(15)
+    tasks = conditioned_tasks(rs, 160, 5)
+    model = mlap_model(tasks)
+    state = conditioned_state(model, rs)
+    twins = {}
+    for label, disabled in (("fused", "0"), ("general", "1")):
+        os.environ["PACOH_TORCH_DISABLE_FUSED"] = disabled
+        try:
+            twin = mlap_model(tasks)
+            twin.load_state_dict(state)
+            twin.meta_fit(n_iter=MLAP_TWIN_STEPS, log_period=MLAP_TWIN_STEPS, verbose=False)
+            twins[label] = (twin, twin.meta_fit(n_iter=1, log_period=1, verbose=False)[0])
+        finally:
+            os.environ.pop("PACOH_TORCH_DISABLE_FUSED")
+    skip = model.hyper_prior.slice_of(("kernel_nn", "b_out"))
+    summary["sin_160 pacoh_mlap"]["twin_max"] = compare_mlap(
+        f"160 conditioned tasks, B8 against the general step, {MLAP_TWIN_STEPS} steps from one "
+        f"state and the next step's loss", mlap_state(twins["fused"][0]),
+        mlap_state(twins["general"][0]), twins["fused"][1], twins["general"][1], skip)
+
+    # the MLAP CLI's eval: 200 test tasks through B8's meta-test mode
+    env = SinusoidDataset(random_state=np.random.RandomState(26))
+    train = env.generate_meta_train_data(n_tasks=20, n_samples=5)
+    test = env.generate_meta_test_data(n_tasks=MANY_EVAL_TASKS, n_samples_context=5,
+                                       n_samples_test=50)
+    metrics, walls, eval_launches = [], [], 0
+    for seed in SIN_SEEDS:
+        model = mlap_model(train, seed=seed)
+        model.meta_fit(n_iter=MLAP_STEPS, log_period=MLAP_STEPS, verbose=False)
+        if not model._fused_meta_test_ok(MANY_EVAL_TASKS, 5, 1):
+            raise AssertionError("the 200-task meta-test is off the kernel's meta-test mode")
+        out, launches, seconds = cli_launches(
+            f"seed {seed}: eval_datasets of {MANY_EVAL_TASKS} test tasks "
+            f"({MLAP_META_TEST}-step meta-test)",
+            lambda: model.eval_datasets(test, n_iter_meta_test=MLAP_META_TEST),
+            ("fused_mlap",))
+        want = len(range(0, MLAP_META_TEST, 512))
+        if launches.get("fused_mlap") != want:
+            raise AssertionError(f"the eval's meta-test took {launches}, not {want} B8 launches")
+        metrics.append(out)
+        walls.append(seconds)
+        eval_launches += launches["fused_mlap"]
+    total["fused_mlap"] += eval_launches
+    lls, rmses = [m[0] for m in metrics], [m[1] for m in metrics]
+    mean_ll, mean_rmse = float(np.mean(lls)), float(np.mean(rmses))
+    with open(MLAP_BAND_FILE) as f:
+        band = json.load(f)["jax"]
+    ll_band, rmse_band = band["ll_band"], band["rmse_band"]
+    print(f"  seeds {SIN_SEEDS}, {MANY_EVAL_TASKS} test tasks: LL {lls}, RMSE {rmses}; mean LL "
+          f"{mean_ll:.4f} (band {ll_band[0]:.4f} +- {ll_band[1]:.4f}), mean RMSE "
+          f"{mean_rmse:.4f} (band {rmse_band[0]:.4f} +- {rmse_band[1]:.4f})")
+    if not (abs(mean_ll - ll_band[0]) <= ll_band[1]
+            and abs(mean_rmse - rmse_band[0]) <= rmse_band[1]):
+        raise AssertionError("the 200-task MLAP eval lies outside the JAX package's band")
+    short = {}
+    for label, disabled in (("B8", "0"), ("general", "1")):
+        os.environ["PACOH_TORCH_DISABLE_FUSED"] = disabled
+        try:
+            _, launches, short[label] = cli_launches(
+                f"seed {SIN_SEEDS[-1]}: eval_datasets, {MLAP_CI_META_TEST}-step meta-test, "
+                f"PACOH_TORCH_DISABLE_FUSED={disabled}",
+                lambda: model.eval_datasets(test, n_iter_meta_test=MLAP_CI_META_TEST))
+        finally:
+            os.environ.pop("PACOH_TORCH_DISABLE_FUSED")
+        if bool(launches.get("fused_mlap")) != (label == "B8"):
+            raise AssertionError(f"the {label} eval's launches: {launches}")
+        if label == "B8":
+            total["fused_mlap"] += launches["fused_mlap"]
+    print(f"  {MANY_EVAL_TASKS}-task eval, {MLAP_CI_META_TEST}-step meta-test: walls "
+          f"{short['B8']:.3f} s (B8), {short['general']:.3f} s (the general loop), "
+          f"{short['general'] / short['B8']:.1f}x")
+    # B8's meta-test of 200 conditioned context sets against the general loop
+    ctx = conditioned_tasks(rs, MANY_EVAL_TASKS, 5)
+    got = {}
+    for label, disabled in (("B8", "0"), ("general", "1")):
+        os.environ["PACOH_TORCH_DISABLE_FUSED"] = disabled
+        try:
+            twin = mlap_model(tasks)
+            twin.load_state_dict(state)
+            got[label] = twin._meta_test_inference(ctx, n_iter=MLAP_TWIN_STEPS)
+        finally:
+            os.environ.pop("PACOH_TORCH_DISABLE_FUSED")
+    gaps = [(got["B8"][k] - got["general"][k]).abs() for k in ("q_means", "q_trils")]
+    d_max, d_mean = max(float(g.max()) for g in gaps), max(float(g.mean()) for g in gaps)
+    print(f"  {MANY_EVAL_TASKS} conditioned context sets, {MLAP_TWIN_STEPS}-step meta-test, B8 - "
+          f"general: |q_means, q_trils diff| max {d_max:.3e}, mean {d_mean:.3e} (limits "
+          f"{TWIN_ATOL}, {TWIN_MEAN_ATOL})")
+    if not (d_max <= TWIN_ATOL and d_mean <= TWIN_MEAN_ATOL):
+        raise AssertionError("the 200-task meta-test: B8 and the general loop disagree")
+    torch.cuda.synchronize()
+    summary["mlap_eval_200"] = dict(ll=lls, rmse=rmses, mean_ll=mean_ll, mean_rmse=mean_rmse,
+                                    eval_s=walls, eval_300_b8_s=short["B8"],
+                                    eval_300_general_s=short["general"], launches=eval_launches,
+                                    meta_test_twin=(d_max, d_mean))
+    return total, summary
+
+
 def report_one_system():
     """Print phase 2's times at one system a launch, now that the calls that
     read back to the host have their kernels' sums, and whether each kernel
@@ -5339,6 +5709,15 @@ def main():
     cli_summary = phase14((map_summary["ll"], map_summary["rmse"], map_summary["calib"]))
     print("slice experiments: " + json.dumps({"card": card, **cli_summary}))
     print(f"phase 14: {time.perf_counter() - t0:.1f} s")
+    print("phase 15: many tasks through the learners' entry points (sin_160 and sin_320 "
+          "SVGD and VI fits through B2 and B7, an MLAP fit on sin_160 and the MLAP CLI's "
+          "200-task eval through B8)")
+    t0 = time.perf_counter()
+    many_launches, many_summary = phase15()
+    for name, count in many_launches.items():
+        launches[name] = launches.get(name, 0) + count
+    print("slice many tasks: " + json.dumps({"card": card, **many_summary}))
+    print(f"phase 15: {time.perf_counter() - t0:.1f} s")
     print(f"all phases: {time.perf_counter() - t_start:.1f} s")
     print("the plain versions and library calls that read back to the host, by torch.profiler:")
     settle_kernel_sums(times, library)

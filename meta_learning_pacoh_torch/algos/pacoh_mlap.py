@@ -380,6 +380,14 @@ class GPRegressionMetaLearnedPAC(RegressionModelMetaLearned):
                 and self._mesh is None
                 and fused_mlap_fits(self.svi_batch_size, t, n, d, self.cfg.mean_nn_layers))
 
+    def _fused_meta_test_ok(self, n_tasks, n_points, dim):
+        """Whether the kernel's meta-test mode carries the inference of
+        ``n_tasks`` posteriors of ``n_points`` points in ``dim`` dimensions:
+        the JAX learner's meta-test gate (its ``_fused_window_ok``,
+        pacoh_mlap.py:622) and a configuration the kernel takes."""
+        return self._fused_window_ok(n_points) and fused_mlap_fits(
+            self.svi_batch_size, n_tasks, n_points, dim, self.cfg.mean_nn_layers)
+
     def _fused_run_chunk(self, chunk):
         """``chunk`` steps through the fused kernel from the live state and Adam
         moments (so a fit may resume after general steps). Returns (last
@@ -493,8 +501,7 @@ class GPRegressionMetaLearnedPAC(RegressionModelMetaLearned):
         def eps_block(step0, n_steps):
             return self._meta_test_eps(s_opt, step0, n_steps)
 
-        if self._fused_window_ok(n) and fused_mlap_fits(self.svi_batch_size, t, n, d,
-                                                        self.cfg.mean_nn_layers):
+        if self._fused_meta_test_ok(t, n, d):
             FusedMLAPMetaTest(
                 *data, hidden=tuple(self.cfg.mean_nn_layers), lr=lr,
                 task_kl_weight=self.task_kl_weight, meta_kl_weight=self.meta_kl_weight,

@@ -2,7 +2,7 @@
 // over a thread-block cluster of C CTAs: used by the fused SVGD kernel
 // (fused_svgd.cu, one cluster per particle) and the fused VI kernel
 // (fused_vi.cu, one cluster per posterior sample); the fused MLAP kernel
-// (fused_mlap.cu, one cluster per hyper-posterior sample) takes its MLP
+// (fused_mlap.cuh, one cluster per hyper-posterior sample) takes its MLP
 // passes, factor_inv and the cluster sums, with its own per-task algebra
 // (the inner KL's) between the passes. The counterpart of
 // make_score_section in meta_learning_pacoh_tpu/ops/pallas/
@@ -33,6 +33,14 @@
 // slice in rank order 0..C-1 over distributed shared memory
 // (cluster_sum), so the bits depend on C but not on timing or on how a
 // run is split into launches. No float atomics.
+//
+// A CTA whose tasks' rows do not fit in its shared memory walks them in
+// tiles of a fixed number of tasks (the plan's `tile`): each tile's rows
+// are loaded, run forward, through the per-task algebra and backward, and
+// the backward continues every sum of sc from where the previous tile left
+// it (the same fmaf chain over the rows, in the same order), so the partial
+// score has the bits of the CTA's single pass over all its rows. The slots
+// are one tile's height then, and no shared array grows with T.
 
 #pragma once
 
@@ -70,11 +78,26 @@ struct ClusterRows {
   float* pls;   // [nt] per-task d(lengthscale)
   float* pnz;   // [nt] per-task d(noise)
   float* pql;   // [nt] per-task w_t (quad + logdet), with kValue
-  int t0, nt;   // the CTA's first task and its number of tasks
+  float* run;   // [3] the sums of pls, pnz, pql over the tiles so far
+  int t0, nt;   // the first task and the number of tasks (the CTA's, or a tile's)
   int rows;     // nt * N
-  int rmax;     // rows of the largest CTA of the cluster (a slot's height)
+  int rmax;     // a slot's height: rows of the largest CTA of the cluster, or of a tile
   int hs;       // row stride of an activation slot, H or H + 1
 };
+
+// Tiles of `tile` tasks over nt tasks (one when nt <= tile).
+__host__ __device__ __forceinline__ int n_tiles(int nt, int tile) {
+  return nt <= tile ? 1 : (nt + tile - 1) / tile;
+}
+
+// The rows of tile j of the CTA's tasks w: tasks [w.t0 + j tile, ..).
+__device__ __forceinline__ ClusterRows tile_rows(const ClusterRows& w, int j, int tile, int N) {
+  ClusterRows r = w;
+  r.t0 = w.t0 + j * tile;
+  r.nt = min(tile, w.nt - j * tile);
+  r.rows = r.nt * N;
+  return r;
+}
 
 // Floats of the activation slots of one CTA.
 __host__ __device__ __forceinline__ size_t act_floats(int l, int rmax, int hs) {
@@ -318,32 +341,43 @@ __device__ void cluster_tasks(const float* th, const int* o, int L, const float*
 // The backward of both nets of th into the CTA's partial score sc [P] (every
 // weight and bias of both nets, lengthscale_raw and noise_raw), from
 // d(mean) in outm and d(feature) in outk. With kValue, *wql_out receives the
-// sum of the CTA's pql. No trailing barrier.
+// sum of the CTA's pql. Over tiles: the first tile (first) starts every sum
+// at 0, a later one continues it from sc (w.run for the per-task sums), and
+// only the last (last) forms the lengthscale's and noise's entries and
+// *wql_out; a CTA of one tile passes both. No trailing barrier.
 template <bool kValue>
 __device__ void cluster_backward(const float* th, float* sc, const int* o, int D, int H, int L,
-                                 const ClusterRows& w, float* wql_out) {
+                                 const ClusterRows& w, float* wql_out, bool first = true,
+                                 bool last = true) {
   const int tid = threadIdx.x, nth = blockDim.x;
   const int R = w.rows, hs = w.hs, S = 2 * L + 2;
   if (tid == 0) {
-    float sl = 0.f, sn = 0.f, sq = 0.f;
+    float sl = first ? 0.f : w.run[0], sn = first ? 0.f : w.run[1];
+    float sq = first || !kValue ? 0.f : w.run[2];
     for (int i = 0; i < w.nt; ++i) {
       sl += w.pls[i];
       sn += w.pnz[i];
       if (kValue) sq += w.pql[i];
     }
-    sc[o[2 * S]] = sl * sigmoid(th[o[2 * S]]);
-    sc[o[2 * S + 1]] = sn * sigmoid(th[o[2 * S + 1]]);
-    if (kValue) *wql_out = sq;
+    if (last) {
+      sc[o[2 * S]] = sl * sigmoid(th[o[2 * S]]);
+      sc[o[2 * S + 1]] = sn * sigmoid(th[o[2 * S + 1]]);
+      if (kValue) *wql_out = sq;
+    } else {
+      w.run[0] = sl;
+      w.run[1] = sn;
+      w.run[2] = sq;
+    }
   }
   // the output layer: w_out, b_out gradients; d(pre-activation) of layer L-1 into slot L
   for (int e = tid; e < 2 * (H + 1) + 2 * R * H; e += nth) {
     if (e < 2 * (H + 1)) {
       const int net = e / (H + 1), j = e - net * (H + 1);
       const float* dout = net == 0 ? w.outm : w.outk;
-      const float* last = slot_of(w, L - 1, net);
-      float s = 0.f;
+      const float* last_act = slot_of(w, L - 1, net);
+      float s = first ? 0.f : sc[j < H ? o[net * S + 2 * L] + j : o[net * S + 2 * L + 1]];
       if (j < H) {
-        for (int row = 0; row < R; ++row) s = fmaf(last[row * hs + j], dout[row], s);
+        for (int row = 0; row < R; ++row) s = fmaf(last_act[row * hs + j], dout[row], s);
         sc[o[net * S + 2 * L] + j] = s;
       } else {
         for (int row = 0; row < R; ++row) s += dout[row];
@@ -377,6 +411,18 @@ __device__ void cluster_backward(const float* th, float* sc, const int* o, int D
 #pragma unroll
         for (int k = 0; k < 4; ++k) jc[k] = min(j0 + k, H - 1);
         float a0[4] = {0.f, 0.f, 0.f, 0.f}, a1[4] = {0.f, 0.f, 0.f, 0.f};
+        if (!first) {  // the sums of the previous tiles
+          const int off_w = o[net * S + 2 * l], off_b = o[net * S + 2 * l + 1];
+          const float* s0 = sc + (c0 < H ? off_w + c0 * H : off_b) + j0;
+          const float* s1 = sc + (c1 < H ? off_w + c1 * H : off_b) + j0;
+#pragma unroll
+          for (int k = 0; k < 4; ++k) {
+            if (j0 + k < H) {
+              a0[k] = s0[k];
+              if (c1 <= H) a1[k] = s1[k];
+            }
+          }
+        }
 #pragma unroll 2
         for (int row = 0; row < R; ++row) {
           const float u0 = one0 ? 1.f : a[row * hs + ca];
@@ -444,7 +490,7 @@ __device__ void cluster_backward(const float* th, float* sc, const int* o, int D
   for (int e = tid; e < 2 * (D + 1) * H; e += nth) {
     const int rn = e / H, j = e - rn * H, net = rn > D, c = rn - net * (D + 1);
     const float* g = slot_of(w, 1, net);
-    float s = 0.f;
+    float s = first ? 0.f : sc[c < D ? o[net * S] + c * H + j : o[net * S + 1] + j];
     if (c < D) {
       for (int row = 0; row < R; ++row) s = fmaf(w.xs[row * D + c], g[row * hs + j], s);
       sc[o[net * S] + c * H + j] = s;
@@ -458,15 +504,33 @@ __device__ void cluster_backward(const float* th, float* sc, const int* o, int D
 // The CTA's partial score section of th into sc [P] (see the top of this
 // file), for tasks of N points. With kValue, *wql_out receives the CTA's
 // sum_t w_t (quad_t + logdet_t) (an undrawn or empty task adds exactly 0).
-// No trailing barrier: the caller's cluster barrier follows.
+// x, y, mask null: w holds the rows of all the CTA's tasks, loaded once by
+// the caller; else the CTA walks its tasks in tiles of `tile` tasks, each
+// tile's rows loaded from x [T, N, D], y, mask [T, N] first. No trailing
+// barrier: the caller's cluster barrier follows.
 template <int N, bool kValue>
 __device__ __forceinline__ void cluster_score(const float* th, float* sc, const int* o, int D,
                                               int H, int L, const float* w_t,
                                               const float* counts, const ClusterRows& w,
-                                              float* wql_out) {
-  cluster_forward(th, o, D, H, L, w);
-  cluster_tasks<N, kValue>(th, o, L, w_t, counts, w);
-  cluster_backward<kValue>(th, sc, o, D, H, L, w, wql_out);
+                                              float* wql_out, int tile = 0,
+                                              const float* x = nullptr, const float* y = nullptr,
+                                              const float* mask = nullptr) {
+  if (x == nullptr) {
+    cluster_forward(th, o, D, H, L, w);
+    cluster_tasks<N, kValue>(th, o, L, w_t, counts, w);
+    cluster_backward<kValue>(th, sc, o, D, H, L, w, wql_out);
+    return;
+  }
+  const int nj = n_tiles(w.nt, tile);
+  for (int j = 0; j < nj; ++j) {
+    const ClusterRows wt = tile_rows(w, j, tile, N);
+    if (j > 0) __syncthreads();  // the previous tile's backward has read its rows
+    load_rows(x, y, mask, N, D, wt);
+    __syncthreads();
+    cluster_forward(th, o, D, H, L, wt);
+    cluster_tasks<N, kValue>(th, o, L, w_t, counts, wt);
+    cluster_backward<kValue>(th, sc, o, D, H, L, wt, wql_out, j == 0, j == nj - 1);
+  }
 }
 
 // f(std::integral_constant<int, N>()) for the runtime task size n in 1..8:

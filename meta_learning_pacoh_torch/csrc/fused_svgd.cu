@@ -48,7 +48,9 @@
 // barrier: a CTA overwrites buffer `par` at step it+2 only after passing the
 // barrier of step it+1, which every CTA reaches only after reading step it's.
 // No float atomics: every sum has one fixed order, so results are
-// bit-identical however a run is split into launches.
+// bit-identical however a run is split into launches. Where a CTA's rows do
+// not fit beside the rest (many tasks), it walks them in tiles of the plan's
+// `tile` tasks (cluster_score.cuh), with the bits of one pass over them.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -91,6 +93,7 @@ struct Params {
   int c;                // CTAs a cluster
   int hs;               // row stride of the activations, H or H + 1
   int ch;               // coordinates a chunk of the staging
+  int tile;             // tasks a tile; >= ceil(T / C): the CTA's rows held whole
   float step0, lr, pf, log_kp1;
 };
 
@@ -101,10 +104,11 @@ __host__ __device__ __forceinline__ int stash_pitch(int ch) {
   return ch % 4 == 0 ? ch + (36 - ch % 32) % 32 : (ch | 1);
 }
 
-// Shared-memory floats of one CTA; ops/cuda/fused_svgd_kernel.py
-// (smem_bytes) states the same count.
-size_t smem_floats(int k, int t, int n, int d, int l, int p, int c, int hs, int ch) {
-  const size_t tmax = (t + c - 1) / c, rmax = tmax * n;
+// Shared-memory floats of one CTA, its rows those of `tile` tasks at most;
+// ops/cuda/fused_svgd_kernel.py (smem_bytes) states the same count.
+size_t smem_floats(int k, int t, int n, int d, int l, int p, int c, int hs, int ch, int tile) {
+  const int groups = (t + c - 1) / c;
+  const size_t tmax = groups < tile ? groups : tile, rmax = tmax * n;
   const size_t pairs = static_cast<size_t>(k) * (k - 1) / 2;
   return 2 * static_cast<size_t>(p) + act_floats(l, static_cast<int>(rmax), hs) + rmax * (d + 4) +
          2 * tmax + 2 * static_cast<size_t>(k) * stash_pitch(ch) + 3 * pairs +
@@ -119,7 +123,8 @@ __global__ void __launch_bounds__(kClusterThreads, 1) fused_svgd_kernel(Params q
   const int K = q.k, T = q.t, D = q.d, H = q.h, L = q.l, P = q.p, C = q.c, CH = q.ch;
   const int me = blockIdx.x / C, rank = blockIdx.x - me * C;  // particle, CTA of its cluster
   const int tid = threadIdx.x, nth = blockDim.x;
-  const int tmax = (T + C - 1) / C, rmax = tmax * N;
+  const int tmax = (T + C - 1) / C, tile = min(tmax, q.tile), rmax = tile * N;
+  const bool tiled = tile < tmax;  // the rows loaded a tile at a time, every step
   const int t0 = task_lo(rank, T, C), nt = task_lo(rank + 1, T, C) - t0;
   const int sl = slice_len(P, C), s_lo = min(P, rank * sl), s_hi = min(P, s_lo + sl);
   const int n_pairs = K * (K - 1) / 2;
@@ -137,19 +142,20 @@ __global__ void __launch_bounds__(kClusterThreads, 1) fused_svgd_kernel(Params q
   float* ms = ys + rmax;                            // [rmax]
   float* outm = ms + rmax;                          // [rmax]
   float* outk = outm + rmax;                        // [rmax]
-  float* pls = outk + rmax;                         // [tmax]
-  float* pnz = pls + tmax;                          // [tmax]
-  float* pd2 = pnz + tmax;                          // [pairs] my slice's squared distances
+  float* pls = outk + rmax;                         // [tile]
+  float* pnz = pls + tile;                          // [tile]
+  float* pd2 = pnz + tile;                          // [pairs] my slice's squared distances
   float* d2p = pd2 + n_pairs;                       // [pairs] the cluster's sum
   int* pij = reinterpret_cast<int*>(d2p + n_pairs); // [pairs] pair (i, j) as i * 256 + j
   float* seg = d2p + 2 * n_pairs;                   // [max(pairs, kSegParts)] segments' sums
   float* kw = seg + max(n_pairs, static_cast<int>(kSegParts));  // [K] my particle's kernel row
-  float* scal = kw + K;                             // [8] block-wide scalars
+  float* scal = kw + K;                             // [8] block-wide scalars; 4-6 the tiles' sums
   int* o = reinterpret_cast<int*>(scal + 8);        // [4L + 6] the leaf offsets
-  const ClusterRows w{act, xs, ys, ms, outm, outk, pls, pnz, nullptr, t0, nt, nt * N, rmax, q.hs};
+  const ClusterRows w{act, xs, ys, ms, outm, outk, pls, pnz, nullptr, scal + 4,
+                      t0, nt, nt * N, rmax, q.hs};
 
   for (int c = tid; c < P; c += nth) th[c] = q.theta[static_cast<size_t>(me) * P + c];
-  load_rows(q.x, q.y, q.mask, N, D, w);
+  if (!tiled) load_rows(q.x, q.y, q.mask, N, D, w);
   for (int i = tid; i < 4 * L + 6; i += nth) o[i] = q.offs[i];
   for (int i = 0, pr = 0; i < K; ++i)
     for (int j = i + 1; j < K; ++j, ++pr)
@@ -165,7 +171,7 @@ __global__ void __launch_bounds__(kClusterThreads, 1) fused_svgd_kernel(Params q
     // slice, the hyper-prior term; publish the slice
     cluster_score<N, false>(th, sc, o, D, H, L, q.w_t,
                          q.counts == nullptr ? nullptr : q.counts + static_cast<size_t>(it) * T,
-                         w, nullptr);
+                         w, nullptr, tile, tiled ? q.x : nullptr, q.y, q.mask);
     cluster.sync();
     float* th_pub = q.th_buf + (static_cast<size_t>(par) * K + me) * P;
     float* s_pub = q.s_buf + (static_cast<size_t>(par) * K + me) * P;
@@ -275,17 +281,17 @@ extern "C" int pacoh_fused_svgd(float* theta, float* m, float* v, const float* x
                                 const float* mask, const float* w_t, const float* counts,
                                 const float* prior_loc, const float* prior_scale, const int* offs,
                                 float* th_buf, float* s_buf, int k, int t, int n, int d, int h,
-                                int l, int p, int n_steps, int c, int hs, int ch, float step0,
-                                float lr, float pf, int device, void* stream) {
+                                int l, int p, int n_steps, int c, int hs, int ch, int tile,
+                                float step0, float lr, float pf, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (k < 1 || k > kMaxK || n < 1 || n > kMaxN || t < 1 || d < 1 || h < 1 || l < 1 || p < 1 ||
-      n_steps < 1 || c < 1 || c > kMaxCluster || (hs != h && hs != h + 1) || ch < 1)
+      n_steps < 1 || c < 1 || c > kMaxCluster || (hs != h && hs != h + 1) || ch < 1 || tile < 1)
     return static_cast<int>(cudaErrorInvalidValue);
-  const size_t bytes = smem_floats(k, t, n, d, l, p, c, hs, ch) * sizeof(float);
+  const size_t bytes = smem_floats(k, t, n, d, l, p, c, hs, ch, tile) * sizeof(float);
   if (bytes > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
   const Params q{theta, m, v, x, y, mask, w_t, counts, prior_loc, prior_scale, offs, th_buf, s_buf,
-                 k, t, n, d, h, l, p, n_steps, c, hs, ch, step0, lr, pf,
+                 k, t, n, d, h, l, p, n_steps, c, hs, ch, tile, step0, lr, pf,
                  static_cast<float>(log(static_cast<double>(k + 1)))};
   return with_task_size(n, [&](auto nn) {
     return cluster_launch(fused_svgd_kernel<decltype(nn)::value>, q, k, c, bytes,
@@ -296,13 +302,14 @@ extern "C" int pacoh_fused_svgd(float* theta, float* m, float* v, const float* x
 // Resident clusters of c CTAs of the kernel at this configuration, into *out
 // (cudaOccupancyMaxActiveClusters).
 extern "C" int pacoh_fused_svgd_clusters(int k, int t, int n, int d, int h, int l, int p, int c,
-                                         int hs, int ch, int* out, int device, void* stream) {
+                                         int hs, int ch, int tile, int* out, int device,
+                                         void* stream) {
   (void)stream;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (c < 1 || c > kMaxCluster || (hs != h && hs != h + 1) || ch < 1)
+  if (c < 1 || c > kMaxCluster || (hs != h && hs != h + 1) || ch < 1 || tile < 1)
     return static_cast<int>(cudaErrorInvalidValue);
-  const size_t bytes = smem_floats(k, t, n, d, l, p, c, hs, ch) * sizeof(float);
+  const size_t bytes = smem_floats(k, t, n, d, l, p, c, hs, ch, tile) * sizeof(float);
   if (bytes > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
   return with_task_size(n, [&](auto nn) {
     return cluster_capacity(fused_svgd_kernel<decltype(nn)::value>, c, bytes, out);

@@ -48,7 +48,10 @@
 // and gathers the others over distributed shared memory. Cluster 0 keeps
 // the loss (a step late, where its first CTA waits anyway) and writes the
 // state back at the end. No float atomics: a run
-// gives the same bits however it is split into launches.
+// gives the same bits however it is split into launches. Where a CTA's rows
+// do not fit beside the rest (many tasks), it walks them in tiles of the
+// plan's `tile` tasks (cluster_score.cuh), with the bits of one pass over
+// them.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -92,13 +95,15 @@ struct Params {
   int s, t, n, d, h, l, p, n_steps;
   int c;                // CTAs a cluster
   int hs;               // row stride of the activations, H or H + 1
+  int tile;             // tasks a tile; >= ceil(T / C): the CTA's rows held whole
   float step0, lr, pf, mll_const, lp_const, ent_const;
 };
 
-// Shared-memory floats of one CTA; ops/cuda/fused_vi_kernel.py
-// (smem_bytes) states the same count.
-size_t smem_floats(int t, int n, int d, int l, int p, int c, int hs) {
-  const size_t tmax = (t + c - 1) / c, rmax = tmax * n;
+// Shared-memory floats of one CTA, its rows those of `tile` tasks at most;
+// ops/cuda/fused_vi_kernel.py (smem_bytes) states the same count.
+size_t smem_floats(int t, int n, int d, int l, int p, int c, int hs, int tile) {
+  const int groups = (t + c - 1) / c;
+  const size_t tmax = groups < tile ? groups : tile, rmax = tmax * n;
   return 2 * static_cast<size_t>(p) + act_floats(l, static_cast<int>(rmax), hs) + rmax * (d + 4) +
          3 * tmax + 6 * static_cast<size_t>(slice_len(p, c)) + 32 + 8 + 4 * static_cast<size_t>(l) +
          6;
@@ -114,7 +119,8 @@ __global__ void __launch_bounds__(kClusterThreads, 1) fused_vi_kernel(Params q) 
   const int S = q.s, T = q.t, D = q.d, H = q.h, L = q.l, P = q.p, C = q.c;
   const int me = blockIdx.x / C, rank = blockIdx.x - me * C;  // sample, CTA of its cluster
   const int tid = threadIdx.x, nth = blockDim.x;
-  const int tmax = (T + C - 1) / C, rmax = tmax * N;
+  const int tmax = (T + C - 1) / C, tile = min(tmax, q.tile), rmax = tile * N;
+  const bool tiled = tile < tmax;  // the rows loaded a tile at a time, every step
   const int t0 = task_lo(rank, T, C), nt = task_lo(rank + 1, T, C) - t0;
   const int sl = slice_len(P, C), s_lo = min(P, rank * sl), s_hi = min(P, s_lo + sl);
 
@@ -126,19 +132,21 @@ __global__ void __launch_bounds__(kClusterThreads, 1) fused_vi_kernel(Params q) 
   float* ms = ys + rmax;                        // [rmax]
   float* outm = ms + rmax;                      // [rmax]
   float* outk = outm + rmax;                    // [rmax]
-  float* pls = outk + rmax;                     // [tmax]
-  float* pnz = pls + tmax;                      // [tmax]
-  float* pql = pnz + tmax;                      // [tmax]
-  float* loc = pql + tmax;                      // [sl] my slice of the posterior and of
+  float* pls = outk + rmax;                     // [tile]
+  float* pnz = pls + tile;                      // [tile]
+  float* pql = pnz + tile;                      // [tile]
+  float* loc = pql + tile;                      // [sl] my slice of the posterior and of
   float* lsc = loc + sl;                        //      its Adam moments, the same bits in
   float* mlo = lsc + sl;                        //      every cluster
   float* mls = mlo + sl;
   float* vlo = mls + sl;
   float* vls = vlo + sl;
   float* red = vls + sl;                        // [32] block_sum's partials
-  float* scal = red + 32;                       // [8] 0: my tasks' wql, 1: my slice's sum of log_scale
+  float* scal = red + 32;                       // [8] 0: my tasks' wql, 1: my slice's sum of
+                                                //     log_scale, 4-6: the tiles' sums
   int* o = reinterpret_cast<int*>(scal + 8);    // [4L + 6] the leaf offsets
-  const ClusterRows w{act, xs, ys, ms, outm, outk, pls, pnz, pql, t0, nt, nt * N, rmax, q.hs};
+  const ClusterRows w{act, xs, ys, ms, outm, outk, pls, pnz, pql, scal + 4,
+                      t0, nt, nt * N, rmax, q.hs};
 
   for (int c = s_lo + tid; c < s_hi; c += nth) {
     const int i = c - s_lo;
@@ -150,7 +158,7 @@ __global__ void __launch_bounds__(kClusterThreads, 1) fused_vi_kernel(Params q) 
     vls[i] = q.v_lsc[c];
     th[c] = loc[i] + expf(lsc[i]) * __ldg(q.eps + static_cast<size_t>(me) * P + c);
   }
-  load_rows(q.x, q.y, q.mask, N, D, w);
+  if (!tiled) load_rows(q.x, q.y, q.mask, N, D, w);
   for (int i = tid; i < 4 * L + 6; i += nth) o[i] = q.offs[i];
   cluster.sync();
   cluster_gather(cluster, th, P);
@@ -209,7 +217,7 @@ __global__ void __launch_bounds__(kClusterThreads, 1) fused_vi_kernel(Params q) 
     // cluster's sum of my slice with the hyper-prior term; publish both
     cluster_score<N, true>(th, sc, o, D, H, L, q.w_t,
                         q.counts == nullptr ? nullptr : q.counts + static_cast<size_t>(it) * T,
-                        w, scal);
+                        w, scal, tile, tiled ? q.x : nullptr, q.y, q.mask);
     if (it > 0) step_loss((it - 1) & 1);
     cluster.sync();
     float* s_pub = q.s_buf + (static_cast<size_t>(par) * S + me) * P;
@@ -297,19 +305,19 @@ extern "C" int pacoh_fused_vi(float* loc, float* lsc, float* m_loc, float* m_lsc
                               const float* w_t, const float* counts, const float* eps,
                               const float* prior_loc, const float* prior_scale, const int* offs,
                               float* s_buf, float* o_buf, float* loss_out, int s, int t, int n,
-                              int d, int h, int l, int p, int n_steps, int c, int hs, float step0,
-                              float lr, float pf, float mll_const, float lp_const,
+                              int d, int h, int l, int p, int n_steps, int c, int hs, int tile,
+                              float step0, float lr, float pf, float mll_const, float lp_const,
                               float ent_const, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (s < 1 || s > kMaxS || n < 1 || n > kMaxN || t < 1 || d < 1 || h < 1 || l < 1 || p < 1 ||
-      n_steps < 1 || c < 1 || c > kMaxCluster || (hs != h && hs != h + 1))
+      n_steps < 1 || c < 1 || c > kMaxCluster || (hs != h && hs != h + 1) || tile < 1)
     return static_cast<int>(cudaErrorInvalidValue);
-  const size_t bytes = smem_floats(t, n, d, l, p, c, hs) * sizeof(float);
+  const size_t bytes = smem_floats(t, n, d, l, p, c, hs, tile) * sizeof(float);
   if (bytes > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
   const Params q{loc, lsc, m_loc, m_lsc, v_loc, v_lsc, x, y, mask, w_t, counts, eps, prior_loc,
                  prior_scale, offs, s_buf, o_buf, loss_out, s, t, n, d, h, l, p, n_steps, c, hs,
-                 step0, lr, pf, mll_const, lp_const, ent_const};
+                 tile, step0, lr, pf, mll_const, lp_const, ent_const};
   return with_task_size(n, [&](auto nn) {
     return cluster_launch(fused_vi_kernel<decltype(nn)::value>, q, s, c, bytes,
                           static_cast<cudaStream_t>(stream));
@@ -319,13 +327,13 @@ extern "C" int pacoh_fused_vi(float* loc, float* lsc, float* m_loc, float* m_lsc
 // Resident clusters of c CTAs of the kernel at this configuration, into *out
 // (cudaOccupancyMaxActiveClusters).
 extern "C" int pacoh_fused_vi_clusters(int t, int n, int d, int h, int l, int p, int c, int hs,
-                                       int* out, int device, void* stream) {
+                                       int tile, int* out, int device, void* stream) {
   (void)stream;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (c < 1 || c > kMaxCluster || (hs != h && hs != h + 1))
+  if (c < 1 || c > kMaxCluster || (hs != h && hs != h + 1) || tile < 1)
     return static_cast<int>(cudaErrorInvalidValue);
-  const size_t bytes = smem_floats(t, n, d, l, p, c, hs) * sizeof(float);
+  const size_t bytes = smem_floats(t, n, d, l, p, c, hs, tile) * sizeof(float);
   if (bytes > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
   return with_task_size(n, [&](auto nn) {
     return cluster_capacity(fused_vi_kernel<decltype(nn)::value>, c, bytes, out);

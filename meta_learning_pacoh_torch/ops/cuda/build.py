@@ -44,15 +44,17 @@ SIGNATURES = {
     "pacoh_blocked_mll_fwd_blocks_per_sm": (_I, _P, _I, _P),
     "pacoh_blocked_mll_bwd": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
     "pacoh_blocked_mll_bwd_blocks_per_sm": (_I, _P, _I, _P),
-    "pacoh_fused_svgd": (_P,) * 13 + (_I,) * 11 + (_F,) * 3 + (_I, _P),
-    "pacoh_fused_svgd_clusters": (_I,) * 10 + (_P, _I, _P),
+    "pacoh_fused_svgd": (_P,) * 13 + (_I,) * 12 + (_F,) * 3 + (_I, _P),
+    "pacoh_fused_svgd_clusters": (_I,) * 11 + (_P, _I, _P),
     "pacoh_fused_map": (_P,) * 12 + (_I,) * 12 + (_F,) * 4 + (_I, _P),
     "pacoh_fused_map_cluster": (_P,) * 11 + (_I,) * 12 + (_F,) * 4 + (_I, _P),
     "pacoh_fused_map_bign": (_P,) * 16 + (_I,) * 15 + (_F,) * 4 + (_I, _P),
-    "pacoh_fused_vi": (_P,) * 18 + (_I,) * 10 + (_F,) * 6 + (_I, _P),
-    "pacoh_fused_vi_clusters": (_I,) * 8 + (_P, _I, _P),
-    "pacoh_fused_mlap": (_P,) * 27 + (_I,) * 11 + (_F,) * 10 + (_I, _P),
-    "pacoh_fused_mlap_clusters": (_I,) * 8 + (_P, _I, _P),
+    "pacoh_fused_vi": (_P,) * 18 + (_I,) * 11 + (_F,) * 6 + (_I, _P),
+    "pacoh_fused_vi_clusters": (_I,) * 9 + (_P, _I, _P),
+    "pacoh_fused_mlap": (_P,) * 28 + (_I,) * 12 + (_F,) * 10 + (_I, _P),
+    "pacoh_fused_mlap_clusters": (_I,) * 9 + (_P, _I, _P),
+    "pacoh_fused_mlap_tiled": (_P,) * 28 + (_I,) * 12 + (_F,) * 10 + (_I, _P),
+    "pacoh_fused_mlap_tiled_clusters": (_I,) * 9 + (_P, _I, _P),
     "pacoh_fused_svgd_bign": (_P,) * 17 + (_I,) * 11 + (_F,) * 3 + (_I, _P),
     "pacoh_fused_vi_bign": (_P,) * 21 + (_I,) * 11 + (_F,) * 6 + (_I, _P),
 }

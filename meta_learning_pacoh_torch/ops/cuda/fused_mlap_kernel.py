@@ -1,4 +1,4 @@
-"""Fused PACOH-MLAP training and meta-test kernel (csrc/fused_mlap.cu), its plain version, and its host-side trainers.
+"""Fused PACOH-MLAP training and meta-test kernel (csrc/fused_mlap.cuh), its plain version, and its host-side trainers.
 
 Replaces meta_learning_pacoh_tpu/ops/pallas/fused_mlap_kernel.py
 (``fused_mlap_train_packed``, the Pallas kernel of ``_make_mlap_kernel``,
@@ -21,18 +21,22 @@ lanes and are not ported: a noise page is the step's [S, P] standard
 normals, a count page the step's [T] task-draw counts.
 
 The kernel runs one thread-block cluster of C CTAs a sample
-(``cluster_plan`` chooses C and the activations' row stride; ``smem_bytes``
-mirrors a CTA's shared memory): each CTA holds the sample whole and owns a
-group of tasks, with their posteriors and moments, and a slice of P, with
-the hyper-posterior and its moments there. The window of the kernel
-(``fused_mlap_fits``) is fixed: NN mean and NN kernel with feature_dim 1
-and one hidden width, 1 <= S <= 32 samples, tasks of N <= 8 points, and the
-whole state, its Adam moments, one sample, its score and its activations
-within one block's shared memory (``window_bytes``), so that the learners'
-dispatch keeps its parity with the JAX learner's; ``cluster_plan`` finds a
-plan for every shape in it.
+(``cluster_plan`` chooses C, the activations' row stride and the tasks a
+tile; ``smem_bytes`` mirrors a CTA's shared memory): each CTA holds the
+sample whole and owns a group of tasks, with their posteriors and moments,
+and a slice of P, with the hyper-posterior and its moments there. Where a
+CTA's tasks do not fit in its shared memory, the tiled kernel keeps each
+cluster's posteriors and moments in device memory (``tile_floats``) and
+walks the tasks in tiles, so the task count is bounded only by device
+memory. The window of the kernel (``fused_mlap_fits``): NN mean and NN
+kernel with feature_dim 1 and one hidden width, 1 <= S <= 32 samples,
+tasks of N <= 8 points, and a CTA of one task within one block's shared
+memory; it does not depend on T, as the JAX learner's gate does not (in
+training and in the meta-test), and ``cluster_plan`` finds a plan for every
+T.
 """
 
+import functools
 import math
 
 import torch
@@ -48,6 +52,7 @@ from meta_learning_pacoh_torch.ops.cuda.fused_svgd_kernel import (
     _device_operands,
     _prior_on,
     fused_prior,
+    largest_tile,
     slice_len,
 )
 from meta_learning_pacoh_torch.ops.kernels import softplus
@@ -66,35 +71,35 @@ KL_JITTERS = (1e-6, 1e-4, 1e-2)
 _LOG_2PI = math.log(2.0 * math.pi)
 
 
-def window_bytes(t, n, d, hidden, p):
-    """The bytes that bound the kernel's window: the whole state and its Adam
-    moments, one sample, its score and activations over all T*N rows."""
-    m, h, n_layers = t * n, hidden[0], len(hidden)
-    return 4 * (8 * p + 3 * m * (n + 1) + 2 * n_layers * m * h + m * (d + 4) + 8 * t + 48)
-
-
-def smem_bytes(t, n, d, hidden, p, c, hs):
-    """Shared memory of one CTA, as csrc/fused_mlap.cu lays it out: the sample
+def smem_bytes(t, n, d, hidden, p, c, hs, tile=None):
+    """Shared memory of one CTA, as csrc/fused_mlap.cuh lays it out: the sample
     and the CTA's partial score, its rows' activation slots (row stride hs),
     its rows, four floats a task, its tasks' posteriors and their moments,
     its slice of the hyper-posterior and of both pairs of moments, the block
-    sums' partials, 16 scalars and the leaf offsets."""
+    sums' partials, 16 scalars and the leaf offsets; with ``tile`` below
+    ceil(T / C) (the tiled kernel) the rows of a tile, two floats a task of
+    it and no task's posterior."""
     tmax = -(-t // c)
-    rmax = tmax * n
     n_layers = len(hidden)
-    return 4 * (2 * p + (n_layers + 1) * 2 * rmax * hs + rmax * (d + 4) + 4 * tmax
-                + 3 * rmax * (n + 1) + 6 * slice_len(p, c) + 40 + 16 + 4 * n_layers + 6)
+    rest = 2 * p + 6 * slice_len(p, c) + 40 + 16 + 4 * n_layers + 6
+    if tile is not None and tile < tmax:
+        rmax = tile * n
+        return 4 * (rest + (n_layers + 1) * 2 * rmax * hs + rmax * (d + 4) + 2 * tile)
+    rmax = tmax * n
+    return 4 * (rest + (n_layers + 1) * 2 * rmax * hs + rmax * (d + 4) + 4 * tmax
+                + 3 * rmax * (n + 1))
 
 
-def cluster_plan(s, t, n, d, hidden, cluster=None):
-    """(C, hs) of a launch: the first size of ``CLUSTER_SIZES`` with no more
-    CTAs than tasks whose S clusters ``RESIDENT_CLUSTERS`` holds at once and
-    whose CTA fits in shared memory, with an odd activation row stride where
-    it fits (H otherwise); where none fits (a task or two of a wide net), the
-    smallest such size with more CTAs than tasks, whose CTAs without a task
-    hold only their slices. ``cluster`` forces C (the learners never pass
-    it)."""
-    hidden = tuple(int(h) for h in hidden)
+def tile_floats(t, n):
+    """Floats of one cluster's device scratch in the tiled kernel
+    (csrc/fused_mlap.cuh): the posteriors and their moments, the rows'
+    cotangents, three floats a task."""
+    m = t * n
+    return 3 * m * (n + 1) + 2 * m + 3 * t
+
+
+@functools.lru_cache(maxsize=None)
+def _plan(s, t, n, d, hidden, cluster):
     p = fused_prior(d, hidden, 1.0, 1.0).dim
     h = hidden[0]
     if cluster is None:
@@ -103,12 +108,34 @@ def cluster_plan(s, t, n, d, hidden, cluster=None):
         sizes = [c for c in sizes if s <= RESIDENT_CLUSTERS[c]]
     else:
         sizes = [int(cluster)]
-    for c in sizes:
+    for c in sizes:  # the untiled kernel, as the window's shapes always take
         for hs in dict.fromkeys((h | 1, h)):
             if smem_bytes(t, n, d, hidden, p, c, hs) <= SMEM_BYTES:
-                return c, hs
-    raise ValueError(f"fused_mlap: no cluster plan for S={s}, T={t}, N={n}, D={d}, "
-                     f"hidden={hidden}, cluster={cluster}")
+                return c, hs, -(-t // c)
+    for c in sizes:  # the tiled kernel, the most tasks a tile that fit
+        for hs in dict.fromkeys((h | 1, h)):
+            tile = largest_tile(lambda tt: smem_bytes(t, n, d, hidden, p, c, hs, tt), -(-t // c))
+            if tile is not None:
+                return c, hs, tile
+    return None
+
+
+def cluster_plan(s, t, n, d, hidden, cluster=None):
+    """(C, hs, tile) of a launch: the first size of ``CLUSTER_SIZES`` with
+    no more CTAs than tasks whose S clusters ``RESIDENT_CLUSTERS`` holds at
+    once and whose CTA fits in shared memory untiled (tile = ceil(T / C)),
+    with an odd activation row stride where it fits (H otherwise); where
+    none fits (a task or two of a wide net), the smallest such size with
+    more CTAs than tasks, whose CTAs without a task hold only their slices;
+    where none of those fits either (many tasks), the first size whose tiled
+    CTA fits, with the most tasks a tile. ``cluster`` forces C (the learners
+    never pass it)."""
+    hidden = tuple(int(h) for h in hidden)
+    plan = _plan(s, t, n, d, hidden, None if cluster is None else int(cluster))
+    if plan is None:
+        raise ValueError(f"fused_mlap: no cluster plan for S={s}, T={t}, N={n}, D={d}, "
+                         f"hidden={hidden}, cluster={cluster}")
+    return plan
 
 
 def resident_clusters(t, n, d, hidden, plan, device="cuda"):
@@ -117,22 +144,29 @@ def resident_clusters(t, n, d, hidden, plan, device="cuda"):
     import ctypes
 
     hidden = tuple(int(h) for h in hidden)
-    c, hs = plan
+    c, hs, tile = plan
     p = fused_prior(d, hidden, 1.0, 1.0).dim
     out = ctypes.c_int(0)
-    launch("pacoh_fused_mlap_clusters", torch.empty(0, device=device), t, n, d, hidden[0],
-           len(hidden), p, c, hs, ctypes.addressof(out))
+    launch(f"{_entry(t, plan)}_clusters", torch.empty(0, device=device), t, n, d, hidden[0],
+           len(hidden), p, c, hs, tile, ctypes.addressof(out))
     return out.value
 
 
+def _entry(t, plan):
+    """The C entry of a plan: the tiled kernel (csrc/fused_mlap_tiled.cu) where
+    its tile is below a CTA's tasks, else the untiled one (csrc/fused_mlap.cu)."""
+    c, _, tile = plan
+    return "pacoh_fused_mlap_tiled" if tile < -(-t // c) else "pacoh_fused_mlap"
+
+
 def fused_mlap_fits(s, t, n, d, hidden):
-    """Whether the kernel takes this configuration."""
-    hidden = tuple(hidden)
-    if not (1 <= s <= MAX_S and 1 <= n <= MAX_N and len(hidden) >= 1
-            and len(set(hidden)) == 1):
-        return False
-    p = fused_prior(d, hidden, 1.0, 1.0).dim
-    return window_bytes(t, n, d, hidden, p) <= SMEM_BYTES
+    """Whether the kernel takes this configuration: the structural window
+    and a plan at one task, which every task count then has (the tiled
+    kernel)."""
+    del t  # a shape that fits at one task fits at every T
+    hidden = tuple(int(h) for h in hidden)
+    return (1 <= s <= MAX_S and 1 <= n <= MAX_N and len(hidden) >= 1
+            and len(set(hidden)) == 1 and _plan(s, 1, n, d, hidden, None) is not None)
 
 
 def sum_log_prior_scale(d, hidden, wps, bps):
@@ -364,24 +398,28 @@ def fused_mlap_train(params, mu, nu, x, y, mask, eps, counts, step0, lr_main, lr
     if not fused_mlap_fits(s, t, n, d, hidden) or p != fused_prior(d, hidden, 1.0, 1.0).dim:
         raise ValueError(f"fused_mlap: the kernel does not take S={s}, T={t}, N={n}, D={d}, "
                          f"hidden={hidden}, P={p}")
-    c, hs = cluster_plan(s, t, n, d, hidden, cluster)
+    c, hs, tile = cluster_plan(s, t, n, d, hidden, cluster)
     prior_loc, prior_scale, offs = _device_operands(d, hidden, float(wps), float(bps), dev)
     kl_buf = torch.empty(2, s, t, 3, dtype=torch.float32, device=dev)
     q_buf = torch.empty(2, s, t * n * (n + 1), dtype=torch.float32, device=dev)
     s_buf = torch.empty(2, s, p, dtype=torch.float32, device=dev)
+    entry = _entry(t, (c, hs, tile))
+    t_buf = (torch.empty(s, tile_floats(t, n), dtype=torch.float32, device=dev)
+             if entry == "pacoh_fused_mlap_tiled" else None)
     out = torch.empty(5, dtype=torch.float32, device=dev)
     u_scale = 1.0 if meta_test else 1.0 / (t if counts is None else batch)
 
     def ptr(tree, k):
         return tree[k].data_ptr() if k in moment_keys else None
 
-    launch("pacoh_fused_mlap", params["loc"], *(params[k].data_ptr() for k in STATE_KEYS),
+    launch(entry, params["loc"], *(params[k].data_ptr() for k in STATE_KEYS),
            *(ptr(mu, k) for k in STATE_KEYS), *(ptr(nu, k) for k in STATE_KEYS),
            x.data_ptr(), y.data_ptr(), mask.data_ptr(),
            None if counts is None else counts.data_ptr(), eps.data_ptr(), prior_loc.data_ptr(),
            prior_scale.data_ptr(), offs.data_ptr(), kl_buf.data_ptr(), q_buf.data_ptr(),
-           s_buf.data_ptr(), out.data_ptr(), s, t, n, d, hidden[0], len(hidden), p,
-           int(n_steps), int(bool(meta_test)), c, hs, float(step0), float(lr_main), float(lr_post),
+           s_buf.data_ptr(), None if t_buf is None else t_buf.data_ptr(), out.data_ptr(), s, t,
+           n, d, hidden[0], len(hidden), p, int(n_steps), int(bool(meta_test)), c, hs, tile,
+           float(step0), float(lr_main), float(lr_post),
            float(u_scale), float(task_kl_weight), float(meta_kl_weight), float(-math.log(delta)),
            float(math.log(float(n_tasks))), float(2.0 * (n_tasks - 1.0)),
            sum_log_prior_scale(d, hidden, float(wps), float(bps)))

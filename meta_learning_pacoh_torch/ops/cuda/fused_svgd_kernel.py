@@ -15,14 +15,15 @@ lanes and are not ported, so the learner's particles and Adam moments are
 updated in place and need no conversion afterwards.
 
 The kernel runs one thread-block cluster of C CTAs a particle
-(``cluster_plan`` chooses C, the activations' row stride and the staging
-chunk; ``smem_bytes`` mirrors a CTA's shared memory). The window of
-the kernel (``fused_svgd_fits``) is fixed: NN mean and NN kernel with
-feature_dim 1 and one hidden width, 1 <= K <= 32 particles, tasks of N <= 8
-points, and one particle's parameters, score and activations within one
-block's shared memory (``window_bytes``), so that the learners' dispatch
-keeps its parity with the JAX learners'; ``cluster_plan`` finds a plan for
-every shape in it.
+(``cluster_plan`` chooses C, the activations' row stride, the staging chunk
+and the tasks a tile; ``smem_bytes`` mirrors a CTA's shared memory). A CTA
+whose tasks' rows do not fit beside the rest walks them in tiles, so the
+task count is bounded only by device memory. The window of the kernel
+(``fused_svgd_fits``): NN mean and NN kernel with feature_dim 1 and one
+hidden width, 1 <= K <= 32 particles, tasks of N <= 8 points, and a CTA of
+one task's rows within one block's shared memory; it does not depend on T,
+as the JAX learners' gate does not, and ``cluster_plan`` finds a plan for
+every T.
 """
 
 import dataclasses
@@ -92,21 +93,14 @@ def _device_operands(d, hidden, wps, bps, device):
     return hp.loc, hp.scale, offs.to(device)
 
 
-def window_bytes(k, t, n, d, hidden, p):
-    """The bytes that bound the kernel's window: one particle's parameters,
-    score and activations over all T*N rows, its K x K distances."""
-    m, h, n_layers = t * n, hidden[0], len(hidden)
-    return 4 * (2 * p + 2 * n_layers * m * h + m * (d + 4) + 2 * t + k * k + k + 8)
-
-
 def fused_svgd_fits(k, t, n, d, hidden):
-    """Whether the kernel takes this configuration."""
-    hidden = tuple(hidden)
-    if not (1 <= k <= MAX_K and 1 <= n <= MAX_N and len(hidden) >= 1
-            and len(set(hidden)) == 1):
-        return False
-    p = fused_prior(d, hidden, 1.0, 1.0).dim
-    return window_bytes(k, t, n, d, hidden, p) <= SMEM_BYTES
+    """Whether the kernel takes this configuration: the structural window
+    and a plan at one task, which every task count then has (one task a
+    tile)."""
+    del t  # a shape that fits at one task fits at every T
+    hidden = tuple(int(h) for h in hidden)
+    return (1 <= k <= MAX_K and 1 <= n <= MAX_N and len(hidden) >= 1
+            and len(set(hidden)) == 1 and _plan(k, 1, n, d, hidden, None) is not None)
 
 
 def task_lo(r, t, c):
@@ -127,13 +121,14 @@ def stash_pitch(ch):
     return ch + (36 - ch % 32) % 32 if ch % 4 == 0 else ch | 1
 
 
-def smem_bytes(k, t, n, d, hidden, p, c, hs, ch):
+def smem_bytes(k, t, n, d, hidden, p, c, hs, ch, tile=None):
     """Shared memory of one CTA, as csrc/fused_svgd.cu lays it out: the
     staging of K particles' and scores' chunks of ch coordinates, the
     particle and the CTA's partial score, its rows' activation slots (row
-    stride hs), its rows and tasks, the pair distances, their pairs and
-    segment sums, the kernel row, the leaf offsets."""
-    tmax = -(-t // c)
+    stride hs), its rows and tasks (a tile's, at most ``tile`` tasks), the
+    pair distances, their pairs and segment sums, the kernel row, the leaf
+    offsets."""
+    tmax = -(-t // c) if tile is None else min(-(-t // c), tile)
     rmax = tmax * n
     pairs = k * (k - 1) // 2
     return 4 * (2 * p + (len(hidden) + 1) * 2 * rmax * hs + rmax * (d + 4) + 2 * tmax
@@ -141,32 +136,71 @@ def smem_bytes(k, t, n, d, hidden, p, c, hs, ch):
                 + 6)
 
 
-def cluster_plan(k, t, n, d, hidden, cluster=None):
-    """(C, hs, ch) of a launch: the first size of ``CLUSTER_SIZES`` with no
-    more CTAs than tasks whose K clusters ``RESIDENT_CLUSTERS`` holds at once
-    and whose CTA fits in shared memory, an odd activation row stride where
-    it fits (H otherwise), and the staging chunk ch (a whole slice where it
-    fits, a multiple of 4 floats where it can be). ``cluster`` forces C (the
-    learners never pass it)."""
-    hidden = tuple(int(h) for h in hidden)
+def _staging(k, t, n, d, hidden, p, c, hs, tile):
+    """The staging chunk that fits beside the rest of a CTA of tiles of
+    ``tile`` tasks (a whole slice where it fits, a multiple of 4 floats
+    where it can be), or None."""
+    rest = smem_bytes(k, t, n, d, hidden, p, c, hs, 0, tile) - 8 * k * stash_pitch(0)
+    room = (SMEM_BYTES - rest) // (8 * k)
+    sl = slice_len(p, c)
+    if stash_pitch(sl) <= room:
+        return sl
+    if room >= 32:
+        return (room - 28) // 4 * 4
+    if room >= 1:  # an odd chunk, its own pitch
+        return room - 1 + room % 2
+    return None
+
+
+def largest_tile(fits_bytes, tmax):
+    """The most tasks a tile below tmax whose CTA fits (``fits_bytes(tile)``
+    is a CTA's bytes, linear in the tile), or None where one task does not."""
+    base, per = fits_bytes(0), fits_bytes(1) - fits_bytes(0)
+    if tmax < 2 or base + per > SMEM_BYTES:
+        return None
+    return min(tmax - 1, (SMEM_BYTES - base) // per)
+
+
+@functools.lru_cache(maxsize=None)
+def _plan(k, t, n, d, hidden, cluster):
     p = fused_prior(d, hidden, 1.0, 1.0).dim
     h = hidden[0]
-    for c in CLUSTER_SIZES if cluster is None else (int(cluster),):
-        if cluster is None and (c > t or k > RESIDENT_CLUSTERS[c]):
-            continue
+    sizes = [c for c in CLUSTER_SIZES if c <= t and k <= RESIDENT_CLUSTERS[c]]
+    sizes = sizes if cluster is None else [int(cluster)]
+    for c in sizes:  # every task's rows held whole, as the window's shapes always are
         for hs in dict.fromkeys((h | 1, h)):
-            # the pitch of a row of the staging that fits beside the rest
-            rest = smem_bytes(k, t, n, d, hidden, p, c, hs, 0) - 8 * k * stash_pitch(0)
-            room = (SMEM_BYTES - rest) // (8 * k)
+            ch = _staging(k, t, n, d, hidden, p, c, hs, None)
+            if ch is not None:
+                return c, hs, ch, -(-t // c)
+    for c in sizes:  # tiles: a whole slice staged, then the most tasks a tile
+        for hs in dict.fromkeys((h | 1, h)):
             sl = slice_len(p, c)
-            if stash_pitch(sl) <= room:
-                return c, hs, sl
-            if room >= 32:
-                return c, hs, (room - 28) // 4 * 4
-            if room >= 1:  # an odd chunk, its own pitch
-                return c, hs, room - 1 + room % 2
-    raise ValueError(f"fused_svgd: no cluster plan for K={k}, T={t}, N={n}, D={d}, "
-                     f"hidden={hidden}, cluster={cluster}")
+            tile = largest_tile(
+                lambda tt: smem_bytes(k, t, n, d, hidden, p, c, hs, sl, tt), -(-t // c))
+            if tile is not None:
+                return c, hs, sl, tile
+            ch = _staging(k, t, n, d, hidden, p, c, hs, 1)
+            if ch is not None and -(-t // c) > 1:
+                return c, hs, ch, 1
+    return None
+
+
+def cluster_plan(k, t, n, d, hidden, cluster=None):
+    """(C, hs, ch, tile) of a launch: the first size of ``CLUSTER_SIZES``
+    with no more CTAs than tasks whose K clusters ``RESIDENT_CLUSTERS``
+    holds at once and whose CTA fits in shared memory with its tasks' rows
+    whole (tile = ceil(T / C)), an odd activation row stride where it fits
+    (H otherwise), and the staging chunk ch (a whole slice where it fits, a
+    multiple of 4 floats where it can be); where no such CTA fits, the first
+    size whose CTA fits with a whole slice staged and the most tasks a tile,
+    or one task a tile beside a shorter chunk. ``cluster`` forces C (the
+    learners never pass it)."""
+    hidden = tuple(int(h) for h in hidden)
+    plan = _plan(k, t, n, d, hidden, None if cluster is None else int(cluster))
+    if plan is None:
+        raise ValueError(f"fused_svgd: no cluster plan for K={k}, T={t}, N={n}, D={d}, "
+                         f"hidden={hidden}, cluster={cluster}")
+    return plan
 
 
 def resident_clusters(k, t, n, d, hidden, plan, device="cuda"):
@@ -175,11 +209,11 @@ def resident_clusters(k, t, n, d, hidden, plan, device="cuda"):
     import ctypes
 
     hidden = tuple(int(h) for h in hidden)
-    c, hs, ch = plan
+    c, hs, ch, tile = plan
     p = fused_prior(d, hidden, 1.0, 1.0).dim
     out = ctypes.c_int(0)
     launch("pacoh_fused_svgd_clusters", torch.empty(0, device=device), k, t, n, d, hidden[0],
-           len(hidden), p, c, hs, ch, ctypes.addressof(out))
+           len(hidden), p, c, hs, ch, tile, ctypes.addressof(out))
     return out.value
 
 
@@ -264,7 +298,7 @@ def fused_svgd_train(theta, mu, nu, x, y, mask, w_t, step0, lr, prior_factor, co
         raise ValueError("fused_svgd: operand shapes do not match theta [K, P] and x [T, N, D]")
     if n_steps < 1:
         return theta, mu, nu
-    c, hs, ch = cluster_plan(k, t, n, d, hidden, cluster)
+    c, hs, ch, tile = cluster_plan(k, t, n, d, hidden, cluster)
     loc, scale, offs = _device_operands(d, hidden, float(wps), float(bps), theta.device)
     th_buf = torch.empty(2, k, p, dtype=theta.dtype, device=theta.device)
     s_buf = torch.empty_like(th_buf)
@@ -272,7 +306,7 @@ def fused_svgd_train(theta, mu, nu, x, y, mask, w_t, step0, lr, prior_factor, co
            x.data_ptr(), y.data_ptr(), mask.data_ptr(), w_t.data_ptr(),
            None if counts is None else counts.data_ptr(), loc.data_ptr(), scale.data_ptr(),
            offs.data_ptr(), th_buf.data_ptr(), s_buf.data_ptr(),
-           k, t, n, d, hidden[0], len(hidden), p, int(n_steps), c, hs, ch, float(step0),
+           k, t, n, d, hidden[0], len(hidden), p, int(n_steps), c, hs, ch, tile, float(step0),
            float(lr), float(prior_factor))
     cuda.LAUNCHES["fused_svgd"] += 1
     return theta, mu, nu

@@ -16,16 +16,17 @@ fill TPU lanes and are not ported: a noise page is the step's ``[S, P]``
 standard normals as they are.
 
 The kernel runs one thread-block cluster of C CTAs a sample
-(``cluster_plan`` chooses C and the activations' row stride; ``smem_bytes``
-mirrors a CTA's shared memory). The window of the kernel (``fused_vi_fits``)
-is fixed: NN mean and NN kernel with feature_dim 1 and one hidden width,
-1 <= S <= 32 samples, tasks of N <= 8 points, and the posterior, its Adam
-moments, one sample, its score and its activations within one block's
-shared memory (``window_bytes``), so that the learners' dispatch keeps its
-parity with the JAX learners'; ``cluster_plan`` finds a plan for every shape
-in it.
+(``cluster_plan`` chooses C, the activations' row stride and the tasks a
+tile; ``smem_bytes`` mirrors a CTA's shared memory). A CTA whose tasks'
+rows do not fit beside the rest walks them in tiles, so the task count is
+bounded only by device memory. The window of the kernel (``fused_vi_fits``):
+NN mean and NN kernel with feature_dim 1 and one hidden width, 1 <= S <= 32
+samples, tasks of N <= 8 points, and a CTA of one task's rows within one
+block's shared memory; it does not depend on T, as the JAX learners' gate
+does not, and ``cluster_plan`` finds a plan for every T.
 """
 
+import functools
 import math
 
 import numpy as np
@@ -41,6 +42,7 @@ from meta_learning_pacoh_torch.ops.cuda.fused_svgd_kernel import (
     _device_operands,
     _prior_on,
     fused_prior,
+    largest_tile,
     slice_len,
     task_weights,
 )
@@ -56,41 +58,49 @@ SMEM_BYTES = 232448  # shared memory one Hopper block can use
 _LOG_2PI = math.log(2.0 * math.pi)
 
 
-def window_bytes(t, n, d, hidden, p):
-    """The bytes that bound the kernel's window: the posterior, its Adam
-    moments, one sample, its score and activations over all T*N rows."""
-    m, h, n_layers = t * n, hidden[0], len(hidden)
-    return 4 * (8 * p + 2 * n_layers * m * h + m * (d + 4) + 3 * t + 32 + 8)
-
-
-def smem_bytes(t, n, d, hidden, p, c, hs):
+def smem_bytes(t, n, d, hidden, p, c, hs, tile=None):
     """Shared memory of one CTA, as csrc/fused_vi.cu lays it out: the sample
     and the CTA's partial score, its rows' activation slots (row stride hs),
-    its rows and tasks, its slice of the posterior and of both pairs of Adam
-    moments, the leaf offsets."""
-    tmax = -(-t // c)
+    its rows and tasks (a tile's, at most ``tile`` tasks), its slice of the
+    posterior and of both pairs of Adam moments, the leaf offsets."""
+    tmax = -(-t // c) if tile is None else min(-(-t // c), tile)
     rmax = tmax * n
     return 4 * (2 * p + (len(hidden) + 1) * 2 * rmax * hs + rmax * (d + 4) + 3 * tmax
                 + 6 * slice_len(p, c) + 32 + 8 + 4 * len(hidden) + 6)
 
 
-def cluster_plan(s, t, n, d, hidden, cluster=None):
-    """(C, hs) of a launch: the first size of ``CLUSTER_SIZES`` with no more
-    CTAs than tasks whose S clusters ``RESIDENT_CLUSTERS`` holds at once and
-    whose CTA fits in shared memory, with an odd activation row stride where
-    it fits (H otherwise). ``cluster`` forces C (the learners never pass
-    it)."""
-    hidden = tuple(int(h) for h in hidden)
+@functools.lru_cache(maxsize=None)
+def _plan(s, t, n, d, hidden, cluster):
     p = fused_prior(d, hidden, 1.0, 1.0).dim
     h = hidden[0]
-    for c in CLUSTER_SIZES if cluster is None else (int(cluster),):
-        if cluster is None and (c > t or s > RESIDENT_CLUSTERS[c]):
-            continue
+    sizes = [c for c in CLUSTER_SIZES if c <= t and s <= RESIDENT_CLUSTERS[c]]
+    sizes = sizes if cluster is None else [int(cluster)]
+    for c in sizes:  # every task's rows held whole, as the window's shapes always are
         for hs in dict.fromkeys((h | 1, h)):
             if smem_bytes(t, n, d, hidden, p, c, hs) <= SMEM_BYTES:
-                return c, hs
-    raise ValueError(f"fused_vi: no cluster plan for S={s}, T={t}, N={n}, D={d}, "
-                     f"hidden={hidden}, cluster={cluster}")
+                return c, hs, -(-t // c)
+    for c in sizes:  # tiles of the most tasks that fit
+        for hs in dict.fromkeys((h | 1, h)):
+            tile = largest_tile(lambda tt: smem_bytes(t, n, d, hidden, p, c, hs, tt), -(-t // c))
+            if tile is not None:
+                return c, hs, tile
+    return None
+
+
+def cluster_plan(s, t, n, d, hidden, cluster=None):
+    """(C, hs, tile) of a launch: the first size of ``CLUSTER_SIZES`` with
+    no more CTAs than tasks whose S clusters ``RESIDENT_CLUSTERS`` holds at
+    once and whose CTA fits in shared memory with its tasks' rows whole
+    (tile = ceil(T / C)), with an odd activation row stride where it fits
+    (H otherwise); where no such CTA fits, the first size whose CTA fits
+    with the most tasks a tile. ``cluster`` forces C (the learners never
+    pass it)."""
+    hidden = tuple(int(h) for h in hidden)
+    plan = _plan(s, t, n, d, hidden, None if cluster is None else int(cluster))
+    if plan is None:
+        raise ValueError(f"fused_vi: no cluster plan for S={s}, T={t}, N={n}, D={d}, "
+                         f"hidden={hidden}, cluster={cluster}")
+    return plan
 
 
 def resident_clusters(t, n, d, hidden, plan, device="cuda"):
@@ -99,22 +109,22 @@ def resident_clusters(t, n, d, hidden, plan, device="cuda"):
     import ctypes
 
     hidden = tuple(int(h) for h in hidden)
-    c, hs = plan
+    c, hs, tile = plan
     p = fused_prior(d, hidden, 1.0, 1.0).dim
     out = ctypes.c_int(0)
     launch("pacoh_fused_vi_clusters", torch.empty(0, device=device), t, n, d, hidden[0],
-           len(hidden), p, c, hs, ctypes.addressof(out))
+           len(hidden), p, c, hs, tile, ctypes.addressof(out))
     return out.value
 
 
 def fused_vi_fits(s, t, n, d, hidden):
-    """Whether the kernel takes this configuration."""
-    hidden = tuple(hidden)
-    if not (1 <= s <= MAX_S and 1 <= n <= MAX_N and len(hidden) >= 1
-            and len(set(hidden)) == 1):
-        return False
-    p = fused_prior(d, hidden, 1.0, 1.0).dim
-    return window_bytes(t, n, d, hidden, p) <= SMEM_BYTES
+    """Whether the kernel takes this configuration: the structural window
+    and a plan at one task, which every task count then has (one task a
+    tile)."""
+    del t  # a shape that fits at one task fits at every T
+    hidden = tuple(int(h) for h in hidden)
+    return (1 <= s <= MAX_S and 1 <= n <= MAX_N and len(hidden) >= 1
+            and len(set(hidden)) == 1 and _plan(s, 1, n, d, hidden, None) is not None)
 
 
 def mll_constant(mask, task_batch_size=None):
@@ -228,7 +238,7 @@ def fused_vi_train(loc, lsc, m_loc, m_lsc, v_loc, v_lsc, x, y, mask, w_t, eps, s
             or w_t.shape != (t,) or (counts is not None and counts.shape != (n_steps, t))):
         raise ValueError("fused_vi: operand shapes do not match loc [P], eps [n_steps, S, P] "
                          "and x [T, N, D]")
-    c, hs = cluster_plan(s, t, n, d, hidden, cluster)
+    c, hs, tile = cluster_plan(s, t, n, d, hidden, cluster)
     prior_loc, prior_scale, offs = _device_operands(d, hidden, float(wps), float(bps), loc.device)
     lp_const, ent_const = prior_constants(d, hidden, float(wps), float(bps))
     s_buf = torch.empty(2, s, p, dtype=loc.dtype, device=loc.device)
@@ -238,7 +248,7 @@ def fused_vi_train(loc, lsc, m_loc, m_lsc, v_loc, v_lsc, x, y, mask, w_t, eps, s
            y.data_ptr(), mask.data_ptr(), w_t.data_ptr(),
            None if counts is None else counts.data_ptr(), eps.data_ptr(), prior_loc.data_ptr(),
            prior_scale.data_ptr(), offs.data_ptr(), s_buf.data_ptr(), o_buf.data_ptr(),
-           loss.data_ptr(), s, t, n, d, hidden[0], len(hidden), p, int(n_steps), c, hs,
+           loss.data_ptr(), s, t, n, d, hidden[0], len(hidden), p, int(n_steps), c, hs, tile,
            float(step0), float(lr), float(prior_factor), float(mll_const), lp_const, ent_const)
     cuda.LAUNCHES["fused_vi"] += 1
     return loss[0], loss[1] / n_steps

@@ -216,15 +216,20 @@ def test_plain_meta_test_steps_match_jax_optax():
 
 def test_kernel_window_and_constants():
     """The kernel takes the sin_20 mlap shapes (39 KB of shared memory a CTA
-    in clusters of 8) and refuses more than 32 samples, 9 points, two widths,
-    or a state beyond a block's shared memory; the hyper-prior's log-scale
-    sum is the JAX trainer's Python float."""
+    in clusters of 8) and 400 tasks of 8 points (the tiled kernel: 235
+    floats of a cluster's scratch a task), and refuses more than 32 samples, 9
+    points, two widths, or nets whose sample is beyond a block's shared
+    memory; the hyper-prior's log-scale sum is the JAX trainer's Python
+    float."""
     assert mk.fused_mlap_fits(5, 20, 5, 1, (32, 32))
     assert mk.smem_bytes(20, 5, 1, (32, 32), 2308, 8, 33) == 4 * 9765
     assert not mk.fused_mlap_fits(33, 20, 5, 1, (32, 32))
     assert not mk.fused_mlap_fits(5, 20, 9, 1, (32, 32))
     assert not mk.fused_mlap_fits(5, 20, 5, 1, (32, 16))
-    assert not mk.fused_mlap_fits(5, 400, 8, 1, (32, 32))
+    assert mk.fused_mlap_fits(5, 400, 8, 1, (32, 32))
+    c, hs, tile = mk.cluster_plan(5, 400, 8, 1, (32, 32))
+    assert tile < -(-400 // c) and mk.tile_floats(400, 8) == 400 * (3 * 8 * 9 + 2 * 8 + 3)
+    assert not mk.fused_mlap_fits(5, 20, 5, 1, (256, 256))
     hp = _prior_on(2, (16, 16, 16), 0.5, 3.0, torch.device("cpu"))
     assert math.isclose(mk.sum_log_prior_scale(2, (16, 16, 16), 0.5, 3.0),
                         float(torch.sum(torch.log(hp.scale.double()))), rel_tol=1e-9)

@@ -184,6 +184,10 @@ GATE_CASES = {
     "sgd": dict(optimizer="SGD"),
     "bandwidth": dict(bandwidth=1.0),
     "imq": dict(kernel="IMQ"),
+    # sin_20's learner at the task counts of baseline_comparison_n_tasks: the
+    # JAX learner's gate has no task bound
+    **{f"sin_{t}_32x32": dict(n_tasks=t, num_particles=10, mean_nn_layers=(32, 32),
+                              kernel_nn_layers=(32, 32)) for t in (60, 160, 320)},
 }
 
 
@@ -194,11 +198,12 @@ def test_learner_gate_matches_jax(jax_fused, monkeypatch, case):
     big-N fused path forced on: the port's H100 policy)."""
     monkeypatch.setenv("PACOH_TPU_FORCE_BIGN_FUSED", "1")
     kw = dict(KW, **GATE_CASES[case])
-    tasks = _sin_tasks(n_samples=kw.pop("n_samples", N), ragged=kw.pop("ragged", False))
+    tasks = _sin_tasks(n_tasks=kw.pop("n_tasks", T), n_samples=kw.pop("n_samples", N),
+                       ragged=kw.pop("ragged", False))
     want = JaxSVGD(tasks, **kw)._fused_path_ok()
     assert GPRegressionMetaLearnedSVGD(tasks, device="cpu", **kw)._fused_path_ok() == want
     assert want == (case in ("sin_like", "lr_decay", "ragged_full_batch", "counted_uniform",
-                             "n12"))
+                             "n12") or case.startswith("sin_"))
 
 
 def test_gate_follows_the_switches(monkeypatch):
@@ -309,4 +314,5 @@ def test_wrapper_checks_its_operands():
     assert fk.fused_svgd_fits(10, 20, 5, 1, (32, 32))
     assert not fk.fused_svgd_fits(33, 20, 5, 1, (32, 32))
     assert not fk.fused_svgd_fits(10, 20, 9, 1, (32, 32))
-    assert not fk.fused_svgd_fits(10, 2000, 8, 1, (32, 32))  # shared memory
+    assert fk.fused_svgd_fits(10, 2000, 8, 1, (32, 32))  # any task count: tiles
+    assert not fk.fused_svgd_fits(10, 20, 5, 1, (256, 256))  # shared memory

@@ -266,4 +266,5 @@ def test_wrapper_checks_its_operands():
     assert not vk.fused_vi_fits(33, 20, 5, 1, (32, 32))
     assert not vk.fused_vi_fits(10, 20, 9, 1, (32, 32))
     assert not vk.fused_vi_fits(10, 20, 5, 1, (32, 16))
-    assert not vk.fused_vi_fits(10, 400, 8, 1, (32, 32))  # shared memory
+    assert vk.fused_vi_fits(10, 400, 8, 1, (32, 32))  # any task count: tiles
+    assert not vk.fused_vi_fits(10, 20, 5, 1, (256, 256))  # shared memory

@@ -2,13 +2,17 @@
 
 The kernel runs one thread-block cluster of C CTAs a sample; CTA r owns a
 contiguous group of tasks (their rows and their posteriors) and a slice of
-P. Here, without a card: the kernel's window is the one the learners'
-dispatch was set by (a copy of the one-block kernel's formula below), the
+P; where a CTA's tasks do not fit in its shared memory, the tiled kernel
+keeps the posteriors in device memory and walks the tasks in tiles. Here,
+without a card: the kernel's window does not depend on T and holds every
+shape of the one-block kernel's window (a copy of its formula below); the
 plan's CTAs fit in shared memory and its clusters are co-resident as the
-Python mirror reckons it, the task groups and slices cover each task and
-coordinate once, and, in float64, the CTAs' partial scores summed in rank
-order are the whole score, and the per-task posteriors' gradients computed
-over each CTA's task group alone are the whole's (within 1e-12).
+Python mirror reckons it; wherever the old window held, the plan is the
+untiled plan of before (a copy below); the task groups and slices cover
+each task and coordinate once; and, in float64, the CTAs' partial scores
+summed in rank order (and a CTA's over its tiles in order) are the whole
+score, and the per-task posteriors' gradients computed over each CTA's task
+group alone are the whole's (within 1e-12).
 """
 
 import numpy as np
@@ -38,6 +42,26 @@ def window(s, t, n, d, hidden):
     return 4 * (8 * p + 3 * m * (n + 1) + 2 * n_layers * m * h + m * (d + 4) + 8 * t + 48) <= SMEM
 
 
+def untiled_bytes(t, n, d, hidden, p, c, hs):
+    """A CTA's shared memory with its tasks' rows and posteriors whole."""
+    tmax, n_layers = -(-t // c), len(hidden)
+    rmax = tmax * n
+    return 4 * (2 * p + (n_layers + 1) * 2 * rmax * hs + rmax * (d + 4) + 4 * tmax
+                + 3 * rmax * (n + 1) + 6 * fk.slice_len(p, c) + 40 + 16 + 4 * n_layers + 6)
+
+
+def untiled_plan(s, t, n, d, hidden):
+    """B8's plan with every CTA's tasks whole, as it was before tiles."""
+    p, h = fk.fused_prior(d, hidden, 1.0, 1.0).dim, hidden[0]
+    sizes = [c for c in fk.CLUSTER_SIZES if c <= t] + [c for c in reversed(fk.CLUSTER_SIZES)
+                                                       if c > t]
+    for c in [c for c in sizes if s <= fk.RESIDENT_CLUSTERS[c]]:
+        for hs in dict.fromkeys((h | 1, h)):
+            if untiled_bytes(t, n, d, hidden, p, c, hs) <= SMEM:
+                return c, hs
+    return None
+
+
 def grid(hidden):
     for s in SAMPLES:
         for t in TASKS:
@@ -48,40 +72,53 @@ def grid(hidden):
 
 @pytest.mark.parametrize("hidden", HIDDENS, ids=str)
 def test_window_is_unchanged_and_the_plan_fits_it(hidden):
-    """fused_mlap_fits takes exactly the shapes the one-block kernel took;
-    for each of them the plan's CTA fits in 232,448 bytes, its S clusters
-    of C fit the mirror's co-resident count, the row stride is H or H + 1,
-    and C is no more than T unless no such size fits (a task or two of a
-    wide net: (40, 40, 40) and (800,) at T=1 hold such shapes)."""
-    n_in = 0
+    """fused_mlap_fits does not depend on T (at every T of the grid it gives
+    its answer at T=1) and takes every shape the one-block kernel took; for
+    each shape it takes the plan's CTA (a tile's rows where tiled) fits in
+    232,448 bytes, its S clusters of C fit the mirror's co-resident count,
+    the row stride is H or H + 1, a tile is at most a CTA's tasks, C is no
+    more than T unless no such size fits untiled (a task or two of a wide
+    net: (40, 40, 40) and (800,) at T=1 hold such shapes), and wherever the
+    old window held the plan is the untiled plan of before."""
+    n_in = n_out = 0
     for s, t, n, d, h in grid(hidden):
-        fits = window(s, t, n, d, h)
-        assert mk.fused_mlap_fits(s, t, n, d, h) == fits, (s, t, n, d, h)
+        fits = mk.fused_mlap_fits(s, t, n, d, h)
+        assert fits == mk.fused_mlap_fits(s, 1, n, d, h), (s, t, n, d, h)
+        assert fits or not window(s, t, n, d, h), (s, t, n, d, h)
         if not fits:
             continue
         n_in += 1
         p = fk.fused_prior(d, h, 1.0, 1.0).dim
-        c, hs = mk.cluster_plan(s, t, n, d, h)
-        assert mk.smem_bytes(t, n, d, h, p, c, hs) <= SMEM
+        c, hs, tile = mk.cluster_plan(s, t, n, d, h)
+        assert mk.smem_bytes(t, n, d, h, p, c, hs, tile) <= SMEM
         assert s <= fk.RESIDENT_CLUSTERS[c] and hs in (h[0], h[0] + 1)
+        assert 1 <= tile <= -(-t // c)
         if c > t:
             assert all(s > fk.RESIDENT_CLUSTERS[k]
-                       or min(mk.smem_bytes(t, n, d, h, p, k, x) for x in (h[0], h[0] | 1)) > SMEM
+                       or min(untiled_bytes(t, n, d, h, p, k, x) for x in (h[0], h[0] | 1)) > SMEM
                        for k in fk.CLUSTER_SIZES if k <= t), (s, t, n, d, h)
+        if window(s, t, n, d, h):
+            assert (c, hs, tile) == (*untiled_plan(s, t, n, d, h), -(-t // c))
+        else:
+            n_out += 1
     assert n_in > 0 or len(set(hidden)) > 1
+    assert n_out > 0 or len(set(hidden)) > 1
 
 
 def test_plan_of_the_main_path():
     """mlap (S=5, T=20, N=5, D=1, 32x32): clusters of 8, 40 CTAs; bench.py's
     meta-test row (T=5): clusters of 5; phase 2's odd shape (S=3, T=7, N=7,
     D=2, (16,16,16)): clusters of 5; S=32: clusters of 2 (the card holds 15
-    of 8, 22 of 5, 30 of 4)."""
-    assert mk.cluster_plan(5, 20, 5, 1, (32, 32)) == (8, 33)
-    assert mk.cluster_plan(5, 5, 5, 1, (32, 32)) == (5, 33)
-    assert mk.cluster_plan(3, 7, 7, 2, (16, 16, 16)) == (5, 17)
+    of 8, 22 of 5, 30 of 4); the MLAP CLI's 200 test tasks still untiled, 512
+    tasks in tiles of 50."""
+    assert mk.cluster_plan(5, 20, 5, 1, (32, 32)) == (8, 33, 3)
+    assert mk.cluster_plan(5, 5, 5, 1, (32, 32)) == (5, 33, 1)
+    assert mk.cluster_plan(3, 7, 7, 2, (16, 16, 16)) == (5, 17, 2)
     assert mk.cluster_plan(32, 20, 5, 1, (32, 32))[0] == 2
     assert mk.cluster_plan(5, 1, 5, 1, (32, 32))[0] == 1  # one task: one CTA
     assert mk.cluster_plan(32, 20, 5, 1, (32, 32), cluster=8)[0] == 8  # forced, not checked
+    assert mk.cluster_plan(5, 200, 5, 1, (32, 32)) == (8, 33, 25)
+    assert mk.cluster_plan(5, 512, 5, 1, (32, 32)) == (8, 33, 50)
 
 
 @pytest.mark.parametrize("s,t,n,d,hidden", [(5, 20, 5, 1, (32, 32)), (5, 5, 5, 1, (32, 32)),
@@ -178,3 +215,41 @@ def test_split_posterior_reduction_is_the_whole(c):
         assert float(whole[k].abs().max()) > 1e-3
         assert float((got - whole[k]).abs().max()) <= 1e-12 * float(whole[k].abs().max())
     assert abs(float(loss_parts) - float(loss)) <= 1e-12 * abs(float(loss))
+
+
+@pytest.mark.parametrize("tile", [1, 2, 3])
+def test_tiled_score_is_the_whole_score(tile, monkeypatch):
+    """float64: the sample scores of the plain version with the cotangents of
+    each tile of tasks alone (a CTA's group of C = 2 over 7 ragged tasks
+    walked in tiles, the tiles' partials added in order, then the groups in
+    rank order) equal the whole scores within 1e-12: the tiled kernel's
+    second pass, each tile's forward again and its own rows' backward."""
+    t, n, d, hidden, s, c = 7, 5, 1, (8, 8), 3, 2
+    rs = np.random.RandomState(80 + tile)
+    x, y, mask, params, hp = _problem(rs, t, n, d, hidden)
+    eps = torch.from_numpy(rs.randn(s, hp.dim))
+    counts = torch.tensor([1.0, 2.0, 0.0, 1.0, 1.0, 0.0, 2.0], dtype=torch.float64)
+    grad = torch.autograd.grad
+    seen = {}
+
+    def tiled_grad(outputs, inputs, grad_outputs, **kw):
+        whole = grad(outputs, inputs, grad_outputs, retain_graph=True)
+        split = torch.zeros_like(whole[0])
+        for r in range(c):
+            t0, t1 = fk.task_lo(r, t, c), fk.task_lo(r + 1, t, c)
+            group = torch.zeros_like(whole[0])
+            for j0 in range(t0, t1, tile):
+                g = torch.zeros(t, dtype=torch.float64)
+                g[j0:min(j0 + tile, t1)] = 1.0
+                cot = [v * g.view(1, t, *([1] * (v.dim() - 2))) for v in grad_outputs]
+                group = group + grad(outputs, inputs, cot, retain_graph=True)[0]
+            split = split + group
+        seen["whole"], seen["split"] = whole[0], split
+        return whole
+
+    monkeypatch.setattr(torch.autograd, "grad", tiled_grad)
+    mk.mlap_loss_and_grads(params, eps, counts, x, y, mask, hp, task_kl_weight=1.0,
+                           meta_kl_weight=1e-3, delta=0.1)
+    whole, split = seen["whole"], seen["split"]
+    assert whole.shape == (s, hp.dim) and float(whole.abs().max()) > 1e-3
+    assert float((split - whole).abs().max()) <= 1e-12 * float(whole.abs().max())

@@ -253,6 +253,10 @@ GATE_CASES = {
     "sh_over_1024": dict(svi_batch_size=33, mean_nn_layers=(32,), kernel_nn_layers=(32,)),
     "n9": dict(n_samples=9),
     "sgd": dict(optimizer="SGD"),
+    # the mlap learner (S=5, nets 32x32) at more tasks: the JAX learner's gate
+    # has no task bound
+    **{f"tasks_{t}_32x32": dict(n_tasks=t, svi_batch_size=5, mean_nn_layers=(32, 32),
+                                kernel_nn_layers=(32, 32)) for t in (60, 160)},
 }
 
 
@@ -265,14 +269,30 @@ def test_learner_gate_matches_jax(monkeypatch, case):
     n = kw.pop("n_samples", 5)
     rs = np.random.RandomState(1)
     sizes = (5, 3, 5, 4, 5, 2) if kw.pop("ragged", False) else None
-    tasks = conditioned_tasks(rs, 6, n, sizes=sizes)
+    tasks = conditioned_tasks(rs, kw.pop("n_tasks", 6), n, sizes=sizes)
     jax_model = JaxPAC(tasks, **kw)
     port = GPRegressionMetaLearnedPAC(tasks, device="cpu", **kw)
     for points in (5, 8, 9):
         assert port._fused_window_ok(points) == jax_model._fused_window_ok(points)
     want = jax_model._fused_path_ok()
     assert port._fused_path_ok() == want
-    assert want == (case in ("in_window", "lr_decay", "sampled", "ragged"))
+    assert want == (case in ("in_window", "lr_decay", "sampled", "ragged")
+                    or case.startswith("tasks_"))
+
+
+@pytest.mark.parametrize("n_tasks", [20, 200])
+def test_meta_test_gate_matches_jax(monkeypatch, n_tasks):
+    """The port's meta-test takes the kernel's meta-test mode where the JAX
+    learner takes its Pallas meta-test (its ``_fused_window_ok`` of the
+    context sets' points, pacoh_mlap.py:622), at the MLAP CLI's 200 test
+    tasks of 5 points as at 20: the mlap learner (S=5, nets 32x32)."""
+    monkeypatch.setenv("PACOH_TPU_FORCE_PALLAS", "1")
+    kw = dict(KW, svi_batch_size=5, mean_nn_layers=(32, 32), kernel_nn_layers=(32, 32))
+    tasks = conditioned_tasks(np.random.RandomState(1), 6, 5)
+    jax_model = JaxPAC(tasks, **kw)
+    port = GPRegressionMetaLearnedPAC(tasks, device="cpu", **kw)
+    assert jax_model._fused_window_ok(5)
+    assert port._fused_meta_test_ok(n_tasks, 5, 1) == jax_model._fused_window_ok(5)
 
 
 def test_state_dict_round_trip_and_chunkings(monkeypatch):

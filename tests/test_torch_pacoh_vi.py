@@ -269,6 +269,10 @@ GATE_CASES = {
     "two_widths": dict(mean_nn_layers=(8, 4), kernel_nn_layers=(8, 4)),
     "n9": dict(n_samples=9),
     "sh_over_1024": dict(svi_batch_size=33, mean_nn_layers=(32,), kernel_nn_layers=(32,)),
+    # the sin_20 VI learner at the task counts of baseline_comparison_n_tasks:
+    # the JAX learner's gate has no task bound
+    **{f"sin_{t}_32x32": dict(n_tasks=t, svi_batch_size=10, mean_nn_layers=(32, 32),
+                              kernel_nn_layers=(32, 32)) for t in (60, 160, 320)},
 }
 
 
@@ -281,11 +285,12 @@ def test_learner_gate_matches_jax(monkeypatch, case):
     monkeypatch.setenv("PACOH_TPU_VI_WEIGHTED", "1")
     monkeypatch.setenv("PACOH_TPU_FORCE_BIGN_FUSED", "1")
     kw = dict(KW, **GATE_CASES[case])
-    train, _ = _sin(n_samples=kw.pop("n_samples", 5), ragged=kw.pop("ragged", False))
+    train, _ = _sin(n_tasks=kw.pop("n_tasks", 6), n_samples=kw.pop("n_samples", 5),
+                    ragged=kw.pop("ragged", False))
     want = JaxVI(train, **kw)._fused_path_ok()
     assert GPRegressionMetaLearnedVI(train, device="cpu", **kw)._fused_path_ok() == want
     assert want == (case in ("sin_like", "lr_decay", "ragged_full_batch", "counted_uniform",
-                             "n9"))
+                             "n9") or case.startswith("sin_"))
 
 
 def test_gate_follows_the_switches(monkeypatch):

@@ -439,6 +439,38 @@ MLAP_CLUSTER = {
              12: "cluster barrier B, gather, outer KL"},
 }
 
+# the kernel in fused_mlap.cuh, untiled in fused_mlap.cu (the one profiled),
+# tiled in fused_mlap_tiled.cu; the passes a tile at a time
+MLAP_SPLIT = {
+    "header": "fused_mlap.cuh (one cluster a sample, tiles of tasks)",
+    "patches": [("fused_mlap.cuh", *patch_) for patch_ in [
+        ("    const int par = it & 1;\n", "    prof_mark(0);\n"),
+        ("      cluster_forward(th, o, D, H, L, wt);\n      const float sp_ls",
+         "      cluster_forward(th, o, D, H, L, wt);\n      prof_mark(1);\n      const float sp_ls",
+         "replace"),
+        ("          cotl[im] = pls[i];\n        }\n      }\n    }\n",
+         "    __syncthreads();\n    prof_mark(3);\n"),
+        ("    grid.sync();\n\n    // ---- every CTA: every task's bound",
+         "    grid.sync();\n    prof_mark(4);\n\n    // ---- every CTA: every task's bound", "replace"),
+        ("    block_sums<5>(v, red);\n", "    prof_mark(5);\n"),
+        ("        cluster_backward<false>(th, sc, o, D, H, L, wt, nullptr, j == 0, j == nj - 1);\n"
+         "      }\n", "      __syncthreads();\n      prof_mark(6);\n"),
+        ("      cluster.sync();\n      float* s_pub",
+         "      cluster.sync();\n      prof_mark(10);\n      float* s_pub", "replace"),
+        ("s_pub[c] = cluster_sum(cluster, sc, c);\n", "      __syncthreads();\n      prof_mark(7);\n"),
+        ("      grid.sync();\n\n      // ---- every cluster: the gradients",
+         "      grid.sync();\n      prof_mark(8);\n\n      // ---- every cluster: the gradients",
+         "replace"),
+        ("scal[9], scal[10], q.lr_main, bc1, bc2);\n      }\n",
+         "      __syncthreads();\n      prof_mark(9);\n"),
+        ("        adam(g, qt[e], mqt[e], vqt[e], q.lr_post, bc1, bc2);\n      }\n    }\n",
+         "    __syncthreads();\n    prof_mark(11);\n"),
+        ("      if (train) outer_kl(cluster, scal, q);\n    }\n    __syncthreads();\n",
+         "    prof_mark(12);\n"),
+    ]],
+    "mlap": MLAP_CLUSTER["mlap"],
+}
+
 
 def map_layout(csrc):
     """The layout of a tree's B6 and B9 sources."""
@@ -464,7 +496,8 @@ def patched_copy(root, work, bign=False, map_kernels=False, mlap=False):
     csrc = os.path.join(dst, "csrc")
     if mlap:
         with open(os.path.join(csrc, "fused_mlap.cu")) as f:
-            layout = (MLAP_CLUSTER if '#include "cluster_score.cuh"' in f.read()
+            layout = (MLAP_SPLIT if os.path.exists(os.path.join(csrc, "fused_mlap.cuh"))
+                      else MLAP_CLUSTER if '#include "cluster_score.cuh"' in f.read()
                       else MLAP_ONE_BLOCK)
     elif map_kernels:
         layout = map_layout(csrc)
@@ -481,7 +514,8 @@ def patched_copy(root, work, bign=False, map_kernels=False, mlap=False):
         return texts[name]
 
     if mlap:
-        texts["fused_mlap.cu"] = patch(text("fused_mlap.cu"), "namespace {\n", PROF)
+        body = "fused_mlap.cuh" if layout is MLAP_SPLIT else "fused_mlap.cu"
+        texts[body] = patch(text(body), "namespace {\n", PROF)
     elif bign or map_kernels:  # the patched headers are included by several sources: marks in each
         for name in os.listdir(csrc):
             if name.endswith(".cu"):
