@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port of PACOH (SVGD, MAP, VI, MLAP, GPR-MLL, GPR-PAC, MAML and NP, alone, stacked and on a device mesh, and through the experiment CLIs) once on one NVIDIA GPU.
+"""Drive the PyTorch/CUDA port of PACOH (SVGD, MAP, VI, MLAP, GPR-MLL, GPR-PAC, MAML and NP, alone, stacked and on a device mesh, and through the experiment CLIs and the computational comparison) once on one NVIDIA GPU.
 
     python3 chip_smoke.py                # all phases, one card
     python3 chip_smoke.py --profile DIR  # also trace fit steps and one eval of
@@ -275,6 +275,19 @@ RMSE in the band of ``tools/mlap_band.json``, the walls of a 300-step eval
 with the kernel and with ``PACOH_TORCH_DISABLE_FUSED=1``, and the meta-test
 of 200 conditioned context sets through B8 against the general loop, 20
 steps from one state and one set of draws, within the twin limits.
+Phase 16 runs the paper's computational comparison,
+``meta_learning_pacoh_torch.experiments.computational_comparison``, through
+its ``main(argv)`` at its defaults, on the card by default: PACOH-MAP,
+-SVGD, -VI and -MLAP (NN/NN, ``meta_kl_weight=1e-3``) on ``sin_20``, each a
+cold 1,000-step ``meta_fit`` and five warm ones, then two ``eval_datasets``
+of five test tasks (MLAP's with a 1,000-step meta-test). Every fit must be
+carried by the learner's fused kernel alone (B6, B2, B7, B8) in the launches
+its trainer plans, each MLAP eval by two launches of B8's meta-test mode, no
+other eval by a fused kernel; the rows finite and positive, the written JSON
+the returned dict. Its twin at ``--n_iter 100 --n_repeats 1`` with
+``PACOH_TORCH_DISABLE_FUSED=1`` (the general steps, no fused kernel) puts
+the general step's ms/iter and s/task beside each row; the main run's
+launches enter the kernels line's counts.
 
 Any failure raises and exits non-zero. The line before the last is a JSON
 object with one record per kernel; the last line is
@@ -5580,6 +5593,148 @@ def phase15():
     return total, summary
 
 
+COMPARE_KERNELS = {"PACOH-MAP": "fused_map", "PACOH-SVGD": "fused_svgd",
+                   "PACOH-VI": "fused_vi", "PACOH-MLAP": "fused_mlap"}
+COMPARE_TWIN_ARGV = ["--n_iter", "100", "--n_repeats", "1"]
+COMPARE_META_TEST_LAUNCH = 512  # steps a launch of B8's meta-test mode
+
+
+class CallLog:
+    """Records, around every ``meta_fit`` and ``eval_datasets`` of the classes
+    given, the kernel launches the call made (read from the counts, never
+    reset), its steps, and whether the learner was on its fused path. The
+    classes' methods are restored on exit."""
+
+    def __init__(self, classes):
+        self.classes, self.calls, self._saved = classes, [], []
+
+    def __enter__(self):
+        for cls in self.classes:
+            for name in ("meta_fit", "eval_datasets"):
+                orig = cls.__dict__.get(name) or getattr(cls, name)
+                self._saved.append((cls, name, cls.__dict__.get(name)))
+                setattr(cls, name, self._wrap(cls.__name__, name, orig))
+        return self
+
+    def __exit__(self, *exc):
+        for cls, name, orig in reversed(self._saved):
+            if orig is None:
+                delattr(cls, name)
+            else:
+                setattr(cls, name, orig)
+
+    def _wrap(self, learner, call, orig):
+        def wrapped(model, *args, **kw):
+            before, step0 = launched(), model._step_count
+            out = orig(model, *args, **kw)
+            after = launched()
+            diff = {k: v - before.get(k, 0) for k, v in after.items() if v != before.get(k, 0)}
+            record = {"learner": learner, "call": call, "launches": diff,
+                      "fused": model._fused_path_ok(), "steps": model._step_count - step0,
+                      "kw": {k: v for k, v in kw.items() if isinstance(v, (int, float, bool))}}
+            if call == "meta_fit" and record["fused"]:
+                record["planned"] = len(list(model._fused.launches(step0, record["steps"])))
+            self.calls.append(record)
+            return out
+        return wrapped
+
+
+def compare_run(label, argv, out_path):
+    """The computational comparison's main(argv) with ``--output out_path``,
+    its calls logged; returns (results, launches, seconds, the call log)."""
+    from meta_learning_pacoh_torch import (
+        GPRegressionMetaLearned,
+        GPRegressionMetaLearnedPAC,
+        GPRegressionMetaLearnedSVGD,
+        GPRegressionMetaLearnedVI,
+    )
+    from meta_learning_pacoh_torch.experiments import computational_comparison
+
+    classes = (GPRegressionMetaLearned, GPRegressionMetaLearnedSVGD, GPRegressionMetaLearnedVI,
+               GPRegressionMetaLearnedPAC)
+    with CallLog(classes) as log:
+        results, launches, seconds = cli_launches(
+            label, lambda: computational_comparison.main(argv + ["--output", out_path]))
+    with open(out_path) as f:
+        written = json.load(f)
+    if written != results:
+        raise AssertionError(f"{label}: the written JSON {written} is not the returned {results}")
+    for name, row in results.items():
+        if not all(math.isfinite(v) and v > 0 for v in row.values()):
+            raise AssertionError(f"{label}: {name}: {row} not finite and positive")
+    return results, launches, seconds, log.calls
+
+
+def phase16(argv=()):
+    """The port's computational comparison through its main(argv), by default
+    at its defaults (1,000-step fits, one cold and five warm a learner, two
+    evals of five sin_20 test tasks, MLAP's with a 1,000-step meta-test), on
+    the card by default: each learner's fits carried by its fused kernel
+    alone in the planned launches, MLAP's meta-tests by B8's meta-test mode,
+    the rows finite and positive and the written JSON the returned dict;
+    then the twin at COMPARE_TWIN_ARGV with PACOH_TORCH_DISABLE_FUSED=1 (the
+    general steps). Returns (the main run's launches, summary)."""
+    import tempfile
+
+    from meta_learning_pacoh_torch.experiments.computational_comparison import parser
+
+    n_fits = 1 + parser().parse(list(argv)).n_repeats
+    with tempfile.TemporaryDirectory() as tmp:
+        results, launches, seconds, calls = compare_run(
+            "computational comparison " + (" ".join(argv) or "at its defaults"), list(argv),
+            os.path.join(tmp, "main.json"))
+        names = {"GPRegressionMetaLearned": "PACOH-MAP", "GPRegressionMetaLearnedSVGD":
+                 "PACOH-SVGD", "GPRegressionMetaLearnedVI": "PACOH-VI",
+                 "GPRegressionMetaLearnedPAC": "PACOH-MLAP"}
+        per_learner = {}
+        for c in calls:
+            name = names[c["learner"]]
+            kernel = COMPARE_KERNELS[name]
+            if c["call"] == "meta_fit":
+                if not c["fused"] or c["launches"] != {kernel: c["planned"]}:
+                    raise AssertionError(f"{name}: a fit off its fused kernel {kernel} "
+                                         f"alone: {c}")
+            elif name == "PACOH-MLAP":
+                want = len(range(0, c["kw"]["n_iter_meta_test"], COMPARE_META_TEST_LAUNCH))
+                if c["launches"].get("fused_mlap") != want:
+                    raise AssertionError(f"MLAP's eval: not {want} launches of B8's meta-test "
+                                         f"mode: {c}")
+            elif any(k.startswith("fused_") for k in c["launches"]):
+                raise AssertionError(f"{name}'s eval launched a fused kernel: {c}")
+            entry = per_learner.setdefault(name, {"meta_fit": [], "eval_datasets": []})
+            entry[c["call"]].append(c["launches"])
+        if [len(v["meta_fit"]) for v in per_learner.values()] != [n_fits] * 4 or \
+                [len(v["eval_datasets"]) for v in per_learner.values()] != [2] * 4:
+            raise AssertionError(f"the calls were not {n_fits} fits and 2 evals a learner: "
+                                 f"{calls}")
+        for name, kernel in COMPARE_KERNELS.items():
+            print(f"    {name}: fits {per_learner[name]['meta_fit'][0]} each "
+                  f"({kernel}), evals {per_learner[name]['eval_datasets']}")
+
+        os.environ["PACOH_TORCH_DISABLE_FUSED"] = "1"
+        try:
+            twin, twin_launches, twin_s, twin_calls = compare_run(
+                "the same at " + " ".join(COMPARE_TWIN_ARGV) + ", PACOH_TORCH_DISABLE_FUSED=1",
+                list(COMPARE_TWIN_ARGV), os.path.join(tmp, "twin.json"))
+        finally:
+            os.environ.pop("PACOH_TORCH_DISABLE_FUSED")
+        if any(k.startswith("fused_") for k in twin_launches) or any(
+                c["fused"] for c in twin_calls):
+            raise AssertionError(f"the general-step twin took a fused path: {twin_launches}")
+    for name in results:
+        row, general = results[name], twin[name]
+        print(f"  {name}: {row['train_iter_ms_warm']:.5f} ms/iter warm (general step "
+              f"{general['train_iter_ms_warm']:.5f}, "
+              f"{general['train_iter_ms_warm'] / row['train_iter_ms_warm']:.1f}x), cold fit "
+              f"{row['train_cold_total_s']:.4f} s; meta-test {row['meta_test_per_task_s_warm']:.6f}"
+              f" s/task warm (general {general['meta_test_per_task_s_warm']:.6f}), cold eval "
+              f"{row['meta_test_cold_total_s']:.4f} s")
+    return launches, {"results": results, "general_twin": twin,
+                      "twin_argv": COMPARE_TWIN_ARGV, "seconds": seconds,
+                      "twin_seconds": twin_s, "launches": launches,
+                      "twin_launches": twin_launches}
+
+
 def report_one_system():
     """Print phase 2's times at one system a launch, now that the calls that
     read back to the host have their kernels' sums, and whether each kernel
@@ -5718,6 +5873,14 @@ def main():
         launches[name] = launches.get(name, 0) + count
     print("slice many tasks: " + json.dumps({"card": card, **many_summary}))
     print(f"phase 15: {time.perf_counter() - t0:.1f} s")
+    print("phase 16: the computational comparison through its main(argv) at its defaults "
+          "(B6, B2, B7, B8 in fit and meta-test mode), beside its general-step twin")
+    t0 = time.perf_counter()
+    compare_launches, compare_summary = phase16()
+    for name, count in compare_launches.items():
+        launches[name] = launches.get(name, 0) + count
+    print("slice computational_comparison: " + json.dumps({"card": card, **compare_summary}))
+    print(f"phase 16: {time.perf_counter() - t0:.1f} s")
     print(f"all phases: {time.perf_counter() - t_start:.1f} s")
     print("the plain versions and library calls that read back to the host, by torch.profiler:")
     settle_kernel_sums(times, library)

@@ -25,6 +25,16 @@ from meta_learning_pacoh_torch.utils.input_handling import handle_input_dim, sta
 from meta_learning_pacoh_torch.utils.logging import get_logger
 
 
+def calib_error(pred_dist_vectorized, test_y):
+    """Calibration error of a vectorised predictive at the test targets: the
+    RMSE between the empirical frequencies of its cdf at 20 levels in
+    [0.05, 0.95] and the levels, a float."""
+    cdf = pred_dist_vectorized.cdf(torch.as_tensor(
+        test_y, dtype=pred_dist_vectorized.mean.dtype,
+        device=pred_dist_vectorized.mean.device).flatten())
+    return float(calib_error_from_cdf(cdf.flatten()))
+
+
 def resolve_device(device):
     """The learner's device: ``None`` means the card, and raises without one."""
     if device is None:
@@ -205,7 +215,7 @@ class RegressionModelMetaLearned(RegressionModelBase):
         pred_dist = self.predict(context_x, context_y, test_x, return_density=True, **kwargs)
         avg_ll = float(torch.mean(pred_dist.log_prob(y))) / y.shape[0]
         rmse = float(torch.sqrt(torch.mean((pred_dist.mean - y) ** 2)))
-        calib = float(calib_error_from_cdf(self._vectorize_pred_dist(pred_dist).cdf(y)))
+        calib = calib_error(self._vectorize_pred_dist(pred_dist), y)
         return avg_ll, rmse, calib
 
     def _stack_eval_tuples(self, test_tuples):
@@ -371,7 +381,7 @@ class RegressionModel(RegressionModelBase):
         pred_dist = self.predict(test_x, return_density=True)
         avg_ll = float(pred_dist.log_prob(y)) / y.shape[0]
         rmse = float(torch.sqrt(torch.mean((pred_dist.mean - y) ** 2)))
-        calib = float(calib_error_from_cdf(self._vectorize_pred_dist(pred_dist).cdf(y)))
+        calib = calib_error(self._vectorize_pred_dist(pred_dist), y)
         return avg_ll, rmse, calib
 
     @torch.no_grad()

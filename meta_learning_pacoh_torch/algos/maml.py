@@ -52,6 +52,28 @@ def plain_mse(params, x, y):
     return torch.mean((mlp_apply(params, x) - y) ** 2, dim=(-2, -1))
 
 
+def inner_adapt(params, x, y, lr_inner, num_steps):
+    """``num_steps`` SGD steps at ``lr_inner`` on the plain MSE of one task
+    from ``params`` (an MLP parameter dict, leaves without a particle axis;
+    x [N, D], y [N, Dy]); returns the adapted dict.
+
+    Differentiable through the unroll: each inner gradient is taken with
+    ``create_graph=True``, so a loss of the adapted parameters has its
+    gradient with respect to ``params`` to second order, as ``jax.grad``
+    through the JAX function's scan. The learner's own steps
+    (``_meta_loss``, ``_adapt_and_predict``) adapt a batch of tasks at once
+    on the flat [B, P] layout and do not call it.
+    """
+    names = list(params)
+    leaves = [w if w.requires_grad else w.detach().requires_grad_(True)
+              for w in (params[k] for k in names)]
+    for _ in range(num_steps):
+        out = mlp_apply({k: w[None] for k, w in zip(names, leaves)}, x[None])[0]
+        grads = torch.autograd.grad(torch.mean((out - y) ** 2), leaves, create_graph=True)
+        leaves = [w - lr_inner * g for w, g in zip(leaves, grads)]
+    return dict(zip(names, leaves))
+
+
 class MAMLRegression(FlatParamsMetaLearned):
 
     from_jax_state = staticmethod(from_jax_maml_state)

@@ -84,6 +84,18 @@ from meta_learning_pacoh_torch.ops.metrics import gp_eval_metrics
 from meta_learning_pacoh_torch.utils.input_handling import handle_input_dim
 
 
+def make_lr_schedule(lr, lr_decay):
+    """The JAX module's schedule: ``lr`` itself when ``lr_decay`` >= 1, else a
+    function of the 0-based step giving the staircase lr, ``lr`` times
+    ``lr_decay`` once every ``LR_TRANSITION_STEPS`` steps (the value at its
+    making), as ``optax.exponential_decay(..., staircase=True)``. The
+    learners read ``launch_sched.staircase_lr`` themselves."""
+    if lr_decay < 1.0:
+        transition = launch_sched.LR_TRANSITION_STEPS
+        return lambda step: launch_sched.staircase_lr(lr, lr_decay, step, transition)
+    return lr
+
+
 def _trains(leaf, learning_mode):
     """Whether a top-level parameter leaf trains under ``learning_mode``
     (the likelihood noise always does; a custom kernel's leaves train with

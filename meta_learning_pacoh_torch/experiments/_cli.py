@@ -122,7 +122,8 @@ def int_list(text):
 # ----------------------------------------------------------------- csv
 
 
-def _missing(v):
+def missing(v):
+    """Whether a cell is absent: None or a float NaN."""
     return v is None or (isinstance(v, (float, np.floating)) and v != v)
 
 
@@ -154,8 +155,8 @@ def _column_cells(values):
     if kinds and kinds <= {None, "int", "float64"} | floats:
         if kinds == {None}:
             return ["" for _ in values]
-        return ["" if _missing(v) else str(np.float64(v)) for v in values]
-    return ["" if _missing(v) else str(v) for v in values]
+        return ["" if missing(v) else str(np.float64(v)) for v in values]
+    return ["" if missing(v) else str(v) for v in values]
 
 
 def csv_text(rows):
@@ -300,25 +301,25 @@ def _std(values, ddof=1):
     return math.sqrt(m2 / (n - ddof)) if n > ddof else math.nan
 
 
-_AGG = {"mean": _mean, "std": _std,
+_AGG = {"mean": _mean, "std": _std, "pstd": lambda values: _std(values, ddof=0),
         "count": lambda values: sum(1 for v in values if v == v)}
 
 
 def group_stats(rows, keys, aggs):
     """pandas' ``groupby(keys).agg(**{out: (column, func)})`` for ``func`` in
-    mean / std / count: [(key tuple, {out: value})] in sorted key order,
-    rows whose key holds a NaN left out."""
+    mean / std / count, and 'pstd' the population std (ddof=0): [(key tuple,
+    {out: value})] in sorted key order, rows whose key holds a NaN left out."""
     groups = {}
     for row in rows:
         key = tuple(row.get(k, math.nan) for k in keys)
-        if any(_missing(k) for k in key):
+        if any(missing(k) for k in key):
             continue
         groups.setdefault(key, []).append(row)
     out = []
     for key in sorted(groups):
         members = groups[key]
         out.append((key, {name: _AGG[func]([float(r.get(col, math.nan))
-                                            if not _missing(r.get(col)) else math.nan
+                                            if not missing(r.get(col)) else math.nan
                                             for r in members])
                           for name, (col, func) in aggs.items()}))
     return out

@@ -34,7 +34,12 @@ import math
 
 import torch
 
-from meta_learning_pacoh_torch.models.gp_base import GPConfig, gp_prior_mll_batch, init_gp_params
+from meta_learning_pacoh_torch.models.gp_base import (
+    GPConfig,
+    gp_prior_mll,
+    gp_prior_mll_batch,
+    init_gp_params,
+)
 from meta_learning_pacoh_torch.ops.kernels import per_seed
 
 _LOG_2PI = math.log(2.0 * math.pi)
@@ -160,6 +165,15 @@ def make_hyper_prior(cfg: GPConfig, weight_prior_std=1.0, bias_prior_std=3.0, de
         elif name.startswith("b_"):
             scale[block] = bias_prior_std
     return HyperPrior(loc=loc.to(device), scale=scale.to(device), layout=layout, cfg=cfg)
+
+
+def task_mll_flat(hyper_prior: HyperPrior, flat_params, x, y, mask=None):
+    """Exact MLL / n of one task under GP-prior parameters given as a flat
+    vector: flat [P] -> a scalar ([K, P] -> [K]); x [N, D], y [N], mask [N]
+    or None."""
+    flat = flat_params.reshape(-1, flat_params.shape[-1])
+    lls = gp_prior_mll(hyper_prior.cfg, hyper_prior.unravel(flat), x, y, mask=mask)
+    return lls.reshape(flat_params.shape[:-1])
 
 
 def meta_log_prob(hyper_prior: HyperPrior, prior_factor, flat_particles, X, Y, mask=None,

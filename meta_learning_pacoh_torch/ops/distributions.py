@@ -3,7 +3,9 @@
 Affine un-normalisation of predictive densities and equal-weight mixtures
 over particles, with the mean, stddev, log_prob, cdf and icdf that
 ``predict``, ``eval`` and ``confidence_intervals`` need. A mixture's icdf is
-found by bisection (ops/rootfind.py).
+found by bisection (ops/rootfind.py). The JAX module's other public
+containers follow: a factorised Gaussian, an unnormalised density and a
+concatenation of independent blocks.
 """
 
 import math
@@ -136,3 +138,65 @@ class EqualWeightedMixture:
         left = torch.full_like(q, -1e8)
         right = torch.full_like(q, 1e8)
         return find_root_by_bounding(lambda x: self.cdf(x) - q, left, right, eps=eps)
+
+
+class FactorizedNormal:
+    """Diagonal Gaussian whose log_prob sums over ``summation_axis``."""
+
+    def __init__(self, loc, scale, summation_axis=-1):
+        self._normal = Normal(loc, scale)
+        self.summation_axis = summation_axis
+
+    @property
+    def mean(self):
+        return self._normal.mean
+
+    @property
+    def stddev(self):
+        return self._normal.stddev
+
+    def log_prob(self, value):
+        return torch.sum(self._normal.log_prob(value), dim=self.summation_axis)
+
+
+class UnnormalizedExpDist:
+    """Density proportional to exp(exponent_fn(value)); log_prob is the exponent."""
+
+    def __init__(self, exponent_fn):
+        self.exponent_fn = exponent_fn
+
+    def log_prob(self, value):
+        return self.exponent_fn(value)
+
+
+class CatDist:
+    """Concatenation of independent block distributions along the event dim.
+
+    Each block has ``sample(generator, sample_shape) -> [..., d_i]`` and a
+    ``log_prob`` over its own event dim. Where the JAX class takes a key and
+    splits it a block each, ``sample`` takes one ``torch.Generator`` from
+    which the blocks draw in order, first block first.
+    """
+
+    def __init__(self, dists, block_dims, reduce_event_dim=True):
+        if len(dists) != len(block_dims):
+            raise ValueError(f"{len(dists)} blocks but {len(block_dims)} block dims")
+        self.dists = list(dists)
+        self.block_dims = list(block_dims)
+        self.reduce_event_dim = reduce_event_dim
+
+    @property
+    def event_dim(self):
+        return sum(self.block_dims)
+
+    def sample(self, generator, sample_shape=()):
+        return torch.cat([d.sample(generator, sample_shape) for d in self.dists], dim=-1)
+
+    def log_prob(self, value):
+        """[...] summed over the blocks, or [n_blocks, ...] without ``reduce_event_dim``."""
+        lps, idx = [], 0
+        for d, n in zip(self.dists, self.block_dims):
+            lps.append(d.log_prob(value[..., idx:idx + n]))
+            idx += n
+        stacked = torch.stack(lps, dim=0)
+        return torch.sum(stacked, dim=0) if self.reduce_event_dim else stacked

@@ -40,6 +40,12 @@ def rbf_ard(x1, x2, lengthscale, outputscale=1.0):
     return outputscale * torch.exp(-0.5 * sq_dists(x1 / ls, x2 / ls))
 
 
+def rbf_ard_diag(x, lengthscale, outputscale=1.0):
+    """Diagonal of rbf_ard(x, x, ...), the outputscale everywhere: x [..., N, D] -> [..., N]."""
+    return torch.broadcast_to(torch.as_tensor(outputscale, dtype=x.dtype, device=x.device),
+                              x.shape[:-1])
+
+
 def per_seed(value, ndim):
     """A number, or a tensor [S] (one value a stacked fit: a seed or a trial)
     shaped to broadcast against [S, ...] of ``ndim`` dims; a 0-dim tensor

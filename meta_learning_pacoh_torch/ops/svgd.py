@@ -21,6 +21,19 @@ from meta_learning_pacoh_torch.ops.cuda.svgd_kernel import svgd_phi_fused, svgd_
 from meta_learning_pacoh_torch.ops.kernels import per_seed, sq_dists
 
 
+def rbf_median_gamma(d2):
+    """gamma = 1 / (1e-8 + 2h), h = median(d2) / (2 log(K + 1)), d2 [K, K].
+
+    The median is ``jnp.median``'s, the JAX function's: the mean of the two
+    middle values of the K*K distances when K*K is even. ``rbf_phi`` and the
+    Stein kernel K1 do not call it: they keep the TPU kernel's upper middle,
+    the order statistic at rank K*K//2 (see the top of this module).
+    """
+    median = torch.quantile(d2.reshape(-1), 0.5, interpolation="midpoint")
+    h = median / (2.0 * math.log(d2.shape[0] + 1))
+    return 1.0 / (1e-8 + 2.0 * h)
+
+
 def rbf_phi(particles, score, bandwidth=None):
     """SVGD direction with the RBF kernel. particles, score [..., K, P] -> [..., K, P]."""
     if bandwidth is None:

@@ -36,6 +36,8 @@ import torch
 
 from meta_learning_pacoh_torch.ops import launch_sched
 from meta_learning_pacoh_torch.parallel import mesh as mesh_ops
+# the JAX module's public name, re-exported
+from meta_learning_pacoh_torch.parallel.mesh import make_seed_mesh  # noqa: F401
 
 _GP_DATA = ("X", "Y", "mask")
 _GP_PRIOR = ("cfg", "_weight_prior_std", "_bias_prior_std")

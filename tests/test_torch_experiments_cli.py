@@ -18,9 +18,9 @@ Here: ``_cli``'s absl-style booleans, its CSV bytes against
 flags against the port's parser, defaults and one command line that is not
 the default (a boolean negation, ``--x=v``, comma lists); the run directory
 of each per-algorithm CLI at the defaults and at another command line; and
-every module of the port's experiments, and the demo, imported with
-``jax``, ``absl``, ``pandas``, ``matplotlib`` and ``meta_learning_pacoh_tpu``
-blocked.
+every module of the port's experiments, the demo and the helpers' modules
+imported with ``jax``, ``absl``, ``pandas``, ``matplotlib`` and
+``meta_learning_pacoh_tpu`` blocked.
 """
 
 import importlib
@@ -530,7 +530,10 @@ class Block:
 sys.meta_path.insert(0, Block())
 import meta_learning_pacoh_torch.experiments as pkg
 names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
-for name in names + ["meta_learning_pacoh_torch.demo"]:
+helpers = ["meta_learning_pacoh_torch." + m for m in (
+    "ops.distributions", "ops.kernels", "ops.svgd", "models.random_gp", "algos.base",
+    "algos.maml", "algos.pacoh_map", "parallel.seed_parallel")]
+for name in names + ["meta_learning_pacoh_torch.demo"] + helpers:
     importlib.import_module(name)
 from meta_learning_pacoh_torch import demo
 demo.NUM_ITER_FIT, demo.LOG_PERIOD = 3, 3
@@ -540,15 +543,17 @@ demo.main([], device="cpu")
 
 
 def test_imports_need_no_jax_absl_pandas_or_matplotlib(tmp_path):
-    """Every module of meta_learning_pacoh_torch.experiments and the demo
-    import with jax, absl, pandas, matplotlib and meta_learning_pacoh_tpu
-    blocked; the demo then runs (3 steps here) and says it could not plot."""
+    """Every module of meta_learning_pacoh_torch.experiments (the computational
+    comparison and the plot scripts among them), the demo and the modules of
+    the JAX package's public helpers import with jax, absl, pandas,
+    matplotlib and meta_learning_pacoh_tpu blocked; the demo then runs (3
+    steps here) and says it could not plot."""
     env = dict(os.environ, PYTHONPATH=ROOT)
     proc = subprocess.run([sys.executable, "-c", BLOCKER], cwd=tmp_path, env=env,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]
     lines = proc.stdout.splitlines()
-    assert lines[0] == "18 []", lines[0]
+    assert lines[0] == "24 []", lines[0]
     assert "Could not plot results" in proc.stdout and "Test RMSE:" in proc.stdout
     assert not (tmp_path / "demo_prediction.png").exists()
 
