@@ -1,0 +1,11 @@
+"""B10's least time over its device time in the traced window, %: the
+window's fit steps and launches, counted by
+``benchmark/work/fused_svgd_bign.py``, against the summed time of the B10
+kernels. Nothing where B10 did not run."""
+
+from benchmark.metrics_util import roofline_pct
+from benchmark.work import fused_svgd_bign
+
+
+def read(run):
+    return roofline_pct(run, fused_svgd_bign)
