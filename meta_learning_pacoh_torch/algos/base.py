@@ -23,6 +23,7 @@ from meta_learning_pacoh_torch.ops.metrics import calib_error_from_cdf
 from meta_learning_pacoh_torch.parallel import mesh as mesh_ops
 from meta_learning_pacoh_torch.utils.input_handling import handle_input_dim, stack_task_tuples
 from meta_learning_pacoh_torch.utils.logging import get_logger
+from meta_learning_pacoh_torch.utils.profiling import LEARNER_PREPARE, spanned
 
 
 def calib_error(pred_dist_vectorized, test_y):
@@ -148,6 +149,7 @@ class RegressionModelBase:
             y = y[:, 0]
         return self._tensor(self._normalize_x(x)), self._tensor(y)
 
+    @spanned(LEARNER_PREPARE)
     def _prepare_meta_data(self, meta_train_tuples):
         """Stack, normalise, pad -> (X [T, N, D], Y [T, N], mask [T, N]) on the device."""
         X, Y, mask = stack_task_tuples(meta_train_tuples)

@@ -98,6 +98,16 @@ from meta_learning_pacoh_torch.ops.variational import (
 )
 from meta_learning_pacoh_torch.parallel import mesh as mesh_ops
 from meta_learning_pacoh_torch.utils.input_handling import handle_input_dim
+from meta_learning_pacoh_torch.utils.profiling import (
+    LEARNER_EVAL,
+    LEARNER_GATE,
+    LEARNER_INIT,
+    LEARNER_META_FIT,
+    LEARNER_META_TEST,
+    OPS_PREDICTIVE,
+    span,
+    spanned,
+)
 
 N_AGG_SAMPLES = 20  # hyper-posterior samples of the aggregated prior
 META_TEST_BLOCK = FusedMLAPMetaTest.MAX_LAUNCH  # steps of one meta-test noise block
@@ -111,6 +121,7 @@ def _seeds(seed, n):
 
 class GPRegressionMetaLearnedPAC(RegressionModelMetaLearned):
 
+    @spanned(LEARNER_INIT)
     def __init__(self, meta_train_data, num_iter_fit=40000, feature_dim=1,
                  weight_prior_std=0.5, bias_prior_std=3.0, delta=0.1, task_kl_weight=1.0,
                  meta_kl_weight=1.0, posterior_lr_multiplier=1.0, covar_module="SE",
@@ -372,6 +383,7 @@ class GPRegressionMetaLearnedPAC(RegressionModelMetaLearned):
             and n_points <= 8
         )
 
+    @spanned(LEARNER_GATE)
     def _fused_path_ok(self):
         """Whether the fused kernel carries the fit: the JAX learner's gate
         (Adam in the window) and a configuration the kernel takes."""
@@ -380,6 +392,7 @@ class GPRegressionMetaLearnedPAC(RegressionModelMetaLearned):
                 and self._mesh is None
                 and fused_mlap_fits(self.svi_batch_size, t, n, d, self.cfg.mean_nn_layers))
 
+    @spanned(LEARNER_GATE)
     def _fused_meta_test_ok(self, n_tasks, n_points, dim):
         """Whether the kernel's meta-test mode carries the inference of
         ``n_tasks`` posteriors of ``n_points`` points in ``dim`` dimensions:
@@ -410,6 +423,7 @@ class GPRegressionMetaLearnedPAC(RegressionModelMetaLearned):
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
+    @spanned(LEARNER_META_FIT)
     def meta_fit(self, valid_tuples=None, verbose=True, log_period=500, eval_period=5000,
                  n_iter=None):
         """Trains the hyper-posterior, the noise and the per-task posteriors on
@@ -477,6 +491,7 @@ class GPRegressionMetaLearnedPAC(RegressionModelMetaLearned):
                     for k, g in zip(Q_KEYS, grads):
                         cuda.adam_step_(params[k], mu[k], nu[k], g, s0 + i + 1, lr)
 
+    @spanned(LEARNER_META_TEST)
     @torch.no_grad()
     def _meta_test_inference(self, context_tuples, n_iter=3000, lr=1e-2):
         """Fit per-task posteriors to the context sets (ragged ones padded and
@@ -515,6 +530,7 @@ class GPRegressionMetaLearnedPAC(RegressionModelMetaLearned):
         return {"Xc": Xc, "Mc": Mc, "q_means": params["q_means"], "q_trils": params["q_trils"],
                 "theta_agg": theta_agg}
 
+    @spanned(OPS_PREDICTIVE)
     def _predictive(self, task_state, TX):
         """Predictive moments in normalised space at the test points TX
         [T, Nt, D] of the tasks of ``task_state`` -> (mean [T, Nt], cov [T, Nt, Nt])."""
@@ -567,20 +583,22 @@ class GPRegressionMetaLearnedPAC(RegressionModelMetaLearned):
             raise ValueError("test tuples must be (ctx_x, ctx_y, test_x, test_y)")
         task_state = self._meta_test_inference([t[:2] for t in test_tuples],
                                                n_iter=n_iter_meta_test)
-        prepared = [handle_input_dim(tx, ty) for _, _, tx, ty in test_tuples]
-        if len({tx.shape for tx, _ in prepared}) == 1:
-            TX = self._tensor(np.stack([self._normalize_x(tx) for tx, _ in prepared]))
-            TY = self._tensor(np.stack([ty[:, 0] for _, ty in prepared]))
-            lls, rmses, calibs = self._run_batch_eval(task_state, TX, TY)
-            return (float(torch.mean(lls)), float(torch.mean(rmses)),
-                    float(torch.mean(calibs)))
-        results = []
-        for i, (tx, ty) in enumerate(prepared):
-            one = {k: v[i:i + 1] if k != "theta_agg" else v for k, v in task_state.items()}
-            results.append(self._run_batch_eval(
-                one, self._tensor(self._normalize_x(tx))[None], self._tensor(ty[:, 0])[None]))
-        ll, rmse, calib = (float(torch.mean(torch.cat(r))) for r in zip(*results))
-        return ll, rmse, calib
+        with span(LEARNER_EVAL):
+            prepared = [handle_input_dim(tx, ty) for _, _, tx, ty in test_tuples]
+            if len({tx.shape for tx, _ in prepared}) == 1:
+                TX = self._tensor(np.stack([self._normalize_x(tx) for tx, _ in prepared]))
+                TY = self._tensor(np.stack([ty[:, 0] for _, ty in prepared]))
+                lls, rmses, calibs = self._run_batch_eval(task_state, TX, TY)
+                return (float(torch.mean(lls)), float(torch.mean(rmses)),
+                        float(torch.mean(calibs)))
+            results = []
+            for i, (tx, ty) in enumerate(prepared):
+                one = {k: v[i:i + 1] if k != "theta_agg" else v for k, v in task_state.items()}
+                results.append(self._run_batch_eval(
+                    one, self._tensor(self._normalize_x(tx))[None],
+                    self._tensor(ty[:, 0])[None]))
+            ll, rmse, calib = (float(torch.mean(torch.cat(r))) for r in zip(*results))
+            return ll, rmse, calib
 
     @torch.no_grad()
     def prior_mean(self, x, n_hyperposterior_samples=1000):

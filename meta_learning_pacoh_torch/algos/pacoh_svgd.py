@@ -69,10 +69,22 @@ from meta_learning_pacoh_torch.ops.distributions import (
 from meta_learning_pacoh_torch.ops.metrics import mixture_eval_metrics
 from meta_learning_pacoh_torch.ops.svgd import svgd_phi
 from meta_learning_pacoh_torch.utils.input_handling import handle_input_dim
+from meta_learning_pacoh_torch.utils.profiling import (
+    LEARNER_GATE,
+    LEARNER_INIT,
+    LEARNER_META_FIT,
+    LEARNER_STEP,
+    OPS_SCORE,
+    OPS_TRANSPORT,
+    OPS_UPDATE,
+    span,
+    spanned,
+)
 
 
 class GPRegressionMetaLearnedSVGD(RegressionModelMetaLearned):
 
+    @spanned(LEARNER_INIT)
     def __init__(self, meta_train_data, num_iter_fit=10000, feature_dim=1,
                  prior_factor=0.01, weight_prior_std=0.5, bias_prior_std=3.0,
                  covar_module="NN", mean_module="NN", mean_nn_layers=(32, 32),
@@ -153,19 +165,21 @@ class GPRegressionMetaLearnedSVGD(RegressionModelMetaLearned):
         """-phi, the update direction of particles [..., K, P] on the task
         batch ``data`` (X, Y, mask): the score by autograd, then the Stein
         transport (one K1 launch for all fits of a stack)."""
-        part = particles.detach().requires_grad_(True)
-        log_prob = meta_log_prob(self.hyper_prior, prior_factor, part, *data,
-                                 **self._shard_terms())
-        (score,) = torch.autograd.grad(log_prob.sum(), part)
-        if self._shard is not None:
-            self._shard.all_reduce_(score)
-        with torch.no_grad():
+        with span(OPS_SCORE):
+            part = particles.detach().requires_grad_(True)
+            log_prob = meta_log_prob(self.hyper_prior, prior_factor, part, *data,
+                                     **self._shard_terms())
+            (score,) = torch.autograd.grad(log_prob.sum(), part)
+            if self._shard is not None:
+                self._shard.all_reduce_(score)
+        with span(OPS_TRANSPORT), torch.no_grad():
             return -svgd_phi(particles, score, kernel=self.svgd_kernel, bandwidth=bandwidth)
 
+    @spanned(LEARNER_STEP)
     def _step(self):
         grad = self._transport(self.particles, self._task_batch(), self.prior_factor,
                                self.bandwidth)
-        with torch.no_grad():
+        with span(OPS_UPDATE), torch.no_grad():
             self._apply_update(grad)
         self._step_count += 1
 
@@ -187,6 +201,7 @@ class GPRegressionMetaLearnedSVGD(RegressionModelMetaLearned):
         stack.step += 1
 
     # ------------------------------------------------------------ fused path
+    @spanned(LEARNER_GATE)
     def _fused_path_ok(self):
         """Whether a fused training kernel carries the fit: the JAX learner's
         gate (pacoh_svgd.py:237-251), with its N <= 8 arm (B2) and its
@@ -235,6 +250,7 @@ class GPRegressionMetaLearnedSVGD(RegressionModelMetaLearned):
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
+    @spanned(LEARNER_META_FIT)
     def meta_fit(self, valid_tuples=None, verbose=True, log_period=500, n_iter=None):
         """Fits the hyper-posterior particles with SVGD."""
         if valid_tuples is not None and not all(len(t) == 4 for t in valid_tuples):

@@ -41,6 +41,13 @@ from meta_learning_pacoh_torch.ops.launch_sched import (
     staircase_launches,
     staircase_lr,
 )
+from meta_learning_pacoh_torch.utils.profiling import (
+    TRAINER_BUILD,
+    TRAINER_LAUNCH,
+    TRAINER_PAGES,
+    span,
+    spanned,
+)
 
 MAX_N = 8  # the per-task factorization is unrolled in registers
 MAX_F = 8
@@ -272,6 +279,7 @@ class FusedMAPTrainer:
     MAX_LAUNCH = 512  # steps a launch in the sampled mode (bounds its count pages)
     train_fn = staticmethod(fused_map_train)  # the kernel a launch runs
 
+    @spanned(TRAINER_BUILD)
     def __init__(self, X, Y, mask, *, layout, lr, weight_decay, lr_decay=1.0,
                  task_batch_size=None, task_draw=None):
         self.X, self.Y, self.mask = X, Y, mask
@@ -285,6 +293,7 @@ class FusedMAPTrainer:
         self.task_draw = task_draw
         self.w_t = torch.from_numpy(task_weights(mask.cpu().numpy())).to(X.device)
 
+    @spanned(TRAINER_PAGES)
     def count_pages(self, step0, n_steps):
         return count_pages(self.task_draw, self.n_tasks, step0, n_steps).to(self.X.device)
 
@@ -295,9 +304,11 @@ class FusedMAPTrainer:
 
     def launch(self, theta, mu, nu, step0, n_steps):
         counts = self.count_pages(step0, n_steps) if self.counted else None
-        return self.train_fn(theta, mu, nu, self.X, self.Y, self.mask, self.w_t, step0,
-                             staircase_lr(self.lr, self.lr_decay, step0), self.weight_decay,
-                             counts, layout=self.layout, n_steps=n_steps)
+        with span(TRAINER_LAUNCH):
+            return self.train_fn(theta, mu, nu, self.X, self.Y, self.mask, self.w_t, step0,
+                                 staircase_lr(self.lr, self.lr_decay, step0),
+                                 self.weight_decay, counts, layout=self.layout,
+                                 n_steps=n_steps)
 
     def run(self, theta, mu, nu, n_steps, step0):
         """n_steps from global step step0; (last loss, mean loss) as device scalars."""

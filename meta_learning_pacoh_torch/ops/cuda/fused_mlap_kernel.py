@@ -61,6 +61,13 @@ from meta_learning_pacoh_torch.ops.launch_sched import (
     staircase_launches,
     staircase_lr,
 )
+from meta_learning_pacoh_torch.utils.profiling import (
+    TRAINER_BUILD,
+    TRAINER_LAUNCH,
+    TRAINER_PAGES,
+    span,
+    spanned,
+)
 
 MAX_S = 32  # samples, one cluster each
 MAX_N = 8  # the per-task algebra is unrolled in registers
@@ -443,6 +450,7 @@ class FusedMLAPTrainer:
 
     MAX_LAUNCH = 512  # steps a launch (bounds its noise pages: 24 MB at sin_20)
 
+    @spanned(TRAINER_BUILD)
     def __init__(self, X, Y, mask, *, hidden, lr, posterior_lr_multiplier, svi_batch_size,
                  task_batch_size, task_kl_weight, meta_kl_weight, delta, weight_prior_std,
                  bias_prior_std, eps_draw, task_draw, lr_decay=1.0):
@@ -462,6 +470,7 @@ class FusedMLAPTrainer:
         self.last_loss = self.avg_loss = float("nan")
         self.last_diag = {}
 
+    @spanned(TRAINER_PAGES)
     def count_pages(self, step0, n_steps):
         """[n_steps, T] draw counts of global steps step0 .. step0 + n_steps - 1."""
         pages = count_pages(self.task_draw, self.n_tasks, step0, n_steps)
@@ -469,6 +478,7 @@ class FusedMLAPTrainer:
             pages = pages.pin_memory()
         return pages.to(self.X.device, non_blocking=True)
 
+    @spanned(TRAINER_PAGES)
     def eps_pages(self, step0, n_steps):
         """[n_steps, S, P] noise of global steps step0 .. step0 + n_steps - 1."""
         pages = torch.empty(n_steps, self.n_samples, self.p, dtype=torch.float32,
@@ -484,10 +494,11 @@ class FusedMLAPTrainer:
     def launch(self, params, mu, nu, step0, n_steps):
         eps = self.eps_pages(step0, n_steps)
         counts = self.count_pages(step0, n_steps)
-        return fused_mlap_train(params, mu, nu, self.X, self.Y, self.mask, eps, counts, step0,
-                                staircase_lr(self.lr, self.lr_decay, step0),
-                                staircase_lr(self.lr_post, self.lr_decay, step0),
-                                batch=self.batch, n_steps=n_steps, **self.kw)
+        with span(TRAINER_LAUNCH):
+            return fused_mlap_train(params, mu, nu, self.X, self.Y, self.mask, eps, counts,
+                                    step0, staircase_lr(self.lr, self.lr_decay, step0),
+                                    staircase_lr(self.lr_post, self.lr_decay, step0),
+                                    batch=self.batch, n_steps=n_steps, **self.kw)
 
     def run(self, params, mu, nu, n_steps, step0):
         """n_steps from global step step0; (last loss, mean loss) as device
@@ -513,6 +524,7 @@ class FusedMLAPMetaTest:
 
     MAX_LAUNCH = 512
 
+    @spanned(TRAINER_BUILD)
     def __init__(self, X, Y, mask, *, hidden, lr, task_kl_weight, meta_kl_weight, delta,
                  n_tasks, weight_prior_std, bias_prior_std):
         self.X, self.Y, self.mask = X, Y, mask
@@ -532,7 +544,10 @@ class FusedMLAPMetaTest:
         nu = {k: torch.zeros_like(params[k]) for k in Q_KEYS}
         last = None
         for s, sub in self.launches(n_steps):
-            last, _, _ = fused_mlap_train(params, mu, nu, self.X, self.Y, self.mask,
-                                          eps_block(s, sub), None, s, 0.0, self.lr,
-                                          n_steps=sub, **self.kw)
+            with span(TRAINER_PAGES):
+                eps = eps_block(s, sub)
+            with span(TRAINER_LAUNCH):
+                last, _, _ = fused_mlap_train(params, mu, nu, self.X, self.Y, self.mask, eps,
+                                              None, s, 0.0, self.lr, n_steps=sub, **self.kw)
+            del eps  # freed before the next block is drawn, which may take its memory
         return last

@@ -46,6 +46,13 @@ from meta_learning_pacoh_torch.ops.launch_sched import (
     staircase_launches,
     staircase_lr,
 )
+from meta_learning_pacoh_torch.utils.profiling import (
+    TRAINER_BUILD,
+    TRAINER_LAUNCH,
+    TRAINER_PAGES,
+    span,
+    spanned,
+)
 
 MAX_K = 32  # the transport keeps the K x K distances in shared memory
 MAX_N = 8  # the per-task factorization is unrolled in registers
@@ -326,6 +333,7 @@ class FusedSVGDTrainer:
     MAX_LAUNCH = 512  # steps a launch in the sampled mode (bounds its count pages)
     train_fn = staticmethod(fused_svgd_train)  # the kernel a launch runs
 
+    @spanned(TRAINER_BUILD)
     def __init__(self, X, Y, mask, *, hidden, lr, prior_factor, weight_prior_std,
                  bias_prior_std, lr_decay=1.0, task_batch_size=None, task_draw=None):
         self.X, self.Y, self.mask = X, Y, mask
@@ -341,6 +349,7 @@ class FusedSVGDTrainer:
         self.w_t = torch.from_numpy(task_weights(mask.cpu().numpy(), task_batch_size)).to(
             X.device)
 
+    @spanned(TRAINER_PAGES)
     def count_pages(self, step0, n_steps):
         """[n_steps, T] draw counts of global steps step0 .. step0 + n_steps - 1."""
         return count_pages(self.task_draw, self.n_tasks, step0, n_steps).to(self.X.device)
@@ -352,9 +361,11 @@ class FusedSVGDTrainer:
 
     def launch(self, theta, mu, nu, step0, n_steps):
         counts = self.count_pages(step0, n_steps) if self.counted else None
-        self.train_fn(theta, mu, nu, self.X, self.Y, self.mask, self.w_t, step0,
-                      staircase_lr(self.lr, self.lr_decay, step0), self.prior_factor, counts,
-                      hidden=self.hidden, wps=self.wps, bps=self.bps, n_steps=n_steps)
+        with span(TRAINER_LAUNCH):
+            self.train_fn(theta, mu, nu, self.X, self.Y, self.mask, self.w_t, step0,
+                          staircase_lr(self.lr, self.lr_decay, step0), self.prior_factor,
+                          counts, hidden=self.hidden, wps=self.wps, bps=self.bps,
+                          n_steps=n_steps)
 
     def run(self, theta, mu, nu, n_steps, step0):
         for s, sub in self.launches(step0, n_steps):

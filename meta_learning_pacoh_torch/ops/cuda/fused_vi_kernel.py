@@ -51,6 +51,13 @@ from meta_learning_pacoh_torch.ops.launch_sched import (
     staircase_launches,
     staircase_lr,
 )
+from meta_learning_pacoh_torch.utils.profiling import (
+    TRAINER_BUILD,
+    TRAINER_LAUNCH,
+    TRAINER_PAGES,
+    span,
+    spanned,
+)
 
 MAX_S = 32  # samples, one block each
 MAX_N = 8  # the per-task factorization is unrolled in registers
@@ -270,6 +277,7 @@ class FusedVITrainer:
     MAX_LAUNCH = 512  # steps a launch (bounds its noise pages: 47 MB at sin_20)
     train_fn = staticmethod(fused_vi_train)  # the kernel a launch runs
 
+    @spanned(TRAINER_BUILD)
     def __init__(self, X, Y, mask, *, hidden, lr, prior_factor, weight_prior_std,
                  bias_prior_std, svi_batch_size, eps_draw, lr_decay=1.0, task_batch_size=None,
                  task_draw=None, cluster=None):
@@ -291,10 +299,12 @@ class FusedVITrainer:
         self.last_loss = self.avg_loss = float("nan")
         self.cluster = cluster  # forces the kernel's cluster size; the learners never set it
 
+    @spanned(TRAINER_PAGES)
     def count_pages(self, step0, n_steps):
         """[n_steps, T] draw counts of global steps step0 .. step0 + n_steps - 1."""
         return count_pages(self.task_draw, self.n_tasks, step0, n_steps).to(self.X.device)
 
+    @spanned(TRAINER_PAGES)
     def eps_pages(self, step0, n_steps):
         """[n_steps, S, P] noise of global steps step0 .. step0 + n_steps - 1."""
         pages = torch.empty(n_steps, self.n_samples, self.p, dtype=torch.float32,
@@ -309,12 +319,14 @@ class FusedVITrainer:
 
     def launch(self, loc, lsc, m_loc, m_lsc, v_loc, v_lsc, step0, n_steps):
         counts = self.count_pages(step0, n_steps) if self.counted else None
+        eps = self.eps_pages(step0, n_steps)
         forced = {} if self.cluster is None else {"cluster": self.cluster}
-        return self.train_fn(loc, lsc, m_loc, m_lsc, v_loc, v_lsc, self.X, self.Y, self.mask,
-                             self.w_t, self.eps_pages(step0, n_steps), step0,
-                             staircase_lr(self.lr, self.lr_decay, step0), self.prior_factor,
-                             counts, hidden=self.hidden, wps=self.wps, bps=self.bps,
-                             mll_const=self.mll_const, n_steps=n_steps, **forced)
+        with span(TRAINER_LAUNCH):
+            return self.train_fn(loc, lsc, m_loc, m_lsc, v_loc, v_lsc, self.X, self.Y,
+                                 self.mask, self.w_t, eps, step0,
+                                 staircase_lr(self.lr, self.lr_decay, step0), self.prior_factor,
+                                 counts, hidden=self.hidden, wps=self.wps, bps=self.bps,
+                                 mll_const=self.mll_const, n_steps=n_steps, **forced)
 
     def run(self, loc, lsc, m_loc, m_lsc, v_loc, v_lsc, n_steps, step0):
         """n_steps from global step step0; (last loss, mean loss) as device
