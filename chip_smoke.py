@@ -2371,8 +2371,8 @@ def phase2_b10(errs, times, work):
         torch.cuda.synchronize()
         skip = model.hyper_prior.slice_of(("kernel_nn", "b_out"))
         t, n, d = model.X.shape
-        blocks, spb, shared = sb.svgd_bign_plan(model.num_particles, t, n, d, hidden)
-        print(f"  fused_svgd_bign, {label} ({blocks} blocks of {spb} systems, "
+        blocks, spb, shared, threads = sb.svgd_bign_plan(model.num_particles, t, n, d, hidden)
+        print(f"  fused_svgd_bign, {label} ({blocks} blocks of {spb} systems, {threads} threads, "
               f"{BIGN_PLACEMENT[shared]}), {n_steps} steps:")
         if "device memory" in label and shared != 0:
             raise AssertionError(f"fused_svgd_bign ({label}): planned placement {shared}")
@@ -2651,9 +2651,13 @@ def phase3(profile_dir):
     fit_launches = dict(cuda.LAUNCHES)
     print(f"  meta_fit: {FIT_STEPS} steps in {fit_s:.3f} s ({FIT_STEPS / fit_s:.1f} steps/s, "
           f"first call); launches in the fit: {fit_launches}")
+    # every launch two blocks an SM (200 systems of N=20)
     if (fit_launches["fused_svgd_bign"] < 1 or type(model._fused) is not FusedSVGDBigNTrainer
-            or any(v for k, v in fit_launches.items() if k != "fused_svgd_bign")):
-        raise AssertionError(f"the cauchy_20 fit was not carried by B10 alone: {fit_launches}")
+            or fit_launches["fused_svgd_bign_coresident"] != fit_launches["fused_svgd_bign"]
+            or any(v for k, v in fit_launches.items()
+                   if k not in ("fused_svgd_bign", "fused_svgd_bign_coresident"))):
+        raise AssertionError(f"the cauchy_20 fit was not carried by B10 alone, two blocks an "
+                             f"SM: {fit_launches}")
     cuda.reset_launch_counts()
     t0 = time.perf_counter()
     ll, rmse, calib = model.eval_datasets(test)

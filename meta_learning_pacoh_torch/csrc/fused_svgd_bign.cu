@@ -33,9 +33,17 @@
 // column; the 50 systems run side by side. The system's packed matrix and
 // both nets' activations live in shared memory when they fit beside the
 // parameters (N=200 does: placement 2), else the activations and then the
-// matrix move to the block's region of a device scratch (in L2). The
-// systems go to at most 128 blocks, a block walking its systems in order,
-// so every block is resident for the grid barriers (cooperative launch).
+// matrix move to the block's region of a device scratch (in L2). A block
+// walks its systems in order, and every block is resident for the grid
+// barriers (cooperative launch): one block of 512 threads an SM, the
+// systems in at most 128 blocks; or, where the systems outnumber the SMs, N
+// is small and two blocks' shared memory fits an SM (cauchy_20: 200
+// systems of N=20), two blocks of 256 threads an SM, ceil(G / 264) systems
+// each, so that two systems' short, latency-bound chains of phases run side
+// by side on an SM. The width is the launch's (svgd_bign_plan in
+// ops/cuda/fused_svgd_bign_kernel.py): every phase strides over blockDim.x,
+// and __launch_bounds__(512) keeps the register budget at 128 a thread,
+// which two 256-thread blocks an SM allow.
 // A step: every block computes a share of the K x K squared distances of
 // the step's particles and its systems' partial gradients into a [G, P]
 // scratch; a grid barrier; every block selects the same median, forms the
@@ -54,11 +62,10 @@ namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int kThreads = 512;
+constexpr int kThreads = 512;  // the widest block; the launch takes 512 or 256
 constexpr int kMinN = 9;
 constexpr int kMaxN = 256;
 constexpr int kMaxK = 32;
-constexpr int kMaxGroups = 128;
 
 #include "tiled_chol.cuh"
 #include "tiled_inverse.cuh"
@@ -226,14 +233,15 @@ extern "C" int pacoh_fused_svgd_bign(float* theta, float* m, float* v, const flo
                                      const int* widths, float* gbuf, float* act, float* work,
                                      float* th_buf, float* d2, int k, int t, int n, int d, int h,
                                      int l, int p, int n_steps, int blocks, int spb, int shared,
-                                     float step0, float lr, float pf, int device, void* stream) {
+                                     int threads, float step0, float lr, float pf, int device,
+                                     void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int g = k * t;
   if (k < 1 || k > kMaxK || n < kMinN || n > kMaxN || t < 1 || d < 1 || h < 1 || l < 1 ||
-      p < 1 || n_steps < 1 || blocks < 1 || blocks > kMaxGroups || spb < 1 || blocks * spb < g ||
+      p < 1 || n_steps < 1 || blocks < 1 || spb < 1 || blocks * spb < g ||
       (blocks - 1) * spb >= g || shared < 0 || shared > 2 || (!shared && work == nullptr) ||
-      (shared < 2 && act == nullptr))
+      (shared < 2 && act == nullptr) || (threads != kThreads && threads != kThreads / 2))
     return static_cast<int>(cudaErrorInvalidValue);
   int optin = 0;
   err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
@@ -245,7 +253,7 @@ extern "C" int pacoh_fused_svgd_bign(float* theta, float* m, float* v, const flo
   if (err != cudaSuccess) return static_cast<int>(err);
   // every block must be resident at once for the grid barrier
   int per_sm = 0, n_sm = 0;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fused_svgd_bign_kernel, kThreads,
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fused_svgd_bign_kernel, threads,
                                                       bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
   err = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, device);
@@ -257,7 +265,7 @@ extern "C" int pacoh_fused_svgd_bign(float* theta, float* m, float* v, const flo
            static_cast<float>(log(static_cast<double>(k + 1)))};
   void* args[] = {&q};
   err = cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(fused_svgd_bign_kernel),
-                                    dim3(blocks), dim3(kThreads), args, bytes,
+                                    dim3(blocks), dim3(threads), args, bytes,
                                     static_cast<cudaStream_t>(stream));
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());

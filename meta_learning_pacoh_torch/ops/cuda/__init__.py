@@ -4,9 +4,10 @@ Each module holds one kernel's wrapper and, beside it, its plain PyTorch
 version. A wrapper takes the plain version for a tensor on the CPU and
 launches its kernel for a tensor on a CUDA device; it never falls back.
 ``LAUNCHES`` counts the kernel launches of each wrapper, so a run can show
-that its main path went through the kernels. ``adam_step_`` is the Adam(W)
-update of the learners' general steps and of the fused training kernels'
-plain versions.
+that its main path went through the kernels (``fused_svgd_bign_coresident``
+counts those of B10's launches whose plan put two blocks on an SM).
+``adam_step_`` is the Adam(W) update of the learners' general steps and of
+the fused training kernels' plain versions.
 """
 
 import math
@@ -18,7 +19,7 @@ ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-8
 LAUNCHES = {"svgd_phi": 0, "mll_fwd": 0, "mll_bwd": 0, "chol": 0, "chol_small": 0,
             "blocked_fwd": 0, "blocked_bwd": 0, "fused_svgd": 0, "fused_map": 0,
             "fused_vi": 0, "fused_map_bign": 0, "fused_mlap": 0, "fused_svgd_bign": 0,
-            "fused_vi_bign": 0}
+            "fused_vi_bign": 0, "fused_svgd_bign_coresident": 0}
 
 
 def reset_launch_counts():

@@ -55,7 +55,7 @@ SIGNATURES = {
     "pacoh_fused_mlap_clusters": (_I,) * 9 + (_P, _I, _P),
     "pacoh_fused_mlap_tiled": (_P,) * 28 + (_I,) * 12 + (_F,) * 10 + (_I, _P),
     "pacoh_fused_mlap_tiled_clusters": (_I,) * 9 + (_P, _I, _P),
-    "pacoh_fused_svgd_bign": (_P,) * 17 + (_I,) * 11 + (_F,) * 3 + (_I, _P),
+    "pacoh_fused_svgd_bign": (_P,) * 17 + (_I,) * 12 + (_F,) * 3 + (_I, _P),
     "pacoh_fused_vi_bign": (_P,) * 21 + (_I,) * 11 + (_F,) * 6 + (_I, _P),
 }
 

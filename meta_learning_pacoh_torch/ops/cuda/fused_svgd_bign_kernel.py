@@ -50,6 +50,14 @@ from meta_learning_pacoh_torch.ops.cuda.fused_svgd_kernel import (
 MIN_N, MAX_N = 9, 256  # below: the N <= 8 kernel; above: the TPU kernel's window
 # the widest grouping of the H100 faceoff that the kernels won (``bign_wins``)
 MAX_WON_SYSTEMS_A_BLOCK = 8
+N_SM = 132  # SMs of an H100 SXM
+SM_SMEM_BYTES = 233472  # shared memory of one Hopper SM
+BLOCK_RESERVED_SMEM = 1024  # of it, what the runtime keeps for each resident block
+THREADS = 512  # csrc/fused_svgd_bign.cu's kThreads: a block's width, alone on its SM
+# The largest N whose every phase covers its rows at THREADS // 2 threads:
+# tiled_wt_times gives each row one group of lanes with no stride
+# (csrc/tiled_inverse.cuh), N <= blockDim.x; every other phase strides.
+N_WIDE = 256
 
 
 def matrix_bytes(n, shared):
@@ -81,24 +89,34 @@ def smem_bytes(k, n, d, p, shared, hidden=()):
             + act_bytes(n, hidden, shared))
 
 
-def systems_plan(g, n, smem_fn, scratch_floats):
+def systems_plan(g, n, smem_fn, scratch_floats, per_sm=1):
     """(blocks, systems a block, placement) of a big-N kernel on g systems of
-    n points, or None: the systems go to at most 128 blocks (B9's grouping),
-    each of 512 threads and at most one Hopper block's shared memory
-    (``smem_fn(placement)`` bytes), so that 132 SMs hold every block of the
-    cooperative launch at once. The placement is the most that fits shared
-    memory: 2 the matrix and the nets' activations, 1 the matrix (the
-    activations in device memory), 0 neither; ``scratch_floats(blocks,
-    placement)`` of device scratch must stay under 1 GiB."""
-    blocks, spb = task_groups(g)
+    n points at ``per_sm`` blocks an SM of THREADS // per_sm threads, or
+    None, so that 132 SMs hold every block of the cooperative launch at once.
+    The placement is the most that fits one Hopper block's shared memory
+    (``smem_fn(placement)`` bytes): 2 the matrix and the nets' activations, 1
+    the matrix (the activations in device memory), 0 neither; ``per_sm``
+    blocks of it must fit an SM. One block an SM takes B9's grouping, at most
+    128 blocks; two take ceil(g / (2 N_SM)) systems a block.
+    ``scratch_floats(blocks, placement)`` of device scratch must stay under 1
+    GiB."""
     shared = next((s for s in (2, 1, 0) if smem_fn(s) <= SMEM_BYTES), None)
-    if shared is None or 4 * scratch_floats(blocks, shared) > SCRATCH_BYTES:
+    if shared is None:
+        return None
+    if per_sm == 1:
+        blocks, spb = task_groups(g)
+    elif per_sm * (smem_fn(shared) + BLOCK_RESERVED_SMEM) > SM_SMEM_BYTES:
+        return None
+    else:
+        spb = -(-g // (N_SM * per_sm))
+        blocks = -(-g // spb)
+    if 4 * scratch_floats(blocks, shared) > SCRATCH_BYTES:
         return None
     return blocks, spb, shared
 
 
 def svgd_bign_plan(k, t, n, d, hidden):
-    """(blocks, systems a block, placement in shared memory: ``systems_plan``)
+    """(blocks, systems a block, placement in shared memory, threads a block)
     of the kernel at this configuration, or None where it does not take it.
 
     The kernel takes NN mean and NN kernel nets of one hidden width (feature
@@ -109,6 +127,11 @@ def svgd_bign_plan(k, t, n, d, hidden):
     shared memory, the activations (N > 201 at nets 32x32) and the matrices
     (wide nets). The TPU's VMEM test and N >= 128 floor do not apply.
 
+    Where the systems outnumber the SMs (G > N_SM), N <= N_WIDE and two
+    blocks' shared memory fits an SM, two blocks of 256 threads share each
+    SM (``cauchy_20``: 200 blocks of one system each); elsewhere one block
+    of 512 threads an SM.
+
     Where the learners take it is ``bign_wins``."""
     hidden = tuple(hidden)
     if not (1 <= k <= MAX_K and t >= 1 and d >= 1 and MIN_N <= n <= MAX_N
@@ -116,11 +139,20 @@ def svgd_bign_plan(k, t, n, d, hidden):
         return None
     p = fused_prior(d, hidden, 1.0, 1.0).dim
     g = k * t
-    return systems_plan(
-        g, n, lambda shared: smem_bytes(k, n, d, p, shared, hidden),
-        lambda blocks, shared: (g * p + 2 * k * p + k * k
-                                + (0 if shared == 2 else blocks * 2 * (n | 1) * sum(hidden))
-                                + (0 if shared else blocks * n * n)))
+
+    def smem(shared):
+        return smem_bytes(k, n, d, p, shared, hidden)
+
+    def scratch(blocks, shared):
+        return (g * p + 2 * k * p + k * k
+                + (0 if shared == 2 else blocks * 2 * (n | 1) * sum(hidden))
+                + (0 if shared else blocks * n * n))
+
+    for per_sm in (2, 1) if g > N_SM and n <= N_WIDE else (1,):
+        plan = systems_plan(g, n, smem, scratch, per_sm)
+        if plan is not None:
+            return plan + (THREADS // per_sm,)
+    return None
 
 
 def svgd_bign_fits(k, t, n, d, hidden):
@@ -137,12 +169,13 @@ def bign_wins(g):
     (tools/torch_bign_policy.py) ran both learners at K = S = 10, full
     batch, on their fused kernels and on their general steps, at the
     corners of the window: the kernels won everywhere. SVGD: N=9 with 50
-    systems 105.2x, cauchy_20 (N=20, 200 systems, two a block) 58.1x, N=48
+    systems 105.2x, cauchy_20 (N=20, 200 systems) 58.1x, N=48
     68.9x, N=128 38.8x, N=200 (svgd_t5_n200) 17.3x, N=256 12.6x, N=200 with
     200 systems 10.1x, N=48 with 1000 systems (8 a block) 9.2x, N=256 with
     1000 systems 7.4x; VI 85.1x, 54.2x, 53.0x, 32.0x, 16.3x, 11.2x, 9.7x,
     9.5x, 7.1x. So the learners take both kernels by default up to
-    MAX_WON_SYSTEMS_A_BLOCK systems a block (g <= 1024), where the v5e's
+    MAX_WON_SYSTEMS_A_BLOCK systems a block of the grouping at one block an
+    SM (g <= 1024, the faceoff's grouping), where the v5e's
     0.63-0.99x kept the TPU learner off them; beyond the shapes measured
     the default is the general step and ``PACOH_TORCH_FORCE_BIGN_FUSED=1``
     turns the kernels on. ``PACOH_TORCH_DISABLE_FUSED=1`` turns them off
@@ -212,7 +245,7 @@ def fused_svgd_bign_train(theta, mu, nu, x, y, mask, w_t, step0, lr, prior_facto
             or w_t.shape != (t,) or (counts is not None and counts.shape != (n_steps, t))):
         raise ValueError("fused_svgd_bign: operand shapes do not match theta [K, P] and "
                          "x [T, N, D]")
-    blocks, spb, shared = plan
+    blocks, spb, shared, threads = plan
     loc, scale, offs = _device_operands(d, hidden, float(wps), float(bps), theta.device)
     widths = hidden_widths(hidden, theta.device)
 
@@ -228,9 +261,10 @@ def fused_svgd_bign_train(theta, mu, nu, x, y, mask, w_t, step0, lr, prior_facto
            offs.data_ptr(), widths.data_ptr(), gbuf.data_ptr(),
            None if act is None else act.data_ptr(),
            None if work is None else work.data_ptr(), th_buf.data_ptr(), d2.data_ptr(),
-           k, t, n, d, hidden[0], len(hidden), p, int(n_steps), blocks, spb, shared,
+           k, t, n, d, hidden[0], len(hidden), p, int(n_steps), blocks, spb, shared, threads,
            float(step0), float(lr), float(prior_factor))
     cuda.LAUNCHES["fused_svgd_bign"] += 1
+    cuda.LAUNCHES["fused_svgd_bign_coresident"] += int(threads < THREADS)
     return theta, mu, nu
 
 

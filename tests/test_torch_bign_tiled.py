@@ -146,15 +146,53 @@ def wt_times(P, z):
     return np.array([sum(P.a[k, a] * z[k] for k in range(a, n)) for a in range(n)])
 
 
+def lauum_tiles(n, r0, rh):
+    """The micro-tiles of tiled_lauum's block row at r0 of rh rows."""
+    tr = -(-min(rh, n - r0) // 4)
+    return tr * (r0 // 4) + tr * (tr + 1) // 2
+
+
+def lauum_height(n, threads):
+    """tiled_lauum's block rows: 32, halved while one has more micro-tiles
+    than the block's threads (down to 4)."""
+    rh = TILE
+    while rh > 4 and any(lauum_tiles(n, r0, rh) > threads for r0 in range(0, n, rh)):
+        rh //= 2
+    return rh
+
+
+def group_lanes(items, reach, threads):
+    """csrc/lane_sums.cuh's group_lanes at a block of ``threads``."""
+    g = 1
+    while g < 32 and items * 2 * g <= threads and 4 * g <= reach:
+        g *= 2
+    return g
+
+
+def rows_covered(n, threads):
+    """Whether the phases of a system that give each item one group of lanes
+    with no stride cover their items at a block of ``threads``:
+    tiled_wt_times (a row of alpha a group) and tiled_lauum (a micro-tile a
+    group). Every other phase of bign_score.cuh, tiled_chol.cuh,
+    tiled_inverse.cuh and fused_update.cuh strides over blockDim.x (or
+    warps, or runs rounds of the block), and K <= 32 rows of the kernel
+    matrix take a thread each."""
+    if n * group_lanes(n, n, threads) > threads:
+        return False
+    rh = lauum_height(n, threads)
+    for r0 in range(0, n, rh):
+        tiles = lauum_tiles(n, r0, rh)
+        if tiles * group_lanes(tiles, n - r0, threads) > threads:
+            return False
+    return True
+
+
 def lauum(P, order, threads=512):
     """tiled_lauum: block rows of 32 from the top (halved while one has more
     micro-tiles than the block's threads), each micro-tile held until the
     block row's barrier."""
     n = P.n
-    rh = TILE
-    while rh > 4 and any(-(-min(rh, n - r0) // 4) * (r0 // 4 + (-(-min(rh, n - r0) // 4) + 1) / 2)
-                         > threads for r0 in range(0, n, rh)):
-        rh //= 2
+    rh = lauum_height(n, threads)
     for r0 in range(0, n, rh):
         tr = -(-min(rh, n - r0) // 4)
         tiles = [(r0 + 4 * R, 4 * C) for R in range(tr) for C in range(r0 // 4 + R + 1)]
@@ -343,8 +381,12 @@ def test_plans_cover_the_window():
     """Every shape of a grid over the window (N 9-256, K or S 1-32, widths
     8-64, two layers, D 1-2, T 1-100) gets a plan from both wrappers within
     one Hopper block's shared memory, at the most that fits there (2 the
-    matrix and the activations, 1 the matrix, 0 neither); at svgd_t5_n200
-    and vi_t5_n200 both the packed triangle and the activations are."""
+    matrix and the activations, 1 the matrix, 0 neither); every plan is
+    resident (blocks <= 132 s and s blocks' shared memory within an SM's,
+    s = 512 / its width), each block walks at least one system, and every
+    phase covers its rows at the plan's width; at svgd_t5_n200 and
+    vi_t5_n200 both the packed triangle and the activations are in shared
+    memory, one 512-thread block a system."""
     for n, k, h in grid():
         hidden = (h, h)
         for d in (1, 2):
@@ -357,11 +399,29 @@ def test_plans_cover_the_window():
                 vi = [vb.smem_bytes(n, d, p, s, hidden) <= SMEM_BYTES for s in (0, 1, 2)]
                 assert svgd[sp[2]] and not any(svgd[sp[2] + 1:]), (n, k, h, d, t, sp)
                 assert vi[vp[2]] and not any(vi[vp[2] + 1:]), (n, k, h, d, t, vp)
-    assert sb.svgd_bign_plan(10, 5, 200, 1, (32, 32)) == (50, 1, 2)
+                for plan, smem, threads in (
+                        (sp, sb.smem_bytes(k, n, d, p, sp[2], hidden), sp[3]),
+                        (vp, vb.smem_bytes(n, d, p, vp[2], hidden), sb.THREADS)):
+                    per_sm = sb.THREADS // threads
+                    blocks, spb = plan[:2]
+                    assert blocks <= sb.N_SM * per_sm and (blocks - 1) * spb < k * t <= blocks * spb
+                    assert per_sm * (smem + sb.BLOCK_RESERVED_SMEM) <= sb.SM_SMEM_BYTES
+                    assert rows_covered(n, threads), (n, k, h, d, t, plan)
+    assert sb.svgd_bign_plan(10, 5, 200, 1, (32, 32)) == (50, 1, 2, 512)
     assert vb.vi_bign_plan(10, 5, 200, 1, (32, 32)) == (50, 1, 2)
     # wide nets push the triangle to device memory
     assert sb.svgd_bign_plan(4, 2, 240, 1, (128, 128))[2] == 0
     assert vb.vi_bign_plan(4, 2, 240, 1, (128, 128))[2] == 0
+
+
+def test_n_wide_is_the_last_n_every_phase_covers():
+    """N_WIDE, the largest N of a two-blocks-an-SM plan, is the largest N
+    whose every phase covers its rows at 256 threads (tiled_wt_times' one
+    row a group binds); at 512 every N of the window is covered."""
+    half = sb.THREADS // 2
+    assert all(rows_covered(n, half) for n in range(sb.MIN_N, sb.N_WIDE + 1))
+    assert not rows_covered(sb.N_WIDE + 1, half)
+    assert all(rows_covered(n, sb.THREADS) for n in range(sb.MIN_N, sb.MAX_N + 1))
 
 
 def test_smem_mirror_counts_the_layout():

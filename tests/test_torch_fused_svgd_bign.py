@@ -242,13 +242,22 @@ def test_chunkings_and_resume_are_bit_identical(monkeypatch):
 
 
 @pytest.mark.parametrize("k,t,n,hidden,plan", [
-    (4, 3, 12, (8, 8), (12, 1, 2)),
-    (10, 5, 200, (32, 32), (50, 1, 2)),  # svgd_t5_n200
-    (10, 5, 201, (32, 32), (50, 1, 2)),  # the largest N with the activations in shared memory
-    (10, 5, 202, (32, 32), (50, 1, 1)),  # the packed triangle alone
-    (4, 2, 240, (128, 128), (8, 1, 0)),  # wide nets: the matrix in device memory
-    (10, 20, 20, (32, 32), (100, 2, 2)),  # cauchy_20: 2 systems a block
-    (32, 1000, 64, (32, 32), (128, 250, 2)),
+    (4, 3, 12, (8, 8), (12, 1, 2, 512)),
+    (10, 5, 200, (32, 32), (50, 1, 2, 512)),  # svgd_t5_n200
+    (10, 5, 201, (32, 32), (50, 1, 2, 512)),  # the largest N with the activations in shared memory
+    (10, 5, 202, (32, 32), (50, 1, 1, 512)),  # the packed triangle alone
+    (4, 2, 240, (128, 128), (8, 1, 0, 512)),  # wide nets: the matrix in device memory
+    (10, 20, 20, (32, 32), (200, 1, 2, 256)),  # cauchy_20: one system a block, two blocks an SM
+    (32, 1000, 64, (32, 32), (263, 122, 2, 256)),  # ceil(G / 264) systems a block
+    (4, 33, 20, (32, 32), (66, 2, 2, 512)),  # G = 132: one block an SM
+    (7, 19, 20, (32, 32), (133, 1, 2, 256)),  # G = 133: two
+    # the largest N whose two blocks' shared memory fits an SM at nets 32x32, and the next
+    (10, 20, 113, (32, 32), (200, 1, 2, 256)),
+    (10, 20, 114, (32, 32), (100, 2, 2, 512)),
+    (10, 20, 200, (32, 32), (100, 2, 2, 512)),  # 20 tasks of N=200: shared memory keeps one
+    # N_WIDE (the kernel's largest N too): one block an SM by shared memory; beyond, no plan
+    (10, 20, 256, (32, 32), (100, 2, 1, 512)),
+    (10, 20, 257, (32, 32), None),
     (10, 5, 8, (32, 32), None),  # the N <= 8 kernel's
     (10, 5, 257, (32, 32), None),
     (33, 5, 200, (32, 32), None),
@@ -257,6 +266,38 @@ def test_chunkings_and_resume_are_bit_identical(monkeypatch):
 def test_svgd_bign_plan(k, t, n, hidden, plan):
     assert sb.svgd_bign_plan(k, t, n, 1, hidden) == plan
     assert sb.svgd_bign_fits(k, t, n, 1, hidden) == (plan is not None)
+
+
+@pytest.mark.parametrize("k,t,n,coresident", [(10, 20, 20, True), (10, 5, 200, False)])
+def test_coresident_launches_are_counted(k, t, n, coresident, monkeypatch):
+    """The wrapper counts a launch under ``fused_svgd_bign_coresident`` where
+    its plan puts two blocks on an SM (cauchy_20's shape) and not elsewhere
+    (svgd_t5_n200's): the C call replaced by a recorder on CPU tensors
+    posing as the card's."""
+    calls = []
+    monkeypatch.setattr(sb, "launch", lambda name, ref, *args: calls.append(args))
+    monkeypatch.setattr(cuda, "check_operand", lambda *a: None)
+    monkeypatch.setattr(sb, "_device_operands", lambda *a: (torch.zeros(1),) * 3)
+    monkeypatch.setattr(sb, "hidden_widths", lambda *a: torch.zeros(1))
+    empty = torch.empty  # the wrapper's scratch, on the CPU
+    monkeypatch.setattr(torch, "empty", lambda *shape, dtype, device: empty(*shape, dtype=dtype))
+    hidden, d = (32, 32), 2
+    p = fk.fused_prior(d, hidden, 1.0, 1.0).dim
+
+    class Card(torch.Tensor):  # a CPU tensor that reports a CUDA device
+        device = torch.device("cuda")
+
+    def card(*shape):
+        return torch.zeros(*shape).as_subclass(Card)
+
+    monkeypatch.setattr(cuda, "LAUNCHES", dict.fromkeys(cuda.LAUNCHES, 0))
+    sb.fused_svgd_bign_train(card(k, p), card(k, p), card(k, p), card(t, n, d), card(t, n),
+                             card(t, n), card(t), 0, LR, PF, hidden=hidden, wps=WPS, bps=BPS,
+                             n_steps=3)
+    plan = sb.svgd_bign_plan(k, t, n, d, hidden)
+    assert calls[0][-7:-3] == plan and (plan[3] == 256) == coresident
+    assert cuda.LAUNCHES["fused_svgd_bign"] == 1
+    assert cuda.LAUNCHES["fused_svgd_bign_coresident"] == int(coresident)
 
 
 def test_wrapper_checks():

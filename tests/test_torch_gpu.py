@@ -411,15 +411,15 @@ def test_learner_on_card_matches_plain_cpu_learner(dev, monkeypatch):
     np.testing.assert_allclose(metrics_card, metrics_cpu, rtol=1e-3, atol=1e-5)
 
 
-def _fused_case(k, t, n, hidden, seed, ragged, dev):
+def _fused_case(k, t, n, hidden, seed, ragged, dev, d=1):
     rs = np.random.RandomState(seed)
-    x = rs.uniform(-2.0, 2.0, (t, n, 1)).astype(np.float32)
-    y = (np.sin(2.0 * x[..., 0]) + 0.1 * rs.randn(t, n)).astype(np.float32)
+    x = rs.uniform(-2.0, 2.0, (t, n, d)).astype(np.float32)
+    y = (np.sin(2.0 * x.sum(-1)) + 0.1 * rs.randn(t, n)).astype(np.float32)
     mask = np.ones((t, n), np.float32)
     if ragged:  # padded points as the learner pads them: zero input and target
         mask[1, n - 2:] = 0.0
         x[1, n - 2:], y[1, n - 2:] = 0.0, 0.0
-    hp = fk.fused_prior(1, hidden, 0.5, 3.0)
+    hp = fk.fused_prior(d, hidden, 0.5, 3.0)
     theta = hp.loc + hp.scale * torch.from_numpy(rs.randn(k, hp.dim).astype(np.float32))
     data = [torch.from_numpy(a).to(dev) for a in (x, y, mask)]
     return data, theta.to(dev), hp, rs
@@ -1013,7 +1013,10 @@ BIGN_FUSED_CASES = {
     "t5_n200_staircase": (10, 5, 200, (32, 32), False, None, 0.5),
     # the packed triangle holds N=240 in shared memory since the tiled layout
     "n240_three_layers_packed": (4, 2, 240, (16, 16, 16), True, None, 1.0),
+    # G = 156 > 132 systems: B11 groups two a block; B10 takes one a block, two blocks an SM
     "grouped_systems": (6, 26, 20, (16, 16), True, None, 1.0),
+    # cauchy_20's shape (D=2, BIGN_DIMS): B10's 200 blocks of 256 threads, two an SM
+    "cauchy20_coresident": (10, 20, 20, (32, 32), True, None, 1.0),
     # the 32-column panels' edges and the window's largest N
     "n31_panel_edge": (4, 3, 31, (8, 8), True, None, 1.0),
     "n32_panel_edge": (4, 3, 32, (8, 8), False, None, 1.0),
@@ -1028,7 +1031,10 @@ BIGN_FUSED_CASES = {
 # the plan's placement where a case is about it: 2 the matrix and the
 # activations in shared memory, 1 the matrix alone, 0 neither
 BIGN_SHARED = {"t5_n200": 2, "n240_three_layers_packed": 1, "n256_window_edge": 1,
-               "n240_wide_nets_device_matrix": 0}
+               "n240_wide_nets_device_matrix": 0, "cauchy20_coresident": 2}
+# B10's block width where a case is about it: 256 two blocks an SM, 512 one
+BIGN_THREADS = {"t5_n200": 512, "grouped_systems": 256, "cauchy20_coresident": 256}
+BIGN_DIMS = {"cauchy20_coresident": 2}  # the input dimension D, where it is not 1
 
 
 def _bign_trainer_run(trainer, ref, got, want, split, n_steps, counter, **kw):
@@ -1067,18 +1073,24 @@ def test_fused_svgd_bign_kernel_matches_plain(dev, case, monkeypatch):
     ill-conditioned; small_ragged's float32 plain m lies 3.2e-4 from its
     float64 run, n33_panel_edge's float32 plain particles 5.0e-5 max and
     2.8e-6 mean, where the kernel's are 1.9e-6 and 7.7e-8). The same steps
-    split into two launches give the same bits."""
+    split into two launches give the same bits. A plan of two blocks an SM
+    counts every launch under fused_svgd_bign_coresident, any other none."""
     k, t, n, hidden, ragged, batch, decay = BIGN_FUSED_CASES[case]
+    d = BIGN_DIMS.get(case, 1)
     monkeypatch.setattr(launch_sched, "LR_TRANSITION_STEPS", 10)
-    (x, y, mask), theta, hp, rs = _fused_case(k, t, n, hidden, sum(map(ord, case)), ragged, dev)
+    (x, y, mask), theta, hp, rs = _fused_case(k, t, n, hidden, sum(map(ord, case)), ragged, dev,
+                                              d)
     mu = torch.from_numpy((0.01 * rs.randn(k, hp.dim)).astype(np.float32)).to(dev)
     nu = torch.from_numpy((1e-4 * rs.rand(k, hp.dim)).astype(np.float32)).to(dev)
 
     def draw(step):
         return torch.from_numpy(np.random.RandomState(step).randint(0, t, batch))
 
+    plan = sb.svgd_bign_plan(k, t, n, d, hidden)
     if case in BIGN_SHARED:
-        assert sb.svgd_bign_plan(k, t, n, 1, hidden)[2] == BIGN_SHARED[case]
+        assert plan[2] == BIGN_SHARED[case]
+    if case in BIGN_THREADS:
+        assert plan[3] == BIGN_THREADS[case]
     trainer = sb.FusedSVGDBigNTrainer(x, y, mask, hidden=hidden, lr=1e-3, prior_factor=0.01,
                                       weight_prior_std=0.5, bias_prior_std=3.0, lr_decay=decay,
                                       task_batch_size=batch, task_draw=draw)
@@ -1095,6 +1107,8 @@ def test_fused_svgd_bign_kernel_matches_plain(dev, case, monkeypatch):
     assert float((got[0] - theta)[:, keep].abs().max()) > 1e-3  # the steps moved it
     for g, sp in zip(got, split):
         assert torch.equal(g, sp)
+    coresident = cuda.LAUNCHES["fused_svgd_bign"] if plan[3] < sb.THREADS else 0
+    assert cuda.LAUNCHES["fused_svgd_bign_coresident"] == coresident, cuda.LAUNCHES
 
 
 @pytest.mark.parametrize("case", sorted(BIGN_FUSED_CASES))
@@ -1106,8 +1120,9 @@ def test_fused_vi_bign_kernel_matches_plain(dev, case, monkeypatch):
     B10's test), the last loss rtol 1e-5. The same steps split into two
     launches give the same bits."""
     s, t, n, hidden, ragged, batch, decay = BIGN_FUSED_CASES[case]
+    d = BIGN_DIMS.get(case, 1)
     monkeypatch.setattr(launch_sched, "LR_TRANSITION_STEPS", 10)
-    (x, y, mask), _, hp, rs = _fused_case(1, t, n, hidden, sum(map(ord, case)), ragged, dev)
+    (x, y, mask), _, hp, rs = _fused_case(1, t, n, hidden, sum(map(ord, case)), ragged, dev, d)
     p = hp.dim
     state = [0.1 * rs.randn(p), np.log(0.1) + 0.1 * rs.randn(p), 0.01 * rs.randn(p),
              0.01 * rs.randn(p), 1e-4 * rs.rand(p), 1e-4 * rs.rand(p)]
@@ -1117,7 +1132,7 @@ def test_fused_vi_bign_kernel_matches_plain(dev, case, monkeypatch):
         return torch.from_numpy(np.random.RandomState(step).randint(0, t, batch))
 
     if case in BIGN_SHARED:
-        assert vb.vi_bign_plan(s, t, n, 1, hidden)[2] == BIGN_SHARED[case]
+        assert vb.vi_bign_plan(s, t, n, d, hidden)[2] == BIGN_SHARED[case]
     trainer = vb.FusedVIBigNTrainer(x, y, mask, hidden=hidden, lr=1e-3, prior_factor=0.01,
                                     weight_prior_std=0.5, bias_prior_std=3.0, svi_batch_size=s,
                                     eps_draw=_numpy_eps(s, p), lr_decay=decay,

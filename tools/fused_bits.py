@@ -1,4 +1,4 @@
-"""B2, B7 and B8 of two or more checkouts on the same inputs, bit for bit.
+"""B2, B7, B8 and B10 of two or more checkouts on the same inputs, bit for bit.
 
     python3 tools/fused_bits.py --root . --root DIR
 
@@ -7,10 +7,11 @@ library built there on first use) and runs the fused SVGD (B2), VI (B7)
 and MLAP (B8) kernels on seeded inputs at the shapes of their main paths:
 ``sin_20``'s (20 tasks of 5 points, D=1, NN/NN 32x32) with K = S = 10 and
 32, full batch and with count pages; B8 at S=5, full batch, counted and in
-meta-test mode at 20 and 5 tasks; and phase 2's odd shape (7 ragged tasks
-of up to 7 points, D=2, nets (16,16,16), S=3). Every output (the state and
-its moments after 50 steps, and the losses) must equal the first root's, bit
-for bit. Needs the card.
+meta-test mode at 20 and 5 tasks; phase 2's odd shape (7 ragged tasks
+of up to 7 points, D=2, nets (16,16,16), S=3); and B10 at ``svgd_t5_n200``'s
+(K=10, 5 tasks of 200 points, D=1, NN/NN 32x32), full batch and counted.
+Every output (the state and its moments after 50 steps, and the losses) must
+equal the first root's, bit for bit. Needs the card.
 """
 
 import argparse
@@ -25,6 +26,7 @@ import numpy as np
 import torch
 sys.path.insert(0, sys.argv[1])
 from meta_learning_pacoh_torch.ops.cuda import fused_mlap_kernel as mk
+from meta_learning_pacoh_torch.ops.cuda import fused_svgd_bign_kernel as sb
 from meta_learning_pacoh_torch.ops.cuda import fused_svgd_kernel as fk
 from meta_learning_pacoh_torch.ops.cuda import fused_vi_kernel as vk
 
@@ -108,6 +110,20 @@ for name, (s, t, n, d, hidden, ragged, mode) in {
         for k, v in tree.items():
             out[f"b8_{name}_{tree_name}_{k}"] = v.cpu().numpy()
     out[f"b8_{name}_loss"] = torch.stack([loss, mean, *diag.values()]).cpu().numpy()
+
+for counted in (False, True):  # B10 at svgd_t5_n200's shapes
+    t, n, hidden = 5, 200, (32, 32)
+    gen, x, y, mask = data(11 + counted, t, n, 1, False)
+    batch = 2 if counted else None
+    counts = counts_of(gen, t, batch) if counted else None
+    w_t = torch.from_numpy(fk.task_weights(mask.cpu().numpy(), batch)).cuda()
+    hp = fk.fused_prior(1, hidden, 0.5, 3.0)
+    theta = (hp.loc + hp.scale * torch.randn(10, hp.dim, generator=gen)).cuda()
+    state = [theta, torch.zeros_like(theta), torch.zeros_like(theta)]
+    sb.fused_svgd_bign_train(*state, x, y, mask, w_t, 0, 1e-3, 0.01, counts, hidden=hidden,
+                             wps=0.5, bps=3.0, n_steps=STEPS)
+    for i, a in enumerate(state):
+        out[f"b10_t5_n200_{'counted' if counted else 'full'}_{i}"] = a.cpu().numpy()
 np.savez(sys.argv[2], **out)
 """
 

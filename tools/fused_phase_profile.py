@@ -517,8 +517,8 @@ def patched_copy(root, work, bign=False, map_kernels=False, mlap=False):
         body = "fused_mlap.cuh" if layout is MLAP_SPLIT else "fused_mlap.cu"
         texts[body] = patch(text(body), "namespace {\n", PROF)
     elif bign or map_kernels:  # the patched headers are included by several sources: marks in each
-        for name in os.listdir(csrc):
-            if name.endswith(".cu"):
+        for name in os.listdir(csrc):  # (B8's sources open their namespace in fused_mlap.cuh)
+            if name.endswith(".cu") and "namespace {\n" in text(name):
                 texts[name] = patch(text(name), "namespace {\n", PROF)
     else:
         texts[layout["header"]] = patch(text(layout["header"]), "namespace {\n", PROF)

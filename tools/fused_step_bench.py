@@ -22,9 +22,12 @@ name and power limit are printed beside the times.
 ``--bign`` times B10 and B11 instead, from the learners' own data and
 initial states (K = S = 10, full batch, NN/NN 32x32; the learners of
 ``chip_smoke.py``): at ``svgd_t5_n200`` / ``vi_t5_n200`` (5 tasks of 200 points),
-``cauchy_20`` (20 tasks of 20 points, D=2: two systems a block) and the
-corners of the big-N faceoff (5 sinusoid tasks of N in {9, 48, 128, 256},
-20 tasks of N=200), each the median over 7 launches of 100 steps.
+``cauchy_20`` (20 tasks of 20 points, D=2), the corners of the big-N faceoff
+(5 sinusoid tasks of N in {9, 48, 128, 256}, 20 tasks of N=200) and shapes
+of more systems than SMs at small N (20 tasks of N in {9, 48, 100}, 100
+tasks of N=48), each the median over 7 launches of 100 steps. Each row
+prints B10's plan: blocks, systems a block and threads a block (512 where
+the tree's plan does not say).
 
 ``--map`` times B9 and B6 instead, from the MAP learners' own data and
 initial states (chip_smoke.py's learners, NN/NN 32x32, F=2 unless said):
@@ -61,7 +64,9 @@ BIGN_STEPS = 100
 # (label, tasks, points): cauchy_20's tasks where tasks is None
 BIGN_SHAPES = (("t5_n200", 5, 200), ("cauchy_20", None, None), ("N=9, 5 tasks", 5, 9),
                ("N=48, 5 tasks", 5, 48), ("N=128, 5 tasks", 5, 128),
-               ("N=256, 5 tasks", 5, 256), ("N=200, 20 tasks", 20, 200))
+               ("N=256, 5 tasks", 5, 256), ("N=200, 20 tasks", 20, 200),
+               ("N=9, 20 tasks", 20, 9), ("N=48, 20 tasks", 20, 48),
+               ("N=100, 20 tasks", 20, 100), ("N=48, 100 tasks", 100, 48))
 
 
 def per_step_ms(fn, steps=STEPS, reps=REPS):
@@ -127,9 +132,10 @@ def bign_rows():
                                                          eps, 0, 1e-3, 0.01,
                                                          mll_const=mll_const, **kw), BIGN_STEPS)
         plan = sb.svgd_bign_plan(10, t, n, d, (32, 32))
-        print(f"{label} (T={t}, N={n}, D={d}; {plan[0]} blocks of {plan[1]} systems, matrices "
-              f"in {'shared' if plan[2] else 'device'} memory): B10 {b10:.5f} ms a step, "
-              f"B11 {b11:.5f} ms a step")
+        threads = plan[3] if len(plan) > 3 else 512
+        print(f"{label} (T={t}, N={n}, D={d}; {plan[0]} blocks of {plan[1]} systems, {threads} "
+              f"threads, matrices in {'shared' if plan[2] else 'device'} memory): B10 {b10:.5f} "
+              f"ms a step, B11 {b11:.5f} ms a step")
         rows.append({"shape": label, "T": t, "N": n, "D": d, "plan": list(plan), "b10_ms": b10,
                      "b11_ms": b11})
     return rows
